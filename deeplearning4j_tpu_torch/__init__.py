@@ -12,13 +12,22 @@ runs becomes a kernel written by hand for Hopper (``csrc/*.cu``, built by
 PyTorch version beside it, which runs only for tensors on the CPU (the
 tests) — a CUDA tensor reaches the kernel or raises.
 
-Ported so far (the serving slice):
+Ported so far (the serving slice, then the long-context training slice):
 
-- ``parallel.ring``      — dense / blockwise / flash attention and the
+- ``parallel.ring``      — dense / blockwise / flash attention (forward and
+                           backward kernels, ``FlashAttention``) and the
                            ``dot_product_attention`` dispatch;
-- ``nn.conf.attention``  — ``KVCache`` and ``cached_attention``;
+- ``nn.conf.attention``  — ``SelfAttentionLayer``, ``KVCache`` and
+                           ``cached_attention``;
 - ``nlp.transformer``    — ``TransformerLM`` prefill, KV decode, greedy and
-                           speculative generation.
+                           speculative generation;
+- ``nn``, ``nn.conf``    — activations, weight init, losses, ``InputType``,
+                           preprocessors, the config DSL and its JSON,
+                           ``DenseLayer`` and ``RnnOutputLayer``;
+- ``learning``           — ``Sgd``, ``NoOp`` and ``Adam``;
+- ``datasets``           — ``DataSet`` and ``ListDataSetIterator``;
+- ``models``             — ``MultiLayerNetwork`` (``init``, ``fit``,
+                           ``output``, ``score``, the flat param views).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

@@ -1,0 +1,422 @@
+"""MultiLayerNetwork — the linear-stack model; the port of
+``deeplearning4j_tpu/models/multilayer.py`` (the reference's
+``MultiLayerNetwork.java``: fit/output/score, flattened param views, the
+per-iteration updater step).
+
+One train step runs forward, loss, backward (``torch.autograd.grad``),
+per-layer gradient normalization, the updaters, weight decay and L1/L2 —
+the same sequence the JAX package fuses into one executable, here in eager
+PyTorch on the net's device (``cuda`` unless the caller asks for another).
+Parameters are a dict of dicts of tensors, keyed as the JAX net's
+``params_`` (``{"0": {"Wq": ...}, ...}``), so ``init(params=)`` takes the
+JAX net's parameters as numpy arrays.
+
+``dataType`` BFLOAT16 / HALF / FLOAT16 means bf16 compute over float32
+master parameters, optimizer state and loss: the parameters are cast for
+the forward and the gradients flow back through the casts into the f32
+masters.
+
+Not ported yet, and raising where a configuration asks for them: truncated
+BPTT (ROADMAP A5, with the recurrent layers of A8) and the line-search
+solvers (A9).  Listeners, evaluation, telemetry spans, the AOT compile
+cache, the fault supervisor's learning-rate scale and the mesh hooks are
+left out (A9, A10, A12).
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from deeplearning4j_tpu_torch import resolve_device
+from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+from deeplearning4j_tpu_torch.datasets.iterator import DataSetIterator
+from deeplearning4j_tpu_torch.learning.config import Sgd
+from deeplearning4j_tpu_torch.nn.conf import (BackpropType,
+                                              GradientNormalization,
+                                              MultiLayerConfiguration)
+
+__all__ = ["MultiLayerNetwork"]
+
+Params = Dict[str, Dict[str, torch.Tensor]]
+
+#: canonical intra-layer param order (DL4J's flattened-view layout — input
+#: weights, recurrent weights, bias; BN gamma/beta; GravesLSTM peepholes;
+#: Bidirectional halves); other keys follow, sorted
+_PARAM_ORDER = ["W", "RW", "b", "gamma", "beta", "pI", "pF", "pO",
+                "fwd", "bwd"]
+
+_HALF_TYPES = ("BFLOAT16", "HALF", "FLOAT16")
+
+
+def _param_key_order(keys):
+    known = [k for k in _PARAM_ORDER if k in keys]
+    return known + sorted(k for k in keys if k not in _PARAM_ORDER)
+
+
+def _iter_leaf_params(lp: Dict, prefix: str = ""):
+    """Yield ``(path, pname, value)`` over a layer's params in canonical
+    order, descending into nested dicts."""
+    for k in _param_key_order(lp.keys()):
+        v = lp[k]
+        if isinstance(v, dict):
+            yield from _iter_leaf_params(v, prefix + k + "/")
+        else:
+            yield prefix + k, k, v
+
+
+def _get_leaf(d: Dict, path: str):
+    for p in path.split("/"):
+        d = d[p]
+    return d
+
+
+def _set_leaf(d: Dict, path: str, value) -> None:
+    parts = path.split("/")
+    for p in parts[:-1]:
+        d = d.setdefault(p, {})
+    d[parts[-1]] = value
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    return [tree]
+
+
+def _to_tensor(v, device) -> torch.Tensor:
+    if isinstance(v, torch.Tensor):
+        return v.detach().to(device).clone()
+    return torch.from_numpy(np.array(v)).to(device)
+
+
+def _grad_normalize(layer, g):
+    """Per-layer gradient normalization (reference:
+    ``BaseMultiLayerUpdater.preApply``) over a layer's gradient tree."""
+    mode = getattr(layer, "gradientNormalization", None)
+    if not mode or mode == GradientNormalization.None_:
+        return g
+    thr = getattr(layer, "gradientNormalizationThreshold", None) or 1.0
+
+    def layer_norm():
+        return torch.sqrt(sum(torch.sum(v * v) for v in _leaves(g)) + 1e-12)
+
+    if mode == GradientNormalization.RenormalizeL2PerLayer:
+        norm = layer_norm()
+        return _tree_map(lambda v: v / norm, g)
+    if mode == GradientNormalization.RenormalizeL2PerParamType:
+        return _tree_map(lambda v: v / torch.sqrt(torch.sum(v * v) + 1e-12),
+                         g)
+    if mode == GradientNormalization.ClipElementWiseAbsoluteValue:
+        return _tree_map(lambda v: torch.clamp(v, -thr, thr), g)
+    if mode == GradientNormalization.ClipL2PerLayer:
+        scale = torch.clamp(thr / layer_norm(), max=1.0)
+        return _tree_map(lambda v: v * scale, g)
+    if mode == GradientNormalization.ClipL2PerParamType:
+        return _tree_map(lambda v: v * torch.clamp(
+            thr / torch.sqrt(torch.sum(v * v) + 1e-12), max=1.0), g)
+    raise ValueError(f"Unknown gradient normalization {mode}")
+
+
+def _updater_for(globalConf, layer, pname: str):
+    """Effective updater for one param."""
+    if pname == "b" and getattr(layer, "biasUpdater", None) is not None:
+        return layer.biasUpdater
+    return getattr(layer, "updater", None) or globalConf.get("updater") \
+        or Sgd(1e-2)
+
+
+def _apply_updates(units, globalConf, params, grads, optState, iteration,
+                   epoch):
+    """Apply the updaters over every parameter leaf.  ``units`` is an
+    iterable of ``(key, layer)``; a layer with gradient normalization gets
+    its norms over exactly its own leaves; weight decay (the reference's
+    ``WeightDecay``, applied after the updater and scaled by the learning
+    rate) touches weights only.  Returns ``(new_params, new_opt)``."""
+    new_params: Dict = {}
+    new_opt: Dict = {}
+    for key, layer in units:
+        if key not in params:
+            continue
+        new_params[key] = {}
+        new_opt[key] = {}
+        g = _grad_normalize(layer, grads[key])
+        for path, pname, pval in _iter_leaf_params(params[key]):
+            up = _updater_for(globalConf, layer, pname)
+            lr = up.currentLr(iteration, epoch)
+            update, ostate = up.apply(_get_leaf(g, path),
+                                      optState[key][path], lr, iteration,
+                                      epoch, param=pval)
+            wd = getattr(layer, "weightDecay", None)
+            if wd and pname in layer.weightParamKeys():
+                update = update + wd * lr * pval
+            _set_leaf(new_params[key], path, pval - update)
+            new_opt[key][path] = ostate
+    return new_params, new_opt
+
+
+def _reg_penalty(pairs):
+    """L1/L2 penalty over (layer, layer_params) pairs, added to the loss
+    (the same gradient as the reference's BEFORE_UPDATER modification)."""
+    total = 0.0
+    for layer, lp in pairs:
+        l1 = getattr(layer, "l1", None)
+        l2 = getattr(layer, "l2", None)
+        if not l1 and not l2:
+            continue
+        wkeys = layer.weightParamKeys()
+        for _path, pname, w in _iter_leaf_params(lp):
+            if pname in wkeys:
+                if l2:
+                    total = total + 0.5 * l2 * torch.sum(w * w)
+                if l1:
+                    total = total + l1 * torch.sum(torch.abs(w))
+    return total
+
+
+class MultiLayerNetwork:
+    def __init__(self, conf: MultiLayerConfiguration, device=None):
+        self.conf = conf
+        self.device = resolve_device(device)
+        self.params_: Optional[Params] = None
+        self.optState_: Optional[Dict] = None
+        self.iterationCount = 0
+        self.epochCount = 0
+        self.lastBatchSize = 0
+        self._score = 0.0
+        self._scoreArr = None   # the last step's loss, left on the device
+        self._rngSeed = int(conf.globalConf.get("seed", 123) or 123)
+        self._dtype = torch.float32
+        dt = str(conf.globalConf.get("dataType") or "FLOAT").upper()
+        self._computeDtype = torch.bfloat16 if dt in _HALF_TYPES \
+            else torch.float32
+        # input dropout draws from here (on the net's device)
+        self._fitGen = torch.Generator(device=self.device).manual_seed(
+            self._rngSeed ^ 0x5EED)
+
+    def _cast_compute(self, tree):
+        """f32 leaves -> compute dtype (no-op at full precision)."""
+        if self._computeDtype == torch.float32 or tree is None:
+            return tree
+        return _tree_map(lambda a: a.to(self._computeDtype)
+                         if a.dtype == torch.float32 else a, tree)
+
+    # ------------------------------------------------------------------
+    # initialization
+    # ------------------------------------------------------------------
+    def init(self, params: Optional[Dict] = None) -> "MultiLayerNetwork":
+        """Draw the parameters from a generator seeded with the config's
+        seed, or take ``params`` (the JAX net's ``params_`` as numpy
+        arrays, or tensors; copied onto the net's device); then build
+        fresh updater state."""
+        for i, layer in enumerate(self.conf.layers):
+            if getattr(layer, "nOut", None) and \
+                    not getattr(layer, "nIn", True):
+                raise ValueError(
+                    f"layer {i} ({type(layer).__name__}): nIn not set and "
+                    "not inferrable — set .nIn(...) on the layer or "
+                    ".setInputType(...) on the configuration")
+        if params is not None:
+            self.params_ = _tree_map(
+                lambda v: _to_tensor(v, self.device), dict(params))
+        else:
+            gen = torch.Generator().manual_seed(self._rngSeed)
+            self.params_ = {}
+            for i, layer in enumerate(self.conf.layers):
+                p = layer.initParams(gen, self.conf.layerInputTypes[i],
+                                     self._dtype, self.device)
+                if p:
+                    self.params_[str(i)] = p
+        self._initOptState()
+        return self
+
+    def _initOptState(self) -> None:
+        self.optState_ = {
+            li: {path: self._updaterFor(self.conf.layers[int(li)], pname)
+                 .init(pval)
+                 for path, pname, pval in _iter_leaf_params(lp)}
+            for li, lp in self.params_.items()}
+
+    def _updaterFor(self, layer, pname: str):
+        return _updater_for(self.conf.globalConf, layer, pname)
+
+    # ------------------------------------------------------------------
+    # forward and loss
+    # ------------------------------------------------------------------
+    def _forward(self, params: Params, x, train: bool, gen, mask=None):
+        """Run the stack; ``mask`` is the (b, t) feature/timestep mask,
+        passed to the layers that take one."""
+        miniBatch = x.shape[0]
+        for i, layer in enumerate(self.conf.layers):
+            if i in self.conf.preProcessors:
+                x = self.conf.preProcessors[i].preProcess(x, miniBatch)
+            p = params.get(str(i), {})
+            if getattr(layer, "acceptsMask", False):
+                x, _ = layer.forward(p, x, train, gen, {}, mask=mask)
+            else:
+                x, _ = layer.forward(p, x, train, gen, {})
+        return x
+
+    def _regScore(self, params: Params):
+        return _reg_penalty((layer, params[str(i)])
+                            for i, layer in enumerate(self.conf.layers)
+                            if str(i) in params)
+
+    def _score_of(self, params: Params, x, y, fmask, lmask, train: bool,
+                  gen=None):
+        """Mean per-example loss of the output layer (in f32 under bf16
+        compute) plus the L1/L2 penalty of the f32 masters."""
+        out = self._forward(self._cast_compute(params),
+                            self._cast_compute(x), train, gen, fmask)
+        outLayer = self.conf.layers[-1]
+        if not outLayer.hasLoss():
+            raise ValueError("Last layer must be an output/loss layer to fit")
+        if self._computeDtype != torch.float32:
+            out = out.float()
+        per_ex = outLayer.computeScore(y, out, lmask)
+        return per_ex.mean() + self._regScore(params)
+
+    # ------------------------------------------------------------------
+    # public API
+    # ------------------------------------------------------------------
+    def fit(self, data, labels=None, epochs: int = 1) -> None:
+        """Train on a ``DataSet`` (one step), a ``DataSetIterator``
+        (``epochs`` passes, one step per batch) or ``(features, labels)``
+        (one step)."""
+        if self.params_ is None:
+            self.init()
+        if isinstance(data, DataSet):
+            self._fitBatch(data)
+        elif isinstance(data, DataSetIterator):
+            for _ in range(epochs):
+                data.reset()
+                while data.hasNext():
+                    self._fitBatch(data.next())
+                self.epochCount += 1
+        elif labels is not None:
+            self._fitBatch(DataSet(data, labels))
+        else:
+            raise TypeError(f"Cannot fit on {type(data)}")
+
+    def _on_device(self, a, dtype=None):
+        return None if a is None else a.to(self.device, dtype)
+
+    def _fitBatch(self, ds: DataSet) -> None:
+        x = self._on_device(ds.features, self._dtype)
+        y = self._on_device(ds.labels)
+        fmask = self._on_device(ds.featuresMask)
+        lmask = self._on_device(ds.labelsMask)
+        self.lastBatchSize = int(x.shape[0])
+        algo = str(self.conf.globalConf.get("optimizationAlgo")
+                   or "STOCHASTIC_GRADIENT_DESCENT").upper()
+        if algo != "STOCHASTIC_GRADIENT_DESCENT":
+            raise NotImplementedError(
+                f"optimizationAlgo {algo}: the line-search solvers are not "
+                "ported yet (ROADMAP A9)")
+        if (self.conf.backpropType == BackpropType.TruncatedBPTT
+                and x.dim() == 3 and y.dim() == 3
+                and x.shape[2] > self.conf.tbpttFwdLength):
+            raise NotImplementedError(
+                "truncated BPTT is not ported yet (ROADMAP A5, with the "
+                "recurrent layers of A8)")
+        self._runTrainStep(x, y, fmask, lmask)
+        self.iterationCount += 1
+
+    def _runTrainStep(self, x, y, fmask, lmask) -> None:
+        leaves = [(li, path, v.detach().requires_grad_(True))
+                  for li, lp in self.params_.items()
+                  for path, _pname, v in _iter_leaf_params(lp)]
+        params: Params = {}
+        for li, path, v in leaves:
+            _set_leaf(params.setdefault(li, {}), path, v)
+        loss = self._score_of(params, x, y, fmask, lmask, True, self._fitGen)
+        grads_flat = torch.autograd.grad(loss, [v for _, _, v in leaves])
+        grads: Dict = {}
+        for (li, path, _), g in zip(leaves, grads_flat):
+            _set_leaf(grads.setdefault(li, {}), path, g)
+        with torch.no_grad():
+            self.params_, self.optState_ = _apply_updates(
+                ((str(i), layer) for i, layer in enumerate(self.conf.layers)),
+                self.conf.globalConf, self.params_, grads, self.optState_,
+                self.iterationCount, self.epochCount)
+        # left on the device: score() reads it, so a step never waits on
+        # the host
+        self._scoreArr = loss.detach()
+
+    def output(self, x, train: bool = False,
+               featuresMask=None) -> torch.Tensor:
+        """Inference-mode forward (as in the reference, ``train`` does not
+        turn on dropout here); returns float32 on the net's device."""
+        with torch.no_grad():
+            xv = self._on_device(torch.as_tensor(np.asarray(x))
+                                 if not isinstance(x, torch.Tensor) else x,
+                                 self._dtype)
+            fm = None if featuresMask is None else \
+                self._on_device(torch.as_tensor(featuresMask))
+            out = self._forward(self._cast_compute(self.params_),
+                                self._cast_compute(xv), False, None, fm)
+        return out.float()
+
+    def score(self, ds: Optional[DataSet] = None) -> float:
+        """The last fit step's loss, or the loss of ``ds`` (inference mode,
+        L1/L2 penalty included)."""
+        if ds is None:
+            if self._scoreArr is not None:
+                self._score = float(self._scoreArr)
+                self._scoreArr = None
+            return self._score
+        with torch.no_grad():
+            return float(self._score_of(
+                self.params_, self._on_device(ds.features, self._dtype),
+                self._on_device(ds.labels), self._on_device(ds.featuresMask),
+                self._on_device(ds.labelsMask), False))
+
+    # -- params ----------------------------------------------------------
+    def _leaf_items(self):
+        for i in range(len(self.conf.layers)):
+            li = str(i)
+            if li in self.params_:
+                for path, _pname, v in _iter_leaf_params(self.params_[li]):
+                    yield li, path, v
+
+    def params(self) -> torch.Tensor:
+        """Single flattened param vector in the reference's order (layers
+        in order; within a layer ``_param_key_order``)."""
+        chunks = [v.reshape(-1) for _li, _path, v in self._leaf_items()]
+        return torch.cat(chunks) if chunks else \
+            torch.zeros((0,), device=self.device)
+
+    def setParams(self, flat) -> None:
+        """Write a flat vector back into the param tree."""
+        vec = torch.as_tensor(flat).reshape(-1).to(self.device)
+        pos = 0
+        for li, path, cur in list(self._leaf_items()):
+            n = cur.numel()
+            _set_leaf(self.params_[li], path,
+                      vec[pos:pos + n].reshape(cur.shape).to(cur.dtype))
+            pos += n
+        if pos != vec.numel():
+            raise ValueError(f"Param vector length {vec.numel()} != model "
+                             f"{pos}")
+
+    def numParams(self) -> int:
+        if self.params_ is None:
+            return 0
+        return sum(v.numel() for v in _leaves(self.params_))
+
+    def paramTable(self) -> Dict[str, torch.Tensor]:
+        return {f"{li}_{path}": v for li, path, v in self._leaf_items()}
+
+    # -- bookkeeping ----------------------------------------------------
+    def getEpochCount(self) -> int:
+        return self.epochCount
+
+    def getIterationCount(self) -> int:
+        return self.iterationCount

@@ -1,20 +1,118 @@
-"""KV-cached attention — the port of the incremental-decode half of
-``deeplearning4j_tpu/nn/conf/attention.py`` (``KVCache``,
-``cached_attention``).
+"""Attention layers and KV-cached attention — the port of
+``deeplearning4j_tpu/nn/conf/attention.py``: ``_mha`` and
+``SelfAttentionLayer`` (the reference's ``conf/layers/SelfAttentionLayer.
+java``), ``KVCache`` and ``cached_attention``.
 
-``paged_attention`` and the four attention layers wait for the scheduler
-and layer slices (ROADMAP queue A).
+The score/softmax/context chain dispatches through
+``parallel.ring.dot_product_attention``: the Hopper flash kernels (forward
+and backward) for unmasked sequences of 1024 or more on CUDA, dense
+attention otherwise.  Data format follows the DL4J RNN convention
+(b, nIn, t); masks are (b, t) with 1 = valid.
+
+``SelfAttentionLayer.initCache``/``decodeStep``, ``paged_attention`` and
+the other three attention layers (``LearnedSelfAttentionLayer``,
+``RecurrentAttentionLayer``, ``KerasMultiHeadAttention``) wait for ROADMAP
+A7 and A11.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import NamedTuple
 
 import torch
 
 from deeplearning4j_tpu_torch import resolve_device
+from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+from deeplearning4j_tpu_torch.nn.conf.layers import BaseLayer, register_layer
+from deeplearning4j_tpu_torch.nn.weights import init_weight
+from deeplearning4j_tpu_torch.parallel.ring import dot_product_attention
 
-__all__ = ["KVCache", "cached_attention"]
+__all__ = ["SelfAttentionLayer", "KVCache", "cached_attention"]
+
+
+def _mha(x_btn, Wq, Wk, Wv, Wo, nHeads, mask=None, q_btn=None, impl="auto",
+         causal=False):
+    """Multi-head attention core.  x_btn: (b, t, n); mask: (b, t_k)."""
+    q_btn = x_btn if q_btn is None else q_btn
+    b, tq, _ = q_btn.shape
+
+    def heads(inp, w):
+        y = torch.matmul(inp, w)                     # (b, t, h*dh)
+        return y.reshape(b, inp.shape[1], nHeads, -1).transpose(1, 2)
+
+    qh, kh, vh = heads(q_btn, Wq), heads(x_btn, Wk), heads(x_btn, Wv)
+    ctx = dot_product_attention(qh, kh, vh, mask=mask, causal=causal,
+                                impl=impl)
+    ctx = ctx.transpose(1, 2).reshape(b, tq, -1)
+    return torch.matmul(ctx, Wo)                     # (b, tq, nOut)
+
+
+@register_layer
+@dataclasses.dataclass
+class SelfAttentionLayer(BaseLayer):
+    """Per-timestep self-attention over the sequence: input (b, nIn, t) ->
+    output (b, nOut, t).  ``projectInput`` must be true when nHeads > 1
+    (the reference's validation); ``causal=True`` masks attention to
+    past-and-self."""
+    nIn: int = 0
+    nOut: int = 0
+    nHeads: int = 1
+    headSize: int = 0
+    projectInput: bool = True
+    causal: bool = False
+
+    acceptsMask = True
+
+    def preferredFormat(self):
+        return "RNN"
+
+    def inferNIn(self, inputType):
+        if not self.nIn:
+            self.nIn = inputType.size
+        if not self.headSize:
+            self.headSize = (self.nOut or self.nIn) // self.nHeads
+        if not self.nOut:
+            self.nOut = self.nIn if not self.projectInput \
+                else self.nHeads * self.headSize
+
+    def getOutputType(self, inputType):
+        return InputType.recurrent(self.nOut, inputType.timeSeriesLength)
+
+    def weightParamKeys(self):
+        return ("Wq", "Wk", "Wv", "Wo")
+
+    def initParams(self, gen, inputType, dtype=torch.float32, device=None):
+        """Wq, Wk, Wv (nIn, nHeads·headSize) and Wo (nHeads·headSize, nOut),
+        drawn in that order from ``gen``, on ``device`` (``cuda`` unless
+        the caller asks for another)."""
+        dev = resolve_device(device)
+        if not self.projectInput:
+            if self.nHeads > 1:  # matches the reference's validation
+                raise ValueError("projectInput=False requires nHeads == 1")
+            return {}
+        d = self.nHeads * self.headSize
+        wi = self.weightInit or "XAVIER"
+        shapes = {"Wq": (self.nIn, d), "Wk": (self.nIn, d),
+                  "Wv": (self.nIn, d), "Wo": (d, self.nOut)}
+        return {name: init_weight(gen, shape, shape[0], shape[1], wi, dtype,
+                                  dev) for name, shape in shapes.items()}
+
+    def forward(self, params, x, train, gen, state, mask=None):
+        x = self._dropin(x, train, gen)
+        xt = x.transpose(1, 2)                       # (b, t, nIn)
+        if self.projectInput:
+            y = _mha(xt, params["Wq"], params["Wk"], params["Wv"],
+                     params["Wo"], self.nHeads, mask, causal=self.causal)
+        else:
+            eye = torch.eye(self.nIn, dtype=xt.dtype, device=xt.device)
+            y = _mha(xt, eye, eye, eye, eye, 1, mask, causal=self.causal)
+        return y.transpose(1, 2), state
+
+
+# ---------------------------------------------------------------------------
+# incremental (KV-cached) decode — the serving tier's O(1)-per-token path
+# ---------------------------------------------------------------------------
 
 
 class KVCache(NamedTuple):

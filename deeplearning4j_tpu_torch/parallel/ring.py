@@ -10,7 +10,10 @@ Three implementations of softmax(QKᵀ/√d)·V, one semantics:
 - :func:`flash_attention` — the hand-written Hopper kernel
   ``csrc/flash_attn_fwd.cu`` (the port of the TPU kernel ``_flash_kernel``)
   for CUDA tensors, and its plain version :func:`flash_attention_reference`
-  for CPU tensors.
+  for CPU tensors.  It is differentiable through :class:`FlashAttention`,
+  whose backward runs the dq and dk/dv kernels ``csrc/flash_attn_bwd_dq.cu``
+  and ``csrc/flash_attn_bwd_dkv.cu`` (the ports of ``_flash_bwd_dq_kernel``
+  and ``_flash_bwd_dkv_kernel``), or their plain versions on the CPU.
 
 Layout is (batch, heads, time, head_dim) throughout.  Masks are (batch,
 t_k) with 1 = valid key.  Ring attention over a sequence-parallel mesh
@@ -27,7 +30,9 @@ import torch
 from deeplearning4j_tpu_torch import kernels
 
 __all__ = ["blockwise_attention", "flash_attention", "flash_forward",
-           "flash_attention_reference", "dot_product_attention"]
+           "flash_attention_reference", "flash_bwd_dq", "flash_bwd_dkv",
+           "flash_bwd_dq_reference", "flash_bwd_dkv_reference",
+           "FlashAttention", "dot_product_attention"]
 
 _NEG = -1e30  # additive-mask floor; avoids -inf NaN paths in exp/grad
 
@@ -154,6 +159,12 @@ def _flash_kernel():
         [p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, p])
 
 
+def _check_cuda(q):
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cuda or cpu, not "
+                         f"{q.device.type}")
+
+
 def _check_flash_inputs(q, k, v):
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape \
             or q.shape[:2] != k.shape[:2] or q.shape[3] != k.shape[3]:
@@ -181,20 +192,11 @@ def flash_forward(q, k, v, causal: bool = False):
     A CUDA tensor launches ``csrc/flash_attn_fwd.cu`` (adding one to
     ``flash_attention.launches``) or raises: build and launch failures
     are never caught.  A CPU tensor runs :func:`flash_attention_reference`.
-    The kernel has no backward yet, so on CUDA inputs that require grad
-    raise instead of routing to a differentiable plain path."""
+    Not differentiable itself: :func:`flash_attention` wraps it in
+    :class:`FlashAttention`."""
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, causal)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cuda or cpu, not "
-                         f"{q.device.type}")
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        raise RuntimeError(
-            "the flash-attention kernel has no backward yet: the dq and "
-            "dk/dv kernels (ROADMAP queue B, B2 and B3) come with the "
-            "training slice; call it under torch.no_grad() or use "
-            "dot_product_attention(impl='dense') for gradients")
+    _check_cuda(q)
     _check_flash_inputs(q, k, v)
     b, h, tq, d = q.shape
     tk = k.shape[2]
@@ -217,14 +219,194 @@ def flash_forward(q, k, v, causal: bool = False):
 def flash_attention(q, k, v, causal: bool = False):
     """Flash attention: q/k/v (b, h, t, d) -> (b, h, tq, d) in q's dtype.
 
-    CUDA tensors go through the Hopper kernel (any tq, tk; d <= 128;
-    float32 or bfloat16), CPU tensors through its plain version — see
-    :func:`flash_forward`.  ``flash_attention.launches`` counts kernel
-    launches (CPU calls do not count)."""
-    return flash_forward(q, k, v, causal)[0]
+    CUDA tensors go through the Hopper kernels (any tq, tk; d <= 128;
+    float32 or bfloat16), CPU tensors through their plain versions — see
+    :func:`flash_forward`, :func:`flash_bwd_dq` and :func:`flash_bwd_dkv`.
+    Differentiable: the backward is :class:`FlashAttention`'s.
+    ``flash_attention.launches`` counts forward-kernel launches (CPU calls
+    do not count)."""
+    return FlashAttention.apply(q, k, v, causal)
 
 
 flash_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# flash backward: the dq and dk/dv kernels and their plain versions
+# ---------------------------------------------------------------------------
+
+def _p_ds(q, k, v, do, lse, delta, q0, k0, causal):
+    """p and ds of one (q block, k block) pair, as the TPU backward kernels
+    recompute them: q/do (b, h, bq, d), k/v (b, h, bk, d) in the storage
+    dtype; lse/delta (b, h, bq, 1) f32; q0/k0 the blocks' first positions.
+    Products accumulate in f32; returns f32 ``(p, ds)`` of (b, h, bq, bk)."""
+    s = torch.einsum("...qd,...kd->...qk", q.float(), k.float()) * _scale(q)
+    if causal:
+        q_pos = q0 + torch.arange(q.shape[2], device=q.device)[:, None]
+        k_pos = k0 + torch.arange(k.shape[2], device=q.device)[None, :]
+        s = torch.where(k_pos <= q_pos, s, _NEG)
+    p = torch.exp(s - lse)
+    dp = torch.einsum("...qd,...kd->...qk", do.float(), v.float())
+    return p, p * (dp - delta) * _scale(q)
+
+
+def _rows(x, q):
+    """(b·h, tq) f32 -> (b, h, tq, 1), the layout :func:`_p_ds` takes."""
+    b, h, tq, _ = q.shape
+    return x.reshape(b, h, tq, 1)
+
+
+def flash_bwd_dq_reference(q, k, v, do, lse, delta, causal: bool = False):
+    """Plain PyTorch version of the dq kernel: a loop over 64-key blocks,
+    ``dq += ds·K`` with ds rounded to K's dtype, f32 accumulator.
+    q/do (b, h, tq, d), k/v (b, h, tk, d) of one dtype; lse/delta (b·h,
+    tq) f32 -> dq (b, h, tq, d) in q's dtype.  Causal key blocks wholly in
+    the future of every query are skipped (they would add ds = 0)."""
+    tq, tk = q.shape[2], k.shape[2]
+    lse4, delta4 = _rows(lse, q), _rows(delta, q)
+    acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    for k0 in range(0, tk, _FLASH_BLOCK):
+        if causal and k0 > tq - 1:
+            break
+        kb = k[:, :, k0:k0 + _FLASH_BLOCK]
+        _, ds = _p_ds(q, kb, v[:, :, k0:k0 + _FLASH_BLOCK], do, lse4,
+                      delta4, 0, k0, causal)
+        acc += torch.einsum("...qk,...kd->...qd", ds.to(k.dtype).float(),
+                            kb.float())
+    return acc.to(q.dtype)
+
+
+def flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal: bool = False):
+    """Plain PyTorch version of the dk/dv kernel: a loop over 64-row query
+    blocks, ``dv += pᵀ·dO`` with p rounded to dO's dtype and ``dk +=
+    dsᵀ·Q`` with ds rounded to Q's dtype, f32 accumulators.  Shapes as
+    :func:`flash_bwd_dq_reference` -> ``(dk, dv)`` (b, h, tk, d) in k's and
+    v's dtype."""
+    tq = q.shape[2]
+    lse4, delta4 = _rows(lse, q), _rows(delta, q)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+    for q0 in range(0, tq, _FLASH_BLOCK):
+        sl = slice(q0, q0 + _FLASH_BLOCK)
+        qb, dob = q[:, :, sl], do[:, :, sl]
+        p, ds = _p_ds(qb, k, v, dob, lse4[:, :, sl], delta4[:, :, sl], q0,
+                      0, causal)
+        dv += torch.einsum("...qk,...qd->...kd", p.to(do.dtype).float(),
+                           dob.float())
+        dk += torch.einsum("...qk,...qd->...kd", ds.to(q.dtype).float(),
+                           qb.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+@functools.cache
+def _bwd_kernel(name: str):
+    p, i = ctypes.c_void_p, ctypes.c_int
+    outs = [p] if name == "flash_attn_bwd_dq" else [p, p]
+    return kernels.function(
+        name, name, [p] * 6 + outs + [i] * 6 + [ctypes.c_float, p])
+
+
+def _bwd_operands(q, k, v, do, lse, delta):
+    """Check what the backward kernels take and flatten to their layout:
+    contiguous (b·h, t, d) operands, contiguous (b·h, tq) f32 rows."""
+    _check_cuda(q)
+    _check_flash_inputs(q, k, v)
+    b, h, tq, d = q.shape
+    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
+        raise ValueError(f"dO must match q: got {tuple(do.shape)} "
+                         f"{do.dtype} on {do.device}, q {tuple(q.shape)} "
+                         f"{q.dtype} on {q.device}")
+    for name, x in (("lse", lse), ("delta", delta)):
+        if x.shape != (b * h, tq) or x.dtype != torch.float32 \
+                or x.device != q.device:
+            raise ValueError(f"{name} must be ({b * h}, {tq}) float32 on "
+                             f"{q.device}; got {tuple(x.shape)} {x.dtype} "
+                             f"on {x.device}")
+    tk = k.shape[2]
+    return (q.reshape(b * h, tq, d).contiguous(),
+            k.reshape(b * h, tk, d).contiguous(),
+            v.reshape(b * h, tk, d).contiguous(),
+            do.reshape(b * h, tq, d).contiguous(),
+            lse.contiguous(), delta.contiguous())
+
+
+def _launch_bwd(name, q, operands, outs, causal):
+    b, h, tq, d = q.shape
+    tk = operands[1].shape[1]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = _bwd_kernel(name)(
+            *(x.data_ptr() for x in operands), *(o.data_ptr() for o in outs),
+            b * h, tq, tk, d, int(causal), int(q.dtype == torch.bfloat16),
+            _scale(q), stream)
+    kernels.check(name, err, f"{name} launch")
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool = False):
+    """Flash backward, dq pass: q/do (b, h, tq, d), k/v (b, h, tk, d) of
+    one dtype, lse (the forward's) and delta = rowsum(dO⊙O) (b·h, tq) f32
+    -> dq (b, h, tq, d) in q's dtype.
+
+    A CUDA tensor launches ``csrc/flash_attn_bwd_dq.cu`` (adding one to
+    ``flash_bwd_dq.launches``) or raises; a CPU tensor runs
+    :func:`flash_bwd_dq_reference`."""
+    if q.device.type == "cpu":
+        return flash_bwd_dq_reference(q, k, v, do, lse, delta, causal)
+    ops = _bwd_operands(q, k, v, do, lse, delta)
+    dq = torch.empty_like(ops[0])
+    _launch_bwd("flash_attn_bwd_dq", q, ops, [dq], causal)
+    flash_bwd_dq.launches += 1
+    return dq.reshape(q.shape)
+
+
+flash_bwd_dq.launches = 0
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool = False):
+    """Flash backward, dk/dv pass: arguments as :func:`flash_bwd_dq` ->
+    ``(dk, dv)`` (b, h, tk, d) in k's and v's dtype.
+
+    A CUDA tensor launches ``csrc/flash_attn_bwd_dkv.cu`` (adding one to
+    ``flash_bwd_dkv.launches``) or raises; a CPU tensor runs
+    :func:`flash_bwd_dkv_reference`."""
+    if q.device.type == "cpu":
+        return flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal)
+    ops = _bwd_operands(q, k, v, do, lse, delta)
+    dk, dv = torch.empty_like(ops[1]), torch.empty_like(ops[2])
+    _launch_bwd("flash_attn_bwd_dkv", q, ops, [dk, dv], causal)
+    flash_bwd_dkv.launches += 1
+    return dk.reshape(k.shape), dv.reshape(v.shape)
+
+
+flash_bwd_dkv.launches = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention with the flash backward — the counterpart of the
+    reference's ``_flash`` ``custom_vjp`` (``ring.py:312-336``).
+
+    The forward (:func:`flash_forward`) saves q, k, v, O and the per-row
+    logsumexp; the backward computes delta = rowsum(dO⊙O) in f32 as a plain
+    op (as the reference does outside Pallas), then dq
+    (:func:`flash_bwd_dq`) and dk/dv (:func:`flash_bwd_dkv`) from p
+    recomputed block by block: no (tq, tk) residual is stored."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        out, lse = flash_forward(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        b, h, tq, _ = q.shape
+        delta = (g.float() * out.float()).sum(-1).reshape(b * h, tq)
+        do = g.to(q.dtype)
+        dq = flash_bwd_dq(q, k, v, do, lse, delta, ctx.causal)
+        dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, ctx.causal)
+        return dq, dk, dv, None
 
 
 def dot_product_attention(qh, kh, vh, mask=None, causal: bool = False,
