@@ -46,7 +46,31 @@ which must pass or the script exits non-zero without a result line:
 8. time B1, B2 and B3 at the training shape beside their bounds, their
    plain versions and SDPA's forward and backward, and the training rate
    (tokens/s as ``bench.py`` counts them: b·t·steps / wall); profile one
-   training step.
+   training step;
+9. hold B4 (``csrc/matmul_bn_stats.cu``, the matrix product with the
+   BatchNorm statistics in its epilogue) against its plain version at
+   every 1x1 stride-1 GEMM of ResNet-50 at batch 64, the reference test's
+   shape and ragged shapes, in float32 and bfloat16;
+10. ResNet-50 training path, ``bench.py``'s configuration
+   (``ResNet50(numClasses=1000, inputShape=(3, 224, 224),
+   dataType="BFLOAT16")``, its zoo updater ``Nesterovs(0.1, 0.9)``, seeded
+   ``RandomState(0)`` normal images with one-hot labels) at batch 64 (cut
+   from bench.py's 256), trained by ``ComputationGraph.fit`` on a
+   ``ListDataSetIterator`` of two batches for 2 epochs.  Counters set to 0
+   just before and read just after: no kernel launches (the graph
+   dispatches no B4, as in the reference, and has no attention); the loss
+   must be finite;
+11. check one FLOAT step of ResNet-50 at batch 2 from the same copied
+   parameters on the card and on the CPU (loss, parameters, BN running
+   statistics);
+12. B4 on the model's own activations: after a FLOAT forward in train mode
+   on the card, the input of one 1x1 stride-1 conv per stage through
+   ``conv1x1_bn_stats``, held against the graph's conv output and the
+   following BN layer's batch mean and biased variance.  Counters set to 0
+   just before and read just after: four B4 launches;
+13. time B4 at each ResNet-50 shape beside its bound, its plain version and
+   ``torch.matmul`` (the product only, no statistics), and the ResNet-50
+   step (ms/step, images/s as ``bench.py`` counts them); profile one step.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``.  With ``--record PATH`` it also
@@ -101,6 +125,44 @@ TRAIN_SHAPE = (LONG_CONTEXT["batch"], LONG_CONTEXT["nHeads"],
 # lr / (eps / sqrt(1 - beta2)) ~ 3e3, so the updated parameters hold to
 # 1e-4, a tenth of the step size lr.
 TRAIN_LOSS_ATOL, TRAIN_PARAM_ATOL = 1e-5, 1e-4
+
+# ResNet-50 path: bench.py's configuration, batch cut from 256 to 64.
+RESNET = dict(numClasses=1000, inputShape=(3, 224, 224), batch=64)
+RESNET_EPOCHS, RESNET_TIMED_STEPS, RESNET_CHECK_BATCH = 2, 6, 2
+# ResNet-50's 1x1 stride-1 GEMMs at batch 64, 224x224: (M, K, N) with M =
+# 64·H·W of the stage, K = Cin, N = Cout.  The first is the kernels line's.
+B4_RESNET_SHAPES = [
+    (200704, 256, 64), (200704, 64, 64), (200704, 64, 256),
+    (50176, 512, 128), (50176, 128, 512),
+    (12544, 1024, 256), (12544, 256, 1024),
+    (3136, 2048, 512), (3136, 512, 2048)]
+B4_SHAPES = [*B4_RESNET_SHAPES, (1024, 192, 256),   # tests/test_pallas_fused
+             (1000, 72, 40), (7, 16, 8)]            # ragged
+# B4 checks: y in its own dtype — float32 by summation order, bfloat16 to
+# one bf16 ulp (the same f32 value rounded once; spacing <= 2**-7 of it).
+# The sums add M values in another order than the plain version's (the
+# kernel: 64-row tiles, then a strided fixed tree), so they hold to a
+# relative 1e-5 of Σ|y| and of Σy².
+B4_Y_TOL = {"float32": dict(atol=1e-4, rtol=1e-5),
+            "bfloat16": dict(atol=1e-6, rtol=2.0 ** -7)}
+B4_SUM_RTOL = 1e-5
+# B4 on the model's activations (float32): y against cuDNN's conv (TF32
+# off), summation order; the moments against BN's f32 means.
+B4_ACT_TOL = dict(atol=1e-4, rtol=1e-5)
+B4_MOMENT_TOL = dict(atol=1e-5, rtol=1e-4)
+B4_ACT_CONVS = ["res0_1_c_conv", "res1_1_a_conv", "res2_1_c_conv",
+                "res3_1_a_conv"]
+# FLOAT ResNet-50 step, card against CPU: the convolutions run other
+# algorithms (cuDNN with TF32 off against the CPU's), which differ by
+# float32 summation order, ~1e-6 relative per layer: the loss and the BN
+# running statistics (forward quantities) hold to 1e-4 relative.  The
+# gradient at a batch of 2 flows back through 53 BatchNorm layers whose
+# backward subtracts batch means, and that cancellation leaves the float32
+# gradient of the first layers only a few percent accurate; a Nesterovs step
+# at lr 0.1 then moves a parameter by 0.19 of it.  So the updated
+# parameters hold to RESNET_STEP_PARAM_SHARE of the step's largest update.
+RESNET_STEP_TOL = dict(atol=1e-4, rtol=1e-4)
+RESNET_STEP_PARAM_SHARE = 0.1
 
 SERVE_SHAPE = (BATCH, GPT2_SMALL["nHeads"], PROMPT, PROMPT,
                GPT2_SMALL["headSize"])
@@ -333,19 +395,25 @@ def _gpt2_model(torch):
     return lm, prompts
 
 
+FLASH = ("flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv")
+
+
 def _counters():
+    from deeplearning4j_tpu_torch.ops.fused import matmul_bn_stats
     from deeplearning4j_tpu_torch.parallel.ring import (
         flash_attention, flash_bwd_dkv, flash_bwd_dq)
     return {"flash_attn_fwd": flash_attention.launches,
             "flash_attn_bwd_dq": flash_bwd_dq.launches,
-            "flash_attn_bwd_dkv": flash_bwd_dkv.launches}
+            "flash_attn_bwd_dkv": flash_bwd_dkv.launches,
+            "matmul_bn_stats": matmul_bn_stats.launches}
 
 
 def _reset_counters():
+    from deeplearning4j_tpu_torch.ops.fused import matmul_bn_stats
     from deeplearning4j_tpu_torch.parallel.ring import (
         flash_attention, flash_bwd_dkv, flash_bwd_dq)
     flash_attention.launches = flash_bwd_dq.launches = \
-        flash_bwd_dkv.launches = 0
+        flash_bwd_dkv.launches = matmul_bn_stats.launches = 0
 
 
 def phase_main_path(torch, rec, lm, prompts):
@@ -369,7 +437,8 @@ def phase_main_path(torch, rec, lm, prompts):
              f"prefill launched the flash kernel {launches} times, expected "
              f"{GPT2_SMALL['nLayers']} (one per layer)")
     _require(counts["flash_attn_bwd_dq"] == counts["flash_attn_bwd_dkv"]
-             == 0, f"serving launched a backward kernel: {counts}")
+             == counts["matmul_bn_stats"] == 0,
+             f"serving launched a backward kernel or B4: {counts}")
 
     lengths = np.array([PROMPT, 1000, 900, 512])
     padded = prompts.copy()
@@ -601,9 +670,10 @@ def phase_train(torch, rec, net, params0, pool):
              net.getEpochCount() == TRAIN_EPOCHS,
              f"{steps} steps, {net.getEpochCount()} epochs")
     want = 2 * steps    # two attention layers, one launch each per step
-    _require(all(n == want for n in counts.values()),
+    _require(all(counts[k] == want for k in FLASH)
+             and counts["matmul_bn_stats"] == 0,
              f"expected {want} launches of each flash kernel (B1, B2, B3 "
-             f"twice per step), got {counts}")
+             f"twice per step) and no B4, got {counts}")
     _require(math.isfinite(loss), f"training loss {loss}")
     out = net.output(pool[0].features)
     _require(tuple(out.shape) == (TRAIN_SHAPE[0], LONG_CONTEXT["nOut"],
@@ -644,8 +714,9 @@ def phase_train_outputs(torch, rec, params0, pool):
           f"(|d| {errs['loss']:.3g}, atol {TRAIN_LOSS_ATOL}), params "
           f"|d|max {errs['params']:.3g} (atol {TRAIN_PARAM_ATOL}); flash "
           f"launches {counts}")
-    _require(all(n == 2 for n in counts.values()),
-             f"the FLOAT step launched {counts}, expected 2 of each")
+    _require(all(counts[k] == 2 for k in FLASH),
+             f"the FLOAT step launched {counts}, expected 2 of each flash "
+             f"kernel")
     _require(not any(dense_counts.values()),
              f"the dense step launched a flash kernel: {dense_counts}")
     _require(errs["loss"] <= TRAIN_LOSS_ATOL and
@@ -746,6 +817,281 @@ def phase_train_profile(torch, rec, net, pool):
         print(f"  {ms:9.3f} ms  {kname}")
 
 
+def _b4_bound(m, k, n, dtype_name, elem):
+    """Least time for B4: x (M, K) and w (K, N) read once, y (M, N) and
+    the two f32 sums written once; 2·M·K·N FLOPs of product.  Returns (ms,
+    "bytes"|"operations", flops, bytes)."""
+    flops = 2.0 * m * k * n
+    nbytes = (m * k + k * n + m * n) * elem + 2 * n * 4
+    return (*_bound(flops, 0, nbytes, dtype_name), flops, nbytes)
+
+
+def _b4_errors(got, ref, y_tol):
+    """Max errors of B4's (y, s, ss) against a reference (y, s, ss): y in
+    its dtype to ``y_tol``, the sums to B4_SUM_RTOL of Σ|y| and Σy²."""
+    y32 = ref[0].float()
+    scale_s = y32.abs().sum(0)
+    scale_ss = (y32 * y32).sum(0)
+    e_y, ok_y = _max_err(got[0], ref[0], **y_tol)
+    d_s = (got[1] - ref[1]).abs()
+    d_ss = (got[2] - ref[2]).abs()
+    ok = ok_y and bool((d_s <= B4_SUM_RTOL * scale_s + 1e-6).all()) and \
+        bool((d_ss <= B4_SUM_RTOL * scale_ss + 1e-6).all()) and \
+        bool(got[1].isfinite().all() and got[2].isfinite().all())
+    return dict(y_err=e_y, s_err=float(d_s.max()), ss_err=float(d_ss.max()),
+                s_rel=float((d_s / (scale_s + 1e-30)).max()),
+                ss_rel=float((d_ss / (scale_ss + 1e-30)).max()), ok=ok)
+
+
+def phase_b4_kernels(torch, rec):
+    """B4 against its plain version on the same inputs: every ResNet-50
+    1x1 stride-1 shape at batch 64, the reference test's shape and ragged
+    shapes, float32 and bfloat16."""
+    from deeplearning4j_tpu_torch.ops.fused import (matmul_bn_stats,
+                                                    matmul_bn_stats_plain)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    checks, failed = [], []
+    for (m, k, n) in B4_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            dn = str(dtype).split(".")[-1]
+            x = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
+            w = (torch.randn((k, n), generator=gen, device="cuda")
+                 * k ** -0.5).to(dtype)
+            got = matmul_bn_stats(x, w)
+            ref = matmul_bn_stats_plain(x, w)
+            torch.cuda.synchronize()
+            c = dict(shape=[m, k, n], dtype=dn,
+                     **_b4_errors(got, ref, B4_Y_TOL[dn]))
+            checks.append(c)
+            print(f"B4 {c['shape']} {dn:8s} |dy|max={c['y_err']:.3g} "
+                  f"|ds|/Σ|y| max={c['s_rel']:.3g} |dss|/Σy² max="
+                  f"{c['ss_rel']:.3g} {'ok' if c['ok'] else 'MISMATCH'}")
+            if not c["ok"]:
+                failed.append(c)
+    print(f"tolerances: y {B4_Y_TOL} (bf16: one ulp), s and ss "
+          f"{B4_SUM_RTOL} of Σ|y| and Σy² (summation order)")
+    rec["b4_checks"] = checks
+    _require(not failed, f"B4 disagrees with its plain version: {failed}")
+
+
+def _resnet_model(torch):
+    """bench.py's ResNet-50 (BFLOAT16) on the card (the entry point's
+    default device), a copy of its initial parameters, and two seeded
+    batches of 64 as bench.py makes them."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.zoo import ResNet50
+    c, b = RESNET, RESNET["batch"]
+    t0 = time.perf_counter()
+    net = ResNet50(numClasses=c["numClasses"], inputShape=c["inputShape"],
+                   dataType="BFLOAT16").init()
+    torch.cuda.synchronize()
+    _require(net.device.type == "cuda", f"the graph runs on {net.device}")
+    params0 = {v: {k: t.clone() for k, t in lp.items()}
+               for v, lp in net.params_.items()}
+    rng = np.random.RandomState(0)
+    pool = []
+    for _ in range(2):
+        x = rng.randn(b, *c["inputShape"]).astype(np.float32)
+        y = np.eye(c["numClasses"], dtype=np.float32)[
+            rng.randint(0, c["numClasses"], b)]
+        pool.append(DataSet(x, y))
+    print(f"ResNet-50: {net.numParams()} params, init "
+          f"{time.perf_counter() - t0:.1f} s, batches of {b}x3x224x224, "
+          f"BFLOAT16 compute over float32 masters")
+    return net, params0, pool
+
+
+def phase_resnet_train(torch, rec, net, params0, pool):
+    import math
+    from deeplearning4j_tpu_torch.datasets import ListDataSetIterator
+    it = ListDataSetIterator(pool)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counters()
+    t0 = time.perf_counter()
+    net.fit(it, epochs=RESNET_EPOCHS)
+    loss = net.score()
+    rec["resnet_fit_s"] = time.perf_counter() - t0
+    rec["launches_resnet"] = counts = _counters()
+    rec["resnet_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    steps = net.iterationCount
+    rec["resnet_steps"], rec["resnet_loss"] = steps, loss
+    print(f"ResNet-50 fit {RESNET_EPOCHS} epochs x {len(pool)} batches: "
+          f"{steps} steps in {rec['resnet_fit_s']:.3f} s, last loss "
+          f"{loss:.6g}, peak {rec['resnet_peak_gb']:.2f} GB, launches "
+          f"{counts}")
+    _require(steps == RESNET_EPOCHS * len(pool) and
+             net.getEpochCount() == RESNET_EPOCHS,
+             f"{steps} steps, {net.getEpochCount()} epochs")
+    _require(not any(counts.values()),
+             f"ResNet-50 training launched a kernel: {counts} (the graph "
+             f"dispatches no B4, as in the reference)")
+    _require(math.isfinite(loss), f"ResNet-50 training loss {loss}")
+    out = net.output(pool[0].features[:4])
+    _require(tuple(out.shape) == (4, RESNET["numClasses"])
+             and bool(out.isfinite().all())
+             and bool(((out.sum(1) - 1).abs() < 1e-2).all()),
+             f"output of shape {tuple(out.shape)}, not finite or not a "
+             f"distribution")
+
+
+def _resnet_float(params0, device=None):
+    from deeplearning4j_tpu_torch.models import ComputationGraph
+    from deeplearning4j_tpu_torch.zoo import ResNet50
+    c = RESNET
+    conf = ResNet50(numClasses=c["numClasses"], inputShape=c["inputShape"],
+                    dataType="FLOAT").graphBuilder().build()
+    return ComputationGraph(conf, device=device).init(params=params0)
+
+
+def phase_resnet_step(torch, rec, params0, pool):
+    """One FLOAT step at batch 2 from the same copied parameters, on the
+    card and on the CPU."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    b = RESNET_CHECK_BATCH
+    ds = DataSet(pool[0].features[:b], pool[0].labels[:b])
+    nets = {}
+    for dev in ("cuda", "cpu"):
+        net = _resnet_float(params0, dev)
+        net.fit(ds)
+        nets[dev] = net
+    gpu, cpu = nets["cuda"], nets["cpu"]
+    loss_g, loss_c = gpu.score(), cpu.score()
+    e_l, ok_l = _max_err(torch.tensor([loss_g]), torch.tensor([loss_c]),
+                         **RESNET_STEP_TOL)
+    p_cpu = cpu.params()
+    update = float((p_cpu - _resnet_float(params0, "cpu").params())
+                   .abs().max())
+    e_p = float((gpu.params().cpu() - p_cpu).abs().max())
+    ok_p = e_p <= RESNET_STEP_PARAM_SHARE * update
+    e_s, ok_s = 0.0, True
+    for v, st in gpu.state_.items():
+        for k in ("mean", "var"):
+            e, ok = _max_err(st[k].cpu(), cpu.state_[v][k], **RESNET_STEP_TOL)
+            e_s, ok_s = max(e_s, e), ok_s and ok
+    rec["resnet_step_card_vs_cpu"] = dict(loss_card=loss_g, loss_cpu=loss_c,
+                                          loss_err=e_l, params_err=e_p,
+                                          largest_update=update,
+                                          state_err=e_s)
+    print(f"ResNet-50 FLOAT step, batch {b}, card vs CPU: loss {loss_g:.7g} "
+          f"vs {loss_c:.7g} (|d| {e_l:.3g}), BN running stats |d|max "
+          f"{e_s:.3g} ({RESNET_STEP_TOL}); params |d|max {e_p:.3g} = "
+          f"{e_p / update:.3g} of the largest update {update:.3g} (at most "
+          f"{RESNET_STEP_PARAM_SHARE})")
+    _require(ok_l and ok_p and ok_s,
+             f"the card's ResNet-50 step disagrees with the CPU's: "
+             f"{rec['resnet_step_card_vs_cpu']}")
+    return gpu
+
+
+def phase_b4_activations(torch, rec, gnet, pool):
+    """B4 on ResNet-50's own activations (FLOAT, train mode, batch 64): the
+    input of one 1x1 stride-1 conv per stage through conv1x1_bn_stats,
+    against the graph's conv output and the following BN layer's batch
+    moments (its formulas: f32 mean, E[x²] − mean² clamped at 0)."""
+    from deeplearning4j_tpu_torch.ops.fused import conv1x1_bn_stats
+    x = pool[0].features.to("cuda")
+    with torch.no_grad():
+        acts, _ = gnet._forward(gnet.params_, gnet.state_, (x,), True, None)
+    torch.cuda.synchronize()
+    res, ok_all = {}, True
+    _reset_counters()
+    for v in B4_ACT_CONVS:
+        node, ins = gnet.conf.nodes[v]
+        _require(node.kernelSize == (1, 1) and node.stride == (1, 1),
+                 f"{v} is not a 1x1 stride-1 conv")
+        inp = acts[ins[0]].permute(0, 2, 3, 1).contiguous()
+        w = gnet.params_[v]["W"][:, :, 0, 0].t().contiguous()
+        y, s, ss = conv1x1_bn_stats(inp, w)
+        conv = acts[v].permute(0, 2, 3, 1)
+        m = y.shape[0] * y.shape[1] * y.shape[2]
+        mean, var = s / m, ss / m - (s / m) ** 2
+        cf = acts[v].float()
+        bn_mean = cf.mean(dim=(0, 2, 3))
+        bn_var = torch.clamp((cf * cf).mean(dim=(0, 2, 3)) - bn_mean ** 2,
+                             min=0.0)
+        e_y, ok_y = _max_err(y, conv, **B4_ACT_TOL)
+        e_m, ok_m = _max_err(mean, bn_mean, **B4_MOMENT_TOL)
+        e_v, ok_v = _max_err(var, bn_var, **B4_MOMENT_TOL)
+        res[v] = dict(shape=[m, w.shape[0], w.shape[1]], y_err=e_y,
+                      mean_err=e_m, var_err=e_v, ok=ok_y and ok_m and ok_v)
+        ok_all = ok_all and res[v]["ok"]
+        print(f"B4 on {v} input {list(inp.shape)} (M, K, N = "
+              f"{res[v]['shape']}): |dy|max {e_y:.3g} vs the graph's conv, "
+              f"|dmean|max {e_m:.3g}, |dvar|max {e_v:.3g} vs BN "
+              f"{'ok' if res[v]['ok'] else 'MISMATCH'}")
+    torch.cuda.synchronize()
+    rec["launches_b4"] = counts = _counters()
+    rec["b4_on_activations"] = res
+    print(f"tolerances: y {B4_ACT_TOL}, moments {B4_MOMENT_TOL}; launches "
+          f"{counts}")
+    _require(ok_all, f"B4 disagrees with the graph's conv or BN: {res}")
+    _require(counts["matmul_bn_stats"] == len(B4_ACT_CONVS)
+             and not any(counts[k] for k in FLASH),
+             f"expected {len(B4_ACT_CONVS)} B4 launches, got {counts}")
+
+
+def phase_resnet_timing(torch, rec, net, pool):
+    from deeplearning4j_tpu_torch.ops.fused import (matmul_bn_stats,
+                                                    matmul_bn_stats_plain)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    timing = {}
+    for (m, k, n) in B4_RESNET_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            dn, elem = str(dtype).split(".")[-1], dtype.itemsize
+            x = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
+            w = (torch.randn((k, n), generator=gen, device="cuda")
+                 * k ** -0.5).to(dtype)
+            bound_ms, bound_by, flops, nbytes = _b4_bound(m, k, n, dn, elem)
+            ms = _time_ms(torch, lambda: matmul_bn_stats(x, w))
+            got, ref = matmul_bn_stats(x, w), matmul_bn_stats_plain(x, w)
+            err = max(float((a.float() - b.float()).abs().max())
+                      for a, b in zip(got, ref))
+            r = dict(shape=[m, k, n], dtype=dn, ms=ms,
+                     plain_ms=_time_ms(torch, lambda: matmul_bn_stats_plain(
+                         x, w), iters=5, warmup=1),
+                     library_ms=_time_ms(torch, lambda: torch.matmul(x, w)),
+                     bound_ms=bound_ms, bound_by=bound_by, flops=flops,
+                     bytes=nbytes, max_abs_err=err,
+                     achieved_tflops=flops / ms / 1e9)
+            timing[f"{m}x{k}x{n} {dn}"] = r
+            print(f"B4 {dn} {[m, k, n]}: {ms:.4f} ms "
+                  f"({r['achieved_tflops']:.2f} TFLOP/s), bound "
+                  f"{bound_ms:.4f} ms ({bound_by}), plain "
+                  f"{r['plain_ms']:.4f} ms, torch.matmul (product only, no "
+                  f"statistics) {r['library_ms']:.4f} ms, max |d| {err:.3g}")
+    rec["b4_timing"] = timing
+
+    for i in range(2):          # warm, as bench.py does
+        net.fit(pool[i % 2])
+    net.score()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(RESNET_TIMED_STEPS):
+        net.fit(pool[i % 2])
+    net.score()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rec["resnet_ms_per_step"] = wall / RESNET_TIMED_STEPS * 1e3
+    rec["resnet_images_per_s"] = (RESNET["batch"] * RESNET_TIMED_STEPS
+                                  / wall)
+    print(f"ResNet-50 training: {rec['resnet_ms_per_step']:.3f} ms/step, "
+          f"{rec['resnet_images_per_s']:.1f} images/s "
+          f"({RESNET_TIMED_STEPS} steps of {RESNET['batch']} after 2 warm)")
+    p = rec.setdefault("profile", {})["resnet_step"] = _device_breakdown(
+        torch, lambda: (net.fit(pool[0]), net.score()), top=10)
+    if p["device_busy_ms"] is None:
+        print("profile resnet_step: no device time in the trace "
+              "(not measured)")
+        return
+    print(f"profile resnet_step: wall {p['wall_ms']:.2f} ms, device busy "
+          f"{p['device_busy_ms']:.2f} ms, idle share {p['idle_share']:.3f}, "
+          f"{p['device_ops']} device kernels and copies")
+    for kname, ms in p["top"]:
+        print(f"  {ms:9.3f} ms  {kname}")
+
+
 def _kernel_entry(name, replaces, launches, t):
     return {"name": name, "route": "cuda",
             "source": f"deeplearning4j_tpu_torch/csrc/{name}.cu",
@@ -808,6 +1154,19 @@ def main(argv) -> int:
                 pool)
             run("train_timing", phase_train_timing, torch, rec, net, pool)
             run("train_profile", phase_train_profile, torch, rec, net, pool)
+        del train
+        run("b4_kernels", phase_b4_kernels, torch, rec)
+        resnet = run("resnet_init", _resnet_model, torch)
+        if resnet is not None:
+            net, params0, pool = resnet
+            run("resnet_train", phase_resnet_train, torch, rec, *resnet)
+            gnet = run("resnet_step", phase_resnet_step, torch, rec, params0,
+                       pool)
+            if gnet is not None:
+                run("b4_activations", phase_b4_activations, torch, rec, gnet,
+                    pool)
+            del gnet
+            run("resnet_timing", phase_resnet_timing, torch, rec, net, pool)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -828,12 +1187,16 @@ def main(argv) -> int:
         return 1
 
     # launches: the serving run's and the training run's counts together
-    # (B1 runs on both paths; B2 and B3 on the training path only).  B1's
-    # times are at the serving shape (f32, causal), B2's and B3's at the
-    # training shape in its dtype (bf16, not causal); the record holds B1
-    # at the training shape too.
+    # (B1 runs on both paths; B2 and B3 on the training path only), and B4's
+    # from its run on ResNet-50's activations (the model dispatches none).
+    # B1's times are at the serving shape (f32, causal), B2's and B3's at
+    # the training shape in its dtype (bf16, not causal), B4's at ResNet-50's
+    # stage-0 shape in bf16; the record holds the other shapes too.
     serve, train_t = rec["launches"], rec["train_kernel_timing"]
-    launches = {k: serve[k] + rec["launches_train"][k] for k in serve}
+    launches = {k: serve[k] + rec["launches_train"][k]
+                + rec["launches_resnet"][k] + rec["launches_b4"][k]
+                for k in serve}
+    m, k, n = B4_RESNET_SHAPES[0]
     kernels_line = {"kernels": [
         _kernel_entry("flash_attn_fwd",
                       "deeplearning4j_tpu/parallel/ring.py:127",
@@ -845,7 +1208,11 @@ def main(argv) -> int:
         _kernel_entry("flash_attn_bwd_dkv",
                       "deeplearning4j_tpu/parallel/ring.py:228",
                       launches["flash_attn_bwd_dkv"],
-                      train_t["flash_attn_bwd_dkv"]["bfloat16"])]}
+                      train_t["flash_attn_bwd_dkv"]["bfloat16"]),
+        _kernel_entry("matmul_bn_stats",
+                      "deeplearning4j_tpu/ops/pallas_fused.py:61",
+                      launches["matmul_bn_stats"],
+                      rec["b4_timing"][f"{m}x{k}x{n} bfloat16"])]}
     print(card)
     print(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {

@@ -12,7 +12,8 @@ runs becomes a kernel written by hand for Hopper (``csrc/*.cu``, built by
 PyTorch version beside it, which runs only for tensors on the CPU (the
 tests) — a CUDA tensor reaches the kernel or raises.
 
-Ported so far (the serving slice, then the long-context training slice):
+Ported so far (the serving slice, the long-context training slice, then
+the ResNet-50 slice):
 
 - ``parallel.ring``      — dense / blockwise / flash attention (forward and
                            backward kernels, ``FlashAttention``) and the
@@ -23,11 +24,18 @@ Ported so far (the serving slice, then the long-context training slice):
                            speculative generation;
 - ``nn``, ``nn.conf``    — activations, weight init, losses, ``InputType``,
                            preprocessors, the config DSL and its JSON,
-                           ``DenseLayer`` and ``RnnOutputLayer``;
-- ``learning``           — ``Sgd``, ``NoOp`` and ``Adam``;
+                           ``DenseLayer``, ``RnnOutputLayer`` and the CNN
+                           layers (convolution, pooling, batch norm,
+                           activation, global pooling, output);
+- ``learning``           — ``Sgd``, ``NoOp``, ``Adam`` and ``Nesterovs``;
 - ``datasets``           — ``DataSet`` and ``ListDataSetIterator``;
-- ``models``             — ``MultiLayerNetwork`` (``init``, ``fit``,
-                           ``output``, ``score``, the flat param views).
+- ``models``             — ``MultiLayerNetwork`` and ``ComputationGraph``
+                           (``init``, ``fit``, ``output``, ``score``, the
+                           flat param views, layer state) and the graph
+                           DSL (``graph_conf``);
+- ``zoo``                — ``LeNet`` and ``ResNet50``;
+- ``ops.fused``          — ``matmul_bn_stats`` / ``conv1x1_bn_stats`` (the
+                           B4 kernel; no model dispatches it).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

@@ -1,6 +1,6 @@
 """Updater (optimizer) configs and their pure appliers — the port of
 ``deeplearning4j_tpu/learning/config.py`` (``IUpdater``, ``Sgd``, ``NoOp``,
-``Adam``).
+``Adam``, ``Nesterovs``).
 
 Each config exposes
 
@@ -9,7 +9,7 @@ Each config exposes
 
 both pure: ``update`` is SUBTRACTED from the param by the caller (the
 reference's ``params.subi(gradientView)`` step).  AdamW, AdaMax, AMSGrad,
-Nadam, Nesterovs, RmsProp, AdaGrad, AdaDelta and learning-rate schedules
+Nadam, RmsProp, AdaGrad, AdaDelta and learning-rate and momentum schedules
 wait for ROADMAP A3.
 """
 from __future__ import annotations
@@ -21,12 +21,13 @@ import torch
 
 from deeplearning4j_tpu_torch.learning.schedules import _f32pow
 
-__all__ = ["IUpdater", "Sgd", "Adam", "NoOp"]
+__all__ = ["IUpdater", "Sgd", "Adam", "NoOp", "Nesterovs"]
 
 
 def _no_schedules():
     return NotImplementedError(
-        "learning-rate schedules are not ported yet (ROADMAP A3)")
+        "learning-rate and momentum schedules are not ported yet "
+        "(ROADMAP A3)")
 
 
 @dataclasses.dataclass
@@ -66,7 +67,7 @@ class IUpdater:
         if name not in _REGISTRY:
             raise NotImplementedError(
                 f"updater {name} is not ported yet (ROADMAP A3)")
-        if d.get("learningRateSchedule"):
+        if d.get("learningRateSchedule") or d.get("momentumSchedule"):
             raise _no_schedules()
         return _REGISTRY[name](**d)
 
@@ -106,4 +107,34 @@ class Adam(IUpdater):
         return a * m / (torch.sqrt(v) + self.epsilon), {"m": m, "v": v}
 
 
-_REGISTRY = {c.__name__: c for c in [Sgd, NoOp, Adam]}
+@dataclasses.dataclass
+class Nesterovs(IUpdater):
+    learningRate: float = 0.1
+    momentum: float = 0.9
+    momentumSchedule: Optional[Any] = None
+
+    def init(self, param):
+        return {"v": torch.zeros_like(param)}
+
+    def stateSize(self, n):
+        return n
+
+    def apply(self, grad, state, lr, iteration, epoch=0, param=None):
+        if self.momentumSchedule is not None:
+            raise _no_schedules()
+        mu = self.momentum
+        # the reference's NesterovsUpdater: v = mu*v_prev - lr*g, and the
+        # param moves by -mu*v_prev + (1+mu)*v; the caller subtracts the
+        # returned update, so it is negated
+        vPrev = state["v"]
+        v = mu * vPrev - lr * grad
+        update = mu * vPrev - (1 + mu) * v
+        return update, {"v": v}
+
+    def toJson(self) -> dict:
+        if self.momentumSchedule is not None:
+            raise _no_schedules()
+        return IUpdater.toJson(self)
+
+
+_REGISTRY = {c.__name__: c for c in [Sgd, NoOp, Adam, Nesterovs]}

@@ -1,0 +1,357 @@
+"""ComputationGraph — the DAG model; the port of
+``deeplearning4j_tpu/models/graph.py`` (the reference's
+``ComputationGraph.java``: topological-order forward, every output layer's
+loss, the per-iteration updater step, the flat param views).
+
+One train step runs the forward over ``conf.topoOrder``, the summed losses
+of the output layers, backward (``torch.autograd.grad``) and the updaters,
+in eager PyTorch on the graph's device (``cuda`` unless the caller asks for
+another), reusing the update step, the L1/L2 penalty and the param-tree
+helpers of ``models/multilayer.py`` as the reference reuses its own.
+Parameters and layer state (BatchNormalization's running statistics) are
+dicts keyed by vertex name, as the JAX graph's ``params_``/``state_``, so
+``init(params=)`` takes the JAX graph's parameters as numpy arrays.
+``dataType`` BFLOAT16 / HALF / FLOAT16 means bf16 compute over float32
+master parameters, state, optimizer state and losses.
+
+Not ported yet, and raising where they are asked for: truncated BPTT (ROADMAP
+A5, with the recurrent layers of A8), ``rnnTimeStep`` (A8), the line-search
+solvers, ``evaluate`` and listeners (A9), and ``MultiDataSet`` (A5).
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Sequence
+
+import numpy as np
+import torch
+
+from deeplearning4j_tpu_torch import resolve_device
+from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+from deeplearning4j_tpu_torch.datasets.iterator import DataSetIterator
+from deeplearning4j_tpu_torch.models.graph_conf import \
+    ComputationGraphConfiguration
+from deeplearning4j_tpu_torch.models.multilayer import (
+    _HALF_TYPES, _apply_updates, _cast_tree, _iter_leaf_params, _leaves,
+    _reg_penalty, _set_leaf, _to_tensor, _tree_map, _updater_for)
+from deeplearning4j_tpu_torch.nn.conf import BackpropType
+from deeplearning4j_tpu_torch.nn.conf.layers import Layer
+
+__all__ = ["ComputationGraph"]
+
+
+class ComputationGraph:
+    def __init__(self, conf: ComputationGraphConfiguration, device=None):
+        self.conf = conf
+        self.device = resolve_device(device)
+        self.params_: Optional[Dict] = None
+        self.state_: Dict[str, Dict[str, torch.Tensor]] = {}
+        self.optState_: Optional[Dict] = None
+        self.iterationCount = 0
+        self.epochCount = 0
+        self.lastBatchSize = 0
+        self._score = 0.0
+        self._scoreArr = None   # the last step's loss, left on the device
+        self._rngSeed = int(conf.globalConf.get("seed", 123) or 123)
+        self._dtype = torch.float32
+        dt = str(conf.globalConf.get("dataType") or "FLOAT").upper()
+        self._computeDtype = torch.bfloat16 if dt in _HALF_TYPES \
+            else torch.float32
+        # input dropout draws from here (on the graph's device)
+        self._fitGen = torch.Generator(device=self.device).manual_seed(
+            self._rngSeed ^ 0x6EED)
+
+    # ------------------------------------------------------------------
+    def init(self, params: Optional[Dict] = None) -> "ComputationGraph":
+        """Draw the parameters from a generator seeded with the config's
+        seed, vertex by vertex in topological order, or take ``params``
+        (the JAX graph's ``params_`` as numpy arrays, or tensors; copied
+        onto the graph's device); then build fresh layer state (running
+        mean 0, variance 1) and updater state."""
+        order = self.conf.topoOrder
+        if params is not None:
+            self.params_ = _tree_map(
+                lambda v: _to_tensor(v, self.device), dict(params))
+        else:
+            gen = torch.Generator().manual_seed(self._rngSeed)
+            self.params_ = {}
+            for name in order:
+                node = self.conf.nodes[name][0]
+                if isinstance(node, Layer):
+                    p = node.initParams(
+                        gen, self.conf.vertexInputTypes.get(name),
+                        self._dtype, self.device)
+                    if p:
+                        self.params_[name] = p
+        self.state_ = {
+            name: self.conf.nodes[name][0].initState(
+                self.conf.vertexInputTypes.get(name), self._dtype,
+                self.device)
+            for name in order
+            if hasattr(self.conf.nodes[name][0], "initState")}
+        self._initOptState()
+        return self
+
+    def _initOptState(self) -> None:
+        self.optState_ = {
+            name: {path: self._updaterFor(self.conf.nodes[name][0], pname)
+                   .init(pval)
+                   for path, pname, pval in _iter_leaf_params(lp)}
+            for name, lp in self.params_.items()}
+
+    def _updaterFor(self, layer, pname: str):
+        return _updater_for(self.conf.globalConf, layer, pname)
+
+    # ------------------------------------------------------------------
+    def _forward(self, params, state, inputs: Sequence, train: bool, gen,
+                 mask=None):
+        """Forward over the topological order (the reference's
+        ``topologicalSortOrder()`` and per-vertex ``doForward``).  ``mask``
+        is a tuple of per-input (b, t) masks aligned with ``conf.inputs``,
+        or None; each vertex sees its first masked input's mask, and the
+        mask stops where the output format leaves RNN.  Returns
+        ``(activations by name, new state by name)``."""
+        acts: Dict[str, torch.Tensor] = {}
+        miniBatch = inputs[0].shape[0]
+        mmap: Dict[str, torch.Tensor] = {}
+        for i, name in enumerate(self.conf.inputs):
+            acts[name] = inputs[i]
+            if mask is not None and i < len(mask):
+                mmap[name] = mask[i]
+        out_types = self.conf.vertexOutputTypes
+        new_state: Dict[str, Dict] = {}
+        for name in self.conf.topoOrder:
+            node, ins = self.conf.nodes[name]
+            xs = [acts[i] for i in ins]
+            m = next((mmap[i] for i in ins if mmap.get(i) is not None), None)
+            if isinstance(node, Layer):
+                x = xs[0]
+                if name in self.conf.preProcessors:
+                    x = self.conf.preProcessors[name].preProcess(x, miniBatch)
+                p, st = params.get(name, {}), state.get(name, {})
+                if getattr(node, "acceptsMask", False):
+                    y, st2 = node.forward(p, x, train, gen, st, mask=m)
+                else:
+                    y, st2 = node.forward(p, x, train, gen, st)
+                if st2:
+                    new_state[name] = st2
+                acts[name] = y
+            else:
+                acts[name] = node.forward(*xs)
+            ot = out_types.get(name)
+            if m is not None and (ot is None or ot.kind == "RNN"):
+                mmap[name] = m
+        return acts, new_state
+
+    def _sumLosses(self, acts, labels, masks):
+        """Every output layer's mean loss, summed — the loss of training
+        and of ``score``."""
+        total = 0.0
+        for i, name in enumerate(self.conf.outputs):
+            node = self.conf.nodes[name][0]
+            if isinstance(node, Layer) and node.hasLoss():
+                mask = masks[i] if masks is not None else None
+                total = total + node.computeScore(labels[i], acts[name],
+                                                  mask).mean()
+        return total
+
+    def _lossFn(self, params, inputs, labels, masks, train: bool, gen=None,
+                fmask=None):
+        """Summed losses (in f32 under bf16 compute) plus the L1/L2 penalty
+        of the f32 masters, and the layers' new state.  The state stays
+        float32: the running statistics accumulate in it."""
+        cd = self._computeDtype
+        acts, new_state = self._forward(
+            _cast_tree(params, cd), self.state_,
+            _cast_tree(tuple(inputs), cd), train, gen, fmask)
+        if self._computeDtype != torch.float32:
+            acts = {n: a.float() for n, a in acts.items()}
+        reg = _reg_penalty((self.conf.nodes[name][0], lp)
+                           for name, lp in params.items())
+        return self._sumLosses(acts, labels, masks) + reg, new_state
+
+    # ------------------------------------------------------------------
+    def fit(self, data, labels=None, epochs: int = 1) -> None:
+        """Train on a ``DataSet`` (one step), a ``DataSetIterator``
+        (``epochs`` passes, one step per batch) or ``(features, labels)``
+        (one step)."""
+        if self.params_ is None:
+            self.init()
+        if isinstance(data, DataSet):
+            self._fitBatch(data)
+        elif isinstance(data, DataSetIterator):
+            for _ in range(epochs):
+                data.reset()
+                while data.hasNext():
+                    self._fitBatch(data.next())
+                self.epochCount += 1
+        elif labels is not None:
+            self._fitBatch(DataSet(data, labels))
+        elif type(data).__name__ == "MultiDataSet":
+            raise NotImplementedError(
+                "MultiDataSet is not ported yet (ROADMAP A5)")
+        else:
+            raise TypeError(f"Cannot fit on {type(data)}")
+
+    def _on_device(self, a, dtype=None):
+        return None if a is None else a.to(self.device, dtype)
+
+    def _fitBatch(self, ds: DataSet) -> None:
+        inputs = (self._on_device(ds.features, self._dtype),)
+        labels = (self._on_device(ds.labels),)
+        masks = (self._on_device(ds.labelsMask),) \
+            if ds.labelsMask is not None else None
+        fmask = (self._on_device(ds.featuresMask),) \
+            if ds.featuresMask is not None else None
+        self.lastBatchSize = int(inputs[0].shape[0])
+        algo = str(self.conf.globalConf.get("optimizationAlgo")
+                   or "STOCHASTIC_GRADIENT_DESCENT").upper()
+        if algo != "STOCHASTIC_GRADIENT_DESCENT":
+            raise NotImplementedError(
+                f"optimizationAlgo {algo}: the line-search solvers are not "
+                "ported yet (ROADMAP A9)")
+        if self.conf.backpropType == BackpropType.TruncatedBPTT \
+                and all(i.dim() == 3 for i in inputs) \
+                and all(l.dim() == 3 for l in labels) \
+                and inputs[0].shape[2] > self.conf.tbpttFwdLength:
+            raise NotImplementedError(
+                "truncated BPTT is not ported yet (ROADMAP A5, with the "
+                "recurrent layers of A8)")
+        self._runTrainStep(inputs, labels, masks, fmask)
+        self.iterationCount += 1
+
+    def _runTrainStep(self, inputs, labels, masks, fmask) -> None:
+        leaves = [(name, path, v.detach().requires_grad_(True))
+                  for name, lp in self.params_.items()
+                  for path, _pname, v in _iter_leaf_params(lp)]
+        params: Dict = {}
+        for name, path, v in leaves:
+            _set_leaf(params.setdefault(name, {}), path, v)
+        loss, new_state = self._lossFn(params, inputs, labels, masks, True,
+                                       self._fitGen, fmask)
+        grads_flat = torch.autograd.grad(loss, [v for _, _, v in leaves])
+        grads: Dict = {}
+        for (name, path, _), g in zip(leaves, grads_flat):
+            _set_leaf(grads.setdefault(name, {}), path, g)
+        with torch.no_grad():
+            self.params_, self.optState_ = _apply_updates(
+                ((name, self.conf.nodes[name][0]) for name in self.params_),
+                self.conf.globalConf, self.params_, grads, self.optState_,
+                self.iterationCount, self.epochCount)
+        self.state_.update(new_state)
+        # left on the device: score() reads it, so a step never waits on
+        # the host
+        self._scoreArr = loss.detach()
+
+    # ------------------------------------------------------------------
+    def _tensor_in(self, x, dtype=None):
+        t = x if isinstance(x, torch.Tensor) else torch.as_tensor(
+            np.asarray(x))
+        return self._on_device(t, dtype)
+
+    def output(self, *inputs, featuresMask=None):
+        """Inference-mode forward; each output float32 on the graph's
+        device, one tensor for one output, else a list."""
+        with torch.no_grad():
+            xs = tuple(self._tensor_in(x, self._dtype) for x in inputs)
+            fm = None
+            if featuresMask is not None:
+                if not isinstance(featuresMask, (tuple, list)):
+                    featuresMask = (featuresMask,)
+                fm = tuple(None if m is None else self._tensor_in(m)
+                           for m in featuresMask)
+            acts, _ = self._forward(
+                _cast_tree(self.params_, self._computeDtype), self.state_,
+                _cast_tree(xs, self._computeDtype), False, None, fm)
+        res = [acts[n].float() for n in self.conf.outputs]
+        return res[0] if len(res) == 1 else res
+
+    def outputSingle(self, *inputs) -> torch.Tensor:
+        out = self.output(*inputs)
+        return out[0] if isinstance(out, list) else out
+
+    def score(self, ds: Optional[DataSet] = None) -> float:
+        """The last fit step's loss, or the loss of ``ds`` (inference mode,
+        L1/L2 penalty included)."""
+        if ds is None:
+            if self._scoreArr is not None:
+                self._score = float(self._scoreArr)
+                self._scoreArr = None
+            return self._score
+        if type(ds).__name__ == "MultiDataSet":
+            raise NotImplementedError(
+                "MultiDataSet is not ported yet (ROADMAP A5)")
+        masks = (self._on_device(ds.labelsMask),) \
+            if ds.labelsMask is not None else None
+        fmask = (self._on_device(ds.featuresMask),) \
+            if ds.featuresMask is not None else None
+        with torch.no_grad():
+            loss, _ = self._lossFn(
+                self.params_, (self._on_device(ds.features, self._dtype),),
+                (self._on_device(ds.labels),), masks, False, None, fmask)
+        return float(loss)
+
+    def rnnTimeStep(self, *inputs):
+        raise NotImplementedError(
+            "rnnTimeStep is not ported yet (ROADMAP A8)")
+
+    def evaluate(self, it):
+        raise NotImplementedError("evaluate is not ported yet (ROADMAP A9)")
+
+    def setListeners(self, *listeners):
+        raise NotImplementedError("listeners are not ported yet (ROADMAP A9)")
+
+    addListeners = setListeners
+
+    # -- params ----------------------------------------------------------
+    def _leaf_items(self):
+        for name in self.conf.topoOrder:
+            if name in (self.params_ or {}):
+                for path, _pname, v in _iter_leaf_params(self.params_[name]):
+                    yield name, path, v
+
+    def params(self) -> torch.Tensor:
+        """Single flattened param vector: vertices in topological order,
+        within a vertex ``_param_key_order``."""
+        chunks = [v.reshape(-1) for _n, _p, v in self._leaf_items()]
+        return torch.cat(chunks) if chunks else \
+            torch.zeros((0,), device=self.device)
+
+    def setParams(self, flat) -> None:
+        """Write a flat vector back into the param tree."""
+        vec = torch.as_tensor(flat).reshape(-1).to(self.device)
+        pos = 0
+        for name, path, cur in list(self._leaf_items()):
+            n = cur.numel()
+            _set_leaf(self.params_[name], path,
+                      vec[pos:pos + n].reshape(cur.shape).to(cur.dtype))
+            pos += n
+        if pos != vec.numel():
+            raise ValueError(f"Param vector length {vec.numel()} != model "
+                             f"{pos}")
+
+    def numParams(self) -> int:
+        return sum(v.numel() for v in _leaves(self.params_ or {}))
+
+    def paramTable(self) -> Dict[str, torch.Tensor]:
+        return {f"{name}_{k}": v
+                for name, lp in self.params_.items() for k, v in lp.items()}
+
+    def getEpochCount(self) -> int:
+        return self.epochCount
+
+    def getNumLayers(self) -> int:
+        return sum(1 for n, _ in self.conf.nodes.values()
+                   if isinstance(n, Layer))
+
+    def summary(self) -> str:
+        lines = [f"{'vertex':<24} {'type':<26} {'params':>10} inputs"]
+        total = 0
+        for name in self.conf.topoOrder:
+            node, ins = self.conf.nodes[name]
+            n = sum(v.numel() for _p, _k, v in
+                    _iter_leaf_params((self.params_ or {}).get(name, {})))
+            total += n
+            lines.append(f"{name:<24} {type(node).__name__:<26} {n:>10} "
+                         f"{ins}")
+        lines.append(f"Total params: {total}")
+        return "\n".join(lines)

@@ -9,7 +9,10 @@ the same sequence the JAX package fuses into one executable, here in eager
 PyTorch on the net's device (``cuda`` unless the caller asks for another).
 Parameters are a dict of dicts of tensors, keyed as the JAX net's
 ``params_`` (``{"0": {"Wq": ...}, ...}``), so ``init(params=)`` takes the
-JAX net's parameters as numpy arrays.
+JAX net's parameters as numpy arrays.  Layer state (BatchNormalization's
+running statistics) is ``state_``, keyed the same way: built by each
+layer's ``initState`` at ``init``, passed to every layer's forward, and
+replaced by what the layers return after each train step.
 
 ``dataType`` BFLOAT16 / HALF / FLOAT16 means bf16 compute over float32
 master parameters, optimizer state and loss: the parameters are cast for
@@ -82,7 +85,17 @@ def _set_leaf(d: Dict, path: str, value) -> None:
 def _tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_tree_map(fn, v) for v in tree)
     return fn(tree)
+
+
+def _cast_tree(tree, dtype):
+    """f32 leaves -> the compute ``dtype`` (a no-op at full precision)."""
+    if dtype == torch.float32 or tree is None:
+        return tree
+    return _tree_map(lambda a: a.to(dtype) if a.dtype == torch.float32
+                     else a, tree)
 
 
 def _leaves(tree):
@@ -186,6 +199,7 @@ class MultiLayerNetwork:
         self.conf = conf
         self.device = resolve_device(device)
         self.params_: Optional[Params] = None
+        self.state_: Dict[str, Dict[str, torch.Tensor]] = {}
         self.optState_: Optional[Dict] = None
         self.iterationCount = 0
         self.epochCount = 0
@@ -202,11 +216,7 @@ class MultiLayerNetwork:
             self._rngSeed ^ 0x5EED)
 
     def _cast_compute(self, tree):
-        """f32 leaves -> compute dtype (no-op at full precision)."""
-        if self._computeDtype == torch.float32 or tree is None:
-            return tree
-        return _tree_map(lambda a: a.to(self._computeDtype)
-                         if a.dtype == torch.float32 else a, tree)
+        return _cast_tree(tree, self._computeDtype)
 
     # ------------------------------------------------------------------
     # initialization
@@ -215,7 +225,7 @@ class MultiLayerNetwork:
         """Draw the parameters from a generator seeded with the config's
         seed, or take ``params`` (the JAX net's ``params_`` as numpy
         arrays, or tensors; copied onto the net's device); then build
-        fresh updater state."""
+        fresh layer state and updater state."""
         for i, layer in enumerate(self.conf.layers):
             if getattr(layer, "nOut", None) and \
                     not getattr(layer, "nIn", True):
@@ -234,6 +244,11 @@ class MultiLayerNetwork:
                                      self._dtype, self.device)
                 if p:
                     self.params_[str(i)] = p
+        self.state_ = {
+            str(i): layer.initState(self.conf.layerInputTypes[i],
+                                    self._dtype, self.device)
+            for i, layer in enumerate(self.conf.layers)
+            if hasattr(layer, "initState")}
         self._initOptState()
         return self
 
@@ -250,19 +265,25 @@ class MultiLayerNetwork:
     # ------------------------------------------------------------------
     # forward and loss
     # ------------------------------------------------------------------
-    def _forward(self, params: Params, x, train: bool, gen, mask=None):
+    def _forward(self, params: Params, state, x, train: bool, gen,
+                 mask=None):
         """Run the stack; ``mask`` is the (b, t) feature/timestep mask,
-        passed to the layers that take one."""
+        passed to the layers that take one.  Returns ``(out, new_state)``,
+        the state of each layer that returned one."""
         miniBatch = x.shape[0]
+        new_state = {}
         for i, layer in enumerate(self.conf.layers):
             if i in self.conf.preProcessors:
                 x = self.conf.preProcessors[i].preProcess(x, miniBatch)
             p = params.get(str(i), {})
+            st = state.get(str(i), {})
             if getattr(layer, "acceptsMask", False):
-                x, _ = layer.forward(p, x, train, gen, {}, mask=mask)
+                x, st2 = layer.forward(p, x, train, gen, st, mask=mask)
             else:
-                x, _ = layer.forward(p, x, train, gen, {})
-        return x
+                x, st2 = layer.forward(p, x, train, gen, st)
+            if st2:
+                new_state[str(i)] = st2
+        return x, new_state
 
     def _regScore(self, params: Params):
         return _reg_penalty((layer, params[str(i)])
@@ -272,16 +293,19 @@ class MultiLayerNetwork:
     def _score_of(self, params: Params, x, y, fmask, lmask, train: bool,
                   gen=None):
         """Mean per-example loss of the output layer (in f32 under bf16
-        compute) plus the L1/L2 penalty of the f32 masters."""
-        out = self._forward(self._cast_compute(params),
-                            self._cast_compute(x), train, gen, fmask)
+        compute) plus the L1/L2 penalty of the f32 masters, and the layers'
+        new state.  The state stays float32 under bf16 compute: the running
+        statistics accumulate in it."""
+        out, new_state = self._forward(self._cast_compute(params),
+                                       self.state_, self._cast_compute(x),
+                                       train, gen, fmask)
         outLayer = self.conf.layers[-1]
         if not outLayer.hasLoss():
             raise ValueError("Last layer must be an output/loss layer to fit")
         if self._computeDtype != torch.float32:
             out = out.float()
         per_ex = outLayer.computeScore(y, out, lmask)
-        return per_ex.mean() + self._regScore(params)
+        return per_ex.mean() + self._regScore(params), new_state
 
     # ------------------------------------------------------------------
     # public API
@@ -336,7 +360,8 @@ class MultiLayerNetwork:
         params: Params = {}
         for li, path, v in leaves:
             _set_leaf(params.setdefault(li, {}), path, v)
-        loss = self._score_of(params, x, y, fmask, lmask, True, self._fitGen)
+        loss, new_state = self._score_of(params, x, y, fmask, lmask, True,
+                                         self._fitGen)
         grads_flat = torch.autograd.grad(loss, [v for _, _, v in leaves])
         grads: Dict = {}
         for (li, path, _), g in zip(leaves, grads_flat):
@@ -346,6 +371,7 @@ class MultiLayerNetwork:
                 ((str(i), layer) for i, layer in enumerate(self.conf.layers)),
                 self.conf.globalConf, self.params_, grads, self.optState_,
                 self.iterationCount, self.epochCount)
+        self.state_.update(new_state)
         # left on the device: score() reads it, so a step never waits on
         # the host
         self._scoreArr = loss.detach()
@@ -360,8 +386,9 @@ class MultiLayerNetwork:
                                  self._dtype)
             fm = None if featuresMask is None else \
                 self._on_device(torch.as_tensor(featuresMask))
-            out = self._forward(self._cast_compute(self.params_),
-                                self._cast_compute(xv), False, None, fm)
+            out, _ = self._forward(self._cast_compute(self.params_),
+                                   self.state_, self._cast_compute(xv), False,
+                                   None, fm)
         return out.float()
 
     def score(self, ds: Optional[DataSet] = None) -> float:
@@ -376,7 +403,7 @@ class MultiLayerNetwork:
             return float(self._score_of(
                 self.params_, self._on_device(ds.features, self._dtype),
                 self._on_device(ds.labels), self._on_device(ds.featuresMask),
-                self._on_device(ds.labelsMask), False))
+                self._on_device(ds.labelsMask), False)[0])
 
     # -- params ----------------------------------------------------------
     def _leaf_items(self):

@@ -6,8 +6,9 @@ inference and automatic preprocessor insertion, and the JSON round trip.
 For the layers the port has, ``toJson()`` writes the same JSON as the JAX
 package, so one JSON builds both nets.
 
-``graphBuilder()`` (ComputationGraph) waits for ROADMAP A6; the layers not
-ported yet (A4, A8 and later) fail in ``layer_from_json``.
+``graphBuilder()`` returns the ComputationGraph builder of
+``models/graph_conf.py``; the layers not ported yet (A4, A8 and later) fail
+in ``layer_from_json``.
 """
 from __future__ import annotations
 
@@ -81,8 +82,9 @@ class NeuralNetConfiguration:
             return ListBuilder(dict(self._g))
 
         def graphBuilder(self):
-            raise NotImplementedError(
-                "ComputationGraph is not ported yet (ROADMAP A6)")
+            from deeplearning4j_tpu_torch.models.graph_conf import \
+                GraphBuilder
+            return GraphBuilder(dict(self._g))
 
 
 class ListBuilder:

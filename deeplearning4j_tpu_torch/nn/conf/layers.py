@@ -7,11 +7,19 @@ over a dict of parameter tensors; autograd of the composed network gives
 backprop.  ``gen`` is the ``torch.Generator`` (on the activations' device)
 that input dropout draws from, or None (no dropout).
 
-Ported so far: ``Layer``, ``BaseLayer``, ``DenseLayer`` and the
-``_Builder``/``register_layer``/``layer_from_json`` machinery; the
-attention and RNN output layers register from their own modules.  The
-other layers (convolution, subsampling, batch norm, output, embedding,
-pooling, ...) wait for ROADMAP A4.
+Ported so far: ``Layer``, ``BaseLayer``, ``DenseLayer``, the CNN layers of
+LeNet and ResNet-50 (``ConvolutionLayer``/``Convolution2D``,
+``SubsamplingLayer``, ``BatchNormalization``, ``ActivationLayer``,
+``GlobalPoolingLayer``) and ``OutputLayer``, with the
+``_Builder``/``register_layer``/``layer_from_json`` machinery; the attention
+and RNN output layers register from their own modules.  The other layers
+(dropout, embedding, LRN, loss, ...) wait for ROADMAP A4.
+
+Convolutions are ``torch.nn.functional.conv2d`` (NCHW input, OIHW weights),
+as the reference leaves them to XLA.  ``ConvolutionMode.Same`` pads as
+``lax``'s ``"SAME"`` does — the output is ceil(in/stride) and an odd total
+puts the extra pixel at the end — so the padding is explicit (``F.pad``:
+zeros for convolutions and sums, -inf for MAX) wherever it is asymmetric.
 
 Data formats (DL4J conventions): FF ``(b, n)``; CNN ``(b, c, h, w)``;
 RNN ``(b, n, t)``.
@@ -22,15 +30,33 @@ import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from deeplearning4j_tpu_torch import resolve_device
 from deeplearning4j_tpu_torch.learning.config import IUpdater
 from deeplearning4j_tpu_torch.nn.activations import get_activation
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+from deeplearning4j_tpu_torch.nn.lossfunctions import get_loss
 from deeplearning4j_tpu_torch.nn.weights import init_weight
 
-__all__ = ["Layer", "BaseLayer", "DenseLayer", "register_layer",
+__all__ = ["Layer", "BaseLayer", "DenseLayer", "ConvolutionLayer",
+           "Convolution2D", "SubsamplingLayer", "BatchNormalization",
+           "ActivationLayer", "GlobalPoolingLayer", "OutputLayer",
+           "PoolingType", "ConvolutionMode", "register_layer",
            "layer_from_json"]
+
+
+class ConvolutionMode:
+    Strict = "Strict"
+    Truncate = "Truncate"
+    Same = "Same"
+
+
+class PoolingType:
+    MAX = "MAX"
+    AVG = "AVG"
+    SUM = "SUM"
+    PNORM = "PNORM"
 
 
 class _Builder:
@@ -57,6 +83,30 @@ class _Builder:
             raise ValueError(f"{self._cls.__name__}: unknown config "
                              f"option(s) {sorted(unknown)}")
         return self._cls(**self._kw)
+
+
+def _pair(v) -> Tuple[int, int]:
+    if isinstance(v, (list, tuple)):
+        return (int(v[0]), int(v[1] if len(v) > 1 else v[0]))
+    return (int(v), int(v))
+
+
+def _same_pads(size: int, k: int, s: int, d: int = 1) -> Tuple[int, int]:
+    """``lax.padtype_to_pads(..., "SAME")`` along one spatial axis: the
+    output is ceil(size/s), and an odd total puts the extra pixel at the
+    end."""
+    out = -(-size // s)
+    total = max((out - 1) * s + (k - 1) * d + 1 - size, 0)
+    return total // 2, total - total // 2
+
+
+def _pad2d(x, pads, value=0.0):
+    """Pad the two spatial axes of NCHW ``x`` by ``((top, bottom), (left,
+    right))``."""
+    (t, b), (l, r) = pads
+    if t == b == l == r == 0:
+        return x
+    return F.pad(x, (l, r, t, b), value=value)
 
 
 @dataclasses.dataclass
@@ -188,6 +238,320 @@ class DenseLayer(BaseLayer):
             y = y + params["b"]
         return get_activation(self.activation or "sigmoid")(y), state
 
+@dataclasses.dataclass
+class ConvolutionLayer(BaseLayer):
+    """2D convolution.  Reference: ``conf/layers/ConvolutionLayer.java``;
+    NCHW input, OIHW weights ``(nOut, nIn, kh, kw)``."""
+    nIn: int = 0
+    nOut: int = 0
+    kernelSize: Tuple[int, int] = (5, 5)
+    stride: Tuple[int, int] = (1, 1)
+    padding: Tuple[int, int] = (0, 0)
+    dilation: Tuple[int, int] = (1, 1)
+    convolutionMode: Optional[str] = None
+    hasBias: bool = True
+
+    def __post_init__(self):
+        self.kernelSize = _pair(self.kernelSize)
+        self.stride = _pair(self.stride)
+        self.padding = _pair(self.padding)
+        self.dilation = _pair(self.dilation)
+
+    def preferredFormat(self):
+        return "CNN"
+
+    def inferNIn(self, inputType):
+        if not self.nIn:
+            self.nIn = inputType.channels
+
+    def _same(self) -> bool:
+        return (self.convolutionMode or ConvolutionMode.Truncate) \
+            == ConvolutionMode.Same
+
+    def _outSpatial(self, inH, inW):
+        if self._same():
+            return -(-inH // self.stride[0]), -(-inW // self.stride[1])
+        (kh, kw), (sh, sw) = self.kernelSize, self.stride
+        (dh, dw), (ph, pw) = self.dilation, self.padding
+        eh, ew = (kh - 1) * dh + 1, (kw - 1) * dw + 1
+        return (inH + 2 * ph - eh) // sh + 1, (inW + 2 * pw - ew) // sw + 1
+
+    def getOutputType(self, inputType):
+        oh, ow = self._outSpatial(inputType.height, inputType.width)
+        return InputType.convolutional(oh, ow, self.nOut)
+
+    def initParams(self, gen, inputType, dtype=torch.float32, device=None):
+        dev = resolve_device(device)
+        kh, kw = self.kernelSize
+        p = {"W": init_weight(gen, (self.nOut, self.nIn, kh, kw),
+                              self.nIn * kh * kw, self.nOut * kh * kw,
+                              self.weightInit or "XAVIER", dtype, dev)}
+        if self.hasBias:
+            p["b"] = torch.full((self.nOut,), float(self.biasInit or 0.0),
+                                dtype=dtype, device=dev)
+        return p
+
+    def forward(self, params, x, train, gen, state):
+        x = self._dropin(x, train, gen)
+        if self._same():
+            pads = [_same_pads(x.shape[2 + a], self.kernelSize[a],
+                               self.stride[a], self.dilation[a])
+                    for a in (0, 1)]
+            if all(lo == hi for lo, hi in pads):
+                padding = (pads[0][0], pads[1][0])
+            else:
+                x, padding = _pad2d(x, pads), (0, 0)
+        else:
+            padding = self.padding
+        y = F.conv2d(x, params["W"], stride=self.stride, padding=padding,
+                     dilation=self.dilation)
+        if self.hasBias:
+            y = y + params["b"].reshape(1, -1, 1, 1)
+        return get_activation(self.activation or "identity")(y), state
+
+
+Convolution2D = ConvolutionLayer
+
+
+@dataclasses.dataclass
+class SubsamplingLayer(BaseLayer):
+    """Pooling.  Reference: ``conf/layers/SubsamplingLayer.java``.  MAX pads
+    with -inf; AVG divides a border window by its count of valid cells
+    unless ``avgPoolIncludePadInDivisor`` (the reference's default is
+    False, as keras/TF)."""
+    poolingType: str = PoolingType.MAX
+    kernelSize: Tuple[int, int] = (2, 2)
+    stride: Tuple[int, int] = (2, 2)
+    padding: Tuple[int, int] = (0, 0)
+    convolutionMode: Optional[str] = None
+    pnorm: int = 2
+    avgPoolIncludePadInDivisor: bool = False
+
+    def __post_init__(self):
+        self.kernelSize = _pair(self.kernelSize)
+        self.stride = _pair(self.stride)
+        self.padding = _pair(self.padding)
+
+    def preferredFormat(self):
+        return "CNN"
+
+    def _same(self) -> bool:
+        return (self.convolutionMode or ConvolutionMode.Truncate) \
+            == ConvolutionMode.Same
+
+    def getOutputType(self, inputType):
+        (kh, kw), (sh, sw) = self.kernelSize, self.stride
+        if self._same():
+            oh, ow = -(-inputType.height // sh), -(-inputType.width // sw)
+        else:
+            ph, pw = self.padding
+            oh = (inputType.height + 2 * ph - kh) // sh + 1
+            ow = (inputType.width + 2 * pw - kw) // sw + 1
+        return InputType.convolutional(oh, ow, inputType.channels)
+
+    def _pads(self, inH, inW):
+        if self._same():
+            return (_same_pads(inH, self.kernelSize[0], self.stride[0]),
+                    _same_pads(inW, self.kernelSize[1], self.stride[1]))
+        ph, pw = self.padding
+        return (ph, ph), (pw, pw)
+
+    def _window_sum(self, x, pads):
+        """Sum over each window of zero-padded ``x``."""
+        return F.avg_pool2d(_pad2d(x, pads), self.kernelSize, self.stride,
+                            divisor_override=1)
+
+    def forward(self, params, x, train, gen, state):
+        pads = self._pads(x.shape[2], x.shape[3])
+        pt = self.poolingType.upper()
+        if pt == PoolingType.MAX:
+            y = F.max_pool2d(_pad2d(x, pads, float("-inf")), self.kernelSize,
+                             self.stride)
+        elif pt == PoolingType.SUM:
+            y = self._window_sum(x, pads)
+        elif pt == PoolingType.AVG:
+            y = self._window_sum(x, pads)
+            kh, kw = self.kernelSize
+            if self.avgPoolIncludePadInDivisor or \
+                    all(p == (0, 0) for p in pads):
+                y = y / (kh * kw)
+            else:
+                ones = torch.ones((1, 1) + tuple(x.shape[2:]), dtype=x.dtype,
+                                  device=x.device)
+                y = y / self._window_sum(ones, pads)
+        elif pt == PoolingType.PNORM:
+            p = float(self.pnorm)
+            y = self._window_sum(torch.abs(x) ** p, pads) ** (1.0 / p)
+        else:
+            raise ValueError(f"Unknown pooling type {self.poolingType}")
+        return y, state
+
+
+@dataclasses.dataclass
+class BatchNormalization(BaseLayer):
+    """Reference: ``conf/layers/BatchNormalization.java`` — per-feature (FF)
+    or per-channel (CNN) normalization.  The running statistics live in the
+    model's layer state (``initState``), updated DL4J's way, ``new =
+    decay*old + (1-decay)*batch``, with the biased batch variance
+    E[x²]−mean² reduced in float32 and clamped at 0.  Under bf16 compute
+    the batch mean and variance are rounded to x's dtype before they
+    normalise, while the running statistics accumulate in the float32
+    state.  ``torch.nn.BatchNorm2d``'s update (reverse momentum, unbiased
+    variance) is not this one and is not used."""
+    nIn: int = 0
+    nOut: int = 0
+    decay: float = 0.9
+    eps: float = 1e-5
+    gamma: float = 1.0          # init value
+    beta: float = 0.0           # init value
+    lockGammaBeta: bool = False
+
+    def preferredFormat(self):
+        return None  # operates on FF or CNN
+
+    def inferNIn(self, inputType):
+        if not self.nIn:
+            self.nIn = inputType.channels if inputType.kind == "CNN" \
+                else inputType.size
+        self.nOut = self.nIn
+
+    def getOutputType(self, inputType):
+        return inputType
+
+    def initParams(self, gen, inputType, dtype=torch.float32, device=None):
+        dev = resolve_device(device)
+        if self.lockGammaBeta:
+            return {}
+        return {"gamma": torch.full((self.nIn,), float(self.gamma),
+                                    dtype=dtype, device=dev),
+                "beta": torch.full((self.nIn,), float(self.beta),
+                                   dtype=dtype, device=dev)}
+
+    def initState(self, inputType, dtype=torch.float32, device=None):
+        dev = resolve_device(device)
+        return {"mean": torch.zeros((self.nIn,), dtype=dtype, device=dev),
+                "var": torch.ones((self.nIn,), dtype=dtype, device=dev)}
+
+    def weightParamKeys(self):
+        return ()  # no l1/l2 on gamma/beta (the reference's default)
+
+    def forward(self, params, x, train, gen, state):
+        cnn = x.dim() == 4
+        axes = (0, 2, 3) if cnn else (0,)
+        shape = (1, -1, 1, 1) if cnn else (1, -1)
+        sdt = state["mean"].dtype
+        if train:
+            xf = x.float()
+            mean = xf.mean(dim=axes)
+            var = torch.clamp((xf * xf).mean(dim=axes) - mean * mean,
+                              min=0.0)
+            mean, var = mean.to(x.dtype), var.to(x.dtype)
+            # the state is data, not part of the graph
+            new_state = {
+                "mean": (self.decay * state["mean"]
+                         + (1 - self.decay) * mean.detach().to(sdt)),
+                "var": (self.decay * state["var"]
+                        + (1 - self.decay) * var.detach().to(sdt))}
+        else:
+            mean, var = state["mean"].to(x.dtype), state["var"].to(x.dtype)
+            new_state = state
+        xh = (x - mean.reshape(shape)) / torch.sqrt(var.reshape(shape)
+                                                    + self.eps)
+        xh = xh.to(x.dtype)
+        if not self.lockGammaBeta:
+            xh = xh * params["gamma"].reshape(shape) \
+                + params["beta"].reshape(shape)
+        return get_activation(self.activation or "identity")(xh), new_state
+
+
+@dataclasses.dataclass
+class ActivationLayer(BaseLayer):
+    def forward(self, params, x, train, gen, state):
+        return get_activation(self.activation or "identity")(x), state
+
+
+@dataclasses.dataclass
+class GlobalPoolingLayer(BaseLayer):
+    """Pool the CNN spatial axes or the RNN time axis to FF.  Reference:
+    ``conf/layers/GlobalPoolingLayer.java`` (mask-aware over time)."""
+    poolingType: str = PoolingType.MAX
+    pnorm: int = 2
+    collapseDimensions: bool = True
+
+    acceptsMask = True
+
+    def getOutputType(self, inputType):
+        if inputType.kind == "CNN":
+            if not self.collapseDimensions:   # keep (b, c, 1, 1)
+                return InputType.convolutional(1, 1, inputType.channels)
+            return InputType.feedForward(inputType.channels)
+        if inputType.kind == "RNN":
+            if not self.collapseDimensions:   # keep (b, f, 1)
+                return InputType.recurrent(inputType.size, 1)
+            return InputType.feedForward(inputType.size)
+        return inputType
+
+    def forward(self, params, x, train, gen, state, mask=None):
+        if not self.collapseDimensions:
+            y, state = GlobalPoolingLayer(
+                poolingType=self.poolingType, pnorm=self.pnorm,
+                collapseDimensions=True).forward(params, x, train, gen,
+                                                 state, mask=mask)
+            return y.reshape(tuple(y.shape) + (1,) * (x.dim() - y.dim())), \
+                state
+        if x.dim() == 4:
+            axes = (2, 3)
+        elif x.dim() == 3:
+            axes = (2,)
+        else:
+            return x, state
+        pt = self.poolingType.upper()
+        if mask is not None and x.dim() == 3:
+            m = mask[:, None, :]
+            if pt == PoolingType.MAX:
+                x = torch.where(m > 0, x, float("-inf"))
+                return torch.amax(x, dim=axes), state
+            s = torch.sum(x * m, dim=axes)
+            if pt == PoolingType.SUM:
+                return s, state
+            cnt = torch.clamp(torch.sum(m, dim=axes), min=1.0)
+            return s / cnt, state
+        if pt == PoolingType.MAX:
+            return torch.amax(x, dim=axes), state
+        if pt == PoolingType.AVG:
+            return torch.mean(x, dim=axes), state
+        if pt == PoolingType.SUM:
+            return torch.sum(x, dim=axes), state
+        if pt == PoolingType.PNORM:
+            p = float(self.pnorm)
+            return torch.sum(torch.abs(x) ** p, dim=axes) ** (1.0 / p), state
+        raise ValueError(self.poolingType)
+
+
+@dataclasses.dataclass
+class OutputLayer(DenseLayer):
+    """Dense + activation + loss.  Reference: ``conf/layers/OutputLayer.java``
+    / ``layers/BaseOutputLayer.java``."""
+    lossFunction: str = "mcxent"
+
+    @classmethod
+    def _builderArgs(cls, b, *args):
+        if args:
+            b._kw["lossFunction"] = args[0]
+
+    def hasLoss(self) -> bool:
+        return True
+
+    def computeScore(self, labels, output, mask=None):
+        return get_loss(self.lossFunction)(labels, output, mask)
+
+    def forward(self, params, x, train, gen, state):
+        x = self._dropin(x, train, gen)
+        y = x @ params["W"]
+        if self.hasBias:
+            y = y + params["b"]
+        return get_activation(self.activation or "softmax")(y), state
+
 
 # ---------------------------------------------------------------------------
 _LAYER_REGISTRY: Dict[str, type] = {}
@@ -198,7 +562,10 @@ def register_layer(cls):
     return cls
 
 
-register_layer(DenseLayer)
+for _cls in (DenseLayer, ConvolutionLayer, SubsamplingLayer,
+             BatchNormalization, ActivationLayer, GlobalPoolingLayer,
+             OutputLayer):
+    register_layer(_cls)
 
 
 def layer_from_json(d: dict) -> Layer:
@@ -210,4 +577,7 @@ def layer_from_json(d: dict) -> Layer:
     for k in ("updater", "biasUpdater"):
         if d.get(k):
             d[k] = IUpdater.fromJson(d[k])
+    for k in ("kernelSize", "stride", "padding", "dilation"):
+        if isinstance(d.get(k), list):
+            d[k] = tuple(d[k])
     return _LAYER_REGISTRY[name](**d)

@@ -11,9 +11,11 @@ import pytest
 import torch
 
 from deeplearning4j_tpu_torch import resolve_device
+from deeplearning4j_tpu_torch.models import ComputationGraph
 from deeplearning4j_tpu_torch.nlp.transformer import (TransformerLM,
                                                       TransformerLMConfig)
 from deeplearning4j_tpu_torch.nn.conf.attention import KVCache
+from deeplearning4j_tpu_torch.zoo import LeNet, ResNet50
 
 pytestmark = pytest.mark.torch_port
 
@@ -77,4 +79,12 @@ def test_entry_points_default_to_cuda_and_never_fall_back():
                                           nHeads=1, headSize=4, maxLen=8))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         KVCache.create(1, 1, 8, 4)
+    conf = ResNet50(numClasses=4, inputShape=(3, 32, 32)).graphBuilder() \
+        .build()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ComputationGraph(conf)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ResNet50().init()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LeNet().init()
     assert resolve_device("cpu") == torch.device("cpu")

@@ -183,13 +183,17 @@ def test_dense_config_json_matches_reference():
 
 def test_unported_pieces_raise_naming_their_roadmap_item():
     with pytest.raises(NotImplementedError, match="A4"):
-        tlayers.layer_from_json({"@class": "ConvolutionLayer"})
+        tlayers.layer_from_json({"@class": "EmbeddingLayer"})
     with pytest.raises(NotImplementedError, match="A3"):
         tlearn.IUpdater.fromJson({"@class": "RmsProp"})
     with pytest.raises(NotImplementedError, match="A3"):
         tlearn.Adam(learningRateSchedule=object()).currentLr(0, 0)
+    with pytest.raises(NotImplementedError, match="A3"):
+        tlearn.IUpdater.fromJson({"@class": "Nesterovs",
+                                  "momentumSchedule": {"@class": "x"}})
+    from deeplearning4j_tpu_torch.models.graph_conf import vertex_from_json
     with pytest.raises(NotImplementedError, match="A6"):
-        tconf.NeuralNetConfiguration.builder().graphBuilder()
+        vertex_from_json({"@class": "StackVertex"})
 
 
 # ---------------------------------------------------------------------------
@@ -426,7 +430,8 @@ def test_input_dropout_keeps_the_retain_probability():
 # ---------------------------------------------------------------------------
 
 _UPDATERS = {"sgd": lambda m: m.Sgd(0.05), "noop": lambda m: m.NoOp(),
-             "adam": lambda m: m.Adam(1e-2, beta1=0.8, beta2=0.99)}
+             "adam": lambda m: m.Adam(1e-2, beta1=0.8, beta2=0.99),
+             "nesterovs": lambda m: m.Nesterovs(0.1, momentum=0.85)}
 
 
 @pytest.mark.parametrize("name", sorted(_UPDATERS))
@@ -687,3 +692,81 @@ def test_dataset_and_list_iterator():
     first = it.next()
     assert torch.equal(first.features, ds.features[:4] * 2)
     assert torch.equal(parts[0].features, ds.features[:4])   # cached copy
+
+
+# ---------------------------------------------------------------------------
+# LeNet from the zoo, and layer state (BatchNormalization) in the stack
+# ---------------------------------------------------------------------------
+
+def test_lenet_trains_as_the_reference_for_20_steps():
+    """The zoo's LeNet (BASELINE config 1: conv 5x5/20, max-pool, conv
+    5x5/50, max-pool, dense 500, softmax 10; Adam 1e-3) from the JAX net's
+    params, on 4 fixed batches of 8 flat 28x28 images in turn: the loss
+    curve over 20 steps and the final params.  float32 on both sides;
+    Adam's first steps move a parameter by ~lr whatever its gradient's
+    size, so a near-zero gradient's rounding difference can move it by
+    up to ~lr: params hold to 2e-5 (measured 2e-6), losses to 1e-5."""
+    from deeplearning4j_tpu.zoo import LeNet as JLeNet
+    from deeplearning4j_tpu_torch.zoo import LeNet as TLeNet
+    jnet = JLeNet().init()
+    net = TLeNet().init(device="cpu").init(
+        params=jax.tree.map(np.array, jnet.params_))
+    assert net.conf.toJson() == jnet.conf.toJson()
+    np.testing.assert_array_equal(*_flat(jnet, net)[::-1])
+    rng = np.random.RandomState(13)
+    batches = [(rng.rand(8, 784).astype(np.float32),
+                np.eye(10, dtype=np.float32)[rng.randint(0, 10, 8)])
+               for _ in range(4)]
+    curve = _fit_both(jnet, net, batches, 20)
+    np.testing.assert_allclose(curve[:, 1], curve[:, 0], atol=1e-5, rtol=0)
+    assert curve[-1, 1] < curve[0, 1]           # it learns
+    np.testing.assert_allclose(*_flat(jnet, net)[::-1], atol=2e-5, rtol=0)
+    f = batches[0][0]
+    np.testing.assert_allclose(net.output(f).numpy(),
+                               np.asarray(jnet.output(f).jax), atol=1e-5)
+
+
+def _bn_conf(pkg):
+    L = pkg.layers
+    return (pkg.conf.NeuralNetConfiguration.builder().seed(21)
+            .updater(pkg.learn.Nesterovs(0.05, momentum=0.9)).list()
+            .layer(L.ConvolutionLayer.builder().nOut(4).kernelSize(3, 3)
+                   .convolutionMode("Same").activation("identity").build())
+            .layer(L.BatchNormalization.builder().decay(0.7)
+                   .activation("relu").build())
+            .layer(L.DenseLayer.builder().nOut(6).activation("identity")
+                   .build())
+            .layer(L.BatchNormalization.builder().build())
+            .layer(L.OutputLayer.builder("mcxent").nOut(3).build())
+            .setInputType(pkg.conf.InputType.convolutional(5, 5, 2)).build())
+
+
+def test_batch_norm_running_stats_follow_the_reference_in_a_stack():
+    """BatchNormalization in a MultiLayerNetwork (CNN and FF): the running
+    statistics are the net's layer state, updated each step and used by
+    ``output`` and ``score`` — after 3 steps they, the params, the losses
+    and the inference outputs match the reference (float32 summation
+    order: 1e-5)."""
+    jnet = JAX.models.MultiLayerNetwork(_bn_conf(JAX)).init()
+    net = PORT.models.MultiLayerNetwork(_bn_conf(PORT), device="cpu").init(
+        params=jax.tree.map(np.array, jnet.params_))
+    assert sorted(net.state_) == sorted(jnet.state_) == ["1", "3"]
+    rng = np.random.RandomState(14)
+    batches = [(rng.randn(6, 2, 5, 5).astype(np.float32) + 1.0,
+                np.eye(3, dtype=np.float32)[rng.randint(0, 3, 6)])
+               for _ in range(3)]
+    curve = _fit_both(jnet, net, batches, 3)
+    np.testing.assert_allclose(curve[:, 1], curve[:, 0], atol=1e-5, rtol=0)
+    for li in ("1", "3"):
+        for k in ("mean", "var"):
+            np.testing.assert_allclose(net.state_[li][k].numpy(),
+                                       np.asarray(jnet.state_[li][k]),
+                                       atol=1e-5, rtol=0)
+        assert not torch.equal(net.state_[li]["var"],
+                               torch.ones_like(net.state_[li]["var"]))
+    np.testing.assert_allclose(*_flat(jnet, net)[::-1], atol=1e-5, rtol=0)
+    f, l = batches[0]
+    np.testing.assert_allclose(net.output(f).numpy(),
+                               np.asarray(jnet.output(f).jax), atol=1e-5)
+    assert abs(net.score(PORT.ds.DataSet(f, l)) -
+               jnet.score(JAX.ds.DataSet(f, l))) <= 1e-5
