@@ -9,7 +9,10 @@ which must pass or the script exits non-zero without a result line:
 
 1. build every kernel (``deeplearning4j_tpu_torch/csrc/*.cu``: the flash
    forward B1 and the flash backward's dq and dk/dv passes B2, B3) with
-   nvcc for sm_90a, all sources in parallel, timed as set-up;
+   nvcc for sm_90a, all sources in parallel, timed as set-up; print
+   ptxas's registers, spills and wgmma notes, and, where ``cuobjdump`` is
+   present, each kernel's count of HGMMA (wgmma), HMMA (mma.sync), UTMALDG
+   (TMA load) and local-memory (STL/LDL) instructions;
 2. hold each kernel against its plain PyTorch version on the card, at the
    main paths' shapes, a ragged shape and small shapes (tolerances below),
    and the flash gradient (``FlashAttention``: B1 forward, B2 and B3
@@ -26,9 +29,12 @@ which must pass or the script exits non-zero without a result line:
    dense attention forced, the padded request against unpadded prefills
    of its rows, and one KV-cached decode step against a prefill of the
    extended prompt;
-5. time B1 at the serving shape beside its bound, its plain version and
-   ``torch.nn.functional.scaled_dot_product_attention`` (a yardstick only:
-   the port never calls it), and the model's prefill and decode rates;
+5. time B1 at the serving shape, float32 and bfloat16, beside its bound,
+   its plain version and ``torch.nn.functional.scaled_dot_product_attention``
+   (a yardstick only: the port never calls it), each with CUDA events
+   around back-to-back calls and, for B1 and SDPA, as profiler device time
+   (the host's time between launches left out); the model's prefill and
+   decode rates;
    profile one prefill and four decode steps for device time by kernel
    and the device's idle share;
 6. training path: the repo's long-context attention net (``bench.py``
@@ -43,8 +49,9 @@ which must pass or the script exits non-zero without a result line:
 7. check the training step: the same net in FLOAT from the same copied
    parameters, one step with the flash kernels against one step with
    dense attention forced (loss and updated parameters);
-8. time B1, B2 and B3 at the training shape beside their bounds, their
-   plain versions and SDPA's forward and backward, and the training rate
+8. time B1, B2 and B3 at the training shape, bfloat16 and float32, beside
+   their bounds, their plain versions and SDPA's forward and backward (CUDA
+   events and profiler device time, as in 5), and the training rate
    (tokens/s as ``bench.py`` counts them: b·t·steps / wall); profile one
    training step;
 9. hold B4 (``csrc/matmul_bn_stats.cu``, the matrix product with the
@@ -88,12 +95,15 @@ import traceback
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# Published peaks of one H100 SXM (dense): HBM bandwidth, FP32 on the CUDA
-# cores, bf16 on the tensor cores.  Exponentials run on the special-function
-# units: 16 results per clock per SM (4 per SM sub-partition), 132 SMs,
-# 1.98 GHz boost clock (Hopper architecture white paper).
+# Published peaks of one H100 SXM (dense): HBM bandwidth, bf16 and TF32 on
+# the tensor cores.  Float32-accurate products run fastest as split TF32
+# (x = hi + lo, hi·hi + hi·lo + lo·hi: three TF32 products each, 495/3
+# TFLOP/s), above FP32 FMA on the CUDA cores (67 TFLOP/s).  Exponentials
+# run on the special-function units: 16 results per clock per SM (4 per SM
+# sub-partition), 132 SMs, 1.98 GHz boost clock (Hopper architecture white
+# paper).
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_FLOPS = {"float32": 495e12 / 3, "bfloat16": 989e12}
 PEAK_EXPS = 16 * 132 * 1.98e9
 
 # Main path of this slice: GPT-2 small widths (openai-community/gpt2
@@ -170,6 +180,8 @@ SMALL_SHAPES = [  # (b, h, tq, tk, d)
     (2, 3, 1000, 1000, 64),     # ragged q and k tiles
     (1, 2, 333, 515, 128),      # tq != tk, widest head
     (1, 2, 16, 16, 8),          # smaller than one tile
+    (1, 3, 300, 200, 12),       # bf16 rows of 24 bytes: the padded layout
+    (2, 2, 257, 513, 32),       # tq != tk, 64-byte rows
 ]
 KERNEL_SHAPES = [SERVE_SHAPE, TRAIN_SHAPE, *SMALL_SHAPES]
 BWD_SHAPES = [TRAIN_SHAPE, *SMALL_SHAPES]
@@ -196,23 +208,42 @@ def _max_err(a, b, atol, rtol):
     return float(diff.max()), ok
 
 
-def _time_ms(torch, fn, iters=20, warmup=3):
-    """Median device time of one call, from CUDA events around each call
-    (warm: inputs are left in the 50 MB L2 as the producing layer would
-    leave them)."""
+def _time_ms(torch, fn, iters=40, warmup=3):
+    """Median device time of one call: CUDA events around each of four runs
+    of iters/4 back-to-back calls, over the count (the host's latency to
+    the first launch of a run is paid once a run, not once a call; warm:
+    inputs are left in the 50 MB L2 as the producing layer would leave
+    them)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(iters):
+    n, times = max(1, iters // 4), []
+    for _ in range(4):
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
-        fn()
+        for _ in range(n):
+            fn()
         e.record()
         e.synchronize()
-        times.append(s.elapsed_time(e))
+        times.append(s.elapsed_time(e) / n)
     return statistics.median(times)
+
+
+def _device_ms(torch, fn, n=20, tries=3):
+    """Device time of one call: the device busy time of n calls of ``fn``
+    under the profiler (``_device_breakdown``), over the count.  Unlike
+    ``_time_ms`` it leaves out the host's time between launches, so a short
+    kernel behind a Python wrapper is timed alone.  A trace that comes back
+    without device time is taken again, up to ``tries`` times; None if
+    none has any."""
+    fn()
+    for _ in range(tries):
+        busy = _device_breakdown(
+            torch, lambda: [fn() for _ in range(n)])["device_busy_ms"]
+        if busy:
+            return busy / n
+    return None
 
 
 def _bound(flops, exps, nbytes, dtype_name):
@@ -260,18 +291,82 @@ def _bwd_bound(kernel, b, h, tq, tk, d, causal, dtype_name, elem):
             nbytes)
 
 
+SASS_OPS = ("HGMMA", "HMMA", "UTMALDG", "STL", "LDL")
+
+
+def _cuobjdump():
+    """cuobjdump from the CUDA toolkit, or the copy in Triton's package;
+    None where neither is present."""
+    import shutil
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cands = [shutil.which("cuobjdump"), os.path.join(home, "bin", "cuobjdump")]
+    try:
+        import triton
+        cands.append(os.path.join(os.path.dirname(triton.__file__), "backends",
+                                  "nvidia", "bin", "cuobjdump"))
+    except ImportError:
+        pass
+    return next((c for c in cands if c and os.path.isfile(c)), None)
+
+
+def _sass_counts(tool, lib):
+    """{kernel: {op: count}} of a library's SASS for the ops in SASS_OPS:
+    HGMMA (wgmma), HMMA (mma.sync), UTMALDG (TMA load), STL/LDL (local
+    memory: spills or local arrays)."""
+    import re
+    out = subprocess.run([tool, "-sass", lib], capture_output=True,
+                         text=True, timeout=300).stdout
+    pat = re.compile(r"\b(" + "|".join(SASS_OPS) + r")\b")
+    counts, fn = {}, None
+    for line in out.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            counts[fn] = dict.fromkeys(SASS_OPS, 0)
+        elif fn is not None:
+            m = pat.search(line)
+            if m:
+                counts[fn][m.group(1)] += 1
+    return {_readable(n): c for n, c in counts.items()}
+
+
+def _readable(mangled):
+    """``flash_fwd_kernel<float, 64>`` for a mangled kernel name, through
+    c++filt where it is present; the mangled name otherwise."""
+    import shutil
+    tool = shutil.which("c++filt")
+    if tool is None:
+        return mangled
+    name = subprocess.run([tool, mangled], capture_output=True, text=True,
+                          timeout=60).stdout.strip() or mangled
+    return name.replace("(anonymous namespace)::", "").split("(")[0] \
+        .removeprefix("void ")
+
+
 def phase_build(rec):
     from deeplearning4j_tpu_torch import kernels
     t0 = time.perf_counter()
     logs = kernels.build()
     rec["build_s"] = time.perf_counter() - t0
-    rec["ptxas"] = {name: [ln.strip() for ln in log.splitlines()
-                           if "registers" in ln or "spill" in ln]
+    rec["ptxas"] = {name: [ln.strip()[:160] for ln in log.splitlines()
+                           if "registers" in ln or "spill" in ln
+                           or "GMMA" in ln.upper()]
                     for name, log in logs.items()}
     print(f"build: {sorted(logs)} in {rec['build_s']:.1f} s")
     for name, lines in rec["ptxas"].items():
         for ln in lines:
             print(f"  ptxas {name}: {ln}")
+    # Instruction evidence: which kernels run on the tensor cores and TMA.
+    tool = _cuobjdump()
+    rec["sass"] = {}
+    for name in sorted(logs):
+        if tool is None:
+            print(f"  sass {name}: not measured (no cuobjdump)")
+            continue
+        lib = str(kernels._target(kernels.CSRC / f"{name}.cu"))
+        rec["sass"][name] = counts = _sass_counts(tool, lib)
+        for fn, c in counts.items():
+            print(f"  sass {name} {fn}: " + ", ".join(
+                f"{op} {n}" for op, n in c.items()))
 
 
 def phase_kernels(torch, rec):
@@ -521,23 +616,40 @@ def phase_timing(torch, rec, lm, prompts):
     out, _ = flash_forward(q, k, v, True)
     ref, _ = flash_attention_reference(q, k, v, True)
     err = float((out - ref).abs().max())
-    rec["flash_timing"] = dict(shape=[b, h, tq, tk, d], dtype="float32",
-                               causal=True, ms=ms, plain_ms=plain_ms,
-                               library_ms=lib_ms, bound_ms=bound_ms,
-                               bound_by=bound_by, flops=flops, bytes=nbytes,
-                               max_abs_err=err,
-                               achieved_tflops=flops / ms / 1e9)
+    rec["flash_timing"] = t = dict(
+        shape=[b, h, tq, tk, d], dtype="float32", causal=True, ms=ms,
+        plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+        bound_by=bound_by, flops=flops, bytes=nbytes, max_abs_err=err,
+        achieved_tflops=flops / ms / 1e9,
+        device_ms=_device_ms(torch, lambda: flash_forward(q, k, v, True)),
+        library_device_ms=_device_ms(
+            torch, lambda: F.scaled_dot_product_attention(q, k, v,
+                                                          is_causal=True)))
     print(f"flash f32 causal {[b, h, tq, tk, d]}: {ms:.4f} ms "
           f"({flops / ms / 1e9:.2f} TFLOP/s), bound {bound_ms:.4f} ms "
-          f"({bound_by}), plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms")
+          f"({bound_by}), plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms; "
+          f"device time {t['device_ms']} ms, SDPA {t['library_device_ms']}"
+          f" ms")
 
     qb, kb, vb = (x.to(torch.bfloat16) for x in (q, k, v))
-    rec["flash_timing_bf16"] = dict(
+    bound_b, by_b, _, _ = _attention_bound(b, h, tq, tk, d, True, "bfloat16",
+                                           2)
+    rec["flash_timing_bf16"] = t = dict(
+        shape=[b, h, tq, tk, d], dtype="bfloat16", causal=True,
         ms=_time_ms(torch, lambda: flash_forward(qb, kb, vb, True)),
+        plain_ms=_time_ms(torch, lambda: flash_attention_reference(
+            qb, kb, vb, True), iters=5, warmup=1),
         library_ms=_time_ms(torch, lambda: F.scaled_dot_product_attention(
             qb, kb, vb, is_causal=True)),
-        bound_ms=_attention_bound(b, h, tq, tk, d, True, "bfloat16", 2)[0])
-    print(f"flash bf16 causal: {rec['flash_timing_bf16']}")
+        bound_ms=bound_b, bound_by=by_b,
+        device_ms=_device_ms(torch, lambda: flash_forward(qb, kb, vb, True)),
+        library_device_ms=_device_ms(
+            torch, lambda: F.scaled_dot_product_attention(qb, kb, vb,
+                                                          is_causal=True)))
+    print(f"flash bf16 causal {[b, h, tq, tk, d]}: {t['ms']:.4f} ms, bound "
+          f"{bound_b:.4f} ms ({by_b}), plain {t['plain_ms']:.4f} ms, SDPA "
+          f"{t['library_ms']:.4f} ms; device time {t['device_ms']} ms, SDPA "
+          f"{t['library_device_ms']} ms")
 
     def prefill():
         lm.prefill(prompts)
@@ -743,8 +855,10 @@ def phase_train_timing(torch, rec, net, pool):
         args = (q, k, v, do, lse, delta, False)
         qkv = [x.detach().requires_grad_() for x in (q, k, v)]
         sdpa_out = F.scaled_dot_product_attention(*qkv)
-        sdpa_bwd = _time_ms(torch, lambda: torch.autograd.grad(
-            sdpa_out, qkv, do, retain_graph=True))
+        def sdpa_grad():
+            torch.autograd.grad(sdpa_out, qkv, do, retain_graph=True)
+        sdpa_bwd, sdpa_bwd_dev = (_time_ms(torch, sdpa_grad),
+                                  _device_ms(torch, sdpa_grad))
         rows = {
             "flash_attn_fwd": (
                 lambda: flash_forward(q, k, v),
@@ -775,14 +889,19 @@ def phase_train_timing(torch, rec, net, pool):
                      library_ms=_time_ms(torch, lib) if lib else sdpa_bwd,
                      bound_ms=bound_ms, bound_by=bound_by, flops=flops,
                      bytes=nbytes, max_abs_err=err,
-                     achieved_tflops=flops / ms / 1e9)
+                     achieved_tflops=flops / ms / 1e9,
+                     device_ms=_device_ms(torch, fn),
+                     library_device_ms=_device_ms(torch, lib) if lib
+                     else sdpa_bwd_dev)
             timing.setdefault(name, {})[dn] = r
             print(f"{name} {dn} {list(TRAIN_SHAPE)}: {ms:.4f} ms "
                   f"({r['achieved_tflops']:.2f} TFLOP/s), bound "
                   f"{bound_ms:.4f} ms ({bound_by}), plain "
                   f"{r['plain_ms']:.4f} ms, SDPA "
                   f"{'forward' if lib else 'backward (dq, dk, dv)'} "
-                  f"{r['library_ms']:.4f} ms, max |d| {err:.3g}")
+                  f"{r['library_ms']:.4f} ms, max |d| {err:.3g}; device "
+                  f"time {r['device_ms']} ms, SDPA {r['library_device_ms']}"
+                  f" ms")
     rec["train_kernel_timing"] = timing
 
     for i in range(2):          # warm, as bench.py does

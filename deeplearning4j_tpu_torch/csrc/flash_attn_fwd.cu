@@ -1,213 +1,506 @@
-// Flash-attention forward for Hopper (sm_90a), FP32 FMA on the CUDA cores.
+// Flash-attention forward for Hopper (sm_90a) on the tensor cores: TMA loads
+// through an mbarrier ring, wgmma products, the softmax in registers.
 //
 // Replaces the TPU kernel deeplearning4j_tpu/parallel/ring.py:_flash_kernel
 // (launched by _flash_forward).  Same function:
-//   S   = Q Kᵀ · scale, accumulated in f32 (scale = f32(1/sqrt(d)));
-//   causal (top-left aligned): keys with k_pos > q_pos are set to -1e30,
-//   and k tiles wholly in the future are skipped;
-//   online softmax with a running max m, running sum l, f32 accumulator;
-//   p is rounded to the storage dtype before the P·V product (B1's
-//   p.astype(v.dtype)); O = acc / max(l, 1e-30) in q's dtype;
-//   lse = m + log(max(l, 1e-30)) in f32, shape (b·h, tq) — the TPU kernel
-//   replicates it over 128 lanes, a Mosaic layout rule the card does not have.
+//   S   = Q Kᵀ · scale from storage-dtype operands, f32 accumulation
+//         (scale = f32(1/sqrt(d)) of the caller's unpadded d);
+//   causal (top-left aligned): keys with k_pos > q_pos score -1e30 (here
+//   -inf, which gives the same p = 0), and key tiles wholly in the future
+//   are skipped;
+//   online softmax with a running max m and a running sum l of the
+//   unrounded f32 p; p is rounded to v's dtype before P·V (B1's
+//   p.astype(v.dtype)), which accumulates in f32;
+//   O = acc / max(l, 1e-30) in q's dtype; lse = m + log(max(l, 1e-30)) in
+//   f32, natural log, shape (b·h, tq) (the TPU kernel replicates it over
+//   128 lanes, a Mosaic layout rule the card does not have).
 //
-// What bounds it on the H100: operations.  4·b·h·tq·tk·d FLOPs (about half
-// when causal) against 4·b·h·t·d elements moved, i.e. O(t) operations per
-// byte — far above the card's ratio.  This first version runs those FLOPs
-// as FP32 FMAs (67 TFLOP/s peak), not on the tensor cores.  What the design
-// does about the bound:
-//   * the score matrix never reaches device memory: a block owns 64 query
-//     rows of one (b·h) and loops over 64-key tiles of K/V staged in shared
-//     memory (the TPU's sequential k grid axis becomes this loop); m, l and
-//     the accumulator stay in registers for the whole loop;
-//   * each thread computes a 4x4 patch of S and a 4x(d/16) patch of O, so
-//     every value read from shared memory feeds 4 FMAs;
-//   * Q and K tiles are stored transposed with a row stride of 65 floats so
-//     that both the coalesced fills and the inner-loop reads are free of
-//     bank conflicts;
-//   * causal tiles in the future are never loaded, and blocks are issued
-//     heaviest (last query rows) first so the short tail fills the card.
-// Tensor-core (wgmma/TMA) versions are later work.
+// What bounds it on the H100, at the main paths' shapes:
+//   * bf16 training, b·h 32, t 2048, d 16, not causal: the exponentials.
+//     One per score, 134M of them, on 16 special-function lanes per SM
+//     (0.032 ms), while both products together are 4·d = 64 FLOPs per
+//     score, 0.009 ms on the bf16 tensor cores.  So every instruction per
+//     score beyond the exp counts: a score costs one FFMA (scale·log2(e)
+//     and the running max folded into the exp2 argument), one MUFU.EX2, one
+//     FMNMX and one FADD, and half a bf16x2 convert; the mask is applied
+//     only in tiles that cross the diagonal or the ragged end.
+//   * f32 serving, b·h 48, t 1024, d 64, causal: the products.  Float32 on
+//     the CUDA cores peaks at 67 TFLOP/s; TF32 on the tensor cores at 495
+//     but keeps 11 bits of mantissa, which would break float32 tolerances.
+//     So each f32 operand x splits into hi = tf32(x) and lo = tf32(x - hi)
+//     and each product is hi·hi + hi·lo + lo·hi with f32 accumulation (the
+//     dropped lo·lo is 2^-22 of it): float32 accuracy at up to 495/3 = 165
+//     TFLOP/s.
 //
-// Any tq, tk: ragged tiles are masked here (out-of-range keys are -1e30 and
-// zero-filled, out-of-range rows are not stored).  d <= 128.  float32 or
-// bfloat16 inputs; the wrapper allocates O and lse and passes the stream.
+// Design (hopper.cuh holds the TMA, mbarrier and wgmma pieces):
+//   * A block owns BQ = 64 query rows of one (b·h): one consumer warpgroup
+//     (warps 0-3) and one producer warp (warp 4).  The producer's elected
+//     thread loads the Q tile once, then keeps an NS-stage ring of K and V
+//     tiles in flight with TMA, each stage completing on a "full" mbarrier
+//     and returned by the consumers through an "empty" one.  The TPU's
+//     sequential k grid axis becomes this loop; m, l and the O accumulator
+//     stay in registers for the whole of it.  Several blocks share an SM,
+//     so one block's softmax overlaps another's products.
+//   * Tensor maps are 3-D (d, t, b·h): rows past t and columns past d read
+//     as zeros, so a ragged tile never reads the next head's rows and the
+//     head dim pads to the wgmma depth for free.  A row wider than 128
+//     bytes is loaded as 128-byte column panels (128-byte swizzle); narrower
+//     rows use the 32- or 64-byte swizzle of their own width.
+//   * Key tiles: bf16 128 keys for d <= 64, 64 for d = 128 (the S and O
+//     accumulators share the registers); f32 64 keys for d <= 32, 32 above,
+//     so that two f32 blocks fit an SM's shared memory at d = 64.
+//   * bf16: S = Q·Kᵀ is wgmma m64nBKk16 with Q and K K-major in shared
+//     memory.  The f32 accumulator fragment of S is, pair by pair, the
+//     A-register fragment of the next bf16 wgmma, so p is packed to bf16x2
+//     in registers and O += P·V reads V's tile where TMA left it, as an
+//     MN-major B operand (the transpose bit).  P never touches shared memory.
+//   * f32: the same loop on tf32 wgmma.  Q (once) and each K tile are split
+//     in shared memory: hi in place, lo beside it.  TF32 wgmma takes only
+//     K-major operands, so V's tile is written transposed (d rows of keys),
+//     split into hi and lo.  The f32 accumulator fragment of S holds keys
+//     (2t, 2t+1) of each 8-key group where the tf32 A fragment wants (t,
+//     t+4); rather than stage P through shared memory, the transposed V
+//     stores its keys in that order (logical key t <- key 2t, t+4 <- 2t+1):
+//     the sum over keys does not depend on their order, and the transpose
+//     costs the same in any order.  P is then split in registers.
+//   * Blocks run heaviest (last query rows) first so that the short causal
+//     tail fills the card.
+//
+// Any tq, tk; d <= 128 with d · elem a multiple of 16 bytes and 16-byte
+// aligned bases (the wrapper pads and copies otherwise); float32 or bfloat16.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int BQ = 64;              // query rows per block
-constexpr int BK = 64;              // keys per tile
-constexpr int TX = 16;              // threads along keys (S) and head dim (O)
-constexpr int TY = 16;              // threads along query rows
-constexpr int NTHREADS = TX * TY;
-constexpr int RQ = BQ / TY;         // rows per thread: ty + TY*i
-constexpr int RK = BK / TX;         // keys per thread: tx + TX*j
-constexpr int LDT = BQ + 1;         // padded stride of Qt, Kt and Ps (BQ == BK)
-constexpr float NEG = -1e30f;       // B1's mask floor (_NEG)
+using namespace hopper;
 
-static_assert(BQ == BK, "Qt, Kt and Ps share the padded stride LDT");
+constexpr int BQ = 64;               // query rows per block
+constexpr int NCONS = 128;           // consumer threads: one warpgroup
+constexpr int NTHREADS = NCONS + 32; // and one producer warp
+constexpr int NS = 3;                // K/V ring stages
+constexpr float LOG2E = 1.4426950408889634f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+template <typename T, int DP>
+struct Cfg {
+  static constexpr bool BF16 = sizeof(T) == 2;
+  static constexpr int ELEM = sizeof(T);
+  static constexpr int D = DP;
+  static constexpr int BK = BF16 ? (DP <= 64 ? 128 : 64) : (DP <= 32 ? 64 : 32);
+  // f32 caps registers at three blocks an SM (136 a thread, no spills);
+  // bf16 holds S of one tile and P of the last, and takes what it needs.
+  static constexpr int MIN_BLOCKS = BF16 ? 1 : 3;
+  static constexpr int ROWB = DP * ELEM;             // bytes of a padded row
+  static constexpr int SW = ROWB < 128 ? ROWB : 128; // swizzle = TMA box row
+  static constexpr int NP = ROWB / SW;               // column panels
+  static constexpr int PCOLS = SW / ELEM;            // columns per panel
+  static constexpr int KSTEPS = DP * ELEM / 32;      // wgmma steps over d
+  static constexpr int KPP = SW / 32;                // of which per panel
+  static constexpr int Q_BYTES = BQ * ROWB;
+  static constexpr int KV_BYTES = BK * ROWB;         // one K or V tile
+  static constexpr int VT_BYTES = DP * BK * 4;       // f32: transposed V
+  // f32 only, after the ring: Q lo, K lo, Vᵀ hi, Vᵀ lo.
+  static constexpr int EXTRA = BF16 ? 0 : Q_BYTES + KV_BYTES + 2 * VT_BYTES;
+  static constexpr int SMEM = Q_BYTES + 2 * NS * KV_BYTES + EXTRA
+                              + 8 * (2 * NS + 1) + 1024;   // barriers, align
+};
 
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&p);
 }
 
-// NC: head-dim columns per thread, so the head dim is padded to DP = 16·NC.
-template <typename T, int NC>
-__global__ void __launch_bounds__(NTHREADS)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, int tq, int tk, int d, int causal,
-                 float scale) {
-  constexpr int DP = NC * TX;
-  extern __shared__ float smem[];
-  float* Qt = smem;                 // [DP][LDT]  Q tile, transposed
-  float* Kt = Qt + DP * LDT;        // [DP][LDT]  K tile, transposed
-  float* Vs = Kt + DP * LDT;        // [BK][DP]   V tile
-  float* Ps = Vs + BK * DP;         // [BQ][LDT]  p of the current tile
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
 
-  const int tid = threadIdx.x;
-  const int tx = tid % TX;
-  const int ty = tid / TX;
+// f32: x -> (tf32 hi in place, tf32 lo into `lo`), elementwise over `bytes`
+// (the layout, swizzle included, is kept).
+__device__ __forceinline__ void split_tf32(uint8_t* x, uint8_t* lo, int bytes,
+                                           int tid) {
+  float4* xs = reinterpret_cast<float4*>(x);
+  uint4* ls = reinterpret_cast<uint4*>(lo);
+  for (int i = tid; i < bytes / 16; i += NCONS) {
+    const float4 v = xs[i];
+    uint4 h, l;
+    h.x = tf32_rna(v.x); l.x = tf32_rna(v.x - __uint_as_float(h.x));
+    h.y = tf32_rna(v.y); l.y = tf32_rna(v.y - __uint_as_float(h.y));
+    h.z = tf32_rna(v.z); l.z = tf32_rna(v.z - __uint_as_float(h.z));
+    h.w = tf32_rna(v.w); l.w = tf32_rna(v.w - __uint_as_float(h.w));
+    reinterpret_cast<uint4*>(x)[i] = h;
+    ls[i] = l;
+  }
+}
+
+// f32: V's tile (BK keys x DP, TMA layout) -> Vᵀ hi and lo (DP rows x BK
+// keys, K-major, 128-byte swizzle in panels of 32 keys), keys of each
+// 8-key group in the order (0, 2, 4, 6, 1, 3, 5, 7) to match P's registers.
+template <int DP, int BK, int SW>
+__device__ __forceinline__ void transpose_v(const uint8_t* v, uint8_t* vh,
+                                            uint8_t* vl, int tid) {
+  constexpr int PCOLS = SW / 4;
+  for (int gi = tid; gi < DP * BK / 4; gi += NCONS) {
+    const int n = gi % DP;                // column of V = row of Vᵀ
+    const int kl = (gi / DP) * 4;         // first of 4 logical keys
+    const int kp = (kl & ~7) + ((kl >> 2) & 1);   // its physical key
+    const uint8_t* col = v + (n / PCOLS) * BK * SW;
+    const uint32_t cb = (n % PCOLS) * 4;
+    float x[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      x[i] = *reinterpret_cast<const float*>(
+          col + swizzle<SW>((kp + 2 * i) * SW + cb));
+    uint4 h, l;
+    h.x = tf32_rna(x[0]); l.x = tf32_rna(x[0] - __uint_as_float(h.x));
+    h.y = tf32_rna(x[1]); l.y = tf32_rna(x[1] - __uint_as_float(h.y));
+    h.z = tf32_rna(x[2]); l.z = tf32_rna(x[2] - __uint_as_float(h.z));
+    h.w = tf32_rna(x[3]); l.w = tf32_rna(x[3] - __uint_as_float(h.w));
+    const uint32_t off = (kl / 32) * DP * 128 +
+                         swizzle<128>(n * 128 + (kl % 32) * 4);
+    *reinterpret_cast<uint4*>(vh + off) = h;
+    *reinterpret_cast<uint4*>(vl + off) = l;
+  }
+}
+
+// bf16: S = Q·Kᵀ, 32 bytes of d a step (panel kk / KPP, offset within it).
+template <typename C>
+__device__ __forceinline__ void issue_qk(float (&s)[C::BK / 2], uint8_t* q,
+                                         uint8_t* k) {
+#pragma unroll
+  for (int kk = 0; kk < C::KSTEPS; ++kk) {
+    const int p = kk / C::KPP, w = (kk % C::KPP) * 32;
+    wgmma_ss_bf16<C::BK>(s, gmma_desc<C::SW>(q + p * BQ * C::SW + w, 16, 8 * C::SW),
+                         gmma_desc<C::SW>(k + p * C::BK * C::SW + w, 16, 8 * C::SW),
+                         kk > 0);
+  }
+}
+
+// bf16: O += P·V, 16 keys a step; V's tile is MN-major (rows are keys).
+template <typename C>
+__device__ __forceinline__ void issue_pv(float (&o)[C::D / 2],
+                                         const uint32_t (&pa)[C::BK / 16][4],
+                                         uint8_t* v) {
+#pragma unroll
+  for (int j = 0; j < C::BK / 16; ++j)
+    wgmma_rs_bf16_tb<C::D>(o, pa[j],
+                           gmma_desc<C::SW>(v + j * 16 * C::SW, C::BK * C::SW, 8 * C::SW),
+                           1);
+}
+
+// bf16: p to the A fragment of P·V.  The f32 accumulator registers 8j..8j+7
+// (rows g, g + 8; keys 16j + 2t, +1, and 16j + 8 + 2t, +1) are, packed in
+// pairs, the A registers of the k16 step j.
+template <int BK>
+__device__ __forceinline__ void pack_p(uint32_t (&pa)[BK / 16][4],
+                                       const float (&s)[BK / 2]) {
+#pragma unroll
+  for (int j = 0; j < BK / 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      pa[j][e] = pack_bf16(s[8 * j + 2 * e], s[8 * j + 2 * e + 1]);
+}
+
+// One online-softmax step over a tile of raw scores s (the S accumulator
+// fragment; k0 its first key, row the thread's first global row): masks
+// where asked, updates the running max m and this thread's row sums l, and
+// leaves p = exp(s·scale - m) in s and in corr the factor that rescales O.
+// exp(x·scale - m) = 2^(x·c - m·c) with c = scale·log2(e): one FFMA and one
+// MUFU.EX2 a score.  Two partial maxima and sums a row shorten the chains.
+template <int BK>
+__device__ __forceinline__ void softmax_tile(float (&s)[BK / 2], float (&m)[2],
+                                             float (&l)[2], float (&corr)[2],
+                                             float c, bool mask, int k0,
+                                             int row, int tk, int causal,
+                                             int t4) {
+  if (mask) {
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) {
+      const int key = k0 + 8 * (i / 4) + 2 * t4 + (i & 1);
+      if (key >= tk || (causal && key > row + 8 * ((i / 2) & 1)))
+        s[i] = -INFINITY;
+    }
+  }
+  float mx[2][2] = {{m[0], -INFINITY}, {m[1], -INFINITY}};
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      mx[h][j & 1] = fmaxf(mx[h][j & 1], fmaxf(s[4 * j + 2 * h], s[4 * j + 2 * h + 1]));
+  float moff[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float x = fmaxf(mx[h][0], mx[h][1]);
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+    moff[h] = x == -INFINITY ? 0.f : x * c;   // a row with no key yet
+    corr[h] = ex2(m[h] * c - moff[h]);
+    m[h] = x;
+  }
+  float sum[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float& p0 = s[4 * j + 2 * h];
+      float& p1 = s[4 * j + 2 * h + 1];
+      p0 = ex2(fmaf(p0, c, -moff[h]));
+      p1 = ex2(fmaf(p1, c, -moff[h]));
+      sum[h][j & 1] += p0 + p1;
+    }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) l[h] = l[h] * corr[h] + (sum[h][0] + sum[h][1]);
+}
+
+template <int DP>
+__device__ __forceinline__ void rescale(float (&o)[DP / 2],
+                                        const float (&corr)[2]) {
+#pragma unroll
+  for (int j = 0; j < DP / 8; ++j) {
+    o[4 * j] *= corr[0];
+    o[4 * j + 1] *= corr[0];
+    o[4 * j + 2] *= corr[1];
+    o[4 * j + 3] *= corr[1];
+  }
+}
+
+template <typename T, int DP>
+__global__ void __launch_bounds__(NTHREADS, Cfg<T, DP>::MIN_BLOCKS)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
+                 const __grid_constant__ CUtensorMap kmap,
+                 const __grid_constant__ CUtensorMap vmap,
+                 T* __restrict__ o, float* __restrict__ lse, int tq, int tk,
+                 int d, int causal, float scale) {
+  using C = Cfg<T, DP>;
+  constexpr int BK = C::BK, SW = C::SW;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sQ = align1024(smem_raw);
+  uint8_t* sK = sQ + C::Q_BYTES;                 // [NS][KV_BYTES]
+  uint8_t* sV = sK + NS * C::KV_BYTES;           // [NS][KV_BYTES]
+  uint8_t* sQlo = sV + NS * C::KV_BYTES;         // f32 only
+  uint8_t* sKlo = sQlo + C::Q_BYTES;
+  uint8_t* sVth = sKlo + C::KV_BYTES;
+  uint8_t* sVtl = sVth + C::VT_BYTES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(sV + NS * C::KV_BYTES + C::EXTRA);
+  uint64_t* empty = full + NS;
+  uint64_t* qbar = empty + NS;
+
   const int bh = blockIdx.y;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;   // heaviest tiles first
-  const size_t qbase = (size_t)bh * tq * d;
-  const size_t kbase = (size_t)bh * tk * d;
-
-  for (int i = tid; i < BQ * DP; i += NTHREADS) {
-    const int r = i / DP, c = i % DP;
-    float x = 0.f;
-    if (q0 + r < tq && c < d) x = to_f32(q[qbase + (size_t)(q0 + r) * d + c]);
-    Qt[c * LDT + r] = x;
-  }
-
-  float m[RQ], l[RQ], acc[RQ][NC];
-#pragma unroll
-  for (int i = 0; i < RQ; ++i) {
-    m[i] = NEG;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
-  }
-
   // Keys past the tile's last row are in the future of every row in it.
   const int k_end = causal ? min(tk, q0 + BQ) : tk;
-  for (int k0 = 0; k0 < k_end; k0 += BK) {
-    __syncthreads();   // the previous tile's Kt/Vs/Ps reads are done
-    for (int i = tid; i < BK * DP; i += NTHREADS) {
-      const int r = i / DP, c = i % DP;
-      float kx = 0.f, vx = 0.f;
-      if (k0 + r < tk && c < d) {
-        const size_t g = kbase + (size_t)(k0 + r) * d + c;
-        kx = to_f32(k[g]);
-        vx = to_f32(v[g]);
-      }
-      Kt[c * LDT + r] = kx;
-      Vs[r * DP + c] = vx;
-    }
-    __syncthreads();
+  const int ntiles = (k_end + BK - 1) / BK;
 
-    float s[RQ][RK];
+  if (threadIdx.x == 0) {
 #pragma unroll
-    for (int i = 0; i < RQ; ++i)
-#pragma unroll
-      for (int j = 0; j < RK; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int c = 0; c < DP; ++c) {
-      float qa[RQ], kb[RK];
-#pragma unroll
-      for (int i = 0; i < RQ; ++i) qa[i] = Qt[c * LDT + ty + TY * i];
-#pragma unroll
-      for (int j = 0; j < RK; ++j) kb[j] = Kt[c * LDT + tx + TX * j];
-#pragma unroll
-      for (int i = 0; i < RQ; ++i)
-#pragma unroll
-        for (int j = 0; j < RK; ++j) s[i][j] = fmaf(qa[i], kb[j], s[i][j]);
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], NCONS);
     }
+    mbar_init(qbar, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
 
+  if (threadIdx.x >= NCONS) {
+    // Producer warp: one thread issues every copy.
+    if (threadIdx.x == NCONS) {
+      prefetch_tensor_map(&qmap);
+      prefetch_tensor_map(&kmap);
+      prefetch_tensor_map(&vmap);
+      mbar_arrive_expect_tx(qbar, C::Q_BYTES);
 #pragma unroll
-    for (int i = 0; i < RQ; ++i) {
-      const int qp = q0 + ty + TY * i;
-      float mx = m[i];
+      for (int p = 0; p < C::NP; ++p)
+        tma_load_3d(sQ + p * BQ * SW, &qmap, qbar, p * C::PCOLS, q0, bh);
+      for (int it = 0; it < ntiles; ++it) {
+        const int s = it % NS;
+        if (it >= NS) mbar_wait(&empty[s], ((it / NS) - 1) & 1);
+        mbar_arrive_expect_tx(&full[s], 2 * C::KV_BYTES);
+        uint8_t* kt = sK + s * C::KV_BYTES;
+        uint8_t* vt = sV + s * C::KV_BYTES;
 #pragma unroll
-      for (int j = 0; j < RK; ++j) {
-        const int kp = k0 + tx + TX * j;
-        const bool masked = kp >= tk || (causal && kp > qp);
-        s[i][j] = masked ? NEG : s[i][j] * scale;
-        mx = fmaxf(mx, s[i][j]);
+        for (int p = 0; p < C::NP; ++p) {
+          tma_load_3d(kt + p * BK * SW, &kmap, &full[s], p * C::PCOLS,
+                      it * BK, bh);
+          tma_load_3d(vt + p * BK * SW, &vmap, &full[s], p * C::PCOLS,
+                      it * BK, bh);
+        }
       }
-      // a row's 16 threads are lanes tx = 0..15 of one half-warp
-#pragma unroll
-      for (int off = TX / 2; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float corr = expf(m[i] - mx);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < RK; ++j) {
-        const float p = expf(s[i][j] - mx);
-        rs += p;
-        Ps[(ty + TY * i) * LDT + tx + TX * j] = to_f32(from_f32<T>(p));
-      }
-#pragma unroll
-      for (int off = TX / 2; off > 0; off >>= 1)
-        rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      l[i] = l[i] * corr + rs;
-      m[i] = mx;
-#pragma unroll
-      for (int c = 0; c < NC; ++c) acc[i][c] *= corr;
     }
-    __syncthreads();
+    return;
+  }
 
-    const int kn = min(BK, tk - k0);
-#pragma unroll 4
-    for (int kk = 0; kk < kn; ++kk) {
-      float vb[NC];
+  // Consumer warpgroup.  Thread (warp w, lane = 4g + t) holds rows
+  // row = q0 + 16w + g and row + 8 of every accumulator, columns 8j + 2t
+  // and 8j + 2t + 1.
+  const int tid = threadIdx.x;
+  const int t4 = tid % 4;
+  const int row = q0 + (tid / 32) * 16 + (tid % 32) / 4;
+  const float c = scale * LOG2E;
+
+  float oacc[DP / 2];
 #pragma unroll
-      for (int c = 0; c < NC; ++c) vb[c] = Vs[kk * DP + tx + TX * c];
+  for (int i = 0; i < DP / 2; ++i) oacc[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};   // running max of the raw scores
+  float l[2] = {0.f, 0.f};               // this thread's part of the row sums
+  float corr[2], sacc[BK / 2];
+  // Only tiles that cross the diagonal or the ragged end of the keys mask.
+  const auto masked = [&](int k0) {
+    return k0 + BK > tk || (causal && k0 + BK - 1 > q0);
+  };
+
+  mbar_wait(qbar, 0);
+  if constexpr (C::BF16) {
+    // Software pipeline: S of tile i goes to the tensor cores with P·V of
+    // tile i - 1, and the softmax of tile i runs while P·V is in flight.
+    uint32_t pa[BK / 16][4];
+    mbar_wait(&full[0], 0);
+    wgmma_fence();
+    issue_qk<C>(sacc, sQ, sK);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<BK / 2>(sacc);
+    softmax_tile<BK>(sacc, m, l, corr, c, masked(0), 0, row, tk, causal, t4);
+    pack_p<BK>(pa, sacc);
+    for (int it = 1; it < ntiles; ++it) {
+      const int s = it % NS, sp = (it - 1) % NS;
+      mbar_wait(&full[s], (it / NS) & 1);
+      wgmma_fence();
+      issue_qk<C>(sacc, sQ, sK + s * C::KV_BYTES);
+      wgmma_commit();
+      issue_pv<C>(oacc, pa, sV + sp * C::KV_BYTES);
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs<BK / 2>(sacc);
+      softmax_tile<BK>(sacc, m, l, corr, c, masked(it * BK), it * BK, row,
+                       tk, causal, t4);
+      wgmma_wait<0>();
+      fence_regs<DP / 2>(oacc);
+      fence_regs<BK / 4>(&pa[0][0]);
+      mbar_arrive(&empty[sp]);
+      rescale<DP>(oacc, corr);
+      pack_p<BK>(pa, sacc);
+    }
+    wgmma_fence();
+    issue_pv<C>(oacc, pa, sV + ((ntiles - 1) % NS) * C::KV_BYTES);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<DP / 2>(oacc);
+    fence_regs<BK / 4>(&pa[0][0]);
+  } else {
+    split_tf32(sQ, sQlo, C::Q_BYTES, tid);
+    fence_proxy_async();
+    named_bar_sync(1, NCONS);
+    for (int it = 0; it < ntiles; ++it) {
+      const int s = it % NS;
+      uint8_t* kt = sK + s * C::KV_BYTES;
+      mbar_wait(&full[s], (it / NS) & 1);
+      // Every warp is past the last tile's products before K lo and Vᵀ
+      // are overwritten.
+      if (it > 0) named_bar_sync(1, NCONS);
+      split_tf32(kt, sKlo, C::KV_BYTES, tid);
+      transpose_v<DP, BK, SW>(sV + s * C::KV_BYTES, sVth, sVtl, tid);
+      fence_proxy_async();
+      named_bar_sync(1, NCONS);
+      // S = Q·Kᵀ as hi·hi + hi·lo + lo·hi, 8 of d a step.
+      wgmma_fence();
 #pragma unroll
-      for (int i = 0; i < RQ; ++i) {
-        const float p = Ps[(ty + TY * i) * LDT + kk];
-#pragma unroll
-        for (int c = 0; c < NC; ++c) acc[i][c] = fmaf(p, vb[c], acc[i][c]);
+      for (int kk = 0; kk < C::KSTEPS; ++kk) {
+        const int qa = (kk / C::KPP) * BQ * SW + (kk % C::KPP) * 32;
+        const int kb = (kk / C::KPP) * BK * SW + (kk % C::KPP) * 32;
+        const uint64_t qh = gmma_desc<SW>(sQ + qa, 16, 8 * SW);
+        const uint64_t kh = gmma_desc<SW>(kt + kb, 16, 8 * SW);
+        wgmma_ss_tf32<BK>(sacc, gmma_desc<SW>(sQlo + qa, 16, 8 * SW), kh,
+                          kk > 0);
+        wgmma_ss_tf32<BK>(sacc, qh, gmma_desc<SW>(sKlo + kb, 16, 8 * SW), 1);
+        wgmma_ss_tf32<BK>(sacc, qh, kh, 1);
       }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs<BK / 2>(sacc);
+      mbar_arrive(&empty[s]);   // K read, V already transposed
+      softmax_tile<BK>(sacc, m, l, corr, c, masked(it * BK), it * BK, row,
+                       tk, causal, t4);
+      rescale<DP>(oacc, corr);
+      // P·V, 8 keys a step: accumulator registers (2t, 2t+1) of rows g and
+      // g + 8 are the A fragment's logical keys (t, t + 4).
+      uint32_t ah[BK / 8][4], al[BK / 8][4];
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+        const float x[4] = {sacc[4 * j], sacc[4 * j + 2], sacc[4 * j + 1],
+                            sacc[4 * j + 3]};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          ah[j][e] = tf32_rna(x[e]);
+          al[j][e] = tf32_rna(x[e] - __uint_as_float(ah[j][e]));
+        }
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+        const int off = (j / 4) * DP * 128 + (j % 4) * 32;
+        const uint64_t vh = gmma_desc<128>(sVth + off, 16, 1024);
+        wgmma_rs_tf32<DP>(oacc, al[j], vh, 1);
+        wgmma_rs_tf32<DP>(oacc, ah[j], gmma_desc<128>(sVtl + off, 16, 1024),
+                          1);
+        wgmma_rs_tf32<DP>(oacc, ah[j], vh, 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs<DP / 2>(oacc);
+      fence_regs<BK / 2>(&ah[0][0]);
+      fence_regs<BK / 2>(&al[0][0]);
     }
   }
 
+  const size_t obase = (size_t)bh * tq;
 #pragma unroll
-  for (int i = 0; i < RQ; ++i) {
-    const int r = q0 + ty + TY * i;
+  for (int h = 0; h < 2; ++h) {
+    float lt = l[h];
+    lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+    lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+    const int r = row + 8 * h;
     if (r >= tq) continue;
-    const float lf = fmaxf(l[i], 1e-30f);
+    const float lf = fmaxf(lt, 1e-30f);
+    T* orow = o + (obase + r) * d;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int col = tx + TX * c;
-      if (col < d) o[qbase + (size_t)r * d + col] = from_f32<T>(acc[i][c] / lf);
+    for (int j = 0; j < DP / 8; ++j) {
+      const int col = 8 * j + 2 * t4;
+      if (col < d)
+        store2(orow + col, oacc[4 * j + 2 * h] / lf,
+               oacc[4 * j + 2 * h + 1] / lf);
     }
-    if (tx == 0) lse[(size_t)bh * tq + r] = m[i] + logf(lf);
+    if (t4 == 0) lse[obase + r] = m[h] * scale + logf(lf);
   }
 }
 
-template <typename T, int NC>
+template <typename T, int DP>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    void* lse, int bh, int tq, int tk, int d, int causal,
                    float scale, cudaStream_t stream) {
-  constexpr int DP = NC * TX;
-  const int smem = (2 * DP * LDT + BK * DP + BQ * LDT) * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, NC>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  using C = Cfg<T, DP>;
+  CUtensorMap qm, km, vm;
+  cudaError_t err;
+  if ((err = tensor_map_3d(&qm, q, C::ELEM, d, tq, bh, C::PCOLS, BQ, C::SW)) ||
+      (err = tensor_map_3d(&km, k, C::ELEM, d, tk, bh, C::PCOLS, C::BK, C::SW)) ||
+      (err = tensor_map_3d(&vm, v, C::ELEM, d, tk, bh, C::PCOLS, C::BK, C::SW)))
+    return err;
+  err = cudaFuncSetAttribute(flash_fwd_kernel<T, DP>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             C::SMEM);
   if (err != cudaSuccess) return err;
   const dim3 grid((tq + BQ - 1) / BQ, bh);
-  flash_fwd_kernel<T, NC><<<grid, NTHREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
-      tq, tk, d, causal, scale);
+  flash_fwd_kernel<T, DP><<<grid, NTHREADS, C::SMEM, stream>>>(
+      qm, km, vm, static_cast<T*>(o), static_cast<float*>(lse), tq, tk, d,
+      causal, scale);
   return cudaGetLastError();
 }
 
@@ -215,22 +508,27 @@ template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
                      void* lse, int bh, int tq, int tk, int d, int causal,
                      float scale, cudaStream_t s) {
-  if (d <= 16) return launch<T, 1>(q, k, v, o, lse, bh, tq, tk, d, causal, scale, s);
-  if (d <= 32) return launch<T, 2>(q, k, v, o, lse, bh, tq, tk, d, causal, scale, s);
-  if (d <= 64) return launch<T, 4>(q, k, v, o, lse, bh, tq, tk, d, causal, scale, s);
-  return launch<T, 8>(q, k, v, o, lse, bh, tq, tk, d, causal, scale, s);
+  if (d <= 16) return launch<T, 16>(q, k, v, o, lse, bh, tq, tk, d, causal, scale, s);
+  if (d <= 32) return launch<T, 32>(q, k, v, o, lse, bh, tq, tk, d, causal, scale, s);
+  if (d <= 64) return launch<T, 64>(q, k, v, o, lse, bh, tq, tk, d, causal, scale, s);
+  return launch<T, 128>(q, k, v, o, lse, bh, tq, tk, d, causal, scale, s);
 }
 
 }  // namespace
 
-// q, k, v: contiguous (bh, tq|tk, d) of one dtype (is_bf16 ? bfloat16 : float32);
-// o: (bh, tq, d) of that dtype; lse: (bh, tq) float32.  Returns the launch's
-// cudaError_t (0 on success); does not synchronise.
+// q, k, v: contiguous (bh, tq|tk, d) of one dtype (is_bf16 ? bfloat16 :
+// float32), 16-byte aligned, d · elem a multiple of 16 bytes; o: (bh, tq, d)
+// of that dtype; lse: (bh, tq) float32; scale: the softmax scale.  Returns
+// the launch's cudaError_t (0 on success); does not synchronise.
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
                               void* o, void* lse, int bh, int tq, int tk,
                               int d, int causal, int is_bf16, float scale,
                               void* stream) {
-  if (bh <= 0 || bh > 65535 || tq <= 0 || tk <= 0 || d <= 0 || d > 128)
+  const int elem = is_bf16 ? 2 : 4;
+  if (bh <= 0 || bh > 65535 || tq <= 0 || tk <= 0 || d <= 0 || d > 128 ||
+      (d * elem) % 16 != 0 ||
+      ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+        reinterpret_cast<uintptr_t>(v)) & 15) != 0)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =

@@ -2,10 +2,11 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C entry point.  On first use it is
 compiled with ``nvcc`` for ``sm_90a`` into ``_build/<name>-<hash>.so`` (the
-hash covers the source and the flags, so an edited source is rebuilt; the
-directory is listed in ``.gitignore``) and loaded with ``ctypes``.  A source
-that includes PyTorch's headers takes minutes to compile; a plain C
-interface takes seconds, which is why the kernels are bound this way.
+hash covers the source, the shared headers ``csrc/*.cuh`` and the flags, so
+an edited source or header is rebuilt; the directory is listed in
+``.gitignore``) and loaded with ``ctypes``.  A source that includes
+PyTorch's headers takes minutes to compile; a plain C interface takes
+seconds, which is why the kernels are bound this way.
 
 A missing ``nvcc`` or a failed build raises.  Nothing here falls back to
 the plain PyTorch versions: those run only for tensors on the CPU.
@@ -44,9 +45,13 @@ def _nvcc() -> str:
 
 
 def _target(src: Path) -> Path:
-    digest = hashlib.sha256(src.read_bytes() +
-                            " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"{src.stem}-{digest}.so"
+    """The library built from ``src``, named by a hash of the source, every
+    header in ``csrc/`` and the flags, so an edit to any of them rebuilds."""
+    h = hashlib.sha256(src.read_bytes())
+    for hdr in sorted(CSRC.glob("*.cuh")):
+        h.update(hdr.name.encode() + b"\0" + hdr.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:12]}.so"
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:

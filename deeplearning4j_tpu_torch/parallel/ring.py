@@ -120,7 +120,7 @@ def blockwise_attention(q, k, v, mask=None, causal: bool = False,
 # flash attention: the Hopper kernel and its plain version
 # ---------------------------------------------------------------------------
 
-_FLASH_BLOCK = 64   # the kernel's key tile (BK in csrc/flash_attn_fwd.cu)
+_FLASH_BLOCK = 64   # the plain versions' key (and query) block
 
 
 def flash_attention_reference(q, k, v, causal: bool = False):
@@ -185,12 +185,35 @@ def _check_flash_inputs(q, k, v):
                          f"q {tuple(q.shape)}, k {tuple(k.shape)}")
 
 
+def _flash_layout(q, k, v):
+    """The layout the forward kernel's TMA tensor maps take: q/k/v (b, h,
+    t, d) -> ``(q, k, v, dp)``, contiguous (b, h, t, dp) operands whose
+    rows are dp·elem bytes, a multiple of 16, and whose data is 16-byte
+    aligned.  An operand that already is so is passed as it is; any other
+    is copied into a fresh tensor whose columns d..dp are zero.  Zero
+    columns of Q and K add nothing to S; those of V give O columns that the
+    caller slices off.  A layout step, like ``.contiguous()``: the values
+    and the scale (of the unpadded d) are unchanged."""
+    d = q.shape[3]
+    per = 16 // q.element_size()
+    dp = -(-d // per) * per
+
+    def fit(x):
+        if dp == d and x.is_contiguous() and x.data_ptr() % 16 == 0:
+            return x
+        out = x.new_zeros((*x.shape[:3], dp))
+        out[..., :d] = x
+        return out
+    return fit(q), fit(k), fit(v), dp
+
+
 def flash_forward(q, k, v, causal: bool = False):
     """Flash attention forward: q/k/v (b, h, t, d) -> ``(out (b, h, tq, d)
     in q's dtype, lse (b·h, tq) f32)``.
 
     A CUDA tensor launches ``csrc/flash_attn_fwd.cu`` (adding one to
-    ``flash_attention.launches``) or raises: build and launch failures
+    ``flash_attention.launches``) on the layout of :func:`_flash_layout`,
+    with the scale of the unpadded d, or raises: build and launch failures
     are never caught.  A CPU tensor runs :func:`flash_attention_reference`.
     Not differentiable itself: :func:`flash_attention` wraps it in
     :class:`FlashAttention`."""
@@ -200,20 +223,18 @@ def flash_forward(q, k, v, causal: bool = False):
     _check_flash_inputs(q, k, v)
     b, h, tq, d = q.shape
     tk = k.shape[2]
-    qf = q.reshape(b * h, tq, d).contiguous()
-    kf = k.reshape(b * h, tk, d).contiguous()
-    vf = v.reshape(b * h, tk, d).contiguous()
+    qf, kf, vf, dp = _flash_layout(q, k, v)
     out = torch.empty_like(qf)
     lse = torch.empty((b * h, tq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _flash_kernel()(
             qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), b * h, tq, tk, d, int(causal),
+            lse.data_ptr(), b * h, tq, tk, dp, int(causal),
             int(q.dtype == torch.bfloat16), _scale(q), stream)
     kernels.check("flash_attn_fwd", err, "flash_attn_fwd launch")
     flash_attention.launches += 1
-    return out.reshape(b, h, tq, d), lse
+    return (out if dp == d else out[..., :d].contiguous()), lse
 
 
 def flash_attention(q, k, v, causal: bool = False):

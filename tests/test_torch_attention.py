@@ -120,6 +120,65 @@ def test_flash_kernel_input_checks(bad, exc):
         tring._check_flash_inputs(q, k, k)
 
 
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [8, 12, 16, 64, 128])
+def test_flash_layout_padding_keeps_the_plain_result(d, dtype, causal,
+                                                     monkeypatch):
+    """The wrapper's layout step: zero-padded operands, the unpadded scale,
+    O sliced back, equal the plain version on the original operands (so the
+    kernel, handed that layout, computes the same function)."""
+    q, k, v = (x.to(dtype) for x in _t(*_qkv(b=1, h=2, tq=70, tk=90, d=d,
+                                               seed=20 + d)))
+    ref, ref_lse = tring.flash_attention_reference(q, k, v, causal)
+    qf, kf, vf, dp = tring._flash_layout(q, k, v)
+    assert dp * q.element_size() % 16 == 0 and dp - d < 16 // q.element_size()
+    assert qf.shape == (1, 2, 70, dp)
+    assert kf.shape == vf.shape == (1, 2, 90, dp)
+    for x in (qf, kf, vf):
+        assert x.is_contiguous() and x.data_ptr() % 16 == 0
+        assert not x[..., d:].any()
+    monkeypatch.setattr(tring, "_scale", lambda _: 1.0 / np.sqrt(d))
+    out, lse = tring.flash_attention_reference(qf, kf, vf, causal)
+    assert not out[..., d:].float().any()
+    tol = dict(atol=1e-6, rtol=1e-6) if dtype == torch.float32 else \
+        dict(atol=2 ** -7, rtol=2 ** -7)    # one bf16 ulp of |O| <= 1
+    torch.testing.assert_close(out[..., :d].float(), ref.float(), **tol)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-6, rtol=1e-6)
+
+
+def test_flash_layout_copies_misaligned_views_and_nothing_else():
+    """A contiguous view whose storage offset breaks 16-byte alignment is
+    copied into a fresh aligned tensor; an aligned operand is passed as it
+    is."""
+    q, k, v = _t(*_qkv(b=1, h=2, tq=8, d=8, seed=30))
+    buf = torch.zeros(q.numel() + 1)
+    shifted = buf[1:].view(q.shape)
+    shifted.copy_(q)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 4
+    qf, kf, vf, dp = tring._flash_layout(shifted, k, v)
+    assert dp == 8 and qf.data_ptr() % 16 == 0
+    assert qf.data_ptr() != shifted.data_ptr()
+    assert torch.equal(qf, q)
+    assert kf is k and vf is v
+
+
+def test_kernel_target_changes_with_a_header(tmp_path, monkeypatch):
+    """An edit to a shared header (csrc/*.cuh) renames every kernel's
+    library, so no stale build is loaded."""
+    monkeypatch.setattr(kernels, "CSRC", tmp_path)
+    src = tmp_path / "k.cu"
+    src.write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// v1\n")
+    before = kernels._target(src)
+    assert kernels._target(src) == before
+    (tmp_path / "h.cuh").write_text("// v2\n")
+    after = kernels._target(src)
+    assert after != before and after.name.startswith("k-")
+    (tmp_path / "other.cuh").write_text("// new header\n")
+    assert kernels._target(src) not in (before, after)
+
+
 def test_kernel_build_raises_without_nvcc(tmp_path, monkeypatch):
     monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path / "build")
     monkeypatch.setenv("PATH", str(tmp_path))
