@@ -12,11 +12,16 @@ which must pass or the script exits non-zero without a result line:
    nvcc for sm_90a, all sources in parallel, timed as set-up; print
    ptxas's registers, spills and wgmma notes, and, where ``cuobjdump`` is
    present, each kernel's count of HGMMA (wgmma), HMMA (mma.sync), UTMALDG
-   (TMA load) and local-memory (STL/LDL) instructions;
+   (TMA load) and local-memory (STL/LDL) instructions.  Every
+   instantiation of B1, B2 and B3 must show HGMMA and UTMALDG, no STL/LDL
+   and no ptxas spill (the tensor-core design; no ``cuobjdump`` fails it);
 2. hold each kernel against its plain PyTorch version on the card, at the
    main paths' shapes, a ragged shape and small shapes (tolerances below),
    and the flash gradient (``FlashAttention``: B1 forward, B2 and B3
-   backward) against autograd through dense attention;
+   backward) against autograd through dense attention; the auto dispatch
+   at shapes the flash kernels refuse (head size 256, float16, and a
+   ``SelfAttentionLayer(nHeads=1, nOut=256)`` at t 1024) must run dense
+   without a launch, and an explicit ``impl="flash"`` there must raise;
 3. serving path, through the entry points a user calls:
    ``TransformerLM.generate`` at GPT-2 small widths (768 = 12 heads x 64,
    12 layers, FFN 3072, vocab 50257; ``maxLen`` 2048 so a 1024-token
@@ -343,30 +348,131 @@ def _readable(mangled):
 
 
 def phase_build(rec):
+    import re
     from deeplearning4j_tpu_torch import kernels
     t0 = time.perf_counter()
-    logs = kernels.build()
+    built = kernels.build()
     rec["build_s"] = time.perf_counter() - t0
+    print(f"build: {sorted(built)} in {rec['build_s']:.1f} s")
+    # Every source's compiler output, this run's or the one kept beside an
+    # earlier build's library.
+    libs = {src.stem: kernels._target(src)
+            for src in sorted(kernels.CSRC.glob("*.cu"))}
+    logs = {name: built.get(name) or lib.with_suffix(".log").read_text()
+            for name, lib in libs.items()}
     rec["ptxas"] = {name: [ln.strip()[:160] for ln in log.splitlines()
                            if "registers" in ln or "spill" in ln
                            or "GMMA" in ln.upper()]
                     for name, log in logs.items()}
-    print(f"build: {sorted(logs)} in {rec['build_s']:.1f} s")
+    rec["spills"] = {name: [int(n) for ln in log.splitlines()
+                            if "spill" in ln
+                            for n in re.findall(r"(\d+) bytes spill", ln)]
+                     for name, log in logs.items()}
     for name, lines in rec["ptxas"].items():
         for ln in lines:
             print(f"  ptxas {name}: {ln}")
     # Instruction evidence: which kernels run on the tensor cores and TMA.
     tool = _cuobjdump()
     rec["sass"] = {}
-    for name in sorted(logs):
+    for name, lib in libs.items():
         if tool is None:
             print(f"  sass {name}: not measured (no cuobjdump)")
             continue
-        lib = str(kernels._target(kernels.CSRC / f"{name}.cu"))
-        rec["sass"][name] = counts = _sass_counts(tool, lib)
+        rec["sass"][name] = counts = _sass_counts(tool, str(lib))
         for fn, c in counts.items():
             print(f"  sass {name} {fn}: " + ", ".join(
                 f"{op} {n}" for op, n in c.items()))
+
+
+FLASH_INSTANTIATIONS = 8    # {float, bfloat16} x head dims {16, 32, 64, 128}
+
+
+def phase_sass(rec):
+    """The flash kernels' build evidence: every instantiation of B1, B2 and
+    B3 issues wgmma (HGMMA) and TMA loads (UTMALDG) and touches no local
+    memory (STL/LDL), and ptxas reports no spill in their sources."""
+    bad = []
+    for name in FLASH:
+        counts = rec["sass"].get(name)
+        if not counts:
+            bad.append(f"{name}: no SASS counts (no cuobjdump)")
+            continue
+        kern = {fn: c for fn, c in counts.items() if "kernel" in fn}
+        if len(kern) != FLASH_INSTANTIATIONS:
+            bad.append(f"{name}: {len(kern)} kernel instantiations, "
+                       f"expected {FLASH_INSTANTIATIONS}")
+        for fn, c in kern.items():
+            if not (c["HGMMA"] > 0 and c["UTMALDG"] > 0
+                    and c["STL"] == c["LDL"] == 0):
+                bad.append(f"{fn}: {c}")
+        spills = rec["spills"][name]
+        if not spills:
+            bad.append(f"{name}: no ptxas spill report")
+        elif any(spills):
+            bad.append(f"{name}: ptxas spills (stores, loads) {spills}")
+    rec["sass_ok"] = not bad
+    print(f"sass/ptxas gate over {', '.join(FLASH)}: "
+          f"{'ok' if not bad else bad}")
+    _require(not bad, f"a flash kernel is not on wgmma + TMA without "
+                      f"spills: {bad}")
+
+
+def phase_c6(torch, rec):
+    """The auto dispatch at shapes the flash kernels refuse (ROADMAP C6):
+    head size 256 and float16 at t 1024 run dense, bit for bit the dense
+    result, with no kernel launch; an explicit impl="flash" raises there.
+    Then a user's layer at such a shape: SelfAttentionLayer(nHeads=1,
+    nOut=256) forward at t 1024 on the card, against dense forced."""
+    import deeplearning4j_tpu_torch.nn.conf.attention as amod
+    from deeplearning4j_tpu_torch.parallel.ring import dot_product_attention
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    res = {}
+    for name, shape, dtype in (("d256", (1, 2, 1024, 256), torch.float32),
+                               ("float16", (1, 2, 1024, 64), torch.float16)):
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                   for _ in range(3))
+        _reset_counters()
+        out = dot_product_attention(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        counts = _counters()
+        ref = dot_product_attention(q, k, v, causal=True, impl="dense")
+        try:
+            dot_product_attention(q, k, v, causal=True, impl="flash")
+            raised = None
+        except (TypeError, ValueError) as e:
+            raised = type(e).__name__
+        res[name] = dict(shape=list(shape), dtype=str(dtype).split(".")[-1],
+                         equal_dense=bool(torch.equal(out, ref)),
+                         launches=counts, flash_raised=raised)
+        print(f"C6 auto {name} {list(shape)}: equal to dense "
+              f"{res[name]['equal_dense']}, launches {counts}, "
+              f"impl='flash' raised {raised}")
+        _require(res[name]["equal_dense"] and not any(counts.values())
+                 and raised, f"C6 {name}: {res[name]}")
+    layer = amod.SelfAttentionLayer(nIn=64, nHeads=1, headSize=256,
+                                    nOut=256)
+    params = layer.initParams(torch.Generator().manual_seed(8), None,
+                              device="cuda")
+    x = torch.randn((2, 64, 1024), generator=gen, device="cuda")
+    _reset_counters()
+    out, _ = layer.forward(params, x, False, None, {})
+    torch.cuda.synchronize()
+    counts = _counters()
+    orig = amod.dot_product_attention
+    amod.dot_product_attention = _forced_dense(orig)
+    try:
+        ref, _ = layer.forward(params, x, False, None, {})
+    finally:
+        amod.dot_product_attention = orig
+    res["layer_nOut256"] = dict(equal_dense=bool(torch.equal(out, ref)),
+                                launches=counts,
+                                shape=list(out.shape))
+    print(f"C6 SelfAttentionLayer(nHeads=1, nOut=256) at t 1024: output "
+          f"{list(out.shape)}, equal to dense {res['layer_nOut256']}")
+    rec["c6"] = res
+    _require(res["layer_nOut256"]["equal_dense"] and not any(counts.values())
+             and tuple(out.shape) == (2, 256, 1024),
+             f"C6 layer: {res['layer_nOut256']}")
 
 
 def phase_kernels(torch, rec):
@@ -1254,9 +1360,11 @@ def main(argv) -> int:
 
     run("build", phase_build, rec)
     if not failed:
+        run("sass", phase_sass, rec)
         run("kernels", phase_kernels, torch, rec)
         run("bwd_kernels", phase_bwd_kernels, torch, rec)
         run("grad", phase_grad, torch, rec)
+        run("c6", phase_c6, torch, rec)
         model = run("model_init", _gpt2_model, torch)
         if model is not None:
             res = run("main_path", phase_main_path, torch, rec, *model)

@@ -91,7 +91,6 @@ template <typename T, int DP>
 struct Cfg {
   static constexpr bool BF16 = sizeof(T) == 2;
   static constexpr int ELEM = sizeof(T);
-  static constexpr int D = DP;
   static constexpr int BK = BF16 ? (DP <= 64 ? 128 : 64) : (DP <= 32 ? 64 : 32);
   // f32 caps registers at three blocks an SM (136 a thread, no spills);
   // bf16 holds S of one tile and P of the last, and takes what it needs.
@@ -100,8 +99,6 @@ struct Cfg {
   static constexpr int SW = ROWB < 128 ? ROWB : 128; // swizzle = TMA box row
   static constexpr int NP = ROWB / SW;               // column panels
   static constexpr int PCOLS = SW / ELEM;            // columns per panel
-  static constexpr int KSTEPS = DP * ELEM / 32;      // wgmma steps over d
-  static constexpr int KPP = SW / 32;                // of which per panel
   static constexpr int Q_BYTES = BQ * ROWB;
   static constexpr int KV_BYTES = BK * ROWB;         // one K or V tile
   static constexpr int VT_BYTES = DP * BK * 4;       // f32: transposed V
@@ -110,104 +107,6 @@ struct Cfg {
   static constexpr int SMEM = Q_BYTES + 2 * NS * KV_BYTES + EXTRA
                               + 8 * (2 * NS + 1) + 1024;   // barriers, align
 };
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&p);
-}
-
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-
-// f32: x -> (tf32 hi in place, tf32 lo into `lo`), elementwise over `bytes`
-// (the layout, swizzle included, is kept).
-__device__ __forceinline__ void split_tf32(uint8_t* x, uint8_t* lo, int bytes,
-                                           int tid) {
-  float4* xs = reinterpret_cast<float4*>(x);
-  uint4* ls = reinterpret_cast<uint4*>(lo);
-  for (int i = tid; i < bytes / 16; i += NCONS) {
-    const float4 v = xs[i];
-    uint4 h, l;
-    h.x = tf32_rna(v.x); l.x = tf32_rna(v.x - __uint_as_float(h.x));
-    h.y = tf32_rna(v.y); l.y = tf32_rna(v.y - __uint_as_float(h.y));
-    h.z = tf32_rna(v.z); l.z = tf32_rna(v.z - __uint_as_float(h.z));
-    h.w = tf32_rna(v.w); l.w = tf32_rna(v.w - __uint_as_float(h.w));
-    reinterpret_cast<uint4*>(x)[i] = h;
-    ls[i] = l;
-  }
-}
-
-// f32: V's tile (BK keys x DP, TMA layout) -> Vᵀ hi and lo (DP rows x BK
-// keys, K-major, 128-byte swizzle in panels of 32 keys), keys of each
-// 8-key group in the order (0, 2, 4, 6, 1, 3, 5, 7) to match P's registers.
-template <int DP, int BK, int SW>
-__device__ __forceinline__ void transpose_v(const uint8_t* v, uint8_t* vh,
-                                            uint8_t* vl, int tid) {
-  constexpr int PCOLS = SW / 4;
-  for (int gi = tid; gi < DP * BK / 4; gi += NCONS) {
-    const int n = gi % DP;                // column of V = row of Vᵀ
-    const int kl = (gi / DP) * 4;         // first of 4 logical keys
-    const int kp = (kl & ~7) + ((kl >> 2) & 1);   // its physical key
-    const uint8_t* col = v + (n / PCOLS) * BK * SW;
-    const uint32_t cb = (n % PCOLS) * 4;
-    float x[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      x[i] = *reinterpret_cast<const float*>(
-          col + swizzle<SW>((kp + 2 * i) * SW + cb));
-    uint4 h, l;
-    h.x = tf32_rna(x[0]); l.x = tf32_rna(x[0] - __uint_as_float(h.x));
-    h.y = tf32_rna(x[1]); l.y = tf32_rna(x[1] - __uint_as_float(h.y));
-    h.z = tf32_rna(x[2]); l.z = tf32_rna(x[2] - __uint_as_float(h.z));
-    h.w = tf32_rna(x[3]); l.w = tf32_rna(x[3] - __uint_as_float(h.w));
-    const uint32_t off = (kl / 32) * DP * 128 +
-                         swizzle<128>(n * 128 + (kl % 32) * 4);
-    *reinterpret_cast<uint4*>(vh + off) = h;
-    *reinterpret_cast<uint4*>(vl + off) = l;
-  }
-}
-
-// bf16: S = Q·Kᵀ, 32 bytes of d a step (panel kk / KPP, offset within it).
-template <typename C>
-__device__ __forceinline__ void issue_qk(float (&s)[C::BK / 2], uint8_t* q,
-                                         uint8_t* k) {
-#pragma unroll
-  for (int kk = 0; kk < C::KSTEPS; ++kk) {
-    const int p = kk / C::KPP, w = (kk % C::KPP) * 32;
-    wgmma_ss_bf16<C::BK>(s, gmma_desc<C::SW>(q + p * BQ * C::SW + w, 16, 8 * C::SW),
-                         gmma_desc<C::SW>(k + p * C::BK * C::SW + w, 16, 8 * C::SW),
-                         kk > 0);
-  }
-}
-
-// bf16: O += P·V, 16 keys a step; V's tile is MN-major (rows are keys).
-template <typename C>
-__device__ __forceinline__ void issue_pv(float (&o)[C::D / 2],
-                                         const uint32_t (&pa)[C::BK / 16][4],
-                                         uint8_t* v) {
-#pragma unroll
-  for (int j = 0; j < C::BK / 16; ++j)
-    wgmma_rs_bf16_tb<C::D>(o, pa[j],
-                           gmma_desc<C::SW>(v + j * 16 * C::SW, C::BK * C::SW, 8 * C::SW),
-                           1);
-}
-
-// bf16: p to the A fragment of P·V.  The f32 accumulator registers 8j..8j+7
-// (rows g, g + 8; keys 16j + 2t, +1, and 16j + 8 + 2t, +1) are, packed in
-// pairs, the A registers of the k16 step j.
-template <int BK>
-__device__ __forceinline__ void pack_p(uint32_t (&pa)[BK / 16][4],
-                                       const float (&s)[BK / 2]) {
-#pragma unroll
-  for (int j = 0; j < BK / 16; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      pa[j][e] = pack_bf16(s[8 * j + 2 * e], s[8 * j + 2 * e + 1]);
-}
 
 // One online-softmax step over a tile of raw scores s (the S accumulator
 // fragment; k0 its first key, row the thread's first global row): masks
@@ -364,19 +263,19 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
     uint32_t pa[BK / 16][4];
     mbar_wait(&full[0], 0);
     wgmma_fence();
-    issue_qk<C>(sacc, sQ, sK);
+    mma_ss_bf16<BK, DP, SW>(sacc, sQ, sK, false);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs<BK / 2>(sacc);
     softmax_tile<BK>(sacc, m, l, corr, c, masked(0), 0, row, tk, causal, t4);
-    pack_p<BK>(pa, sacc);
+    pack_frags_bf16<BK>(pa, sacc);
     for (int it = 1; it < ntiles; ++it) {
       const int s = it % NS, sp = (it - 1) % NS;
       mbar_wait(&full[s], (it / NS) & 1);
       wgmma_fence();
-      issue_qk<C>(sacc, sQ, sK + s * C::KV_BYTES);
+      mma_ss_bf16<BK, DP, SW>(sacc, sQ, sK + s * C::KV_BYTES, false);
       wgmma_commit();
-      issue_pv<C>(oacc, pa, sV + sp * C::KV_BYTES);
+      mma_rs_bf16_tb<BK, DP, SW>(oacc, pa, sV + sp * C::KV_BYTES);
       wgmma_commit();
       wgmma_wait<1>();
       fence_regs<BK / 2>(sacc);
@@ -387,16 +286,16 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
       fence_regs<BK / 4>(&pa[0][0]);
       mbar_arrive(&empty[sp]);
       rescale<DP>(oacc, corr);
-      pack_p<BK>(pa, sacc);
+      pack_frags_bf16<BK>(pa, sacc);
     }
     wgmma_fence();
-    issue_pv<C>(oacc, pa, sV + ((ntiles - 1) % NS) * C::KV_BYTES);
+    mma_rs_bf16_tb<BK, DP, SW>(oacc, pa, sV + ((ntiles - 1) % NS) * C::KV_BYTES);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs<DP / 2>(oacc);
     fence_regs<BK / 4>(&pa[0][0]);
   } else {
-    split_tf32(sQ, sQlo, C::Q_BYTES, tid);
+    split_tf32<NCONS>(sQ, sQlo, C::Q_BYTES, tid);
     fence_proxy_async();
     named_bar_sync(1, NCONS);
     for (int it = 0; it < ntiles; ++it) {
@@ -406,23 +305,14 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
       // Every warp is past the last tile's products before K lo and Vᵀ
       // are overwritten.
       if (it > 0) named_bar_sync(1, NCONS);
-      split_tf32(kt, sKlo, C::KV_BYTES, tid);
-      transpose_v<DP, BK, SW>(sV + s * C::KV_BYTES, sVth, sVtl, tid);
+      split_tf32<NCONS>(kt, sKlo, C::KV_BYTES, tid);
+      transpose_split<DP, BK, SW, NCONS>(sV + s * C::KV_BYTES, sVth, sVtl,
+                                         tid);
       fence_proxy_async();
       named_bar_sync(1, NCONS);
       // S = Q·Kᵀ as hi·hi + hi·lo + lo·hi, 8 of d a step.
       wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < C::KSTEPS; ++kk) {
-        const int qa = (kk / C::KPP) * BQ * SW + (kk % C::KPP) * 32;
-        const int kb = (kk / C::KPP) * BK * SW + (kk % C::KPP) * 32;
-        const uint64_t qh = gmma_desc<SW>(sQ + qa, 16, 8 * SW);
-        const uint64_t kh = gmma_desc<SW>(kt + kb, 16, 8 * SW);
-        wgmma_ss_tf32<BK>(sacc, gmma_desc<SW>(sQlo + qa, 16, 8 * SW), kh,
-                          kk > 0);
-        wgmma_ss_tf32<BK>(sacc, qh, gmma_desc<SW>(sKlo + kb, 16, 8 * SW), 1);
-        wgmma_ss_tf32<BK>(sacc, qh, kh, 1);
-      }
+      mma_ss_tf32x3<BK, DP, SW>(sacc, sQ, sQlo, kt, sKlo, false);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs<BK / 2>(sacc);
@@ -433,26 +323,9 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
       // P·V, 8 keys a step: accumulator registers (2t, 2t+1) of rows g and
       // g + 8 are the A fragment's logical keys (t, t + 4).
       uint32_t ah[BK / 8][4], al[BK / 8][4];
-#pragma unroll
-      for (int j = 0; j < BK / 8; ++j) {
-        const float x[4] = {sacc[4 * j], sacc[4 * j + 2], sacc[4 * j + 1],
-                            sacc[4 * j + 3]};
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          ah[j][e] = tf32_rna(x[e]);
-          al[j][e] = tf32_rna(x[e] - __uint_as_float(ah[j][e]));
-        }
-      }
+      split_frags_tf32<BK>(ah, al, sacc);
       wgmma_fence();
-#pragma unroll
-      for (int j = 0; j < BK / 8; ++j) {
-        const int off = (j / 4) * DP * 128 + (j % 4) * 32;
-        const uint64_t vh = gmma_desc<128>(sVth + off, 16, 1024);
-        wgmma_rs_tf32<DP>(oacc, al[j], vh, 1);
-        wgmma_rs_tf32<DP>(oacc, ah[j], gmma_desc<128>(sVtl + off, 16, 1024),
-                          1);
-        wgmma_rs_tf32<DP>(oacc, ah[j], vh, 1);
-      }
+      mma_rs_tf32x3<BK, DP>(oacc, ah, al, sVth, sVtl);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs<DP / 2>(oacc);

@@ -21,6 +21,7 @@
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -258,6 +259,190 @@ HOPPER_WGMMA_RS(wgmma_rs_tf32, 128, "m64n128k8.f32.tf32.tf32", "1, 1", HOPPER_RL
 #undef HOPPER_RL32
 #undef HOPPER_RL16
 #undef HOPPER_RL8
+
+// ---------------------------------------------------------------------------
+// tile products: whole-tile wgmma sequences over the layouts above
+// ---------------------------------------------------------------------------
+//
+// "A TMA tile" below is R rows of DP elements as a 3-D map with an SW-byte
+// swizzle leaves it: DP·elem/SW column panels of R rows of SW bytes each.
+// Accumulator fragments are wgmma's: thread (warp w, lane 4g + t) holds
+// rows 16w + g and 16w + g + 8, columns 8j + 2t and 8j + 2t + 1, at
+// registers 4j + 2h + e (h the row half, e the column parity).
+
+// bf16x2 of (lo, hi), lo in the low half: the register A operand's order.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&p);
+}
+
+// Two adjacent output elements from f32, in the output's type.
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// D (64 x N) = A·Bᵀ (+ D if `acc`), bf16: A a 64-row and B an N-row TMA
+// tile of DP columns, both K-major; 32 bytes of DP a step.
+template <int N, int DP, int SW>
+__device__ __forceinline__ void mma_ss_bf16(float (&d)[N / 2],
+                                            const uint8_t* a,
+                                            const uint8_t* b, bool acc) {
+  constexpr int KPP = SW / 32;
+#pragma unroll
+  for (int kk = 0; kk < DP * 2 / 32; ++kk) {
+    const int p = kk / KPP, w = (kk % KPP) * 32;
+    wgmma_ss_bf16<N>(d, gmma_desc<SW>(a + p * 64 * SW + w, 16, 8 * SW),
+                     gmma_desc<SW>(b + p * N * SW + w, 16, 8 * SW),
+                     acc || kk > 0);
+  }
+}
+
+// The bf16 accumulator fragment of a 64 x K tile, packed pair by pair: the
+// register A fragments of its K/16 k16 steps.
+template <int K>
+__device__ __forceinline__ void pack_frags_bf16(uint32_t (&a)[K / 16][4],
+                                                const float (&s)[K / 2]) {
+#pragma unroll
+  for (int j = 0; j < K / 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      a[j][e] = pack_bf16(s[8 * j + 2 * e], s[8 * j + 2 * e + 1]);
+}
+
+// D (64 x DP) += A·B, bf16: A (64 x K) in registers (pack_frags_bf16), B a
+// K-row TMA tile of DP columns read MN-major (the transpose bit), 16 rows a
+// step.
+template <int K, int DP, int SW>
+__device__ __forceinline__ void mma_rs_bf16_tb(float (&d)[DP / 2],
+                                               const uint32_t (&a)[K / 16][4],
+                                               const uint8_t* b) {
+#pragma unroll
+  for (int j = 0; j < K / 16; ++j)
+    wgmma_rs_bf16_tb<DP>(d, a[j],
+                         gmma_desc<SW>(b + j * 16 * SW, K * SW, 8 * SW), 1);
+}
+
+// f32 -> (tf32 hi in place, tf32 lo into `lo`) over `bytes`, elementwise
+// (the layout, swizzle included, is kept), by NT threads.
+template <int NT>
+__device__ __forceinline__ void split_tf32(uint8_t* x, uint8_t* lo, int bytes,
+                                           int tid) {
+  const float4* xs = reinterpret_cast<const float4*>(x);
+  uint4* ls = reinterpret_cast<uint4*>(lo);
+  for (int i = tid; i < bytes / 16; i += NT) {
+    const float4 v = xs[i];
+    uint4 h, l;
+    h.x = tf32_rna(v.x); l.x = tf32_rna(v.x - __uint_as_float(h.x));
+    h.y = tf32_rna(v.y); l.y = tf32_rna(v.y - __uint_as_float(h.y));
+    h.z = tf32_rna(v.z); l.z = tf32_rna(v.z - __uint_as_float(h.z));
+    h.w = tf32_rna(v.w); l.w = tf32_rna(v.w - __uint_as_float(h.w));
+    reinterpret_cast<uint4*>(x)[i] = h;
+    ls[i] = l;
+  }
+}
+
+// The swizzle of a transposed f32 tile of R rows: R·4 bytes, at most 128.
+template <int R>
+__host__ __device__ constexpr int tsw() {
+  return R * 4 < 128 ? R * 4 : 128;
+}
+
+// f32: an R-row TMA tile of DP columns -> its transpose, split into tf32 hi
+// and lo: DP rows of R, K-major, in panels of tsw<R>()/4 of the R rows with
+// that swizzle.  Within each group of 8 the R rows are stored in the order
+// (0, 2, 4, 6, 1, 3, 5, 7): the order in which an f32 accumulator fragment
+// of a 64 x R tile, taken as tf32 A fragments (split_frags_tf32), holds
+// them.  By NT threads.
+template <int DP, int R, int SW, int NT>
+__device__ __forceinline__ void transpose_split(const uint8_t* x, uint8_t* hi,
+                                                uint8_t* lo, int tid) {
+  constexpr int PCOLS = SW / 4, TSW = tsw<R>(), PR = TSW / 4;
+  for (int gi = tid; gi < DP * R / 4; gi += NT) {
+    const int n = gi % DP;                // column of x = row of xᵀ
+    const int kl = (gi / DP) * 4;         // first of 4 logical rows
+    const int kp = (kl & ~7) + ((kl >> 2) & 1);   // its physical row
+    const uint8_t* col = x + (n / PCOLS) * R * SW;
+    const uint32_t cb = (n % PCOLS) * 4;
+    float v[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      v[i] = *reinterpret_cast<const float*>(
+          col + swizzle<SW>((kp + 2 * i) * SW + cb));
+    uint4 h, l;
+    h.x = tf32_rna(v[0]); l.x = tf32_rna(v[0] - __uint_as_float(h.x));
+    h.y = tf32_rna(v[1]); l.y = tf32_rna(v[1] - __uint_as_float(h.y));
+    h.z = tf32_rna(v[2]); l.z = tf32_rna(v[2] - __uint_as_float(h.z));
+    h.w = tf32_rna(v[3]); l.w = tf32_rna(v[3] - __uint_as_float(h.w));
+    const uint32_t off = (kl / PR) * DP * TSW +
+                         swizzle<TSW>(n * TSW + (kl % PR) * 4);
+    *reinterpret_cast<uint4*>(hi + off) = h;
+    *reinterpret_cast<uint4*>(lo + off) = l;
+  }
+}
+
+// D (64 x N) = A·Bᵀ (+ D if `acc`) in split tf32, hi·hi + hi·lo + lo·hi:
+// A a 64-row and B an N-row TMA tile of DP columns, K-major, each split
+// in place (hi) with its lo beside it in the same layout; 8 of DP a step.
+template <int N, int DP, int SW>
+__device__ __forceinline__ void mma_ss_tf32x3(float (&d)[N / 2],
+                                              const uint8_t* a,
+                                              const uint8_t* alo,
+                                              const uint8_t* b,
+                                              const uint8_t* blo, bool acc) {
+  constexpr int KPP = SW / 32;
+#pragma unroll
+  for (int kk = 0; kk < DP / 8; ++kk) {
+    const int ao = (kk / KPP) * 64 * SW + (kk % KPP) * 32;
+    const int bo = (kk / KPP) * N * SW + (kk % KPP) * 32;
+    const uint64_t ah = gmma_desc<SW>(a + ao, 16, 8 * SW);
+    const uint64_t bh = gmma_desc<SW>(b + bo, 16, 8 * SW);
+    wgmma_ss_tf32<N>(d, gmma_desc<SW>(alo + ao, 16, 8 * SW), bh,
+                     acc || kk > 0);
+    wgmma_ss_tf32<N>(d, ah, gmma_desc<SW>(blo + bo, 16, 8 * SW), 1);
+    wgmma_ss_tf32<N>(d, ah, bh, 1);
+  }
+}
+
+// The f32 accumulator fragment of a 64 x K tile -> tf32 hi and lo A
+// fragments of its K/8 k8 steps.  Registers (2t, 2t + 1) of each 8-column
+// group become the fragment's logical columns (t, t + 4): the B operand
+// stores its rows in that order (transpose_split).
+template <int K>
+__device__ __forceinline__ void split_frags_tf32(uint32_t (&hi)[K / 8][4],
+                                                 uint32_t (&lo)[K / 8][4],
+                                                 const float (&s)[K / 2]) {
+#pragma unroll
+  for (int j = 0; j < K / 8; ++j) {
+    const float x[4] = {s[4 * j], s[4 * j + 2], s[4 * j + 1], s[4 * j + 3]};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      hi[j][e] = tf32_rna(x[e]);
+      lo[j][e] = tf32_rna(x[e] - __uint_as_float(hi[j][e]));
+    }
+  }
+}
+
+// D (64 x DP) += A·B in split tf32: A (64 x K) as split_frags_tf32 left it,
+// B the transpose_split of a K-row tile (hi and lo); 8 of K a step.
+template <int K, int DP>
+__device__ __forceinline__ void mma_rs_tf32x3(float (&d)[DP / 2],
+                                              const uint32_t (&ah)[K / 8][4],
+                                              const uint32_t (&al)[K / 8][4],
+                                              const uint8_t* bh,
+                                              const uint8_t* bl) {
+  constexpr int TSW = tsw<K>(), KPP = TSW / 32;
+#pragma unroll
+  for (int j = 0; j < K / 8; ++j) {
+    const int off = (j / KPP) * DP * TSW + (j % KPP) * 32;
+    const uint64_t h = gmma_desc<TSW>(bh + off, 16, 8 * TSW);
+    wgmma_rs_tf32<DP>(d, al[j], h, 1);
+    wgmma_rs_tf32<DP>(d, ah[j], gmma_desc<TSW>(bl + off, 16, 8 * TSW), 1);
+    wgmma_rs_tf32<DP>(d, ah[j], h, 1);
+  }
+}
 
 // ---------------------------------------------------------------------------
 // host: tensor maps

@@ -59,7 +59,8 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
     not built yet: one ``nvcc`` per source, all started together.  Returns
     ``{name: compiler output}`` for the sources compiled now (with
     ``-Xptxas=-v`` it lists each kernel's registers, shared memory and
-    spills).  Raises if any compile fails."""
+    spills); the output is also kept beside each library, as ``.log``.
+    Raises if any compile fails."""
     srcs = sorted(CSRC.glob("*.cu")) if names is None \
         else [CSRC / f"{n}.cu" for n in names]
     todo = [(s, _target(s)) for s in srcs if not _target(s).exists()]
@@ -83,6 +84,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
                               f"{logs[src.stem]}")
             else:
                 os.replace(tmp, out)
+                out.with_suffix(".log").write_text(logs[src.stem])
     finally:
         for *_, proc in procs:
             if proc.poll() is None:

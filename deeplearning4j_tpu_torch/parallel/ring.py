@@ -121,6 +121,8 @@ def blockwise_attention(q, k, v, mask=None, causal: bool = False,
 # ---------------------------------------------------------------------------
 
 _FLASH_BLOCK = 64   # the plain versions' key (and query) block
+_FLASH_DTYPES = (torch.float32, torch.bfloat16)
+_FLASH_MIN_T = 1024  # auto dispatch: flash from this many queries on
 
 
 def flash_attention_reference(q, k, v, causal: bool = False):
@@ -165,37 +167,54 @@ def _check_cuda(q):
                          f"{q.device.type}")
 
 
-def _check_flash_inputs(q, k, v):
-    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape \
-            or q.shape[:2] != k.shape[:2] or q.shape[3] != k.shape[3]:
-        raise ValueError(
+def _flash_refusal(q_shape, k_shape, v_shape, dtypes):
+    """Why the flash kernels (B1-B3) refuse operands of these shapes and
+    dtypes: ``(exception type, message)``, or None where every one of them
+    takes q (b, h, tq, d) and k, v (b, h, tk, d) of one dtype.  A pure
+    function of shapes and dtypes, shared by :func:`_check_flash_inputs`
+    and :func:`_auto_impl` so that the auto dispatch never picks a shape the
+    kernels refuse."""
+    q_shape, k_shape = tuple(q_shape), tuple(k_shape)
+    if len(q_shape) != 4 or len(k_shape) != 4 \
+            or k_shape != tuple(v_shape) or q_shape[:2] != k_shape[:2] \
+            or q_shape[3] != k_shape[3]:
+        return ValueError, (
             "flash_attention takes q (b, h, tq, d) and k, v (b, h, tk, d); "
-            f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
-    if not (q.dtype == k.dtype == v.dtype) \
-            or q.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError("flash_attention takes float32 or bfloat16 q, k, v "
-                        f"of one dtype; got {q.dtype}, {k.dtype}, {v.dtype}")
+            f"got {q_shape}, {k_shape}, {tuple(v_shape)}")
+    if len(set(dtypes)) != 1 or dtypes[0] not in _FLASH_DTYPES:
+        return TypeError, ("flash_attention takes float32 or bfloat16 q, k, "
+                           f"v of one dtype; got {', '.join(map(str, dtypes))}")
+    b, h, tq, d = q_shape
+    if not 0 < d <= 128 or tq == 0 or k_shape[2] == 0 or b * h == 0 \
+            or b * h > 65535:
+        return ValueError, (f"flash_attention kernel takes 0 < d <= 128, "
+                            f"non-empty t and 0 < b·h <= 65535; got "
+                            f"q {q_shape}, k {k_shape}")
+    return None
+
+
+def _check_flash_inputs(q, k, v):
+    refusal = _flash_refusal(q.shape, k.shape, v.shape,
+                             (q.dtype, k.dtype, v.dtype))
+    if refusal is not None:
+        raise refusal[0](refusal[1])
     if not (q.device == k.device == v.device):
         raise ValueError("q, k and v must lie on one device")
-    b, h, tq, d = q.shape
-    if not 0 < d <= 128 or tq == 0 or k.shape[2] == 0 or b * h == 0 \
-            or b * h > 65535:
-        raise ValueError(f"flash_attention kernel takes 0 < d <= 128, "
-                         f"non-empty t and 0 < b·h <= 65535; got "
-                         f"q {tuple(q.shape)}, k {tuple(k.shape)}")
 
 
-def _flash_layout(q, k, v):
-    """The layout the forward kernel's TMA tensor maps take: q/k/v (b, h,
-    t, d) -> ``(q, k, v, dp)``, contiguous (b, h, t, dp) operands whose
-    rows are dp·elem bytes, a multiple of 16, and whose data is 16-byte
-    aligned.  An operand that already is so is passed as it is; any other
-    is copied into a fresh tensor whose columns d..dp are zero.  Zero
-    columns of Q and K add nothing to S; those of V give O columns that the
-    caller slices off.  A layout step, like ``.contiguous()``: the values
-    and the scale (of the unpadded d) are unchanged."""
-    d = q.shape[3]
-    per = 16 // q.element_size()
+def _flash_layout(*xs):
+    """The layout the flash kernels' TMA tensor maps take: operands (b, h,
+    t, d) of one dtype (q, k, v, and dO for the backward) -> ``(*xs,
+    dp)``, contiguous (b, h, t, dp) operands whose rows are dp·elem bytes,
+    a multiple of 16, and whose data is 16-byte aligned.  An operand that
+    already is so is passed as it is; any other is copied into a fresh
+    tensor whose columns d..dp are zero.  Zero columns of Q and K add
+    nothing to S, nor those of dO and V to dP; those of V, K and Q give
+    columns of O, dq, dk and dv that the caller slices off.  A layout step,
+    like ``.contiguous()``: the values and the scale (of the unpadded d)
+    are unchanged."""
+    d = xs[0].shape[3]
+    per = 16 // xs[0].element_size()
     dp = -(-d // per) * per
 
     def fit(x):
@@ -204,7 +223,15 @@ def _flash_layout(q, k, v):
         out = x.new_zeros((*x.shape[:3], dp))
         out[..., :d] = x
         return out
-    return fit(q), fit(k), fit(v), dp
+    return (*(fit(x) for x in xs), dp)
+
+
+def _unpad(x, shape):
+    """A kernel's output, (b, h, t, dp) or (b·h, t, dp) -> (b, h, t, d) of
+    ``shape``: the columns past d that :func:`_flash_layout` added are
+    sliced off."""
+    x = x.reshape(*shape[:3], x.shape[-1])
+    return x if x.shape[-1] == shape[3] else x[..., :shape[3]].contiguous()
 
 
 def flash_forward(q, k, v, causal: bool = False):
@@ -221,7 +248,7 @@ def flash_forward(q, k, v, causal: bool = False):
         return flash_attention_reference(q, k, v, causal)
     _check_cuda(q)
     _check_flash_inputs(q, k, v)
-    b, h, tq, d = q.shape
+    b, h, tq, _ = q.shape
     tk = k.shape[2]
     qf, kf, vf, dp = _flash_layout(q, k, v)
     out = torch.empty_like(qf)
@@ -234,7 +261,7 @@ def flash_forward(q, k, v, causal: bool = False):
             int(q.dtype == torch.bfloat16), _scale(q), stream)
     kernels.check("flash_attn_fwd", err, "flash_attn_fwd launch")
     flash_attention.launches += 1
-    return (out if dp == d else out[..., :d].contiguous()), lse
+    return _unpad(out, q.shape), lse
 
 
 def flash_attention(q, k, v, causal: bool = False):
@@ -328,11 +355,12 @@ def _bwd_kernel(name: str):
 
 
 def _bwd_operands(q, k, v, do, lse, delta):
-    """Check what the backward kernels take and flatten to their layout:
-    contiguous (b·h, t, d) operands, contiguous (b·h, tq) f32 rows."""
+    """Check what the backward kernels take and lay it out for them: q, k,
+    v and dO as :func:`_flash_layout` pads them, flattened to contiguous
+    (b·h, t, dp); lse and delta contiguous (b·h, tq) f32."""
     _check_cuda(q)
     _check_flash_inputs(q, k, v)
-    b, h, tq, d = q.shape
+    b, h, tq, _ = q.shape
     if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
         raise ValueError(f"dO must match q: got {tuple(do.shape)} "
                          f"{do.dtype} on {do.device}, q {tuple(q.shape)} "
@@ -343,22 +371,21 @@ def _bwd_operands(q, k, v, do, lse, delta):
             raise ValueError(f"{name} must be ({b * h}, {tq}) float32 on "
                              f"{q.device}; got {tuple(x.shape)} {x.dtype} "
                              f"on {x.device}")
-    tk = k.shape[2]
-    return (q.reshape(b * h, tq, d).contiguous(),
-            k.reshape(b * h, tk, d).contiguous(),
-            v.reshape(b * h, tk, d).contiguous(),
-            do.reshape(b * h, tq, d).contiguous(),
-            lse.contiguous(), delta.contiguous())
+    *padded, dp = _flash_layout(q, k, v, do)
+    flat = [x.reshape(b * h, x.shape[2], dp) for x in padded]
+    return (*flat, lse.contiguous(), delta.contiguous())
 
 
 def _launch_bwd(name, q, operands, outs, causal):
-    b, h, tq, d = q.shape
-    tk = operands[1].shape[1]
+    """Launch a backward kernel on operands laid out by
+    :func:`_bwd_operands`, with the scale of q's unpadded d."""
+    b, h, tq, _ = q.shape
+    _, tk, dp = operands[1].shape
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _bwd_kernel(name)(
             *(x.data_ptr() for x in operands), *(o.data_ptr() for o in outs),
-            b * h, tq, tk, d, int(causal), int(q.dtype == torch.bfloat16),
+            b * h, tq, tk, dp, int(causal), int(q.dtype == torch.bfloat16),
             _scale(q), stream)
     kernels.check(name, err, f"{name} launch")
 
@@ -369,7 +396,8 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool = False):
     -> dq (b, h, tq, d) in q's dtype.
 
     A CUDA tensor launches ``csrc/flash_attn_bwd_dq.cu`` (adding one to
-    ``flash_bwd_dq.launches``) or raises; a CPU tensor runs
+    ``flash_bwd_dq.launches``) on the layout of :func:`_flash_layout`,
+    with the scale of the unpadded d, or raises; a CPU tensor runs
     :func:`flash_bwd_dq_reference`."""
     if q.device.type == "cpu":
         return flash_bwd_dq_reference(q, k, v, do, lse, delta, causal)
@@ -377,7 +405,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool = False):
     dq = torch.empty_like(ops[0])
     _launch_bwd("flash_attn_bwd_dq", q, ops, [dq], causal)
     flash_bwd_dq.launches += 1
-    return dq.reshape(q.shape)
+    return _unpad(dq, q.shape)
 
 
 flash_bwd_dq.launches = 0
@@ -388,7 +416,8 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool = False):
     ``(dk, dv)`` (b, h, tk, d) in k's and v's dtype.
 
     A CUDA tensor launches ``csrc/flash_attn_bwd_dkv.cu`` (adding one to
-    ``flash_bwd_dkv.launches``) or raises; a CPU tensor runs
+    ``flash_bwd_dkv.launches``) on the layout of :func:`_flash_layout`,
+    with the scale of the unpadded d, or raises; a CPU tensor runs
     :func:`flash_bwd_dkv_reference`."""
     if q.device.type == "cpu":
         return flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal)
@@ -396,7 +425,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool = False):
     dk, dv = torch.empty_like(ops[1]), torch.empty_like(ops[2])
     _launch_bwd("flash_attn_bwd_dkv", q, ops, [dk, dv], causal)
     flash_bwd_dkv.launches += 1
-    return dk.reshape(k.shape), dv.reshape(v.shape)
+    return _unpad(dk, k.shape), _unpad(dv, v.shape)
 
 
 flash_bwd_dkv.launches = 0
@@ -430,19 +459,35 @@ class FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None
 
 
+def _auto_impl(q_shape, k_shape, v_shape, dtypes, has_mask, is_cuda):
+    """The ``impl="auto"`` rule, a pure function of shapes, dtypes, mask
+    and device kind: "flash" iff the tensors are on CUDA, there are at
+    least 1024 queries, no key mask, and every flash kernel takes the
+    operands (:func:`_flash_refusal`); "dense" otherwise, as the reference
+    computes any shape its kernel refuses without a kernel."""
+    if is_cuda and not has_mask \
+            and _flash_refusal(q_shape, k_shape, v_shape, dtypes) is None \
+            and q_shape[2] >= _FLASH_MIN_T:
+        return "flash"
+    return "dense"
+
+
 def dot_product_attention(qh, kh, vh, mask=None, causal: bool = False,
                           impl: str = "auto"):
     """Dispatch point used by the attention layers.
 
-    impl: "dense" (materialised softmax — reference semantics), "blockwise",
-    "flash", "ring" (not ported yet), or "auto": flash iff ``tq >= 1024``,
-    there is no key mask and the tensors are on CUDA; dense otherwise.
-    The flash kernel takes no key mask, so ``impl="flash"`` with a mask
-    runs blockwise, which honours it exactly.
+    impl: "dense" (materialised softmax — reference semantics),
+    "blockwise", "flash", "ring" (not ported yet), or "auto"
+    (:func:`_auto_impl`: flash for CUDA tensors of at least 1024 queries,
+    no key mask and a shape and dtype the flash kernels take; dense
+    otherwise).  The flash kernel takes no key mask, so ``impl="flash"``
+    with a mask runs blockwise, which honours it exactly; on CUDA, an
+    explicit ``impl="flash"`` on a shape the kernels refuse raises.
     """
     if impl == "auto":
-        impl = "flash" if (qh.shape[2] >= 1024 and mask is None
-                           and qh.is_cuda) else "dense"
+        impl = _auto_impl(qh.shape, kh.shape, vh.shape,
+                          (qh.dtype, kh.dtype, vh.dtype), mask is not None,
+                          qh.is_cuda)
     if impl == "ring":
         raise NotImplementedError(
             "impl='ring' (sequence-parallel ring attention over a mesh) is "
@@ -456,12 +501,15 @@ def dot_product_attention(qh, kh, vh, mask=None, causal: bool = False,
     if impl != "dense":
         raise ValueError(f"unknown attention impl {impl!r}")
     s = torch.einsum("bhqd,bhkd->bhqk", qh, kh) * _scale(qh)
+    # the floor in s's dtype, as the reference's jnp.asarray(_NEG, s.dtype):
+    # -inf in float16, which cannot hold -1e30
+    neg = s.new_tensor(_NEG)
     if mask is not None:
-        s = torch.where(mask.bool()[:, None, None, :], s, _NEG)
+        s = torch.where(mask.bool()[:, None, None, :], s, neg)
     if causal:
         tq, tk = s.shape[-2:]
         cm = torch.arange(tk, device=s.device)[None, :] <= \
             torch.arange(tq, device=s.device)[:, None]
-        s = torch.where(cm, s, _NEG)
+        s = torch.where(cm, s, neg)
     w = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", w, vh)

@@ -222,6 +222,27 @@ def test_dense_matches_jax(masked, causal):
     _close(out, ref)
 
 
+@pytest.mark.parametrize("masked,causal", [(True, False), (False, True),
+                                           (True, True)])
+def test_dense_float16_matches_jax(masked, causal):
+    """float16, where the auto rule sends what the flash kernels refuse: the
+    mask floor is taken in s's dtype (-inf: float16 cannot hold -1e30), as
+    the reference's ``jnp.asarray(_NEG, s.dtype)``."""
+    q, k, v = (x.astype(np.float16) for x in _qkv(tq=24, seed=41))
+    mask = (np.random.RandomState(42).rand(2, 24) > 0.3).astype(np.float32) \
+        if masked else None
+    if masked:
+        mask[:, 0] = 1      # every row keeps a key
+    ref = jring.dot_product_attention(q, k, v, mask=mask, causal=causal,
+                                      impl="dense")
+    out = tring.dot_product_attention(
+        *_t(q, k, v), mask=None if mask is None else torch.from_numpy(mask),
+        causal=causal, impl="dense")
+    assert out.dtype == torch.float16 and out.isfinite().all()
+    # float16 keeps 11 bits: a few ulps of |O| <= 2 between two orders
+    _close(out.float(), np.asarray(ref, np.float32), atol=4e-3)
+
+
 # ---------------------------------------------------------------------------
 # dispatch
 # ---------------------------------------------------------------------------
@@ -256,6 +277,77 @@ def test_masked_batch_never_reaches_flash(flash_spy):
     assert torch.equal(out, ref) and flash_spy == []
     tring.dot_product_attention(q, k, v, causal=True, impl="flash")
     assert flash_spy == [(2, 2, 16, 8)]
+
+
+# The auto rule (ROADMAP C6) on meta tensors: shapes and dtypes without
+# memory, so b·h past 65535 costs nothing.  (b, h) factor each b·h.
+_BH = {65535: (257, 255), 65536: (256, 256)}
+
+
+@pytest.mark.parametrize("cuda", [False, True])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("tq", [1023, 1024])
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64,
+                                   torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh", sorted(_BH))
+@pytest.mark.parametrize("d", [128, 129, 256])
+def test_auto_picks_flash_exactly_where_the_kernels_take_it(d, bh, dtype, tq,
+                                                            masked, cuda):
+    b, h = _BH[bh]
+    q = torch.empty((b, h, tq, d), dtype=dtype, device="meta")
+    kv = torch.empty((b, h, tq + 7, d), dtype=dtype, device="meta")
+    try:
+        tring._check_flash_inputs(q, kv, kv)
+        accepted = True
+    except (TypeError, ValueError):
+        accepted = False
+    # what the kernels' C entry points take (csrc/flash_attn_*.cu)
+    assert accepted == (d <= 128 and bh <= 65535
+                        and dtype in (torch.float32, torch.bfloat16))
+    picked = tring._auto_impl(q.shape, kv.shape, kv.shape, (dtype,) * 3,
+                              masked, cuda)
+    want = accepted and cuda and not masked and tq >= 1024
+    assert picked == ("flash" if want else "dense")
+
+
+@pytest.mark.parametrize("dtypes", [
+    (torch.float32, torch.bfloat16, torch.float32),
+    (torch.bfloat16, torch.bfloat16, torch.float32),
+])
+def test_auto_never_picks_flash_for_mixed_dtypes(dtypes):
+    q, k, v = (torch.empty((1, 2, 1024, 64), dtype=t, device="meta")
+               for t in dtypes)
+    with pytest.raises(TypeError, match="one dtype"):
+        tring._check_flash_inputs(q, k, v)
+    assert tring._auto_impl(q.shape, k.shape, v.shape, dtypes, False,
+                            True) == "dense"
+    assert tring._auto_impl(q.shape, k.shape, v.shape, (dtypes[0],) * 3,
+                            False, True) == "flash"
+
+
+def test_wide_single_head_layer_matches_jax_and_avoids_flash():
+    """``SelfAttentionLayer(nHeads=1, nOut=256)`` at t 1024: a head of 256,
+    which the flash kernels refuse.  On the card the auto rule sends it to
+    dense; here both packages run dense from the same copied params."""
+    rng = np.random.RandomState(40)
+    nin, t = 8, 1024
+    kw = dict(nIn=nin, nHeads=1, nOut=256)
+    jl, tl = jatt.SelfAttentionLayer(**kw), tatt.SelfAttentionLayer(**kw)
+    for layer in (jl, tl):
+        layer.inferNIn(None)
+    assert jl.headSize == tl.headSize == 256
+    params = {k: rng.randn(*s).astype(np.float32) * 0.06
+              for k, s in (("Wq", (nin, 256)), ("Wk", (nin, 256)),
+                           ("Wv", (nin, 256)), ("Wo", (256, 256)))}
+    x = rng.randn(1, nin, t).astype(np.float32)
+    ref, _ = jl.forward(params, x, False, None, {})
+    out, _ = tl.forward({k: torch.from_numpy(v) for k, v in params.items()},
+                        torch.from_numpy(x), False, None, {})
+    assert out.shape == (1, 256, t)
+    _close(out, ref)
+    qh = (1, 1, t, 256)
+    assert tring._auto_impl(qh, qh, qh, (torch.float32,) * 3, False,
+                            True) == "dense"
 
 
 def test_ring_and_unknown_impl_raise():

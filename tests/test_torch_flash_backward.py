@@ -195,3 +195,37 @@ def test_backward_wrappers_never_fall_back_off_the_cpu(wrapper):
     rows = torch.zeros((1, 8), device="meta")
     with pytest.raises(ValueError, match="runs on cuda or cpu"):
         getattr(tring, wrapper)(q, q, q, q, rows, rows)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [8, 12, 16, 64, 128])
+def test_backward_layout_padding_keeps_the_plain_result(d, dtype, causal,
+                                                        monkeypatch):
+    """The backward wrappers' layout step: zero-padded q, k, v and dO, the
+    unpadded scale and dq, dk, dv sliced back equal the plain versions on
+    the original operands (so the kernels, handed that layout, compute the
+    same function), and the padded columns of dq, dk and dv are zero."""
+    q, k, v, g = (torch.from_numpy(x).to(dtype)
+                  for x in _inputs(b=1, h=2, tq=70, tk=90, d=d, seed=40 + d))
+    out, lse = tring.flash_attention_reference(q, k, v, causal)
+    delta = (g.float() * out.float()).sum(-1).reshape(2, 70)
+    args = (lse, delta, causal)
+    ref = (tring.flash_bwd_dq_reference(q, k, v, g, *args),
+           *tring.flash_bwd_dkv_reference(q, k, v, g, *args))
+    qf, kf, vf, gf, dp = tring._flash_layout(q, k, v, g)
+    assert dp * q.element_size() % 16 == 0 and dp - d < 16 // q.element_size()
+    assert qf.shape == gf.shape == (1, 2, 70, dp)
+    assert kf.shape == vf.shape == (1, 2, 90, dp)
+    for x in (qf, kf, vf, gf):
+        assert x.is_contiguous() and x.data_ptr() % 16 == 0
+        assert not x[..., d:].any()
+    monkeypatch.setattr(tring, "_scale", lambda _: 1.0 / np.sqrt(d))
+    got = (tring.flash_bwd_dq_reference(qf, kf, vf, gf, *args),
+           *tring.flash_bwd_dkv_reference(qf, kf, vf, gf, *args))
+    tol = dict(atol=1e-6, rtol=1e-6) if dtype == torch.float32 else BF16_TOL
+    for name, x, want in zip(("dq", "dk", "dv"), got, ref):
+        assert x.dtype == dtype and x.shape[-1] == dp
+        assert not x[..., d:].float().any(), name
+        torch.testing.assert_close(x[..., :d].float(), want.float(), **tol,
+                                   msg=name)
