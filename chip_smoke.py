@@ -8,13 +8,16 @@ It imports nothing of JAX and nothing of the JAX package.  Phases, each of
 which must pass or the script exits non-zero without a result line:
 
 1. build every kernel (``deeplearning4j_tpu_torch/csrc/*.cu``: the flash
-   forward B1 and the flash backward's dq and dk/dv passes B2, B3) with
-   nvcc for sm_90a, all sources in parallel, timed as set-up; print
-   ptxas's registers, spills and wgmma notes, and, where ``cuobjdump`` is
-   present, each kernel's count of HGMMA (wgmma), HMMA (mma.sync), UTMALDG
-   (TMA load) and local-memory (STL/LDL) instructions.  Every
-   instantiation of B1, B2 and B3 must show HGMMA and UTMALDG, no STL/LDL
-   and no ptxas spill (the tensor-core design; no ``cuobjdump`` fails it);
+   forward B1, the flash backward's dq and dk/dv passes B2, B3, and the
+   matrix product with the BatchNorm statistics B4) with nvcc for sm_90a,
+   all sources in parallel, timed as set-up; print ptxas's registers,
+   spills and wgmma notes, and, where ``cuobjdump`` is present, each
+   kernel's count of HGMMA (wgmma), HMMA (mma.sync), UTMALDG (TMA load),
+   UTMASTG (TMA store) and local-memory (STL/LDL) instructions.  Every
+   instantiation of B1, B2 and B3 and every GEMM instantiation of B4 (its
+   column-sum and wᵀ-split passes are excluded by name) must show HGMMA
+   and UTMALDG, no STL/LDL and no ptxas spill (the tensor-core design; no
+   ``cuobjdump`` fails it);
 2. hold each kernel against its plain PyTorch version on the card, at the
    main paths' shapes, a ragged shape and small shapes (tolerances below),
    and the flash gradient (``FlashAttention``: B1 forward, B2 and B3
@@ -62,7 +65,9 @@ which must pass or the script exits non-zero without a result line:
 9. hold B4 (``csrc/matmul_bn_stats.cu``, the matrix product with the
    BatchNorm statistics in its epilogue) against its plain version at
    every 1x1 stride-1 GEMM of ResNet-50 at batch 64, the reference test's
-   shape and ragged shapes, in float32 and bfloat16;
+   shape and ragged shapes (among them K and N rows that the wrapper pads
+   to 16 bytes), in float32 and bfloat16; two calls on the same inputs
+   must give the same bits at the stage-0 shape and a padded ragged one;
 10. ResNet-50 training path, ``bench.py``'s configuration
    (``ResNet50(numClasses=1000, inputShape=(3, 224, 224),
    dataType="BFLOAT16")``, its zoo updater ``Nesterovs(0.1, 0.9)``, seeded
@@ -80,9 +85,13 @@ which must pass or the script exits non-zero without a result line:
    ``conv1x1_bn_stats``, held against the graph's conv output and the
    following BN layer's batch mean and biased variance.  Counters set to 0
    just before and read just after: four B4 launches;
-13. time B4 at each ResNet-50 shape beside its bound, its plain version and
-   ``torch.matmul`` (the product only, no statistics), and the ResNet-50
-   step (ms/step, images/s as ``bench.py`` counts them); profile one step.
+13. time B4 at each ResNet-50 shape, bfloat16 and float32, beside its
+   bound, its plain version, ``torch.matmul`` (the product only, no
+   statistics: ``library_ms``) and the unfused sequence (``torch.matmul``
+   then the two f32 column sums, which re-read y: ``unfused_ms``), with CUDA
+   events and, for B4 and ``torch.matmul``, profiler device time; and the
+   ResNet-50 step (ms/step, images/s as ``bench.py`` counts them); profile
+   one step.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``.  With ``--record PATH`` it also
@@ -152,7 +161,11 @@ B4_RESNET_SHAPES = [
     (12544, 1024, 256), (12544, 256, 1024),
     (3136, 2048, 512), (3136, 512, 2048)]
 B4_SHAPES = [*B4_RESNET_SHAPES, (1024, 192, 256),   # tests/test_pallas_fused
-             (1000, 72, 40), (7, 16, 8)]            # ragged
+             (1000, 72, 40), (7, 16, 8),            # ragged
+             (12544, 8, 3), (33, 1, 1),             # padded K and N
+             (300, 36, 130)]                        # padded K and N, 2 tiles
+# Two calls on the same inputs give the same bits (no atomics) here.
+B4_REPEAT_SHAPES = [B4_RESNET_SHAPES[0], (300, 36, 130)]
 # B4 checks: y in its own dtype — float32 by summation order, bfloat16 to
 # one bf16 ulp (the same f32 value rounded once; spacing <= 2**-7 of it).
 # The sums add M values in another order than the plain version's (the
@@ -296,7 +309,7 @@ def _bwd_bound(kernel, b, h, tq, tk, d, causal, dtype_name, elem):
             nbytes)
 
 
-SASS_OPS = ("HGMMA", "HMMA", "UTMALDG", "STL", "LDL")
+SASS_OPS = ("HGMMA", "HMMA", "UTMALDG", "UTMASTG", "STL", "LDL")
 
 
 def _cuobjdump():
@@ -316,8 +329,8 @@ def _cuobjdump():
 
 def _sass_counts(tool, lib):
     """{kernel: {op: count}} of a library's SASS for the ops in SASS_OPS:
-    HGMMA (wgmma), HMMA (mma.sync), UTMALDG (TMA load), STL/LDL (local
-    memory: spills or local arrays)."""
+    HGMMA (wgmma), HMMA (mma.sync), UTMALDG (TMA load), UTMASTG (TMA
+    store), STL/LDL (local memory: spills or local arrays)."""
     import re
     out = subprocess.run([tool, "-sass", lib], capture_output=True,
                          text=True, timeout=300).stdout
@@ -384,23 +397,32 @@ def phase_build(rec):
                 f"{op} {n}" for op, n in c.items()))
 
 
-FLASH_INSTANTIATIONS = 8    # {float, bfloat16} x head dims {16, 32, 64, 128}
+# The tensor-core kernels' instantiations that the sass gate holds: the
+# name part that marks them and how many each source has.  B1-B3: {float,
+# bfloat16} x head dims {16, 32, 64, 128}; B4's GEMM: {float, bfloat16} x
+# tile widths {64, 128} (its column_sum_kernel and split_transpose_kernel
+# run no product and are left out by name).
+GATED = {**{name: ("kernel", 8) for name in ("flash_attn_fwd",
+                                             "flash_attn_bwd_dq",
+                                             "flash_attn_bwd_dkv")},
+         "matmul_bn_stats": ("mm_bn_tile_kernel", 4)}
 
 
 def phase_sass(rec):
-    """The flash kernels' build evidence: every instantiation of B1, B2 and
-    B3 issues wgmma (HGMMA) and TMA loads (UTMALDG) and touches no local
-    memory (STL/LDL), and ptxas reports no spill in their sources."""
+    """The tensor-core kernels' build evidence: every instantiation of B1,
+    B2 and B3 and of B4's GEMM issues wgmma (HGMMA) and TMA loads (UTMALDG)
+    and touches no local memory (STL/LDL), and ptxas reports no spill in
+    their sources."""
     bad = []
-    for name in FLASH:
+    for name, (mark, expected) in GATED.items():
         counts = rec["sass"].get(name)
         if not counts:
             bad.append(f"{name}: no SASS counts (no cuobjdump)")
             continue
-        kern = {fn: c for fn, c in counts.items() if "kernel" in fn}
-        if len(kern) != FLASH_INSTANTIATIONS:
-            bad.append(f"{name}: {len(kern)} kernel instantiations, "
-                       f"expected {FLASH_INSTANTIATIONS}")
+        kern = {fn: c for fn, c in counts.items() if mark in fn}
+        if len(kern) != expected:
+            bad.append(f"{name}: {len(kern)} {mark} instantiations, "
+                       f"expected {expected}")
         for fn, c in kern.items():
             if not (c["HGMMA"] > 0 and c["UTMALDG"] > 0
                     and c["STL"] == c["LDL"] == 0):
@@ -411,9 +433,9 @@ def phase_sass(rec):
         elif any(spills):
             bad.append(f"{name}: ptxas spills (stores, loads) {spills}")
     rec["sass_ok"] = not bad
-    print(f"sass/ptxas gate over {', '.join(FLASH)}: "
+    print(f"sass/ptxas gate over {', '.join(GATED)}: "
           f"{'ok' if not bad else bad}")
-    _require(not bad, f"a flash kernel is not on wgmma + TMA without "
+    _require(not bad, f"a tensor-core kernel is not on wgmma + TMA without "
                       f"spills: {bad}")
 
 
@@ -1071,7 +1093,9 @@ def _b4_errors(got, ref, y_tol):
 def phase_b4_kernels(torch, rec):
     """B4 against its plain version on the same inputs: every ResNet-50
     1x1 stride-1 shape at batch 64, the reference test's shape and ragged
-    shapes, float32 and bfloat16."""
+    shapes, float32 and bfloat16; at B4_REPEAT_SHAPES a second call on the
+    same inputs must give the same bits (one writer per output, no
+    atomics)."""
     from deeplearning4j_tpu_torch.ops.fused import (matmul_bn_stats,
                                                     matmul_bn_stats_plain)
     gen = torch.Generator(device="cuda").manual_seed(5)
@@ -1087,10 +1111,18 @@ def phase_b4_kernels(torch, rec):
             torch.cuda.synchronize()
             c = dict(shape=[m, k, n], dtype=dn,
                      **_b4_errors(got, ref, B4_Y_TOL[dn]))
+            if (m, k, n) in B4_REPEAT_SHAPES:
+                again = matmul_bn_stats(x, w)
+                c["same_bits"] = all(torch.equal(a, b)
+                                     for a, b in zip(got, again))
+                c["ok"] = c["ok"] and c["same_bits"]
             checks.append(c)
             print(f"B4 {c['shape']} {dn:8s} |dy|max={c['y_err']:.3g} "
                   f"|ds|/Σ|y| max={c['s_rel']:.3g} |dss|/Σy² max="
-                  f"{c['ss_rel']:.3g} {'ok' if c['ok'] else 'MISMATCH'}")
+                  f"{c['ss_rel']:.3g}"
+                  + (f" same bits twice: {c['same_bits']}"
+                     if "same_bits" in c else "")
+                  + f" {'ok' if c['ok'] else 'MISMATCH'}")
             if not c["ok"]:
                 failed.append(c)
     print(f"tolerances: y {B4_Y_TOL} (bf16: one ulp), s and ss "
@@ -1258,8 +1290,8 @@ def phase_b4_activations(torch, rec, gnet, pool):
 
 
 def phase_resnet_timing(torch, rec, net, pool):
-    from deeplearning4j_tpu_torch.ops.fused import (matmul_bn_stats,
-                                                    matmul_bn_stats_plain)
+    from deeplearning4j_tpu_torch.ops.fused import (
+        matmul_bn_stats, matmul_bn_stats_plain, matmul_bn_stats_reference)
     gen = torch.Generator(device="cuda").manual_seed(6)
     timing = {}
     for (m, k, n) in B4_RESNET_SHAPES:
@@ -1277,15 +1309,25 @@ def phase_resnet_timing(torch, rec, net, pool):
                      plain_ms=_time_ms(torch, lambda: matmul_bn_stats_plain(
                          x, w), iters=5, warmup=1),
                      library_ms=_time_ms(torch, lambda: torch.matmul(x, w)),
+                     unfused_ms=_time_ms(
+                         torch, lambda: matmul_bn_stats_reference(x, w)),
+                     device_ms=_device_ms(torch,
+                                          lambda: matmul_bn_stats(x, w)),
+                     library_device_ms=_device_ms(
+                         torch, lambda: torch.matmul(x, w)),
                      bound_ms=bound_ms, bound_by=bound_by, flops=flops,
                      bytes=nbytes, max_abs_err=err,
                      achieved_tflops=flops / ms / 1e9)
             timing[f"{m}x{k}x{n} {dn}"] = r
             print(f"B4 {dn} {[m, k, n]}: {ms:.4f} ms "
-                  f"({r['achieved_tflops']:.2f} TFLOP/s), bound "
-                  f"{bound_ms:.4f} ms ({bound_by}), plain "
-                  f"{r['plain_ms']:.4f} ms, torch.matmul (product only, no "
-                  f"statistics) {r['library_ms']:.4f} ms, max |d| {err:.3g}")
+                  f"({r['achieved_tflops']:.2f} TFLOP/s; device "
+                  f"{r['device_ms']} ms), bound {bound_ms:.4f} ms "
+                  f"({bound_by}), plain {r['plain_ms']:.4f} ms, "
+                  f"torch.matmul (product only, no statistics) "
+                  f"{r['library_ms']:.4f} ms (device "
+                  f"{r['library_device_ms']} ms), unfused (torch.matmul "
+                  f"then the two f32 column sums) {r['unfused_ms']:.4f} ms, "
+                  f"max |d| {err:.3g}")
     rec["b4_timing"] = timing
 
     for i in range(2):          # warm, as bench.py does

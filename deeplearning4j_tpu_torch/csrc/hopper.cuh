@@ -1,9 +1,12 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: shared-memory
-// addresses and swizzles, mbarriers, TMA tensor maps and loads, and warpgroup
-// matrix multiplies (wgmma) with their shared-memory descriptors.  Plain
-// device functions over inline PTX; no CUTLASS.  Host code builds the tensor
+// addresses and swizzles, mbarriers, TMA tensor maps, loads and stores, and
+// warpgroup matrix multiplies (wgmma) with their shared-memory descriptors.
+// Plain device functions over inline PTX; no CUTLASS.  Host code builds the tensor
 // maps through the driver entry point that the runtime hands out, so a
 // library built from a source that includes this header needs no -lcuda.
+//
+// TMA stores go the other way, from a staged tile in shared memory, and
+// complete through bulk groups rather than mbarriers.
 //
 // Layout conventions (CUTLASS's canonical GMMA layouts, in bytes):
 //   * A TMA box whose rows are SW bytes (SW = 32, 64 or 128) lands in shared
@@ -51,6 +54,18 @@ __device__ __forceinline__ uint32_t swizzle(uint32_t off) {
 
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Hands registers between warpgroups: every thread of the warpgroup
+// executes it, and the warpgroup's threads then hold N registers each
+// (dec before inc, so the register file is never over-committed).
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(N));
 }
 
 // bar.sync on a named barrier shared by `n` threads (id 0 is __syncthreads).
@@ -117,6 +132,41 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
          "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2) : "memory");
 }
 
+// Copies `src` to the box at element coordinates (c0, c1, c2) of `map`:
+// `src` holds the box as a TMA load of it would leave it, swizzle included.
+// Elements outside the tensor are not written.  Issue after
+// fence_proxy_async() and a barrier have made the threads' writes to `src`
+// visible; the store joins this thread's open bulk group.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)),
+         "r"(c0), "r"(c1), "r"(c2) : "memory");
+}
+
+// Closes this thread's open bulk group (the TMA stores issued since the
+// last commit).
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's bulk groups still read their
+// shared memory (which may then be overwritten).
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" :: "n"(N) : "memory");
+}
+
+// Waits until at most N of this thread's bulk groups are incomplete (their
+// writes to global memory done).
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
 // ---------------------------------------------------------------------------
 // wgmma
 // ---------------------------------------------------------------------------
@@ -178,6 +228,8 @@ __device__ __forceinline__ float ex2(float x) {
 
 // D (64 x N, f32, N/2 registers a thread) = A·B + (scale_d ? D : 0).
 //   wgmma_ss_bf16<N>:    A, B bf16 in shared memory, both K-major (k16).
+//   wgmma_ss_bf16_tb<N>: A bf16 K-major, B bf16 MN-major (the transpose
+//                        bit), both in shared memory (k16).
 //   wgmma_rs_bf16_tb<N>: A bf16 in registers (4 x bf16x2: the f32
 //                        accumulator layout of a 64 x 16 tile, packed), B
 //                        bf16 MN-major in shared memory (k16).
@@ -187,6 +239,7 @@ __device__ __forceinline__ float ex2(float x) {
 //                        lane/4, t = lane%4), B tf32 K-major in shared
 //                        memory (k8).  TF32 takes no transpose.
 template <int N> __device__ void wgmma_ss_bf16(float*, uint64_t, uint64_t, int);
+template <int N> __device__ void wgmma_ss_bf16_tb(float*, uint64_t, uint64_t, int);
 template <int N> __device__ void wgmma_rs_bf16_tb(float*, const uint32_t*, uint64_t, int);
 template <int N> __device__ void wgmma_ss_tf32(float*, uint64_t, uint64_t, int);
 template <int N> __device__ void wgmma_rs_tf32(float*, const uint32_t*, uint64_t, int);
@@ -236,6 +289,8 @@ HOPPER_WGMMA_SS(wgmma_ss_bf16, 16, "m64n16k16.f32.bf16.bf16", "1, 1, 0, 0", HOPP
 HOPPER_WGMMA_SS(wgmma_ss_bf16, 32, "m64n32k16.f32.bf16.bf16", "1, 1, 0, 0", HOPPER_RL16, HOPPER_ACC16(0), 16, 17, 18)
 HOPPER_WGMMA_SS(wgmma_ss_bf16, 64, "m64n64k16.f32.bf16.bf16", "1, 1, 0, 0", HOPPER_RL32, HOPPER_ACC32(0), 32, 33, 34)
 HOPPER_WGMMA_SS(wgmma_ss_bf16, 128, "m64n128k16.f32.bf16.bf16", "1, 1, 0, 0", HOPPER_RL64, HOPPER_ACC64(0), 64, 65, 66)
+HOPPER_WGMMA_SS(wgmma_ss_bf16_tb, 64, "m64n64k16.f32.bf16.bf16", "1, 1, 0, 1", HOPPER_RL32, HOPPER_ACC32(0), 32, 33, 34)
+HOPPER_WGMMA_SS(wgmma_ss_bf16_tb, 128, "m64n128k16.f32.bf16.bf16", "1, 1, 0, 1", HOPPER_RL64, HOPPER_ACC64(0), 64, 65, 66)
 HOPPER_WGMMA_RS(wgmma_rs_bf16_tb, 16, "m64n16k16.f32.bf16.bf16", "1, 1, 1", HOPPER_RL8, HOPPER_ACC8(0), 8, 9, 10, 11, 12, 13)
 HOPPER_WGMMA_RS(wgmma_rs_bf16_tb, 32, "m64n32k16.f32.bf16.bf16", "1, 1, 1", HOPPER_RL16, HOPPER_ACC16(0), 16, 17, 18, 19, 20, 21)
 HOPPER_WGMMA_RS(wgmma_rs_bf16_tb, 64, "m64n64k16.f32.bf16.bf16", "1, 1, 1", HOPPER_RL32, HOPPER_ACC32(0), 32, 33, 34, 35, 36, 37)
@@ -298,6 +353,22 @@ __device__ __forceinline__ void mma_ss_bf16(float (&d)[N / 2],
                      gmma_desc<SW>(b + p * N * SW + w, 16, 8 * SW),
                      acc || kk > 0);
   }
+}
+
+// D (64 x N) = A·B (+ D if `acc`), bf16: A a 64-row TMA tile of K columns
+// (K-major), B a K-row TMA tile of N columns read MN-major (the transpose
+// bit); 16 of K a step.
+template <int N, int K, int SW>
+__device__ __forceinline__ void mma_ss_bf16_tb(float (&d)[N / 2],
+                                               const uint8_t* a,
+                                               const uint8_t* b, bool acc) {
+  constexpr int KPP = SW / 32;
+#pragma unroll
+  for (int kk = 0; kk < K / 16; ++kk)
+    wgmma_ss_bf16_tb<N>(
+        d, gmma_desc<SW>(a + (kk / KPP) * 64 * SW + (kk % KPP) * 32, 16,
+                         8 * SW),
+        gmma_desc<SW>(b + kk * 16 * SW, K * SW, 8 * SW), acc || kk > 0);
 }
 
 // The bf16 accumulator fragment of a 64 x K tile, packed pair by pair: the

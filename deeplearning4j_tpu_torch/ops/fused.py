@@ -7,15 +7,15 @@ GEMM over NHWC rows), ``s = Σ y`` and ``ss = Σ y²`` of the unrounded f32
 product, so that BatchNorm's mean ``s/M`` and biased variance ``ss/M −
 mean²`` never read y again.  A CUDA tensor launches the hand-written Hopper
 kernel ``csrc/matmul_bn_stats.cu`` (adding one to
-``matmul_bn_stats.launches``) or raises; a CPU tensor runs
-:func:`matmul_bn_stats_plain`.  Nothing in the port dispatches it: as in the
-reference, whose measured verdict on the TPU was negative, no layer calls
-it.
+``matmul_bn_stats.launches``) on the layout of :func:`_mm_layout`, or
+raises; a CPU tensor runs :func:`matmul_bn_stats_plain`.  Nothing in the
+port dispatches it: as in the reference, whose measured verdict on the TPU
+was negative, no layer calls it.
 
 The reference's TPU-only arguments are not carried over: ``block_m`` and
-``block_n`` (the kernel picks its own tiles and masks ragged ones, so M and
-N need not be multiples of anything) and ``interpret`` (the CPU path is the
-plain version).
+``block_n`` (the kernel picks its own tiles, and TMA reads zeros past the
+ragged ones, so M and N need not be multiples of anything) and
+``interpret`` (the CPU path is the plain version).
 """
 from __future__ import annotations
 
@@ -55,12 +55,52 @@ def _kernel():
                             [p, p, p, p, p, p, i, i, i, i, p])
 
 
-@functools.cache
-def _scratch_floats():
-    return kernels.function("matmul_bn_stats",
-                            "matmul_bn_stats_scratch_floats",
-                            [ctypes.c_int, ctypes.c_int],
+@functools.lru_cache(maxsize=64)
+def _scratch_floats(m, k, n, is_bf16):
+    """f32 elements of the kernel's scratch for x (m, k), w (k, n) on the
+    layout of :func:`_mm_layout`: the partial sums, then (float32) wᵀ's
+    split."""
+    i = ctypes.c_int
+    part = kernels.function("matmul_bn_stats",
+                            "matmul_bn_stats_scratch_floats", [i, i],
                             restype=ctypes.c_longlong)
+    split = kernels.function("matmul_bn_stats",
+                             "matmul_bn_stats_split_floats", [i, i, i],
+                             restype=ctypes.c_longlong)
+    return part(m, n) + split(k, n, is_bf16)
+
+
+
+def _mm_layout(x, w):
+    """The layout the kernel's TMA tensor maps take: x (M, K) and w (K, N)
+    of one dtype -> ``(xp (M, Kp), wp (Kp, Np))``, contiguous, 16-byte
+    aligned, with rows of Kp·elem and Np·elem bytes, multiples of 16.  An
+    operand that already is so is passed as it is; any other is copied into
+    a fresh tensor whose rows and columns past the originals' are zero.
+    Zero columns of x meet zero rows of w and add nothing to y; zero columns
+    of w give columns of y, s and ss that :func:`_mm_unpad` slices off.  A
+    layout step, like ``.contiguous()``: the values are unchanged."""
+    per = 16 // x.element_size()
+    m, k = x.shape
+    n = w.shape[1]
+    kp, np_ = -(-k // per) * per, -(-n // per) * per
+
+    def fit(a, rows, cols):
+        if a.shape == (rows, cols) and a.is_contiguous() \
+                and a.data_ptr() % 16 == 0:
+            return a
+        out = a.new_zeros((rows, cols))
+        out[:a.shape[0], :a.shape[1]] = a
+        return out
+    return fit(x, m, kp), fit(w, kp, np_)
+
+
+def _mm_unpad(y, s, ss, n):
+    """The kernel's outputs on the layout of :func:`_mm_layout`, (M, Np) and
+    (Np,) -> (M, N) and (N,): the columns past n are sliced off."""
+    if y.shape[1] == n:
+        return y, s, ss
+    return y[:, :n].contiguous(), s[:n].contiguous(), ss[:n].contiguous()
 
 
 def _check(x, w):
@@ -88,22 +128,25 @@ def matmul_bn_stats(x, w):
     if x.device.type != "cuda":
         raise ValueError(f"matmul_bn_stats runs on cuda or cpu, not "
                          f"{x.device.type}")
-    m, k = x.shape
     n = w.shape[1]
-    x, w = x.contiguous(), w.contiguous()
-    y = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    s = torch.empty((n,), dtype=torch.float32, device=x.device)
-    ss = torch.empty((n,), dtype=torch.float32, device=x.device)
-    scratch = torch.empty((_scratch_floats()(m, n),), dtype=torch.float32,
-                          device=x.device)
+    x, w = _mm_layout(x, w)
+    m, k = x.shape
+    np_ = w.shape[1]
+    bf16 = int(x.dtype == torch.bfloat16)
+    y = torch.empty((m, np_), dtype=x.dtype, device=x.device)
+    stats = torch.empty((2, np_), dtype=torch.float32, device=x.device)
+    scratch = torch.empty((_scratch_floats(m, k, np_, bf16),),
+                          dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
+        # PyTorch's raw accessor (CUDA builds; its compiled kernels use it)
+        # takes a few hundred ns, a torch.cuda.Stream a few microseconds.
+        stream = torch._C._cuda_getCurrentRawStream(x.device.index)
         err = _kernel()(x.data_ptr(), w.data_ptr(), y.data_ptr(),
-                        s.data_ptr(), ss.data_ptr(), scratch.data_ptr(),
-                        m, k, n, int(x.dtype == torch.bfloat16), stream)
+                        stats[0].data_ptr(), stats[1].data_ptr(),
+                        scratch.data_ptr(), m, k, np_, bf16, stream)
     kernels.check("matmul_bn_stats", err, "matmul_bn_stats launch")
     matmul_bn_stats.launches += 1
-    return y, s, ss
+    return _mm_unpad(y, stats[0], stats[1], n)
 
 
 matmul_bn_stats.launches = 0

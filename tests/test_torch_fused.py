@@ -197,3 +197,76 @@ def test_devices_other_than_cpu_and_cuda_raise():
     x = torch.ones(4, 3, device="meta")
     with pytest.raises(ValueError, match="runs on cuda or cpu"):
         tf.matmul_bn_stats(x, torch.ones(3, 2, device="meta"))
+
+
+# Shapes for the kernel's layout: aligned ones (passed as they are) and
+# ones whose K or N rows are not 16-byte multiples in one dtype or both.
+LAYOUT_SHAPES = [(1024, 192, 256), (200, 64, 64), (1000, 72, 40), (7, 16, 8),
+                 (12544, 8, 3), (33, 1, 1), (300, 36, 130)]
+
+
+def _layout_inputs(m, k, n, dtype):
+    rng = np.random.RandomState(m + 7 * k + 13 * n)
+    x = torch.from_numpy(rng.randn(m, k).astype(np.float32))
+    w = torch.from_numpy((rng.randn(k, n) / np.sqrt(k)).astype(np.float32))
+    dt = getattr(torch, dtype)
+    return x.to(dt), w.to(dt)
+
+
+@pytest.mark.parametrize("m,k,n", LAYOUT_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_layout_padding_keeps_the_plain_result(m, k, n, dtype):
+    """The wrapper's layout step pads x's and w's K and w's N with zeros to
+    16-byte rows; the plain function on the padded operands, sliced back,
+    gives the plain function's result on the originals.  The zero columns
+    add exact zeros to every product, but the padded product may be blocked
+    differently, so f32 y and the sums hold to 1e-6 relative; bf16 y, the
+    same f32 value rounded once, to one bf16 ulp."""
+    x, w = _layout_inputs(m, k, n, dtype)
+    xp, wp = tf._mm_layout(x, w)
+    per = 16 // x.element_size()
+    kp, np_ = -(-k // per) * per, -(-n // per) * per
+    assert xp.shape == (m, kp) and wp.shape == (kp, np_)
+    assert xp.dtype == wp.dtype == x.dtype
+    assert torch.equal(xp[:, :k], x) and not xp[:, k:].any()
+    assert torch.equal(wp[:k, :n], w) and not wp[k:].any() \
+        and not wp[:, n:].any()
+    if (kp, np_) == (k, n):
+        assert xp is x and wp is w
+    y, s, ss = tf._mm_unpad(*tf.matmul_bn_stats_plain(xp, wp), n)
+    ry, rs, rss = tf.matmul_bn_stats_plain(x, w)
+    assert y.shape == ry.shape and s.shape == rs.shape == ss.shape == (n,)
+    assert y.dtype == x.dtype and y.is_contiguous()
+    if dtype == "bfloat16":
+        torch.testing.assert_close(y.float(), ry.float(), rtol=BF16_ULP,
+                                   atol=1e-6)
+    else:
+        torch.testing.assert_close(y, ry, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(s, rs, rtol=1e-6, atol=1e-5)
+    torch.testing.assert_close(ss, rss, rtol=1e-6, atol=1e-5)
+
+
+@pytest.mark.parametrize("m,k,n", LAYOUT_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_layout_rows_are_16_byte_multiples(m, k, n, dtype):
+    """What TMA needs of every operand the kernel maps: contiguous, a
+    16-byte aligned base and row strides of a multiple of 16 bytes — x, w
+    and y (M, Np), whose rows are w's."""
+    x, w = _layout_inputs(m, k, n, dtype)
+    for a in tf._mm_layout(x, w):
+        assert a.is_contiguous() and a.data_ptr() % 16 == 0
+        assert a.stride(0) * a.element_size() % 16 == 0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_layout_realigns_a_misaligned_operand(dtype):
+    """An operand of aligned rows whose data does not start on 16 bytes,
+    or that is not contiguous, is copied: the values are kept."""
+    x, w = _layout_inputs(64, 32, 16, dtype)
+    buf = torch.zeros(x.numel() + 1, dtype=x.dtype)
+    shifted = buf[1:].view(64, 32)
+    shifted.copy_(x)
+    assert shifted.data_ptr() % 16 != 0
+    xp, wp = tf._mm_layout(shifted, w.t().contiguous().t())
+    assert xp.data_ptr() % 16 == 0 and torch.equal(xp, x)
+    assert wp.is_contiguous() and torch.equal(wp, w)
