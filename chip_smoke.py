@@ -91,7 +91,32 @@ which must pass or the script exits non-zero without a result line:
    then the two f32 column sums, which re-read y: ``unfused_ms``), with CUDA
    events and, for B4 and ``torch.matmul``, profiler device time; and the
    ResNet-50 step (ms/step, images/s as ``bench.py`` counts them); profile
-   one step.
+   one step;
+14. recurrent path (``rnn_train``): BASELINE config 4, the GravesLSTM
+   char-RNN at the widths of dl4j-examples' ``LSTMCharModellingExample``
+   (two ``GravesLSTM(200, tanh)``, ``RnnOutputLayer("mcxent", softmax)``,
+   ``Adam(5e-3)``, l2 1e-4, XAVIER, truncated BPTT 50; minibatch 32,
+   ``exampleLength`` 1000, FLOAT) built with the config DSL and trained by
+   ``MultiLayerNetwork.fit(CharacterIterator, epochs=1)`` over
+   ``examples/lstm_charmodelling.py``'s text repeated to fill two
+   minibatches (2 batches x 20 chunks).  Counters set to 0 just before and
+   read just after: no kernel launches (the recurrence is torch ops, as the
+   reference's is a ``lax.scan``); the loss must be finite and the
+   iteration count 2 (one per batch, whatever its chunks);
+15. check one FLOAT TBPTT batch (4 x 200 steps, 4 chunks) from the same
+   copied parameters on the card and on the CPU (loss, parameters);
+16. ``rnnTimeStep`` on the card: 120 single steps equal ``output`` of the
+   whole sequence step by step, ``rnnClearPreviousState`` resets, and the
+   example's 120-character sampling loop runs and prints its sample;
+17. ``ComputationGraph`` recurrence (``rnn_graph``): the merge-vertex
+   char-RNN of ``tests/test_graph_recurrence.py`` at width 200 through
+   ``fit`` with TBPTT and ``rnnTimeStep``, and a GravesLSTM stack as a
+   graph against the same stack as a ``MultiLayerNetwork`` (the
+   reference's ``test_tbptt_matches_mln_path``); no kernel launches;
+18. time the char-RNN (``rnn_timing``): ms per TBPTT batch and chunk,
+   characters/s (batch x t / wall), peak memory, and one profiled chunk
+   (device time, idle share, device ops), each line beside the card's name
+   and power limit.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``.  With ``--record PATH`` it also
@@ -191,6 +216,34 @@ B4_ACT_CONVS = ["res0_1_c_conv", "res1_1_a_conv", "res2_1_c_conv",
 # parameters hold to RESNET_STEP_PARAM_SHARE of the step's largest update.
 RESNET_STEP_TOL = dict(atol=1e-4, rtol=1e-4)
 RESNET_STEP_PARAM_SHARE = 0.1
+
+# Recurrent path: BASELINE config 4 at the widths of dl4j-examples'
+# LSTMCharModellingExample (lstmLayerSize 200, miniBatchSize 32,
+# exampleLength 1000, tbpttLength 50, Adam 5e-3, l2 1e-4, XAVIER), FLOAT.
+# The example reads Shakespeare's works from the network; the repo never
+# fetches, so the corpus is examples/lstm_charmodelling.py's text, repeated
+# to 65,000 characters: (65,000 - 1) // 1000 = 64 examples, two minibatches.
+CHAR_RNN = dict(hidden=200, batch=32, length=1000, tbptt=50, lr=5e-3,
+                l2=1e-4, seed=12345)
+CHAR_TEXT = ("to be or not to be that is the question "
+             "whether tis nobler in the mind to suffer "
+             "the slings and arrows of outrageous fortune ") * 520
+RNN_SAMPLE = 120            # characters of the example's sampling loop
+# Card against CPU, one FLOAT TBPTT batch of 4 x 200 (4 chunks): the loss
+# (mcxent summed over a chunk's 50 steps, ~200) differs by float32
+# summation order, 1e-5 relative.  Adam at iteration 0 moves a parameter by
+# about lr whatever its gradient's size (more over a batch's 4 chunks, which
+# share the iteration), so a gradient within rounding of zero whose sign
+# differs moves that parameter the other way: 99.9 % of the parameters hold
+# to 1e-5, and none farther than the batch's largest update.
+RNN_STEP = dict(batch=4, length=200)
+RNN_LOSS_RTOL = 1e-5
+RNN_PARAM_ATOL, RNN_PARAM_SHARE = 1e-5, 0.999
+# rnnTimeStep against output on the card: the same ops, the input
+# projection at t 1 against t 120 (other product shapes, other summation
+# order): the probabilities hold to 1e-5.  The graph as against the MLN:
+# the same ops in the same order, 1e-6 (the reference test's tolerance).
+RNN_STEPWISE_ATOL, RNN_GRAPH_ATOL = 1e-5, 1e-6
 
 SERVE_SHAPE = (BATCH, GPT2_SMALL["nHeads"], PROMPT, PROMPT,
                GPT2_SMALL["headSize"])
@@ -1250,7 +1303,8 @@ def phase_b4_activations(torch, rec, gnet, pool):
     from deeplearning4j_tpu_torch.ops.fused import conv1x1_bn_stats
     x = pool[0].features.to("cuda")
     with torch.no_grad():
-        acts, _ = gnet._forward(gnet.params_, gnet.state_, (x,), True, None)
+        acts = gnet._forward(gnet.params_, gnet.state_, (x,), True,
+                             None)[0]
     torch.cuda.synchronize()
     res, ok_all = {}, True
     _reset_counters()
@@ -1359,6 +1413,328 @@ def phase_resnet_timing(torch, rec, net, pool):
         print(f"  {ms:9.3f} ms  {kname}")
 
 
+def _card():
+    """The card's name and power limit as nvidia-smi prints them, or None."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    return smi.stdout.strip().splitlines()[0] if smi.returncode == 0 \
+        and smi.stdout.strip() else None
+
+
+def _char_rnn_conf(n_chars):
+    """The example's net at LSTMCharModellingExample's widths, built with
+    the port's config DSL."""
+    from deeplearning4j_tpu_torch.learning import Adam
+    from deeplearning4j_tpu_torch.nn.conf import (BackpropType,
+                                                  NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.conf.recurrent import (GravesLSTM,
+                                                            RnnOutputLayer)
+    c = CHAR_RNN
+    return (NeuralNetConfiguration.builder().seed(c["seed"])
+            .updater(Adam(c["lr"])).l2(c["l2"]).weightInit("XAVIER").list()
+            .layer(GravesLSTM.builder().nIn(n_chars).nOut(c["hidden"])
+                   .activation("tanh").build())
+            .layer(GravesLSTM.builder().nIn(c["hidden"]).nOut(c["hidden"])
+                   .activation("tanh").build())
+            .layer(RnnOutputLayer.builder("mcxent").nIn(c["hidden"])
+                   .nOut(n_chars).activation("softmax").build())
+            .backpropType(BackpropType.TruncatedBPTT)
+            .tBPTTForwardLength(c["tbptt"]).tBPTTBackwardLength(c["tbptt"])
+            .build())
+
+
+def _char_rnn_model(torch):
+    """The char-RNN on the card (the entry point's default device), a copy
+    of its initial parameters, and the CharacterIterator."""
+    from deeplearning4j_tpu_torch.datasets import CharacterIterator
+    from deeplearning4j_tpu_torch.models import MultiLayerNetwork
+    c = CHAR_RNN
+    it = CharacterIterator(CHAR_TEXT, c["batch"], c["length"],
+                           seed=c["seed"])
+    net = MultiLayerNetwork(_char_rnn_conf(it.inputColumns())).init()
+    _require(net.device.type == "cuda", f"the net runs on {net.device}")
+    params0 = {li: {k: v.clone() for k, v in lp.items()}
+               for li, lp in net.params_.items()}
+    print(f"char-RNN: {net.numParams()} params, {it.inputColumns()} "
+          f"characters, {len(CHAR_TEXT)}-character corpus, batches of "
+          f"{c['batch']} x {c['length']}, TBPTT {c['tbptt']}, FLOAT")
+    return net, params0, it
+
+
+def _rnn_launches(rec, name, counts):
+    """Record an RNN phase's kernel launches; none is allowed."""
+    rec.setdefault("launches_rnn_phases", {})[name] = counts
+    _require(not any(counts.values()),
+             f"{name} launched a kernel: {counts} (no hand kernel is on the "
+             f"recurrent path)")
+
+
+def phase_rnn_train(torch, rec, net, params0, it):
+    import math
+    c = CHAR_RNN
+    torch.cuda.synchronize()
+    _reset_counters()
+    t0 = time.perf_counter()
+    net.fit(it, epochs=1)
+    loss = net.score()
+    torch.cuda.synchronize()
+    rec["rnn_fit_s"] = time.perf_counter() - t0
+    counts = _counters()
+    chunks = 2 * c["length"] // c["tbptt"]
+    rec["rnn_train"] = dict(loss=loss, iterations=net.getIterationCount(),
+                            epochs=net.getEpochCount(), chunks=chunks,
+                            launches=counts)
+    print(f"char-RNN fit 1 epoch: {net.getIterationCount()} iterations "
+          f"({chunks} TBPTT chunks) in {rec['rnn_fit_s']:.3f} s, last loss "
+          f"{loss:.6g}, launches {counts}")
+    _rnn_launches(rec, "rnn_train", counts)
+    _require(net.getIterationCount() == 2 and net.getEpochCount() == 1,
+             f"{net.getIterationCount()} iterations, {net.getEpochCount()} "
+             f"epochs; expected 2 and 1 (one iteration per batch)")
+    _require(math.isfinite(loss), f"char-RNN loss {loss}")
+    it.reset()
+    out = net.output(it.next().features[:2])
+    _require(tuple(out.shape) == (2, it.inputColumns(), c["length"])
+             and bool(out.isfinite().all())
+             and bool(((out.sum(1) - 1).abs() < 1e-4).all()),
+             f"output of shape {tuple(out.shape)}, not finite or not a "
+             f"distribution over the characters")
+
+
+def _rnn_step_batch(it):
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    it.reset()
+    ds = it.next(RNN_STEP["batch"])
+    t = RNN_STEP["length"]
+    return DataSet(ds.features[:, :, :t], ds.labels[:, :, :t])
+
+
+def phase_rnn_step(torch, rec, params0, it):
+    """One FLOAT TBPTT batch from the same copied parameters on the card
+    and on the CPU."""
+    from deeplearning4j_tpu_torch.models import MultiLayerNetwork
+    ds = _rnn_step_batch(it)
+    n = it.inputColumns()
+    nets = {}
+    _reset_counters()
+    for dev in ("cuda", "cpu"):
+        net = MultiLayerNetwork(_char_rnn_conf(n), device=dev).init(
+            params=params0)
+        net.fit(ds)
+        nets[dev] = net
+    torch.cuda.synchronize()
+    counts = _counters()
+    gpu, cpu = nets["cuda"], nets["cpu"]
+    loss_g, loss_c = gpu.score(), cpu.score()
+    e_l = abs(loss_g - loss_c)
+    p_cpu = cpu.params()
+    update = float((p_cpu - MultiLayerNetwork(
+        _char_rnn_conf(n), device="cpu").init(params=params0).params())
+        .abs().max())
+    d = (gpu.params().cpu() - p_cpu).abs()
+    e_p = float(d.max())
+    share = float((d <= RNN_PARAM_ATOL).float().mean())
+    rec["rnn_step_card_vs_cpu"] = dict(
+        loss_card=loss_g, loss_cpu=loss_c, loss_err=e_l, params_err=e_p,
+        params_within_atol=share, largest_update=update,
+        iterations=(gpu.getIterationCount(), cpu.getIterationCount()))
+    print(f"char-RNN FLOAT TBPTT batch {RNN_STEP['batch']}x"
+          f"{RNN_STEP['length']}, card vs CPU: loss {loss_g:.7g} vs "
+          f"{loss_c:.7g} (|d| {e_l:.3g}, rtol {RNN_LOSS_RTOL}); params "
+          f"|d|max {e_p:.3g} (largest update {update:.3g}), {share:.6f} of "
+          f"them within {RNN_PARAM_ATOL} (at least {RNN_PARAM_SHARE})")
+    _rnn_launches(rec, "rnn_step", counts)
+    _require(gpu.getIterationCount() == cpu.getIterationCount() == 1,
+             "one TBPTT batch is one iteration")
+    _require(e_l <= RNN_LOSS_RTOL * abs(loss_c)
+             and share >= RNN_PARAM_SHARE and e_p <= update,
+             f"the card's TBPTT batch disagrees with the CPU's: "
+             f"{rec['rnn_step_card_vs_cpu']}")
+
+
+def _one_hot(torch, idx, n):
+    x = torch.zeros((1, n, len(idx)))
+    x[0, idx, torch.arange(len(idx))] = 1.0
+    return x
+
+
+def phase_rnn_timestep(torch, rec, net, it):
+    """Stepping against the whole sequence, then the example's sampling
+    loop."""
+    import numpy as np
+    n = it.inputColumns()
+    x = _one_hot(torch, [it.convertCharacterToIndex(ch)
+                         for ch in CHAR_TEXT[:RNN_SAMPLE]], n)
+    _reset_counters()
+    net.rnnClearPreviousState()
+    full = net.output(x)
+    steps = torch.stack([net.rnnTimeStep(x[:, :, k])
+                         for k in range(RNN_SAMPLE)], dim=2)
+    err = float((steps - full).abs().max())
+    net.rnnClearPreviousState()
+    err0 = float((net.rnnTimeStep(x[:, :, 0]) - full[:, :, 0]).abs().max())
+    # the example's sampling loop (examples/lstm_charmodelling.py)
+    rng = np.random.RandomState(7)
+    net.rnnClearPreviousState()
+    idx = rng.randint(n)
+    out = [it.convertIndexToCharacter(idx)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(RNN_SAMPLE):
+        xs = np.zeros((1, n, 1), np.float32)
+        xs[0, idx, 0] = 1.0
+        probs = net.rnnTimeStep(xs).cpu().numpy().reshape(-1)
+        idx = int(rng.choice(n, p=probs / probs.sum()))
+        out.append(it.convertIndexToCharacter(idx))
+    wall = time.perf_counter() - t0
+    counts = _counters()
+    sample = "".join(out)
+    rec["rnn_timestep"] = dict(stepwise_err=err, first_step_after_clear=err0,
+                               sample=sample,
+                               ms_per_sampled_char=wall / RNN_SAMPLE * 1e3)
+    print(f"rnnTimeStep x{RNN_SAMPLE} vs output: |d|max {err:.3g}; after "
+          f"rnnClearPreviousState |d| {err0:.3g} (atol "
+          f"{RNN_STEPWISE_ATOL}); sampling {wall / RNN_SAMPLE * 1e3:.3f} "
+          f"ms a character")
+    print(f"sample: {sample!r}")
+    _rnn_launches(rec, "rnn_timestep", counts)
+    _require(err <= RNN_STEPWISE_ATOL and err0 <= RNN_STEPWISE_ATOL,
+             f"rnnTimeStep disagrees with output: {err}, {err0}")
+    _require(len(sample) == RNN_SAMPLE + 1, "sampling loop")
+
+
+def _char_graph_conf(n_chars, merge):
+    """With ``merge``: tests/test_graph_recurrence.py's char-RNN graph
+    (LSTM, then its features merged with the raw input before the output
+    layer) at width 200; without: the char-RNN's GravesLSTM stack as a
+    graph.  Both with the char-RNN's updater, l2 and TBPTT."""
+    from deeplearning4j_tpu_torch.learning import Adam
+    from deeplearning4j_tpu_torch.models.graph_conf import MergeVertex
+    from deeplearning4j_tpu_torch.nn.conf import (InputType,
+                                                  NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.conf.recurrent import (GravesLSTM, LSTM,
+                                                            RnnOutputLayer)
+    c = CHAR_RNN
+    gb = (NeuralNetConfiguration.builder().seed(c["seed"])
+          .updater(Adam(c["lr"])).l2(c["l2"]).weightInit("XAVIER")
+          .graphBuilder().addInputs("in"))
+    if merge:
+        gb.addLayer("lstm", LSTM.builder().nOut(c["hidden"]).build(), "in")
+        gb.addVertex("merge", MergeVertex(), "lstm", "in")
+        last = "merge"
+    else:
+        gb.addLayer("g0", GravesLSTM.builder().nOut(c["hidden"])
+                    .activation("tanh").build(), "in")
+        gb.addLayer("g1", GravesLSTM.builder().nOut(c["hidden"])
+                    .activation("tanh").build(), "g0")
+        last = "g1"
+    gb.addLayer("out", RnnOutputLayer.builder("mcxent").nOut(n_chars)
+                .activation("softmax").build(), last)
+    return (gb.setOutputs("out")
+            .setInputTypes(InputType.recurrent(n_chars, RNN_STEP["length"]))
+            .backpropType("TruncatedBPTT").tBPTTLength(c["tbptt"]).build())
+
+
+def phase_rnn_graph(torch, rec, params0, it):
+    import math
+    from deeplearning4j_tpu_torch.models import (ComputationGraph,
+                                                 MultiLayerNetwork)
+    n = it.inputColumns()
+    ds = _rnn_step_batch(it)
+    _reset_counters()
+    g = ComputationGraph(_char_graph_conf(n, merge=True)).init()
+    _require(g.device.type == "cuda", f"the graph runs on {g.device}")
+    for _ in range(2):
+        g.fit(ds)
+    loss = g.score()
+    x = ds.features[:1, :, :20]
+    full = g.output(x)
+    g.rnnClearPreviousState()
+    steps = torch.stack([g.rnnTimeStep(x[:, :, k]) for k in range(20)], 2)
+    err_step = float((steps - full).abs().max())
+    # the GravesLSTM stack as a graph against the same stack as an MLN
+    mln = MultiLayerNetwork(_char_rnn_conf(n)).init(params=params0)
+    cg = ComputationGraph(_char_graph_conf(n, merge=False)).init(
+        params={"g0": params0["0"], "g1": params0["1"],
+                "out": params0["2"]})
+    for _ in range(2):
+        mln.fit(ds)
+        cg.fit(ds)
+    err_mln = max(float((cg.params_[v][k] - mln.params_[li][k]).abs().max())
+                  for v, li in (("g0", "0"), ("g1", "1"), ("out", "2"))
+                  for k in mln.params_[li])
+    err_out = float((cg.output(x) - mln.output(x)).abs().max())
+    torch.cuda.synchronize()
+    counts = _counters()
+    rec["rnn_graph"] = dict(loss=loss, iterations=g.iterationCount,
+                            stepwise_err=err_step, graph_vs_mln_params=err_mln,
+                            graph_vs_mln_output=err_out, launches=counts)
+    print(f"char-RNN graph (merge vertex, LSTM {CHAR_RNN['hidden']}): "
+          f"{g.iterationCount} TBPTT batches, loss {loss:.6g}; rnnTimeStep "
+          f"x20 vs output |d|max {err_step:.3g}; GravesLSTM stack as graph "
+          f"vs MLN after 2 batches: params |d|max {err_mln:.3g}, outputs "
+          f"{err_out:.3g} (atol {RNN_GRAPH_ATOL}); launches {counts}")
+    _rnn_launches(rec, "rnn_graph", counts)
+    _require(g.iterationCount == 2 and math.isfinite(loss),
+             f"graph TBPTT: {g.iterationCount} iterations, loss {loss}")
+    _require(err_step <= RNN_STEPWISE_ATOL,
+             f"graph rnnTimeStep disagrees with output: {err_step}")
+    _require(err_mln <= RNN_GRAPH_ATOL and err_out <= RNN_GRAPH_ATOL,
+             f"the graph's TBPTT disagrees with the MLN's: {err_mln}, "
+             f"{err_out}")
+
+
+def phase_rnn_timing(torch, rec, net, it, card):
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    c = CHAR_RNN
+    it.reset()
+    ds = it.next()
+    chunks = c["length"] // c["tbptt"]
+    _reset_counters()
+    net.fit(ds)                 # warm
+    net.score()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    net.fit(ds)
+    net.score()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    chunk = DataSet(ds.features[:, :, :c["tbptt"]],
+                    ds.labels[:, :, :c["tbptt"]])
+    p = _device_breakdown(torch, lambda: (net.fit(chunk), net.score()),
+                          top=10)
+    counts = _counters()
+    r = dict(ms_per_batch=wall * 1e3, ms_per_chunk=wall * 1e3 / chunks,
+             chars_per_s=c["batch"] * c["length"] / wall, peak_gb=peak,
+             chunk_profile=p, card=card)
+    rec["rnn_timing"] = r
+    print(f"char-RNN TBPTT batch {c['batch']}x{c['length']} ({chunks} "
+          f"chunks of {c['tbptt']}): {r['ms_per_batch']:.1f} ms, "
+          f"{r['ms_per_chunk']:.2f} ms a chunk, {r['chars_per_s']:.0f} "
+          f"characters/s; {card}")
+    print(f"char-RNN peak memory {peak:.3f} GB; {card}")
+    if p["device_busy_ms"] is None:
+        print(f"profile rnn_chunk: no device time in the trace (not "
+              f"measured); {card}")
+    else:
+        # the profiler slows the host's dispatch: the idle share of an
+        # unprofiled chunk is 1 - device busy / ms_per_chunk
+        r["idle_share_unprofiled"] = 1 - p["device_busy_ms"] / \
+            r["ms_per_chunk"]
+        print(f"profile rnn_chunk: wall {p['wall_ms']:.2f} ms, device busy "
+              f"{p['device_busy_ms']:.2f} ms, idle share "
+              f"{p['idle_share']:.3f} ({r['idle_share_unprofiled']:.3f} of "
+              f"an unprofiled chunk), {p['device_ops']} device kernels and "
+              f"copies; {card}")
+        for kname, ms in p["top"]:
+            print(f"  {ms:9.3f} ms  {kname}")
+    _rnn_launches(rec, "rnn_timing", counts)
+
+
 def _kernel_entry(name, replaces, launches, t):
     return {"name": name, "route": "cuda",
             "source": f"deeplearning4j_tpu_torch/csrc/{name}.cu",
@@ -1384,8 +1760,10 @@ def main(argv) -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    card = _card()
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
-          f"cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
+          f"cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)}; "
+          f"{card}")
 
     rec, failed = {}, []
 
@@ -1436,13 +1814,16 @@ def main(argv) -> int:
                     pool)
             del gnet
             run("resnet_timing", phase_resnet_timing, torch, rec, net, pool)
+        del resnet
+        rnn = run("rnn_init", _char_rnn_model, torch)
+        if rnn is not None:
+            net, params0, it = rnn
+            run("rnn_train", phase_rnn_train, torch, rec, *rnn)
+            run("rnn_step", phase_rnn_step, torch, rec, params0, it)
+            run("rnn_timestep", phase_rnn_timestep, torch, rec, net, it)
+            run("rnn_graph", phase_rnn_graph, torch, rec, params0, it)
+            run("rnn_timing", phase_rnn_timing, torch, rec, net, it, card)
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60)
-    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 \
-        and smi.stdout.strip() else None
     rec["card"] = card
     rec["failed"] = failed
     if record:
@@ -1457,13 +1838,15 @@ def main(argv) -> int:
 
     # launches: the serving run's and the training run's counts together
     # (B1 runs on both paths; B2 and B3 on the training path only), and B4's
-    # from its run on ResNet-50's activations (the model dispatches none).
+    # from its run on ResNet-50's activations (the model dispatches none);
+    # the recurrent phases add none (each checked zero).
     # B1's times are at the serving shape (f32, causal), B2's and B3's at
     # the training shape in its dtype (bf16, not causal), B4's at ResNet-50's
     # stage-0 shape in bf16; the record holds the other shapes too.
     serve, train_t = rec["launches"], rec["train_kernel_timing"]
     launches = {k: serve[k] + rec["launches_train"][k]
                 + rec["launches_resnet"][k] + rec["launches_b4"][k]
+                + sum(c[k] for c in rec["launches_rnn_phases"].values())
                 for k in serve}
     m, k, n = B4_RESNET_SHAPES[0]
     kernels_line = {"kernels": [

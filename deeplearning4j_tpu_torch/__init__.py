@@ -12,8 +12,8 @@ runs becomes a kernel written by hand for Hopper (``csrc/*.cu``, built by
 PyTorch version beside it, which runs only for tensors on the CPU (the
 tests) — a CUDA tensor reaches the kernel or raises.
 
-Ported so far (the serving slice, the long-context training slice, then
-the ResNet-50 slice):
+Ported so far (the serving slice, the long-context training slice, the
+ResNet-50 slice, then the recurrent slice):
 
 - ``parallel.ring``      — dense / blockwise / flash attention (forward and
                            backward kernels, ``FlashAttention``) and the
@@ -24,15 +24,19 @@ the ResNet-50 slice):
                            speculative generation;
 - ``nn``, ``nn.conf``    — activations, weight init, losses, ``InputType``,
                            preprocessors, the config DSL and its JSON,
-                           ``DenseLayer``, ``RnnOutputLayer`` and the CNN
-                           layers (convolution, pooling, batch norm,
-                           activation, global pooling, output);
-- ``learning``           — ``Sgd``, ``NoOp``, ``Adam`` and ``Nesterovs``;
-- ``datasets``           — ``DataSet`` and ``ListDataSetIterator``;
+                           ``DenseLayer``, ``LossLayer``, the CNN layers
+                           (convolution, pooling, batch norm, activation,
+                           global pooling, output), every recurrent layer
+                           of ``nn.conf.recurrent`` and ``MaskingLayer``;
+- ``learning``           — every updater, the ``ISchedule`` family and
+                           L1/L2/``WeightDecay``;
+- ``datasets``           — ``DataSet``, ``ListDataSetIterator`` and
+                           ``CharacterIterator``;
 - ``models``             — ``MultiLayerNetwork`` and ``ComputationGraph``
-                           (``init``, ``fit``, ``output``, ``score``, the
-                           flat param views, layer state) and the graph
-                           DSL (``graph_conf``);
+                           (``init``, ``fit`` with truncated BPTT,
+                           ``output``, ``score``, ``rnnTimeStep`` and its
+                           stored state, the flat param views, layer
+                           state) and the graph DSL (``graph_conf``);
 - ``zoo``                — ``LeNet`` and ``ResNet50``;
 - ``ops.fused``          — ``matmul_bn_stats`` / ``conv1x1_bn_stats`` (the
                            B4 kernel; no model dispatches it).

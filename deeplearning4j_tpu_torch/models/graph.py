@@ -12,17 +12,18 @@ Parameters and layer state (BatchNormalization's running statistics) are
 dicts keyed by vertex name, as the JAX graph's ``params_``/``state_``, so
 ``init(params=)`` takes the JAX graph's parameters as numpy arrays.
 ``dataType`` BFLOAT16 / HALF / FLOAT16 means bf16 compute over float32
-master parameters, state, optimizer state and losses.
+master parameters, state, optimizer state and losses.  Recurrent vertices
+carry their state as in ``MultiLayerNetwork``: truncated BPTT passes each
+chunk's final carries, detached, to the next, and ``rnnTimeStep`` keeps
+them between calls.
 
-Not ported yet, and raising where they are asked for: truncated BPTT (ROADMAP
-A5, with the recurrent layers of A8), ``rnnTimeStep`` (A8), the line-search
+Not ported yet, and raising where they are asked for: the line-search
 solvers, ``evaluate`` and listeners (A9), and ``MultiDataSet`` (A5).
 """
 from __future__ import annotations
 
 from typing import Dict, Optional, Sequence
 
-import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch import resolve_device
@@ -32,7 +33,8 @@ from deeplearning4j_tpu_torch.models.graph_conf import \
     ComputationGraphConfiguration
 from deeplearning4j_tpu_torch.models.multilayer import (
     _HALF_TYPES, _apply_updates, _cast_tree, _iter_leaf_params, _leaves,
-    _reg_penalty, _set_leaf, _to_tensor, _tree_map, _updater_for)
+    _reg_penalty, _set_leaf, _to_device, _to_tensor, _tree_map,
+    _updater_for)
 from deeplearning4j_tpu_torch.nn.conf import BackpropType
 from deeplearning4j_tpu_torch.nn.conf.layers import Layer
 
@@ -59,6 +61,7 @@ class ComputationGraph:
         # input dropout draws from here (on the graph's device)
         self._fitGen = torch.Generator(device=self.device).manual_seed(
             self._rngSeed ^ 0x6EED)
+        self._rnnCarries = None  # rnnTimeStep's stored state, by vertex
 
     # ------------------------------------------------------------------
     def init(self, params: Optional[Dict] = None) -> "ComputationGraph":
@@ -103,13 +106,16 @@ class ComputationGraph:
 
     # ------------------------------------------------------------------
     def _forward(self, params, state, inputs: Sequence, train: bool, gen,
-                 mask=None):
+                 mask=None, carries=None):
         """Forward over the topological order (the reference's
         ``topologicalSortOrder()`` and per-vertex ``doForward``).  ``mask``
         is a tuple of per-input (b, t) masks aligned with ``conf.inputs``,
-        or None; each vertex sees its first masked input's mask, and the
-        mask stops where the output format leaves RNN.  Returns
-        ``(activations by name, new state by name)``."""
+        or None; each vertex sees its first masked input's mask (a
+        ``producesMask`` layer replaces it), and the mask stops where the
+        output format leaves RNN.  ``carries`` maps RNN vertex name ->
+        initial carry (missing = zeros, a fresh sequence).  Returns
+        ``(activations by name, new state by name, final carries by
+        name)``."""
         acts: Dict[str, torch.Tensor] = {}
         miniBatch = inputs[0].shape[0]
         mmap: Dict[str, torch.Tensor] = {}
@@ -119,6 +125,7 @@ class ComputationGraph:
                 mmap[name] = mask[i]
         out_types = self.conf.vertexOutputTypes
         new_state: Dict[str, Dict] = {}
+        new_carries: Dict = {}
         for name in self.conf.topoOrder:
             node, ins = self.conf.nodes[name]
             xs = [acts[i] for i in ins]
@@ -128,7 +135,17 @@ class ComputationGraph:
                 if name in self.conf.preProcessors:
                     x = self.conf.preProcessors[name].preProcess(x, miniBatch)
                 p, st = params.get(name, {}), state.get(name, {})
-                if getattr(node, "acceptsMask", False):
+                if getattr(node, "producesMask", False):
+                    m = node.computeMask(x, m)
+                    mmap[name] = m
+                if getattr(node, "isRNN", False):
+                    c0 = (carries or {}).get(name)
+                    if c0 is None:
+                        c0 = node.initialCarry(x.shape[0], x.dtype, x.device)
+                    y, new_carries[name] = node.scanSeq(p, x, train, gen, c0,
+                                                        m)
+                    st2 = {}
+                elif getattr(node, "acceptsMask", False):
                     y, st2 = node.forward(p, x, train, gen, st, mask=m)
                 else:
                     y, st2 = node.forward(p, x, train, gen, st)
@@ -140,7 +157,7 @@ class ComputationGraph:
             ot = out_types.get(name)
             if m is not None and (ot is None or ot.kind == "RNN"):
                 mmap[name] = m
-        return acts, new_state
+        return acts, new_state, new_carries
 
     def _sumLosses(self, acts, labels, masks):
         """Every output layer's mean loss, summed — the loss of training
@@ -155,19 +172,22 @@ class ComputationGraph:
         return total
 
     def _lossFn(self, params, inputs, labels, masks, train: bool, gen=None,
-                fmask=None):
+                fmask=None, carries=None):
         """Summed losses (in f32 under bf16 compute) plus the L1/L2 penalty
-        of the f32 masters, and the layers' new state.  The state stays
-        float32: the running statistics accumulate in it."""
+        of the f32 masters, the layers' new state and the RNN vertices'
+        final carries.  The state stays float32: the running statistics
+        accumulate in it; carries pass through the compute cast."""
         cd = self._computeDtype
-        acts, new_state = self._forward(
+        acts, new_state, new_carries = self._forward(
             _cast_tree(params, cd), self.state_,
-            _cast_tree(tuple(inputs), cd), train, gen, fmask)
+            _cast_tree(tuple(inputs), cd), train, gen, fmask,
+            _cast_tree(carries, cd))
         if self._computeDtype != torch.float32:
             acts = {n: a.float() for n, a in acts.items()}
         reg = _reg_penalty((self.conf.nodes[name][0], lp)
                            for name, lp in params.items())
-        return self._sumLosses(acts, labels, masks) + reg, new_state
+        return (self._sumLosses(acts, labels, masks) + reg, new_state,
+                new_carries)
 
     # ------------------------------------------------------------------
     def fit(self, data, labels=None, epochs: int = 1) -> None:
@@ -193,7 +213,7 @@ class ComputationGraph:
             raise TypeError(f"Cannot fit on {type(data)}")
 
     def _on_device(self, a, dtype=None):
-        return None if a is None else a.to(self.device, dtype)
+        return _to_device(a, self.device, dtype)
 
     def _fitBatch(self, ds: DataSet) -> None:
         inputs = (self._on_device(ds.features, self._dtype),)
@@ -209,25 +229,30 @@ class ComputationGraph:
             raise NotImplementedError(
                 f"optimizationAlgo {algo}: the line-search solvers are not "
                 "ported yet (ROADMAP A9)")
+        # TBPTT needs per-timestep (rank-3) labels on every output (the
+        # reference's ComputationGraph.doTruncatedBPTT); one iteration per
+        # batch, whatever its number of chunks
         if self.conf.backpropType == BackpropType.TruncatedBPTT \
                 and all(i.dim() == 3 for i in inputs) \
                 and all(l.dim() == 3 for l in labels) \
                 and inputs[0].shape[2] > self.conf.tbpttFwdLength:
-            raise NotImplementedError(
-                "truncated BPTT is not ported yet (ROADMAP A5, with the "
-                "recurrent layers of A8)")
-        self._runTrainStep(inputs, labels, masks, fmask)
+            self._fitTbptt(inputs, labels, masks, fmask)
+        else:
+            self._runTrainStep(inputs, labels, masks, fmask)
         self.iterationCount += 1
 
-    def _runTrainStep(self, inputs, labels, masks, fmask) -> None:
+    def _runTrainStep(self, inputs, labels, masks, fmask, carries=None):
+        """One step of forward, losses, backward and updates from
+        ``carries``; returns the RNN vertices' final carries, detached."""
         leaves = [(name, path, v.detach().requires_grad_(True))
                   for name, lp in self.params_.items()
                   for path, _pname, v in _iter_leaf_params(lp)]
         params: Dict = {}
         for name, path, v in leaves:
             _set_leaf(params.setdefault(name, {}), path, v)
-        loss, new_state = self._lossFn(params, inputs, labels, masks, True,
-                                       self._fitGen, fmask)
+        loss, new_state, new_carries = self._lossFn(
+            params, inputs, labels, masks, True, self._fitGen, fmask,
+            carries)
         grads_flat = torch.autograd.grad(loss, [v for _, _, v in leaves])
         grads: Dict = {}
         for (name, path, _), g in zip(leaves, grads_flat):
@@ -241,25 +266,47 @@ class ComputationGraph:
         # left on the device: score() reads it, so a step never waits on
         # the host
         self._scoreArr = loss.detach()
+        return _tree_map(lambda c: c.detach(), new_carries)
+
+    def _fitTbptt(self, inputs, labels, masks, fmask) -> None:
+        """Truncated BPTT over the DAG: chunk the time axis of every input,
+        label and mask, carry the RNN vertices' state, detached, across
+        chunks.  Reference: ``ComputationGraph.doTruncatedBPTT``."""
+        t = inputs[0].shape[2]
+        L = self.conf.tbpttFwdLength
+        carries = self._zeroCarries(int(inputs[0].shape[0]))
+        for start in range(0, t, L):
+            end = min(start + L, t)
+            ic = tuple(x[:, :, start:end] for x in inputs)
+            lc = tuple(y[:, :, start:end] for y in labels)
+            mc = tuple(m[:, start:end] for m in masks) \
+                if masks is not None else None
+            fc = tuple(None if m is None else m[:, start:end]
+                       for m in fmask) if fmask is not None else None
+            carries = self._runTrainStep(ic, lc, mc, fc, carries)
+
+    def _zeroCarries(self, batch: int):
+        """Fresh-sequence carries of every RNN vertex, or None when the
+        graph has none."""
+        out = {name: self.conf.nodes[name][0].initialCarry(
+                   batch, self._dtype, self.device)
+               for name in self.conf.topoOrder
+               if getattr(self.conf.nodes[name][0], "isRNN", False)}
+        return out or None
 
     # ------------------------------------------------------------------
-    def _tensor_in(self, x, dtype=None):
-        t = x if isinstance(x, torch.Tensor) else torch.as_tensor(
-            np.asarray(x))
-        return self._on_device(t, dtype)
-
     def output(self, *inputs, featuresMask=None):
         """Inference-mode forward; each output float32 on the graph's
         device, one tensor for one output, else a list."""
         with torch.no_grad():
-            xs = tuple(self._tensor_in(x, self._dtype) for x in inputs)
+            xs = tuple(self._on_device(x, self._dtype) for x in inputs)
             fm = None
             if featuresMask is not None:
                 if not isinstance(featuresMask, (tuple, list)):
                     featuresMask = (featuresMask,)
-                fm = tuple(None if m is None else self._tensor_in(m)
+                fm = tuple(None if m is None else self._on_device(m)
                            for m in featuresMask)
-            acts, _ = self._forward(
+            acts, _, _ = self._forward(
                 _cast_tree(self.params_, self._computeDtype), self.state_,
                 _cast_tree(xs, self._computeDtype), False, None, fm)
         res = [acts[n].float() for n in self.conf.outputs]
@@ -285,14 +332,53 @@ class ComputationGraph:
         fmask = (self._on_device(ds.featuresMask),) \
             if ds.featuresMask is not None else None
         with torch.no_grad():
-            loss, _ = self._lossFn(
+            loss, _, _ = self._lossFn(
                 self.params_, (self._on_device(ds.features, self._dtype),),
                 (self._on_device(ds.labels),), masks, False, None, fmask)
         return float(loss)
 
+    # ------------------------------------------------------------------
+    # stateful RNN inference (reference: ComputationGraph.rnnTimeStep /
+    # rnnClearPreviousState / rnnGetPreviousState — the vertex stateMap)
+    # ------------------------------------------------------------------
     def rnnTimeStep(self, *inputs):
-        raise NotImplementedError(
-            "rnnTimeStep is not ported yet (ROADMAP A8)")
+        """Feed one or more timesteps, carrying the RNN vertices' state
+        across calls: 2-D inputs (b, nIn) are one step and give (b, nOut);
+        3-D inputs (b, nIn, t) give (b, nOut, t).  One tensor for one
+        output, else a list."""
+        if any(type(self.conf.nodes[n][0]).__name__ == "Bidirectional"
+               for n in self.conf.topoOrder):
+            # one step at a time cannot see the future the backward half
+            # needs (the reference throws here too)
+            raise ValueError("rnnTimeStep is not supported for "
+                             "bidirectional networks")
+        cd = self._computeDtype
+        with torch.no_grad():
+            xs = [self._on_device(x, self._dtype) for x in inputs]
+            single = any(x.dim() == 2 for x in xs)
+            xs = tuple(x[:, :, None] if x.dim() == 2 else x for x in xs)
+            if self._rnnCarries is None:
+                self._rnnCarries = self._zeroCarries(int(xs[0].shape[0]))
+            acts, _, self._rnnCarries = self._forward(
+                _cast_tree(self.params_, cd), self.state_,
+                _cast_tree(xs, cd), False, None, None,
+                _cast_tree(self._rnnCarries, cd))
+        res = [acts[n].float() for n in self.conf.outputs]
+        res = [o[:, :, -1] if single and o.dim() == 3 else o for o in res]
+        return res[0] if len(res) == 1 else res
+
+    def rnnClearPreviousState(self) -> None:
+        self._rnnCarries = None
+
+    def rnnGetPreviousState(self, vertexName: str):
+        if self._rnnCarries is None:
+            return None
+        return self._rnnCarries.get(vertexName)
+
+    def rnnSetPreviousState(self, vertexName: str, state) -> None:
+        if self._rnnCarries is None:
+            self._rnnCarries = {}
+        self._rnnCarries[vertexName] = state
 
     def evaluate(self, it):
         raise NotImplementedError("evaluate is not ported yet (ROADMAP A9)")

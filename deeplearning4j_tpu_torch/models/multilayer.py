@@ -19,11 +19,15 @@ master parameters, optimizer state and loss: the parameters are cast for
 the forward and the gradients flow back through the casts into the f32
 masters.
 
-Not ported yet, and raising where a configuration asks for them: truncated
-BPTT (ROADMAP A5, with the recurrent layers of A8) and the line-search
-solvers (A9).  Listeners, evaluation, telemetry spans, the AOT compile
-cache, the fault supervisor's learning-rate scale and the mesh hooks are
-left out (A9, A10, A12).
+Recurrent layers (``isRNN``) run through ``scanSeq`` with a carry per
+layer: zeros for fresh sequences, or the carries of the previous TBPTT
+chunk (detached, so the backward stops at the chunk's start) or of the
+previous ``rnnTimeStep`` call (the reference's rnn ``stateMap``).
+
+Not ported yet, and raising where a configuration asks for them: the
+line-search solvers (A9).  Listeners, evaluation, telemetry spans, the AOT
+compile cache, the fault supervisor's learning-rate scale and the mesh
+hooks are left out (A9, A10, A12).
 """
 from __future__ import annotations
 
@@ -36,6 +40,8 @@ from deeplearning4j_tpu_torch import resolve_device
 from deeplearning4j_tpu_torch.datasets.dataset import DataSet
 from deeplearning4j_tpu_torch.datasets.iterator import DataSetIterator
 from deeplearning4j_tpu_torch.learning.config import Sgd
+from deeplearning4j_tpu_torch.learning.regularization import (
+    L1Regularization, L2Regularization, WeightDecay)
 from deeplearning4j_tpu_torch.nn.conf import (BackpropType,
                                               GradientNormalization,
                                               MultiLayerConfiguration)
@@ -110,6 +116,14 @@ def _to_tensor(v, device) -> torch.Tensor:
     return torch.from_numpy(np.array(v)).to(device)
 
 
+def _to_device(a, device, dtype=None):
+    """A tensor, numpy array or nested list on ``device`` (None passes)."""
+    if a is None:
+        return None
+    t = a if isinstance(a, torch.Tensor) else torch.as_tensor(np.asarray(a))
+    return t.to(device, dtype)
+
+
 def _grad_normalize(layer, g):
     """Per-layer gradient normalization (reference:
     ``BaseMultiLayerUpdater.preApply``) over a layer's gradient tree."""
@@ -169,7 +183,7 @@ def _apply_updates(units, globalConf, params, grads, optState, iteration,
                                       epoch, param=pval)
             wd = getattr(layer, "weightDecay", None)
             if wd and pname in layer.weightParamKeys():
-                update = update + wd * lr * pval
+                update = WeightDecay(coeff=wd).apply(pval, update, lr)
             _set_leaf(new_params[key], path, pval - update)
             new_opt[key][path] = ostate
     return new_params, new_opt
@@ -188,9 +202,9 @@ def _reg_penalty(pairs):
         for _path, pname, w in _iter_leaf_params(lp):
             if pname in wkeys:
                 if l2:
-                    total = total + 0.5 * l2 * torch.sum(w * w)
+                    total = total + L2Regularization(l2).score(w)
                 if l1:
-                    total = total + l1 * torch.sum(torch.abs(w))
+                    total = total + L1Regularization(l1).score(w)
     return total
 
 
@@ -214,6 +228,7 @@ class MultiLayerNetwork:
         # input dropout draws from here (on the net's device)
         self._fitGen = torch.Generator(device=self.device).manual_seed(
             self._rngSeed ^ 0x5EED)
+        self._rnnCarries = None  # rnnTimeStep's stored state, by layer
 
     def _cast_compute(self, tree):
         return _cast_tree(tree, self._computeDtype)
@@ -266,24 +281,37 @@ class MultiLayerNetwork:
     # forward and loss
     # ------------------------------------------------------------------
     def _forward(self, params: Params, state, x, train: bool, gen,
-                 mask=None):
+                 mask=None, carries=None):
         """Run the stack; ``mask`` is the (b, t) feature/timestep mask,
-        passed to the layers that take one.  Returns ``(out, new_state)``,
-        the state of each layer that returned one."""
+        passed to the layers that take one (a ``producesMask`` layer
+        replaces it); ``carries`` maps RNN layer index -> initial carry
+        (missing = zeros, a fresh sequence).  Returns ``(out, new_state,
+        new_carries)``: the state of each layer that returned one and the
+        final carry of each RNN layer."""
         miniBatch = x.shape[0]
         new_state = {}
+        new_carries = {}
         for i, layer in enumerate(self.conf.layers):
             if i in self.conf.preProcessors:
                 x = self.conf.preProcessors[i].preProcess(x, miniBatch)
             p = params.get(str(i), {})
             st = state.get(str(i), {})
-            if getattr(layer, "acceptsMask", False):
+            if getattr(layer, "producesMask", False):
+                mask = layer.computeMask(x, mask)
+            if getattr(layer, "isRNN", False):
+                c0 = (carries or {}).get(str(i))
+                if c0 is None:
+                    c0 = layer.initialCarry(x.shape[0], x.dtype, x.device)
+                x, new_carries[str(i)] = layer.scanSeq(p, x, train, gen, c0,
+                                                       mask)
+                st2 = st
+            elif getattr(layer, "acceptsMask", False):
                 x, st2 = layer.forward(p, x, train, gen, st, mask=mask)
             else:
                 x, st2 = layer.forward(p, x, train, gen, st)
             if st2:
                 new_state[str(i)] = st2
-        return x, new_state
+        return x, new_state, new_carries
 
     def _regScore(self, params: Params):
         return _reg_penalty((layer, params[str(i)])
@@ -291,21 +319,22 @@ class MultiLayerNetwork:
                             if str(i) in params)
 
     def _score_of(self, params: Params, x, y, fmask, lmask, train: bool,
-                  gen=None):
+                  gen=None, carries=None):
         """Mean per-example loss of the output layer (in f32 under bf16
-        compute) plus the L1/L2 penalty of the f32 masters, and the layers'
-        new state.  The state stays float32 under bf16 compute: the running
-        statistics accumulate in it."""
-        out, new_state = self._forward(self._cast_compute(params),
-                                       self.state_, self._cast_compute(x),
-                                       train, gen, fmask)
+        compute) plus the L1/L2 penalty of the f32 masters, the layers'
+        new state and the RNN layers' final carries.  The state stays
+        float32 under bf16 compute: the running statistics accumulate in
+        it; carries pass through the compute cast as activations do."""
+        out, new_state, new_carries = self._forward(
+            self._cast_compute(params), self.state_, self._cast_compute(x),
+            train, gen, fmask, self._cast_compute(carries))
         outLayer = self.conf.layers[-1]
         if not outLayer.hasLoss():
             raise ValueError("Last layer must be an output/loss layer to fit")
         if self._computeDtype != torch.float32:
             out = out.float()
         per_ex = outLayer.computeScore(y, out, lmask)
-        return per_ex.mean() + self._regScore(params), new_state
+        return per_ex.mean() + self._regScore(params), new_state, new_carries
 
     # ------------------------------------------------------------------
     # public API
@@ -330,7 +359,7 @@ class MultiLayerNetwork:
             raise TypeError(f"Cannot fit on {type(data)}")
 
     def _on_device(self, a, dtype=None):
-        return None if a is None else a.to(self.device, dtype)
+        return _to_device(a, self.device, dtype)
 
     def _fitBatch(self, ds: DataSet) -> None:
         x = self._on_device(ds.features, self._dtype)
@@ -344,24 +373,28 @@ class MultiLayerNetwork:
             raise NotImplementedError(
                 f"optimizationAlgo {algo}: the line-search solvers are not "
                 "ported yet (ROADMAP A9)")
+        # TBPTT needs per-timestep (rank-3) labels; otherwise standard BP
+        # (the reference's doTruncatedBPTT label-rank requirement).  The
+        # iteration counts the batch once, whatever its number of chunks
         if (self.conf.backpropType == BackpropType.TruncatedBPTT
                 and x.dim() == 3 and y.dim() == 3
                 and x.shape[2] > self.conf.tbpttFwdLength):
-            raise NotImplementedError(
-                "truncated BPTT is not ported yet (ROADMAP A5, with the "
-                "recurrent layers of A8)")
-        self._runTrainStep(x, y, fmask, lmask)
+            self._fitTbptt(x, y, fmask, lmask)
+        else:
+            self._runTrainStep(x, y, fmask, lmask)
         self.iterationCount += 1
 
-    def _runTrainStep(self, x, y, fmask, lmask) -> None:
+    def _runTrainStep(self, x, y, fmask, lmask, carries=None):
+        """One step of forward, loss, backward and updates from
+        ``carries``; returns the RNN layers' final carries, detached."""
         leaves = [(li, path, v.detach().requires_grad_(True))
                   for li, lp in self.params_.items()
                   for path, _pname, v in _iter_leaf_params(lp)]
         params: Params = {}
         for li, path, v in leaves:
             _set_leaf(params.setdefault(li, {}), path, v)
-        loss, new_state = self._score_of(params, x, y, fmask, lmask, True,
-                                         self._fitGen)
+        loss, new_state, new_carries = self._score_of(
+            params, x, y, fmask, lmask, True, self._fitGen, carries)
         grads_flat = torch.autograd.grad(loss, [v for _, _, v in leaves])
         grads: Dict = {}
         for (li, path, _), g in zip(leaves, grads_flat):
@@ -375,21 +408,91 @@ class MultiLayerNetwork:
         # left on the device: score() reads it, so a step never waits on
         # the host
         self._scoreArr = loss.detach()
+        return _tree_map(lambda c: c.detach(), new_carries)
+
+    def _fitTbptt(self, x, y, fmask, lmask) -> None:
+        """Truncated BPTT: chunk the time axis, carry RNN state across
+        chunks, detached (the reference truncates gradients at chunk
+        edges).  Reference: ``MultiLayerNetwork.doTruncatedBPTT`` +
+        ``rnnActivateUsingStoredState``; only the forward length is read."""
+        t = x.shape[2]
+        L = self.conf.tbpttFwdLength
+        carries = self._zeroCarries(x.shape[0])
+        for start in range(0, t, L):
+            end = min(start + L, t)
+            carries = self._runTrainStep(
+                x[:, :, start:end], y[:, :, start:end],
+                None if fmask is None else fmask[:, start:end],
+                None if lmask is None else lmask[:, start:end], carries)
+
+    def _zeroCarries(self, batch: int):
+        """Fresh-sequence carries of every RNN layer, or None when the net
+        has none."""
+        out = {str(i): layer.initialCarry(batch, self._dtype, self.device)
+               for i, layer in enumerate(self.conf.layers)
+               if getattr(layer, "isRNN", False)}
+        return out or None
 
     def output(self, x, train: bool = False,
                featuresMask=None) -> torch.Tensor:
         """Inference-mode forward (as in the reference, ``train`` does not
         turn on dropout here); returns float32 on the net's device."""
         with torch.no_grad():
-            xv = self._on_device(torch.as_tensor(np.asarray(x))
-                                 if not isinstance(x, torch.Tensor) else x,
-                                 self._dtype)
+            xv = self._on_device(x, self._dtype)
             fm = None if featuresMask is None else \
-                self._on_device(torch.as_tensor(featuresMask))
-            out, _ = self._forward(self._cast_compute(self.params_),
-                                   self.state_, self._cast_compute(xv), False,
-                                   None, fm)
+                self._on_device(featuresMask)
+            out, _, _ = self._forward(self._cast_compute(self.params_),
+                                      self.state_, self._cast_compute(xv),
+                                      False, None, fm)
         return out.float()
+
+    def predict(self, x) -> np.ndarray:
+        """Class indices: the argmax over the class axis, which is axis 1
+        of an RNN output (b, nOut, t), not the trailing time axis."""
+        out = self.output(x)
+        return out.argmax(dim=1 if out.dim() == 3 else -1).cpu().numpy()
+
+    # ------------------------------------------------------------------
+    # stateful RNN inference (reference: MultiLayerNetwork.rnnTimeStep /
+    # rnnClearPreviousState / rnnGetPreviousState — the ``stateMap``)
+    # ------------------------------------------------------------------
+    def rnnTimeStep(self, x) -> torch.Tensor:
+        """Feed one or more timesteps, carrying hidden state across calls:
+        a 2-D input (b, nIn) is one step and gives (b, nOut); a 3-D input
+        (b, nIn, t) gives (b, nOut, t).  The state persists until
+        ``rnnClearPreviousState``."""
+        if any(type(layer).__name__ == "Bidirectional"
+               for layer in self.conf.layers):
+            # one step at a time cannot see the future the backward half
+            # needs (the reference throws here too)
+            raise ValueError(
+                "rnnTimeStep is not supported for bidirectional networks")
+        with torch.no_grad():
+            xv = self._on_device(x, self._dtype)
+            single = xv.dim() == 2
+            if single:
+                xv = xv[:, :, None]
+            if self._rnnCarries is None:
+                self._rnnCarries = self._zeroCarries(int(xv.shape[0]))
+            out, _, self._rnnCarries = self._forward(
+                self._cast_compute(self.params_), self.state_,
+                self._cast_compute(xv), False, None, None,
+                self._cast_compute(self._rnnCarries))
+        out = out.float()
+        return out[:, :, -1] if single and out.dim() == 3 else out
+
+    def rnnClearPreviousState(self) -> None:
+        self._rnnCarries = None
+
+    def rnnGetPreviousState(self, layerIdx: int):
+        if self._rnnCarries is None:
+            return None
+        return self._rnnCarries.get(str(layerIdx))
+
+    def rnnSetPreviousState(self, layerIdx: int, state) -> None:
+        if self._rnnCarries is None:
+            self._rnnCarries = {}
+        self._rnnCarries[str(layerIdx)] = state
 
     def score(self, ds: Optional[DataSet] = None) -> float:
         """The last fit step's loss, or the loss of ``ds`` (inference mode,

@@ -7,7 +7,7 @@ For the layers the port has, ``toJson()`` writes the same JSON as the JAX
 package, so one JSON builds both nets.
 
 ``graphBuilder()`` returns the ComputationGraph builder of
-``models/graph_conf.py``; the layers not ported yet (A4, A8 and later) fail
+``models/graph_conf.py``; the layers not ported yet (A4, A9 and later) fail
 in ``layer_from_json``.
 """
 from __future__ import annotations
@@ -259,4 +259,5 @@ def _json_default(o):
 
 # importing these registers their layers with ``layer_from_json``
 from deeplearning4j_tpu_torch.nn.conf import attention  # noqa: E402,F401
+from deeplearning4j_tpu_torch.nn.conf import misc  # noqa: E402,F401
 from deeplearning4j_tpu_torch.nn.conf import recurrent  # noqa: E402,F401

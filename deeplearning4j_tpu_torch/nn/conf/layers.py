@@ -10,10 +10,10 @@ that input dropout draws from, or None (no dropout).
 Ported so far: ``Layer``, ``BaseLayer``, ``DenseLayer``, the CNN layers of
 LeNet and ResNet-50 (``ConvolutionLayer``/``Convolution2D``,
 ``SubsamplingLayer``, ``BatchNormalization``, ``ActivationLayer``,
-``GlobalPoolingLayer``) and ``OutputLayer``, with the
-``_Builder``/``register_layer``/``layer_from_json`` machinery; the attention
-and RNN output layers register from their own modules.  The other layers
-(dropout, embedding, LRN, loss, ...) wait for ROADMAP A4.
+``GlobalPoolingLayer``), ``OutputLayer`` and ``LossLayer``, with the
+``_Builder``/``register_layer``/``layer_from_json`` machinery; the
+attention, recurrent and misc layers register from their own modules.  The
+other layers (dropout, embedding, LRN, ...) wait for ROADMAP A4.
 
 Convolutions are ``torch.nn.functional.conv2d`` (NCHW input, OIHW weights),
 as the reference leaves them to XLA.  ``ConvolutionMode.Same`` pads as
@@ -42,7 +42,7 @@ from deeplearning4j_tpu_torch.nn.weights import init_weight
 __all__ = ["Layer", "BaseLayer", "DenseLayer", "ConvolutionLayer",
            "Convolution2D", "SubsamplingLayer", "BatchNormalization",
            "ActivationLayer", "GlobalPoolingLayer", "OutputLayer",
-           "PoolingType", "ConvolutionMode", "register_layer",
+           "LossLayer", "PoolingType", "ConvolutionMode", "register_layer",
            "layer_from_json"]
 
 
@@ -553,6 +553,26 @@ class OutputLayer(DenseLayer):
         return get_activation(self.activation or "softmax")(y), state
 
 
+@dataclasses.dataclass
+class LossLayer(BaseLayer):
+    """Loss without params.  Reference: ``conf/layers/LossLayer.java``."""
+    lossFunction: str = "mcxent"
+
+    @classmethod
+    def _builderArgs(cls, b, *args):
+        if args:
+            b._kw["lossFunction"] = args[0]
+
+    def hasLoss(self) -> bool:
+        return True
+
+    def computeScore(self, labels, output, mask=None):
+        return get_loss(self.lossFunction)(labels, output, mask)
+
+    def forward(self, params, x, train, gen, state):
+        return get_activation(self.activation or "identity")(x), state
+
+
 # ---------------------------------------------------------------------------
 _LAYER_REGISTRY: Dict[str, type] = {}
 
@@ -564,7 +584,7 @@ def register_layer(cls):
 
 for _cls in (DenseLayer, ConvolutionLayer, SubsamplingLayer,
              BatchNormalization, ActivationLayer, GlobalPoolingLayer,
-             OutputLayer):
+             OutputLayer, LossLayer):
     register_layer(_cls)
 
 
@@ -580,4 +600,7 @@ def layer_from_json(d: dict) -> Layer:
     for k in ("kernelSize", "stride", "padding", "dilation"):
         if isinstance(d.get(k), list):
             d[k] = tuple(d[k])
-    return _LAYER_REGISTRY[name](**d)
+    cls = _LAYER_REGISTRY[name]
+    if hasattr(cls, "_fromJsonDict"):  # wrappers with nested layers
+        return cls._fromJsonDict(d)
+    return cls(**d)

@@ -1,0 +1,190 @@
+"""The parity harness the port's tests share: one config DSL per package
+(``_Pkg``), the models the slices are held on, built the same way in
+both packages, and the helpers that fit a JAX net and a port net side by
+side from copied parameters.
+
+- ``_conf`` / ``_nets`` / ``_fit_both``: ``bench.py``'s long-context
+  attention net at small widths (the training slice);
+- ``_narrow`` / ``_flat_state``: a narrow ResNet built as ``ResNet50``
+  builds ResNet-50 (the ResNet slice);
+- ``_char_conf``: the GravesLSTM char-RNN of
+  ``examples/lstm_charmodelling.py`` (the recurrent slice).
+"""
+import jax
+import numpy as np
+import torch
+
+import deeplearning4j_tpu.datasets as jds
+import deeplearning4j_tpu.learning as jlearn
+import deeplearning4j_tpu.models as jmodels
+import deeplearning4j_tpu.nn.conf as jconf
+import deeplearning4j_tpu_torch.datasets as tds
+import deeplearning4j_tpu_torch.learning as tlearn
+import deeplearning4j_tpu_torch.models as tmodels
+import deeplearning4j_tpu_torch.nn.conf as tconf
+from deeplearning4j_tpu.models import graph_conf as jgc
+from deeplearning4j_tpu.nn.conf import attention as jatt
+from deeplearning4j_tpu.nn.conf import layers as jlayers
+from deeplearning4j_tpu.nn.conf import misc as jmisc
+from deeplearning4j_tpu.nn.conf import recurrent as jrec
+from deeplearning4j_tpu_torch.models import graph_conf as tgc
+from deeplearning4j_tpu_torch.nn.conf import attention as tatt
+from deeplearning4j_tpu_torch.nn.conf import layers as tlayers
+from deeplearning4j_tpu_torch.nn.conf import misc as tmisc
+from deeplearning4j_tpu_torch.nn.conf import recurrent as trec
+
+
+class _Pkg:
+    """One package's config DSL, in the names the builders need."""
+
+    def __init__(self, conf, learn, att, rec, layers, models, ds, gc, misc):
+        self.conf, self.learn, self.att, self.rec = conf, learn, att, rec
+        self.layers, self.models, self.ds = layers, models, ds
+        self.gc, self.misc = gc, misc
+
+
+JAX = _Pkg(jconf, jlearn, jatt, jrec, jlayers, jmodels, jds, jgc, jmisc)
+PORT = _Pkg(tconf, tlearn, tatt, trec, tlayers, tmodels, tds, tgc, tmisc)
+
+
+def _np(a):
+    return a.numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def _fit_both(jnet, net, batches, steps):
+    """Fit both nets on the (features, labels) batches in turn; returns
+    the two loss curves as rows of (JAX, port)."""
+    curve = []
+    for s in range(steps):
+        f, l = batches[s % len(batches)]
+        jnet.fit(JAX.ds.DataSet(f, l))
+        net.fit(PORT.ds.DataSet(f, l))
+        curve.append((jnet.score(), net.score()))
+    return np.array(curve)
+
+
+# ---------------------------------------------------------------------------
+# the long-context attention net (bench.py bench_long_context)
+# ---------------------------------------------------------------------------
+
+NIN, HEADS, HEAD, NOUT, T, B = 16, 2, 8, 4, 32, 3
+LR = 1e-3
+
+
+def _conf(pkg, dataType="FLOAT", updater=None, t=T, **layer_kw):
+    """The slice's model (bench.py bench_long_context) at small widths."""
+    updater = updater(pkg) if updater else pkg.learn.Adam(LR)
+    return (pkg.conf.NeuralNetConfiguration.builder().seed(5)
+            .updater(updater).dataType(dataType).list()
+            .layer(pkg.att.SelfAttentionLayer(nHeads=HEADS, headSize=HEAD,
+                                              nOut=NIN, **layer_kw))
+            .layer(pkg.att.SelfAttentionLayer(nHeads=HEADS, headSize=HEAD,
+                                              nOut=NIN, **layer_kw))
+            .layer(pkg.rec.RnnOutputLayer.builder("mse").nOut(NOUT)
+                   .activation("identity").build())
+            .setInputType(pkg.conf.InputType.recurrent(NIN, t)).build())
+
+
+def _nets(params0, dataType="FLOAT"):
+    """(JAX net, port net on the CPU), both from copies of ``params0``."""
+    jnet = JAX.models.MultiLayerNetwork(_conf(JAX, dataType)).init(
+        params=jax.tree.map(np.array, params0))
+    net = PORT.models.MultiLayerNetwork(_conf(PORT, dataType),
+                                        device="cpu").init(params=params0)
+    return jnet, net
+
+
+# ---------------------------------------------------------------------------
+# a narrow ResNet
+# ---------------------------------------------------------------------------
+
+NARROW_BATCH, NARROW_CLASSES = 4, 5
+
+
+def _narrow(pkg, dataType):
+    """Built as ``ResNet50.graphBuilder`` builds ResNet-50 (the same
+    conv_bn and bottleneck blocks, SAME 7x7/2 stem and 3x3/2 max-pool,
+    Nesterovs(0.1, 0.9), RELU init), at widths 4-8 over a 16x16 input: a
+    downsampling bottleneck per stage, and an identity bottleneck."""
+    L = pkg.layers
+    gb = (pkg.conf.NeuralNetConfiguration.builder().seed(3)
+          .updater(pkg.learn.Nesterovs(0.1, momentum=0.9))
+          .weightInit("RELU").dataType(dataType).graphBuilder())
+    gb.addInputs("input").setInputTypes(
+        pkg.conf.InputType.convolutional(16, 16, 3))
+
+    def conv_bn(name, inp, nOut, k, s, act="relu"):
+        gb.addLayer(name + "_conv", L.ConvolutionLayer.builder().nOut(nOut)
+                    .kernelSize(k, k).stride(s, s).convolutionMode("Same")
+                    .hasBias(False).build(), inp)
+        gb.addLayer(name + "_bn", L.BatchNormalization.builder()
+                    .activation(act).build(), name + "_conv")
+        return name + "_bn"
+
+    def bottleneck(name, inp, nOut, stride, down):
+        x = conv_bn(name + "_a", inp, nOut, 1, stride)
+        x = conv_bn(name + "_b", x, nOut, 3, 1)
+        x = conv_bn(name + "_c", x, nOut * 4, 1, 1, act="identity")
+        sc = conv_bn(name + "_sc", inp, nOut * 4, 1, stride,
+                     act="identity") if down else inp
+        gb.addVertex(name + "_add", pkg.gc.ElementWiseVertex("Add"), x, sc)
+        gb.addLayer(name + "_relu", L.ActivationLayer.builder()
+                    .activation("relu").build(), name + "_add")
+        return name + "_relu"
+
+    x = conv_bn("stem", "input", 8, 7, 2)
+    gb.addLayer("stem_pool", L.SubsamplingLayer.builder().poolingType("MAX")
+                .kernelSize(3, 3).stride(2, 2).convolutionMode("Same")
+                .build(), x)
+    x = "stem_pool"
+    for si, (n, reps, s) in enumerate([(4, 2, 1), (8, 1, 2)]):
+        for r in range(reps):
+            x = bottleneck(f"res{si}_{r}", x, n, s if r == 0 else 1, r == 0)
+    gb.addLayer("avgpool", L.GlobalPoolingLayer.builder().poolingType("AVG")
+                .build(), x)
+    gb.addLayer("fc", L.OutputLayer.builder("negativeloglikelihood")
+                .nOut(NARROW_CLASSES).activation("softmax").build(),
+                "avgpool")
+    gb.setOutputs("fc")
+    return gb.build()
+
+
+def _flat_state(net):
+    """(BN running statistics, Nesterovs momentum buffers) of a graph of
+    either package, each flattened in sorted key order."""
+    st = np.concatenate([_np(net.state_[k][q]).ravel()
+                         for k in sorted(net.state_) for q in ("mean", "var")])
+    v = np.concatenate([_np(net.optState_[k][p]["v"]).ravel()
+                        for k in sorted(net.optState_)
+                        for p in sorted(net.optState_[k])])
+    return st, v
+
+
+# ---------------------------------------------------------------------------
+# the GravesLSTM char-RNN (examples/lstm_charmodelling.py)
+# ---------------------------------------------------------------------------
+
+#: the example's corpus (examples/lstm_charmodelling.py ``_TEXT``)
+CHAR_TEXT = ("to be or not to be that is the question "
+             "whether tis nobler in the mind to suffer "
+             "the slings and arrows of outrageous fortune ") * 40
+
+
+def _char_conf(pkg, nChars, hidden=96, tbptt=25, l2=None, dataType="FLOAT"):
+    """The example's net: 2 x GravesLSTM(hidden, tanh), RnnOutputLayer
+    mcxent softmax, Adam(5e-3), XAVIER, seed 12345, truncated BPTT."""
+    g = (pkg.conf.NeuralNetConfiguration.builder().seed(12345)
+         .updater(pkg.learn.Adam(5e-3)).weightInit("XAVIER")
+         .dataType(dataType))
+    if l2:
+        g = g.l2(l2)
+    G = pkg.rec.GravesLSTM
+    return (g.list()
+            .layer(G.builder().nIn(nChars).nOut(hidden).activation("tanh")
+                   .build())
+            .layer(G.builder().nIn(hidden).nOut(hidden).activation("tanh")
+                   .build())
+            .layer(pkg.rec.RnnOutputLayer.builder("mcxent").nIn(hidden)
+                   .nOut(nChars).activation("softmax").build())
+            .backpropType(pkg.conf.BackpropType.TruncatedBPTT)
+            .tBPTTForwardLength(tbptt).tBPTTBackwardLength(tbptt).build())

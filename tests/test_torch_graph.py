@@ -31,7 +31,6 @@ import pytest
 import torch
 
 import deeplearning4j_tpu.datasets as jds
-import deeplearning4j_tpu.learning as jlearn
 import deeplearning4j_tpu.models as jmodels
 import deeplearning4j_tpu.nn.conf as jconf
 import deeplearning4j_tpu_torch.datasets as tds
@@ -45,22 +44,13 @@ from deeplearning4j_tpu_torch.models import graph_conf as tgc
 from deeplearning4j_tpu_torch.nn.conf import layers as tlayers
 from deeplearning4j_tpu_torch.zoo import ResNet50 as TResNet50
 
+from _torch_parity import (JAX, NARROW_BATCH, NARROW_CLASSES, PORT,
+                           _flat_state, _narrow)
+
 pytestmark = pytest.mark.torch_port
 
 F32 = dict(act=1e-5, loss=2e-5, params=2e-5)
 BF16_LOSS = 4 * 2.0 ** -7     # four bf16 ulps of a probability, via -log
-NARROW_BATCH, NARROW_CLASSES = 4, 5
-
-
-class _Pkg:
-    """One package's config DSL, in the names the builders below need."""
-
-    def __init__(self, conf, learn, layers, gc):
-        self.conf, self.learn, self.layers, self.gc = conf, learn, layers, gc
-
-
-JAX = _Pkg(jconf, jlearn, jlayers, jgc)
-PORT = _Pkg(tconf, tlearn, tlayers, tgc)
 
 
 def _t(a):
@@ -400,8 +390,8 @@ def test_resnet50_small_forward_matches_reference(resnet_small):
                                                  None)[0])
     ref = fwd(jnet.params_, jnet.state_, jnp.asarray(x))
     with torch.no_grad():
-        acts, _ = net._forward(net.params_, net.state_, (_t(x),), False,
-                               None)
+        acts = net._forward(net.params_, net.state_, (_t(x),), False,
+                            None)[0]
     for name in net.conf.topoOrder:
         r, a = np.asarray(ref[name]), acts[name].numpy()
         assert a.shape == r.shape, name
@@ -417,75 +407,12 @@ def test_resnet50_small_forward_matches_reference(resnet_small):
 # a narrow ResNet: one fit step and a loss curve, FLOAT and BFLOAT16
 # ---------------------------------------------------------------------------
 
-def _narrow(pkg, dataType):
-    """Built as ``ResNet50.graphBuilder`` builds ResNet-50 (the same
-    conv_bn and bottleneck blocks, SAME 7x7/2 stem and 3x3/2 max-pool,
-    Nesterovs(0.1, 0.9), RELU init), at widths 4-8 over a 16x16 input: a
-    downsampling bottleneck per stage, and an identity bottleneck."""
-    L = pkg.layers
-    gb = (pkg.conf.NeuralNetConfiguration.builder().seed(3)
-          .updater(pkg.learn.Nesterovs(0.1, momentum=0.9))
-          .weightInit("RELU").dataType(dataType).graphBuilder())
-    gb.addInputs("input").setInputTypes(
-        pkg.conf.InputType.convolutional(16, 16, 3))
-
-    def conv_bn(name, inp, nOut, k, s, act="relu"):
-        gb.addLayer(name + "_conv", L.ConvolutionLayer.builder().nOut(nOut)
-                    .kernelSize(k, k).stride(s, s).convolutionMode("Same")
-                    .hasBias(False).build(), inp)
-        gb.addLayer(name + "_bn", L.BatchNormalization.builder()
-                    .activation(act).build(), name + "_conv")
-        return name + "_bn"
-
-    def bottleneck(name, inp, nOut, stride, down):
-        x = conv_bn(name + "_a", inp, nOut, 1, stride)
-        x = conv_bn(name + "_b", x, nOut, 3, 1)
-        x = conv_bn(name + "_c", x, nOut * 4, 1, 1, act="identity")
-        sc = conv_bn(name + "_sc", inp, nOut * 4, 1, stride,
-                     act="identity") if down else inp
-        gb.addVertex(name + "_add", pkg.gc.ElementWiseVertex("Add"), x, sc)
-        gb.addLayer(name + "_relu", L.ActivationLayer.builder()
-                    .activation("relu").build(), name + "_add")
-        return name + "_relu"
-
-    x = conv_bn("stem", "input", 8, 7, 2)
-    gb.addLayer("stem_pool", L.SubsamplingLayer.builder().poolingType("MAX")
-                .kernelSize(3, 3).stride(2, 2).convolutionMode("Same")
-                .build(), x)
-    x = "stem_pool"
-    for si, (n, reps, s) in enumerate([(4, 2, 1), (8, 1, 2)]):
-        for r in range(reps):
-            x = bottleneck(f"res{si}_{r}", x, n, s if r == 0 else 1, r == 0)
-    gb.addLayer("avgpool", L.GlobalPoolingLayer.builder().poolingType("AVG")
-                .build(), x)
-    gb.addLayer("fc", L.OutputLayer.builder("negativeloglikelihood")
-                .nOut(NARROW_CLASSES).activation("softmax").build(),
-                "avgpool")
-    gb.setOutputs("fc")
-    return gb.build()
-
-
 def _narrow_batches(n=2):
     rng = np.random.RandomState(9)
     return [(rng.randn(NARROW_BATCH, 3, 16, 16).astype(np.float32),
              np.eye(NARROW_CLASSES, dtype=np.float32)[
                  rng.randint(0, NARROW_CLASSES, NARROW_BATCH)])
             for _ in range(n)]
-
-
-def _np(a):
-    return a.numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
-
-
-def _flat_state(net):
-    """(BN running statistics, Nesterovs momentum buffers) of a graph of
-    either package, each flattened in sorted key order."""
-    st = np.concatenate([_np(net.state_[k][q]).ravel()
-                         for k in sorted(net.state_) for q in ("mean", "var")])
-    v = np.concatenate([_np(net.optState_[k][p]["v"]).ravel()
-                        for k in sorted(net.optState_)
-                        for p in sorted(net.optState_[k])])
-    return st, v
 
 
 @pytest.fixture(scope="module")
@@ -633,29 +560,38 @@ def test_set_params_round_trips():
 
 
 def test_unported_pieces_raise_naming_their_roadmap_item():
+    """What is still unported raises naming its ROADMAP item; what this
+    test once refused (A3's schedules, A5's TBPTT, A8's rnnTimeStep) now
+    runs: a graph without RNN vertices steps as ``output`` and a TBPTT
+    graph fed rank-4 images trains by standard backpropagation."""
     with pytest.raises(NotImplementedError, match="A6"):
         tgc.vertex_from_json({"@class": "SubsetVertex"})
-    net = tmodels.ComputationGraph(_narrow(PORT, "FLOAT"), device="cpu")
-    with pytest.raises(NotImplementedError, match="A8"):
-        net.rnnTimeStep(np.zeros((1, 3, 16, 16), np.float32))
+    net = tmodels.ComputationGraph(_narrow(PORT, "FLOAT"), device="cpu") \
+        .init()
+    f, l = _narrow_batches(1)[0]
+    torch.testing.assert_close(net.rnnTimeStep(f[:1]), net.output(f[:1]))
     with pytest.raises(NotImplementedError, match="A9"):
         net.evaluate(None)
     with pytest.raises(NotImplementedError, match="A9"):
         net.setListeners(object())
     with pytest.raises(NotImplementedError, match="A9"):
         TResNet50().initPretrained()
-    with pytest.raises(NotImplementedError, match="A3"):
-        tlearn.Nesterovs(momentumSchedule=object()).apply(
-            torch.ones(2), {"v": torch.zeros(2)}, 0.1, 0)
+    fixed = tlearn.Nesterovs(momentumSchedule=tlearn.FixedSchedule(0.5))
+    for a, b in zip(fixed.apply(torch.ones(2), {"v": torch.ones(2)}, 0.1, 0),
+                    tlearn.Nesterovs(momentum=0.5).apply(
+                        torch.ones(2), {"v": torch.ones(2)}, 0.1, 0)):
+        torch.testing.assert_close(a, b)
     conf = _narrow(PORT, "FLOAT")
     conf.globalConf["optimizationAlgo"] = "LBFGS"
-    f, l = _narrow_batches(1)[0]
     with pytest.raises(NotImplementedError, match="A9"):
         tmodels.ComputationGraph(conf, device="cpu").fit(f, l)
     conf = _narrow(PORT, "FLOAT")
     conf.backpropType = "TruncatedBPTT"
     conf.tbpttFwdLength = 2
     net = tmodels.ComputationGraph(conf, device="cpu").init()
-    x = torch.zeros(2, 3, 5)
-    with pytest.raises(NotImplementedError, match="A5"):
-        net._fitBatch(tds.DataSet(x, torch.zeros(2, 5, 5)))
+    net2 = tmodels.ComputationGraph(_narrow(PORT, "FLOAT"), device="cpu") \
+        .init()
+    net._fitBatch(tds.DataSet(f, l))
+    net2._fitBatch(tds.DataSet(f, l))
+    assert net.iterationCount == 1
+    assert torch.equal(net.params(), net2.params())

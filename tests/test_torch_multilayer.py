@@ -35,9 +35,7 @@ import numpy as np
 import pytest
 import torch
 
-import deeplearning4j_tpu.datasets as jds
 import deeplearning4j_tpu.learning as jlearn
-import deeplearning4j_tpu.models as jmodels
 import deeplearning4j_tpu.nn.conf as jconf
 import deeplearning4j_tpu_torch.datasets as tds
 import deeplearning4j_tpu_torch.learning as tlearn
@@ -48,54 +46,27 @@ from deeplearning4j_tpu.models import multilayer as jmm
 from deeplearning4j_tpu.nn import activations as jact
 from deeplearning4j_tpu.nn import lossfunctions as jloss
 from deeplearning4j_tpu.nn.conf import attention as jatt
-from deeplearning4j_tpu.nn.conf import layers as jlayers
 from deeplearning4j_tpu.nn.conf import preprocessors as jpre
-from deeplearning4j_tpu.nn.conf import recurrent as jrec
 from deeplearning4j_tpu_torch.models import multilayer as tmm
 from deeplearning4j_tpu_torch.nn import activations as tact
 from deeplearning4j_tpu_torch.nn import lossfunctions as tloss
 from deeplearning4j_tpu_torch.nn import weights as tw
 from deeplearning4j_tpu_torch.nn.conf import layers as tlayers
 from deeplearning4j_tpu_torch.nn.conf import preprocessors as tpre
-from deeplearning4j_tpu_torch.nn.conf import recurrent as trec
+
+from _torch_parity import (B, HEAD, HEADS, JAX, LR, NIN, NOUT, PORT, T,
+                           _conf, _fit_both, _nets)
 
 pytestmark = pytest.mark.torch_port
 
-NIN, HEADS, HEAD, NOUT, T, B = 16, 2, 8, 4, 32, 3
-LR = 1e-3
 F32 = dict(out=2e-6, params=1e-5, score=1e-5)
 BF16 = dict(score=5e-3, params_bulk=1e-4, bulk_share=0.99)
 
 
 # ---------------------------------------------------------------------------
 # the parity helper: one config, both packages, copied params
+# (tests/_torch_parity.py)
 # ---------------------------------------------------------------------------
-
-class _Pkg:
-    """One package's config DSL, in the names the helper needs."""
-
-    def __init__(self, conf, learn, att, rec, layers, models, ds):
-        self.conf, self.learn, self.att, self.rec = conf, learn, att, rec
-        self.layers, self.models, self.ds = layers, models, ds
-
-
-JAX = _Pkg(jconf, jlearn, jatt, jrec, jlayers, jmodels, jds)
-PORT = _Pkg(tconf, tlearn, tatt, trec, tlayers, tmodels, tds)
-
-
-def _conf(pkg, dataType="FLOAT", updater=None, t=T, **layer_kw):
-    """The slice's model (bench.py bench_long_context) at small widths."""
-    updater = updater(pkg) if updater else pkg.learn.Adam(LR)
-    return (pkg.conf.NeuralNetConfiguration.builder().seed(5)
-            .updater(updater).dataType(dataType).list()
-            .layer(pkg.att.SelfAttentionLayer(nHeads=HEADS, headSize=HEAD,
-                                              nOut=NIN, **layer_kw))
-            .layer(pkg.att.SelfAttentionLayer(nHeads=HEADS, headSize=HEAD,
-                                              nOut=NIN, **layer_kw))
-            .layer(pkg.rec.RnnOutputLayer.builder("mse").nOut(NOUT)
-                   .activation("identity").build())
-            .setInputType(pkg.conf.InputType.recurrent(NIN, t)).build())
-
 
 @pytest.fixture(scope="module")
 def params0():
@@ -103,15 +74,6 @@ def params0():
     same for every dataType (params are drawn in float32)."""
     jnet = JAX.models.MultiLayerNetwork(_conf(JAX)).init()
     return jax.tree.map(np.array, jnet.params_)
-
-
-def _nets(params0, dataType="FLOAT"):
-    """(JAX net, port net on the CPU), both from copies of ``params0``."""
-    jnet = JAX.models.MultiLayerNetwork(_conf(JAX, dataType)).init(
-        params=jax.tree.map(np.array, params0))
-    net = PORT.models.MultiLayerNetwork(_conf(PORT, dataType),
-                                        device="cpu").init(params=params0)
-    return jnet, net
 
 
 def _port_net(params0, dataType="FLOAT"):
@@ -127,17 +89,6 @@ def _batches(n=2, seed=1, t=T):
 
 def _flat(jnet, net):
     return np.asarray(jnet.params().jax), net.params().numpy()
-
-
-def _fit_both(jnet, net, batches, steps):
-    """Fit both nets on the batches in turn; returns the two loss curves."""
-    curve = []
-    for s in range(steps):
-        f, l = batches[s % len(batches)]
-        jnet.fit(JAX.ds.DataSet(f, l))
-        net.fit(PORT.ds.DataSet(f, l))
-        curve.append((jnet.score(), net.score()))
-    return np.array(curve)
 
 
 # ---------------------------------------------------------------------------
@@ -182,15 +133,16 @@ def test_dense_config_json_matches_reference():
 
 
 def test_unported_pieces_raise_naming_their_roadmap_item():
+    """What is still unported raises naming its ROADMAP item; A3's
+    updaters and schedules, which this test once refused, now build from
+    the reference's JSON."""
     with pytest.raises(NotImplementedError, match="A4"):
         tlayers.layer_from_json({"@class": "EmbeddingLayer"})
-    with pytest.raises(NotImplementedError, match="A3"):
-        tlearn.IUpdater.fromJson({"@class": "RmsProp"})
-    with pytest.raises(NotImplementedError, match="A3"):
-        tlearn.Adam(learningRateSchedule=object()).currentLr(0, 0)
-    with pytest.raises(NotImplementedError, match="A3"):
-        tlearn.IUpdater.fromJson({"@class": "Nesterovs",
-                                  "momentumSchedule": {"@class": "x"}})
+    rms = jlearn.RmsProp(0.1)
+    assert tlearn.IUpdater.fromJson(rms.toJson()).toJson() == rms.toJson()
+    adam = jlearn.Adam(learningRateSchedule=jlearn.ExponentialSchedule(
+        "ITERATION", 0.1, 0.9))
+    assert tlearn.IUpdater.fromJson(adam.toJson()).toJson() == adam.toJson()
     from deeplearning4j_tpu_torch.models.graph_conf import vertex_from_json
     with pytest.raises(NotImplementedError, match="A6"):
         vertex_from_json({"@class": "StackVertex"})
@@ -364,16 +316,24 @@ def test_masks_flow_to_the_layers_and_the_loss(params0):
                                           .jax), atol=F32["out"], rtol=0)
 
 
-def test_unported_training_modes_raise():
+def test_unported_training_modes_raise(params0):
+    """The line-search solvers still raise naming A9.  Truncated BPTT,
+    which this test once refused, runs on a net without RNN layers as the
+    reference runs it: chunk by chunk, one iteration per batch."""
     f, l = _batches(1)[0]
     conf = _conf(PORT)
     conf.globalConf["optimizationAlgo"] = "LBFGS"
     with pytest.raises(NotImplementedError, match="A9"):
         tmodels.MultiLayerNetwork(conf, device="cpu").fit(f, l)
-    conf = _conf(PORT)
-    conf.backpropType, conf.tbpttFwdLength = "TruncatedBPTT", 8
-    with pytest.raises(NotImplementedError, match="A5"):
-        tmodels.MultiLayerNetwork(conf, device="cpu").fit(f, l)
+    jnet, net = _nets(params0)
+    for n in (jnet, net):
+        n.conf.backpropType, n.conf.tbpttFwdLength = "TruncatedBPTT", 8
+    curve = _fit_both(jnet, net, [(f, l)], 2)
+    np.testing.assert_allclose(curve[:, 1], curve[:, 0], atol=F32["score"],
+                               rtol=0)
+    np.testing.assert_allclose(*_flat(jnet, net)[::-1], atol=F32["params"],
+                               rtol=0)
+    assert net.getIterationCount() == jnet.getIterationCount() == 2
 
 
 def test_entry_points_default_to_cuda():
