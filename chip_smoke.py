@@ -116,7 +116,38 @@ which must pass or the script exits non-zero without a result line:
 18. time the char-RNN (``rnn_timing``): ms per TBPTT batch and chunk,
    characters/s (batch x t / wall), peak memory, and one profiled chunk
    (device time, idle share, device ops), each line beside the card's name
-   and power limit.
+   and power limit;
+19. BERT path (``bert_train``): BASELINE config 3, ``BertBase("mlm")`` at
+   its published widths (12 layers, 768 = 12 heads x 64, FFN 3072, vocab
+   30522, 128 positions; 109,182,522 parameters) built on SameDiff, with
+   ``setTrainingConfig(updater=Adam(2e-5), dataType="BFLOAT16")``, trained
+   by ``SameDiff.fit`` on ``bench.py`` ``bench_bert``'s two seeded
+   ``MultiDataSet``s of 256 x 128: ``fit(pool, epochs=1)`` warms up, then
+   ``fit(pool, epochs=2)``.  Counters set to 0 just before and read just
+   after: no kernel launches (attention is the graph's einsum-chain op, as
+   in the reference); ``iterationCount`` must be 6 and every loss finite;
+20. time the BERT step (``bert_timing``): ms per step and tokens/s as
+   ``bench.py`` counts them (batch x seq x steps / wall, synchronised) over
+   8 steps, peak memory, the step's FLOPs by ``FlopCounterMode`` and their
+   share of the dense bf16 peak (a record, not a limit), and one profiled
+   step (device time, idle share, top kernels, device ops);
+21. ``bert_output``: ``Bert.output`` (encoder_out) and the
+   ``"classification"`` head's logits at full widths on the card against
+   the same models on the CPU, from bit-identical seeded initial variables,
+   at batch 4 x 128 with the last 40 positions of half the rows masked
+   (atol 1e-4); ``save`` on the card then ``load(device="cuda")`` gives the
+   same encoder_out bit for bit;
+22. ``bert_step``: one FLOAT step of those MLM models, batch 4 x 128, on the
+   card and on the CPU: the loss within 1e-4 relative, 99.9 % of the
+   parameters within 1e-6 and every one within 2 lr + 1e-6;
+23. ``bert_iterator``: ``examples/bert_finetune.py``'s flow on the card
+   (``make_vocab`` over its corpus, ``BertIterator`` MLM batches of 8 x 32,
+   ``Bert(BertConfig(hiddenSize=64, numLayers=2, numHeads=4,
+   intermediateSize=128))``, Adam(1e-3), BFLOAT16, ``Bert.fit(it,
+   epochs=2)``): the loss finite, its second epoch's mean below its
+   first's.  The BERT phases 19-23 launch no kernel (counters read zero
+   across each), and print each number beside the card's name and power
+   limit.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``.  With ``--record PATH`` it also
@@ -244,6 +275,33 @@ RNN_PARAM_ATOL, RNN_PARAM_SHARE = 1e-5, 0.999
 # order): the probabilities hold to 1e-5.  The graph as against the MLN:
 # the same ops in the same order, 1e-6 (the reference test's tolerance).
 RNN_STEPWISE_ATOL, RNN_GRAPH_ATOL = 1e-5, 1e-6
+
+# BASELINE config 3: BERT-base MLM through SameDiff (zoo/bert.py BertBase at
+# its published widths: 12 layers, 768 = 12 heads x 64, FFN 3072, vocab
+# 30522, 128 positions) on bench.py bench_bert's two seeded batches of
+# 256 x 128, Adam(2e-5), BFLOAT16 compute over f32 masters.
+BERT = dict(batch=256, seq=128, vocab=30522, lr=2e-5, timed_epochs=4)
+# Card against CPU, one FLOAT step at batch 4: the loss (a mean over the
+# masked tokens, ~10.3) differs by float32 summation order, 1e-4
+# relative.  Adam's first step moves every parameter by about lr whatever
+# its gradient's size, so a gradient within rounding of zero can move a
+# parameter by up to lr the other way: 99.9 % of the parameters hold to
+# 1e-6 and every one to 2 lr + 1e-6.  Outputs (12 float32 layers, summation
+# order only) hold to 1e-4; the last 40 positions of half the rows are
+# masked out of attention.
+BERT_STEP_BATCH = 4
+BERT_LOSS_RTOL = 1e-4
+BERT_PARAM_ATOL, BERT_PARAM_SHARE = 1e-6, 0.999
+BERT_OUT_ATOL, BERT_PAD = 1e-4, 40
+# examples/bert_finetune.py: its corpus, vocab, iterator and model widths
+BERT_EXAMPLE = dict(batch=8, seq=32, vocab=200, hidden=64, layers=2,
+                    heads=4, ffn=128, lr=1e-3, epochs=2)
+BERT_CORPUS = [
+    "the quick brown fox jumps over the lazy dog",
+    "a deep learning framework compiles graphs for the tpu",
+    "attention layers weigh tokens by learned similarity",
+    "masked language modelling predicts hidden words",
+] * 16
 
 SERVE_SHAPE = (BATCH, GPT2_SMALL["nHeads"], PROMPT, PROMPT,
                GPT2_SMALL["headSize"])
@@ -876,7 +934,7 @@ def _device_breakdown(torch, fn, top=8):
     return {"wall_ms": wall, "device_busy_ms": busy if rows else None,
             "idle_share": 1 - busy / wall if rows else None,
             "device_ops": sum(e.count for e in dev) if rows else None,
-            "top": [[name[:90], ms] for name, ms in rows[:top]]}
+            "top": [[name[:200], ms] for name, ms in rows[:top]]}
 
 
 def phase_profile(torch, rec, lm, prompts):
@@ -1463,12 +1521,13 @@ def _char_rnn_model(torch):
     return net, params0, it
 
 
-def _rnn_launches(rec, name, counts):
-    """Record an RNN phase's kernel launches; none is allowed."""
-    rec.setdefault("launches_rnn_phases", {})[name] = counts
+def _no_launches(rec, name, counts):
+    """Record the kernel launches of a phase whose path has no hand kernel
+    (the recurrent and BERT phases); none is allowed."""
+    rec.setdefault("launches_no_kernel_phases", {})[name] = counts
     _require(not any(counts.values()),
-             f"{name} launched a kernel: {counts} (no hand kernel is on the "
-             f"recurrent path)")
+             f"{name} launched a kernel: {counts} (no hand kernel is on "
+             f"this path)")
 
 
 def phase_rnn_train(torch, rec, net, params0, it):
@@ -1489,7 +1548,7 @@ def phase_rnn_train(torch, rec, net, params0, it):
     print(f"char-RNN fit 1 epoch: {net.getIterationCount()} iterations "
           f"({chunks} TBPTT chunks) in {rec['rnn_fit_s']:.3f} s, last loss "
           f"{loss:.6g}, launches {counts}")
-    _rnn_launches(rec, "rnn_train", counts)
+    _no_launches(rec, "rnn_train", counts)
     _require(net.getIterationCount() == 2 and net.getEpochCount() == 1,
              f"{net.getIterationCount()} iterations, {net.getEpochCount()} "
              f"epochs; expected 2 and 1 (one iteration per batch)")
@@ -1545,7 +1604,7 @@ def phase_rnn_step(torch, rec, params0, it):
           f"{loss_c:.7g} (|d| {e_l:.3g}, rtol {RNN_LOSS_RTOL}); params "
           f"|d|max {e_p:.3g} (largest update {update:.3g}), {share:.6f} of "
           f"them within {RNN_PARAM_ATOL} (at least {RNN_PARAM_SHARE})")
-    _rnn_launches(rec, "rnn_step", counts)
+    _no_launches(rec, "rnn_step", counts)
     _require(gpu.getIterationCount() == cpu.getIterationCount() == 1,
              "one TBPTT batch is one iteration")
     _require(e_l <= RNN_LOSS_RTOL * abs(loss_c)
@@ -1599,7 +1658,7 @@ def phase_rnn_timestep(torch, rec, net, it):
           f"{RNN_STEPWISE_ATOL}); sampling {wall / RNN_SAMPLE * 1e3:.3f} "
           f"ms a character")
     print(f"sample: {sample!r}")
-    _rnn_launches(rec, "rnn_timestep", counts)
+    _no_launches(rec, "rnn_timestep", counts)
     _require(err <= RNN_STEPWISE_ATOL and err0 <= RNN_STEPWISE_ATOL,
              f"rnnTimeStep disagrees with output: {err}, {err0}")
     _require(len(sample) == RNN_SAMPLE + 1, "sampling loop")
@@ -1676,7 +1735,7 @@ def phase_rnn_graph(torch, rec, params0, it):
           f"x20 vs output |d|max {err_step:.3g}; GravesLSTM stack as graph "
           f"vs MLN after 2 batches: params |d|max {err_mln:.3g}, outputs "
           f"{err_out:.3g} (atol {RNN_GRAPH_ATOL}); launches {counts}")
-    _rnn_launches(rec, "rnn_graph", counts)
+    _no_launches(rec, "rnn_graph", counts)
     _require(g.iterationCount == 2 and math.isfinite(loss),
              f"graph TBPTT: {g.iterationCount} iterations, loss {loss}")
     _require(err_step <= RNN_STEPWISE_ATOL,
@@ -1732,7 +1791,261 @@ def phase_rnn_timing(torch, rec, net, it, card):
               f"copies; {card}")
         for kname, ms in p["top"]:
             print(f"  {ms:9.3f} ms  {kname}")
-    _rnn_launches(rec, "rnn_timing", counts)
+    _no_launches(rec, "rnn_timing", counts)
+
+
+def _bert_pool(n, batch, seq, vocab):
+    """bench.py bench_bert's batches: token ids and labels from
+    RandomState(0), zero segments, an all-ones feature mask, a 15 % label
+    mask."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.datasets import MultiDataSet
+    rng = np.random.RandomState(0)
+    pool = []
+    for _ in range(n):
+        toks = rng.randint(0, vocab, (batch, seq)).astype(np.int32)
+        segs = np.zeros((batch, seq), np.int32)
+        mask = np.ones((batch, seq), np.float32)
+        labels = rng.randint(0, vocab, (batch, seq)).astype(np.int32)
+        lmask = (rng.rand(batch, seq) < 0.15).astype(np.float32)
+        pool.append(MultiDataSet(features=[toks, segs, mask],
+                                 labels=[labels, lmask]))
+    return pool
+
+
+def _bert_model(torch):
+    """BertBase("mlm") on the card (the entry point's default device) with
+    bench.py's training config, and its pool of two batches."""
+    from deeplearning4j_tpu_torch.learning import Adam
+    from deeplearning4j_tpu_torch.zoo import BertBase
+    b = BERT
+    bert = BertBase("mlm")
+    _require(bert.sd.device.type == "cuda", f"BERT runs on {bert.sd.device}")
+    bert.setTrainingConfig(updater=Adam(b["lr"]), dataType="BFLOAT16")
+    n = sum(v.numel() for v in bert.sd._var_values().values())
+    print(f"BERT-base MLM: {n} parameters, batches of {b['batch']} x "
+          f"{b['seq']}, Adam({b['lr']}), BFLOAT16")
+    return bert, _bert_pool(2, b["batch"], b["seq"], b["vocab"])
+
+
+def phase_bert_train(torch, rec, bert, pool, card):
+    import math
+    sd = bert.sd
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counters()
+    t0 = time.perf_counter()
+    warm = sd.fit(pool, epochs=1)
+    t1 = time.perf_counter()
+    hist = sd.fit(pool, epochs=2)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    counts = _counters()
+    losses = warm.lossCurve() + hist.lossCurve()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    rec["bert_train"] = dict(losses=losses, iterations=sd.iterationCount,
+                             warm_s=t1 - t0, fit_s=t2 - t1, peak_gb=peak,
+                             launches=counts, card=card)
+    print(f"BERT-base fit: warm-up epoch (2 steps) {t1 - t0:.2f} s, 2 "
+          f"epochs (4 steps) {t2 - t1:.2f} s, iterationCount "
+          f"{sd.iterationCount}, losses {[round(v, 4) for v in losses]}, "
+          f"peak {peak:.2f} GB, launches {counts}; {card}")
+    _no_launches(rec, "bert_train", counts)
+    _require(sd.iterationCount == 6,
+             f"iterationCount {sd.iterationCount}, expected 6")
+    _require(all(math.isfinite(v) for v in losses), f"losses {losses}")
+
+
+def phase_bert_timing(torch, rec, bert, pool, card):
+    from torch.utils.flop_counter import FlopCounterMode
+    b, sd = BERT, bert.sd
+    steps = b["timed_epochs"] * len(pool)
+    _reset_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sd.fit(pool, epochs=b["timed_epochs"])   # ends in one stacked fetch
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    with FlopCounterMode(display=False) as fc:
+        sd.fit(pool[0])
+    flops = fc.get_total_flops()
+    p = _device_breakdown(torch, lambda: sd.fit(pool[1]), top=25)
+    counts = _counters()
+    ms = wall * 1e3 / steps
+    r = dict(ms_per_step=ms, tokens_per_s=b["batch"] * b["seq"] * steps
+             / wall, peak_gb=peak, step_flops=flops,
+             flop_share_bf16_peak=flops / (ms / 1e3) / PEAK_FLOPS["bfloat16"],
+             step_profile=p, card=card)
+    rec["bert_timing"] = r
+    print(f"BERT-base step (batch {b['batch']} x {b['seq']}, BFLOAT16): "
+          f"{ms:.2f} ms, {r['tokens_per_s']:.0f} tokens/s over {steps} "
+          f"steps; {card}")
+    print(f"BERT-base peak memory {peak:.2f} GB; {card}")
+    print(f"BERT-base step FLOPs (FlopCounterMode) {flops:.4g}, "
+          f"{r['flop_share_bf16_peak']:.3f} of the dense bf16 peak; {card}")
+    if p["device_busy_ms"] is None:
+        print(f"profile bert_step: no device time in the trace (not "
+              f"measured); {card}")
+    else:
+        r["idle_share_unprofiled"] = 1 - p["device_busy_ms"] / ms
+        print(f"profile bert_step: wall {p['wall_ms']:.2f} ms, device busy "
+              f"{p['device_busy_ms']:.2f} ms, idle share "
+              f"{p['idle_share']:.3f} ({r['idle_share_unprofiled']:.3f} of "
+              f"an unprofiled step), {p['device_ops']} device kernels and "
+              f"copies; {card}")
+        for kname, kms in p["top"]:
+            print(f"  {kms:9.3f} ms  {kname}")
+    _no_launches(rec, "bert_timing", counts)
+
+
+def _bert_inputs(batch, seq, vocab, seed):
+    """Token ids, random segments and a feature mask that pads the last
+    BERT_PAD positions of every other row."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    toks = rng.randint(0, vocab, (batch, seq)).astype(np.int32)
+    segs = rng.randint(0, 2, (batch, seq)).astype(np.int32)
+    mask = np.ones((batch, seq), np.float32)
+    mask[::2, seq - BERT_PAD:] = 0.0
+    return toks, segs, mask
+
+
+def phase_bert_output(torch, rec, card):
+    """Bert.output and the classification head's logits on the card
+    against the CPU's, from the same seeded initial variables; save on the
+    card and load onto it again.  Returns the (card, CPU) MLM models for
+    bert_step."""
+    import tempfile
+    from deeplearning4j_tpu_torch.zoo.bert import Bert, BertConfig
+    b = BERT
+    toks, segs, mask = _bert_inputs(BERT_STEP_BATCH, b["seq"], b["vocab"], 1)
+    _reset_counters()
+    res, models = {}, {}
+    for task in ("mlm", "classification"):
+        gpu = Bert(BertConfig(task=task))
+        cpu = Bert(BertConfig(task=task), device="cpu")
+        same = all(torch.equal(gpu.sd._arrays[n].cpu(), a)
+                   for n, a in cpu.sd._arrays.items())
+        _require(same, f"{task}: the card's initial variables differ from "
+                 f"the CPU's")
+        out = "encoder_out" if task == "mlm" else "logits"
+        g = gpu.output(toks, segs, mask, out)
+        c = cpu.output(toks, segs, mask, out)
+        res[task] = float((g.cpu() - c).abs().max())
+        _require(bool(g.isfinite().all()) and res[task] <= BERT_OUT_ATOL,
+                 f"{task} {out}: card vs CPU |d|max {res[task]}")
+        models[task] = (gpu, cpu)
+    gpu = models["mlm"][0]
+    with tempfile.TemporaryDirectory(dir=ROOT) as d:
+        path = os.path.join(d, "bert.sdz")
+        t0 = time.perf_counter()
+        gpu.save(path)
+        size = os.path.getsize(path) / 1e6
+        back = Bert.load(path, device="cuda")
+        serde_s = time.perf_counter() - t0
+    same = torch.equal(back.output(toks, segs, mask),
+                       gpu.output(toks, segs, mask))
+    torch.cuda.synchronize()
+    counts = _counters()
+    rec["bert_output"] = dict(encoder_out_err=res["mlm"],
+                              logits_err=res["classification"],
+                              reload_bit_identical=same, zip_mb=size,
+                              save_load_s=serde_s, launches=counts,
+                              card=card)
+    print(f"BERT-base output, batch {BERT_STEP_BATCH} x {b['seq']} (last "
+          f"{BERT_PAD} positions of half the rows masked), card vs CPU: "
+          f"encoder_out |d|max {res['mlm']:.3g}, classification logits "
+          f"{res['classification']:.3g} (atol {BERT_OUT_ATOL}); save + "
+          f"load on the card ({size:.0f} MB zip, {serde_s:.1f} s) "
+          f"bit-identical: {same}; {card}")
+    _no_launches(rec, "bert_output", counts)
+    _require(same, "the reloaded model's encoder_out differs")
+    return models["mlm"]
+
+
+def phase_bert_step(torch, rec, gpu, cpu, card):
+    """One FLOAT step of BERT-base at batch 4 on the card and on the CPU
+    from the same initial variables."""
+    from deeplearning4j_tpu_torch.learning import Adam
+    b = BERT
+    lr = b["lr"]
+    pool = _bert_pool(1, BERT_STEP_BATCH, b["seq"], b["vocab"])
+    _reset_counters()
+    losses = {}
+    for dev, bert in (("cuda", gpu), ("cpu", cpu)):
+        bert.setTrainingConfig(updater=Adam(lr))
+        t0 = time.perf_counter()
+        losses[dev] = bert.sd.fit(pool[0]).finalTrainingLoss()
+        rec.setdefault("bert_step_s", {})[dev] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    counts = _counters()
+    e_l = abs(losses["cuda"] - losses["cpu"])
+    n_total = n_in = 0
+    e_p = 0.0
+    for n, c in cpu.sd._var_values().items():
+        d = (gpu.sd._arrays[n].cpu() - c).abs()
+        n_total += d.numel()
+        n_in += int((d <= BERT_PARAM_ATOL).sum())
+        e_p = max(e_p, float(d.max()))
+    share = n_in / n_total
+    rec["bert_step"] = dict(loss_card=losses["cuda"], loss_cpu=losses["cpu"],
+                            loss_err=e_l, params_err=e_p,
+                            params_within_atol=share, launches=counts,
+                            card=card)
+    print(f"BERT-base FLOAT step, batch {BERT_STEP_BATCH} x {b['seq']}, card "
+          f"vs CPU: loss {losses['cuda']:.7g} vs {losses['cpu']:.7g} (|d| "
+          f"{e_l:.3g}, rtol {BERT_LOSS_RTOL}); params |d|max {e_p:.3g} "
+          f"(bound 2 lr + 1e-6 = {2 * lr + 1e-6:.3g}), {share:.6f} of them "
+          f"within {BERT_PARAM_ATOL} (at least {BERT_PARAM_SHARE}); {card}")
+    _no_launches(rec, "bert_step", counts)
+    _require(e_l <= BERT_LOSS_RTOL * abs(losses["cpu"])
+             and share >= BERT_PARAM_SHARE and e_p <= 2 * lr + 1e-6,
+             f"the card's BERT step disagrees with the CPU's: "
+             f"{rec['bert_step']}")
+
+
+def phase_bert_iterator(torch, rec, card):
+    """examples/bert_finetune.py's flow on the card: WordPiece over the
+    example's corpus, BertIterator MLM batches, Bert.fit."""
+    import math
+    from deeplearning4j_tpu_torch.learning import Adam
+    from deeplearning4j_tpu_torch.nlp import (BertIterator,
+                                              BertMaskedLMMasker,
+                                              BertWordPieceTokenizerFactory,
+                                              make_vocab)
+    from deeplearning4j_tpu_torch.zoo.bert import Bert, BertConfig
+    e = BERT_EXAMPLE
+    vocab = make_vocab(BERT_CORPUS, size=e["vocab"])
+    it = (BertIterator.builder()
+          .tokenizer(BertWordPieceTokenizerFactory(vocab))
+          .lengthHandling("FIXED_LENGTH", e["seq"]).minibatchSize(e["batch"])
+          .sentenceProvider(BERT_CORPUS)
+          .task(BertIterator.Task.UNSUPERVISED)
+          .masker(BertMaskedLMMasker(0.15)).build())
+    _reset_counters()
+    bert = Bert(BertConfig(task="mlm", maxSeqLength=e["seq"],
+                           vocabSize=len(vocab), hiddenSize=e["hidden"],
+                           numLayers=e["layers"], numHeads=e["heads"],
+                           intermediateSize=e["ffn"]))
+    _require(bert.sd.device.type == "cuda", f"BERT runs on {bert.sd.device}")
+    bert.setTrainingConfig(updater=Adam(e["lr"]), dataType="BFLOAT16")
+    losses = bert.fit(it, epochs=e["epochs"]).lossCurve()
+    torch.cuda.synchronize()
+    counts = _counters()
+    half = len(losses) // 2
+    first, last = (sum(losses[:half]) / half,
+                   sum(losses[half:]) / (len(losses) - half))
+    rec["bert_iterator"] = dict(losses=losses, vocab=len(vocab),
+                                launches=counts, card=card)
+    print(f"examples/bert_finetune.py flow on the card: vocab {len(vocab)}, "
+          f"{len(losses)} steps of {e['batch']} x {e['seq']}, mean loss "
+          f"{first:.4f} (epoch 1) -> {last:.4f} (epoch 2); {card}")
+    _no_launches(rec, "bert_iterator", counts)
+    _require(len(losses) == e["epochs"] * len(BERT_CORPUS) // e["batch"]
+             and all(math.isfinite(v) for v in losses) and last < first,
+             f"the example's loss is not finite or does not fall: {losses}")
 
 
 def _kernel_entry(name, replaces, launches, t):
@@ -1823,6 +2136,17 @@ def main(argv) -> int:
             run("rnn_timestep", phase_rnn_timestep, torch, rec, net, it)
             run("rnn_graph", phase_rnn_graph, torch, rec, params0, it)
             run("rnn_timing", phase_rnn_timing, torch, rec, net, it, card)
+        del rnn
+        bert = run("bert_init", _bert_model, torch)
+        if bert is not None:
+            run("bert_train", phase_bert_train, torch, rec, *bert, card)
+            run("bert_timing", phase_bert_timing, torch, rec, *bert, card)
+        del bert
+        pair = run("bert_output", phase_bert_output, torch, rec, card)
+        if pair is not None:
+            run("bert_step", phase_bert_step, torch, rec, *pair, card)
+        del pair
+        run("bert_iterator", phase_bert_iterator, torch, rec, card)
 
     rec["card"] = card
     rec["failed"] = failed
@@ -1846,7 +2170,7 @@ def main(argv) -> int:
     serve, train_t = rec["launches"], rec["train_kernel_timing"]
     launches = {k: serve[k] + rec["launches_train"][k]
                 + rec["launches_resnet"][k] + rec["launches_b4"][k]
-                + sum(c[k] for c in rec["launches_rnn_phases"].values())
+                + sum(c[k] for c in rec["launches_no_kernel_phases"].values())
                 for k in serve}
     m, k, n = B4_RESNET_SHAPES[0]
     kernels_line = {"kernels": [

@@ -13,7 +13,7 @@ PyTorch version beside it, which runs only for tensors on the CPU (the
 tests) — a CUDA tensor reaches the kernel or raises.
 
 Ported so far (the serving slice, the long-context training slice, the
-ResNet-50 slice, then the recurrent slice):
+ResNet-50 slice, the recurrent slice, then BERT on SameDiff):
 
 - ``parallel.ring``      — dense / blockwise / flash attention (forward and
                            backward kernels, ``FlashAttention``) and the
@@ -22,6 +22,12 @@ ResNet-50 slice, then the recurrent slice):
                            ``cached_attention``;
 - ``nlp.transformer``    — ``TransformerLM`` prefill, KV decode, greedy and
                            speculative generation;
+- ``nlp.tokenization``   — WordPiece and the vocab helpers;
+- ``nlp.bert_iterator``  — ``BertIterator`` (MLM and sequence-
+                           classification batches);
+- ``autodiff``           — SameDiff: the graph, its registered ops,
+                           ``output``, gradients, ``fit``, the zip serde,
+                           listeners (``optimize.listeners``: the SPI);
 - ``nn``, ``nn.conf``    — activations, weight init, losses, ``InputType``,
                            preprocessors, the config DSL and its JSON,
                            ``DenseLayer``, ``LossLayer``, the CNN layers
@@ -30,14 +36,15 @@ ResNet-50 slice, then the recurrent slice):
                            of ``nn.conf.recurrent`` and ``MaskingLayer``;
 - ``learning``           — every updater, the ``ISchedule`` family and
                            L1/L2/``WeightDecay``;
-- ``datasets``           — ``DataSet``, ``ListDataSetIterator`` and
-                           ``CharacterIterator``;
+- ``datasets``           — ``DataSet``, ``MultiDataSet``,
+                           ``ListDataSetIterator`` and ``CharacterIterator``;
 - ``models``             — ``MultiLayerNetwork`` and ``ComputationGraph``
                            (``init``, ``fit`` with truncated BPTT,
                            ``output``, ``score``, ``rnnTimeStep`` and its
                            stored state, the flat param views, layer
                            state) and the graph DSL (``graph_conf``);
-- ``zoo``                — ``LeNet`` and ``ResNet50``;
+- ``zoo``                — ``LeNet``, ``ResNet50`` and BERT on SameDiff
+                           (``Bert``, ``BertBase``);
 - ``ops.fused``          — ``matmul_bn_stats`` / ``conv1x1_bn_stats`` (the
                            B4 kernel; no model dispatches it).
 

@@ -8,7 +8,9 @@ side from copied parameters.
 - ``_narrow`` / ``_flat_state``: a narrow ResNet built as ``ResNet50``
   builds ResNet-50 (the ResNet slice);
 - ``_char_conf``: the GravesLSTM char-RNN of
-  ``examples/lstm_charmodelling.py`` (the recurrent slice).
+  ``examples/lstm_charmodelling.py`` (the recurrent slice);
+- ``_bert_pair`` / ``_bert_batches``: BERT on SameDiff at small widths and
+  ``bench.py``'s seeded MLM batches (the BERT slice).
 """
 import jax
 import numpy as np
@@ -27,11 +29,14 @@ from deeplearning4j_tpu.nn.conf import attention as jatt
 from deeplearning4j_tpu.nn.conf import layers as jlayers
 from deeplearning4j_tpu.nn.conf import misc as jmisc
 from deeplearning4j_tpu.nn.conf import recurrent as jrec
+from deeplearning4j_tpu.zoo.bert import Bert as JBert
+from deeplearning4j_tpu.zoo.bert import BertConfig as JBertConfig
 from deeplearning4j_tpu_torch.models import graph_conf as tgc
 from deeplearning4j_tpu_torch.nn.conf import attention as tatt
 from deeplearning4j_tpu_torch.nn.conf import layers as tlayers
 from deeplearning4j_tpu_torch.nn.conf import misc as tmisc
 from deeplearning4j_tpu_torch.nn.conf import recurrent as trec
+from deeplearning4j_tpu_torch.zoo.bert import Bert, BertConfig
 
 
 class _Pkg:
@@ -188,3 +193,46 @@ def _char_conf(pkg, nChars, hidden=96, tbptt=25, l2=None, dataType="FLOAT"):
                    .nOut(nChars).activation("softmax").build())
             .backpropType(pkg.conf.BackpropType.TruncatedBPTT)
             .tBPTTForwardLength(tbptt).tBPTTBackwardLength(tbptt).build())
+
+
+# ---------------------------------------------------------------------------
+# BERT on SameDiff (zoo/bert.py, examples/bert_finetune.py)
+# ---------------------------------------------------------------------------
+
+#: examples/bert_finetune.py's corpus (``_CORPUS``)
+BERT_CORPUS = [
+    "the quick brown fox jumps over the lazy dog",
+    "a deep learning framework compiles graphs for the tpu",
+    "attention layers weigh tokens by learned similarity",
+    "masked language modelling predicts hidden words",
+] * 16
+
+#: a small BERT: every piece of BertBase at narrow widths
+BERT_SMALL = dict(vocabSize=97, hiddenSize=32, numLayers=2, numHeads=4,
+                  intermediateSize=64, maxSeqLength=16)
+
+
+def _bert_pair(task="mlm", **kw):
+    """(JAX Bert, port Bert on the CPU) from one config: the same seeded
+    RandomState draws, so the same initial variables."""
+    cfg = dict(BERT_SMALL, task=task, **kw)
+    return JBert(JBertConfig(**cfg)), Bert(BertConfig(**cfg), device="cpu")
+
+
+def _bert_batches(pkg, n, batch, seq, vocab, seed=0):
+    """``bench.py`` ``bench_bert``'s seeded MultiDataSets (token ids and
+    labels from ``RandomState(seed)``, zero segments, an all-ones feature
+    mask, a 15 % label mask) at the given size, except that the first
+    row's last quarter is masked out of attention."""
+    rng = np.random.RandomState(seed)
+    pool = []
+    for _ in range(n):
+        toks = rng.randint(0, vocab, (batch, seq)).astype(np.int32)
+        segs = np.zeros((batch, seq), np.int32)
+        mask = np.ones((batch, seq), np.float32)
+        mask[0, -seq // 4:] = 0.0
+        labels = rng.randint(0, vocab, (batch, seq)).astype(np.int32)
+        lmask = (rng.rand(batch, seq) < 0.15).astype(np.float32)
+        pool.append(pkg.ds.MultiDataSet(features=[toks, segs, mask],
+                                        labels=[labels, lmask]))
+    return pool

@@ -11,11 +11,12 @@ import pytest
 import torch
 
 from deeplearning4j_tpu_torch import resolve_device
+from deeplearning4j_tpu_torch.autodiff import SameDiff
 from deeplearning4j_tpu_torch.models import ComputationGraph
 from deeplearning4j_tpu_torch.nlp.transformer import (TransformerLM,
                                                       TransformerLMConfig)
 from deeplearning4j_tpu_torch.nn.conf.attention import KVCache
-from deeplearning4j_tpu_torch.zoo import LeNet, ResNet50
+from deeplearning4j_tpu_torch.zoo import Bert, BertConfig, LeNet, ResNet50
 
 pytestmark = pytest.mark.torch_port
 
@@ -87,4 +88,9 @@ def test_entry_points_default_to_cuda_and_never_fall_back():
         ResNet50().init()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         LeNet().init()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SameDiff.create()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Bert(BertConfig(vocabSize=16, hiddenSize=8, numLayers=1, numHeads=2,
+                        intermediateSize=8, maxSeqLength=4))
     assert resolve_device("cpu") == torch.device("cpu")
