@@ -147,7 +147,43 @@ which must pass or the script exits non-zero without a result line:
    epochs=2)``): the loss finite, its second epoch's mean below its
    first's.  The BERT phases 19-23 launch no kernel (counters read zero
    across each), and print each number beside the card's name and power
-   limit.
+   limit;
+24. ``lenet_mnist``: BASELINE config 1, ``examples/lenet_mnist.py``'s flow
+   with the port's classes at the example's settings (conv 5x5/20, max
+   pool, conv 5x5/50, max pool, dense 500, softmax 10; Adam(1e-3), XAVIER,
+   seed 123): ``setListeners(ScoreIterationListener(10))``,
+   ``fit(MnistDataSetIterator(128, True, 123, numExamples=4096),
+   epochs=8)``, ``evaluate(MnistDataSetIterator(256, False, 123,
+   numExamples=1024))``, ``ev.stats()``; ms per step, images/s and peak
+   memory.  ``iterationCount`` must be 256, every score finite and the
+   accuracy above 0.90 (the reference's bar on the synthetic set);
+25. ``listeners``: two steps of a ``clone`` of that net with the
+   score-collecting, performance and checkpoint listeners: each collected
+   score equals ``score()``, and the last checkpoint restores onto the
+   card with the same parameters and updater state bit for bit;
+26. ``serializer``: ``ModelSerializer`` writes the trained LeNet with its
+   updater state and a ``NormalizerStandardize`` and restores it on the
+   card (parameters, updater state, counters and ``output`` bit-identical,
+   the normalizer equal), then writes and restores the BFLOAT16 ResNet-50
+   of phase 10 with its Nesterovs state (parameters, BN state, updater
+   state bit-identical; one more ``fit`` step of each gives the same loss
+   to 1e-6 relative); the zips' sizes and write and read seconds;
+27. ``early_stopping``: ``EarlyStoppingTrainer`` on the LeNet configuration
+   with ``MaxEpochsTerminationCondition(4)``,
+   ``ScoreImprovementEpochTerminationCondition(2)``, a
+   ``DataSetLossCalculator`` on the test iterator and a
+   ``LocalFileModelSaver`` in a temporary directory: the best epoch and
+   score are those of ``scoreVsEpoch``, and ``getBestModel()`` restores on
+   the card and scores the best score to 1e-6 relative;
+28. ``solvers_transfer``: a small MLP trained on the card by each
+   line-search solver (``LBFGS``, ``CONJUGATE_GRADIENT``,
+   ``LINE_GRADIENT_DESCENT``), 5 full-batch steps: every score finite, the
+   last below the first; ``TransferLearning`` on the trained LeNet (frozen
+   through the dense layer, a new 5-class head) keeps the frozen
+   parameters bit for bit over a ``fit`` step and moves the head; and
+   ``ComputationGraph.evaluate`` on ResNet-50's two batches counts 128
+   examples.  Phases 24-28 launch no kernel (counters read zero across
+   each).
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``.  With ``--record PATH`` it also
@@ -302,6 +338,24 @@ BERT_CORPUS = [
     "attention layers weigh tokens by learned similarity",
     "masked language modelling predicts hidden words",
 ] * 16
+
+# BASELINE config 1: examples/lenet_mnist.py at its own settings (batch 128
+# over 4096 training images, 8 epochs; 1024 test images in batches of 256;
+# the synthetic digit set: no MNIST files are in the repository).  The bar
+# is the reference's for this network on that set
+# (tests/test_multilayer.py).
+LENET = dict(batch=128, n_train=4096, test_batch=256, n_test=1024,
+             epochs=8, seed=123, lr=1e-3, score_every=10)
+LENET_ACCURACY = 0.90
+# one more step of the restored ResNet-50 against the source's: the same
+# parameters, state and batch on one card give the same loss
+SERDE_LOSS_RTOL = 1e-6
+# early stopping on the LeNet configuration; the restored best model must
+# score the recorded best score on the test iterator
+ES_MAX_EPOCHS, ES_PATIENCE, ES_SCORE_RTOL = 4, 2, 1e-6
+SOLVER_ALGOS = ("LBFGS", "CONJUGATE_GRADIENT", "LINE_GRADIENT_DESCENT")
+SOLVER_STEPS = 5
+TRANSFER_NOUT = 5
 
 SERVE_SHAPE = (BATCH, GPT2_SMALL["nHeads"], PROMPT, PROMPT,
                GPT2_SMALL["headSize"])
@@ -2048,6 +2102,375 @@ def phase_bert_iterator(torch, rec, card):
              f"the example's loss is not finite or does not fall: {losses}")
 
 
+# ---------------------------------------------------------------------------
+# the training user's loop around fit (BASELINE config 1, LeNet-MNIST)
+# ---------------------------------------------------------------------------
+
+def _lenet_conf(n_out=10):
+    """examples/lenet_mnist.py's configuration, built with the port's
+    classes: conv 5x5/20, max-pool 2/2, conv 5x5/50, max-pool 2/2, dense
+    500, softmax output; Adam(1e-3), XAVIER, seed 123, flat 28x28 input."""
+    from deeplearning4j_tpu_torch.learning import Adam
+    from deeplearning4j_tpu_torch.nn.conf import (InputType,
+                                                  NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.conf.layers import (
+        ConvolutionLayer, DenseLayer, OutputLayer, SubsamplingLayer)
+    c = LENET
+    return (NeuralNetConfiguration.builder().seed(c["seed"])
+            .updater(Adam(c["lr"])).weightInit("XAVIER").list()
+            .layer(ConvolutionLayer.builder().nIn(1).nOut(20)
+                   .kernelSize(5, 5).stride(1, 1).activation("relu").build())
+            .layer(SubsamplingLayer.builder().poolingType("MAX")
+                   .kernelSize(2, 2).stride(2, 2).build())
+            .layer(ConvolutionLayer.builder().nOut(50).kernelSize(5, 5)
+                   .activation("relu").build())
+            .layer(SubsamplingLayer.builder().poolingType("MAX")
+                   .kernelSize(2, 2).stride(2, 2).build())
+            .layer(DenseLayer.builder().nOut(500).activation("relu").build())
+            .layer(OutputLayer.builder("negativeloglikelihood").nOut(n_out)
+                   .activation("softmax").build())
+            .setInputType(InputType.convolutionalFlat(28, 28, 1)).build())
+
+
+def _lenet_iterators():
+    from deeplearning4j_tpu_torch.datasets import MnistDataSetIterator
+    c = LENET
+    return (MnistDataSetIterator(c["batch"], True, c["seed"],
+                                 numExamples=c["n_train"]),
+            MnistDataSetIterator(c["test_batch"], False, c["seed"],
+                                 numExamples=c["n_test"]))
+
+
+def phase_lenet_mnist(torch, rec, card):
+    """examples/lenet_mnist.py's flow on the card: conf, listeners, fit,
+    evaluate, stats.  Returns (net, train iterator, test iterator)."""
+    import math
+    from deeplearning4j_tpu_torch.models import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.optimize import (
+        CollectScoresIterationListener, ScoreIterationListener)
+    c = LENET
+    train, test = _lenet_iterators()
+    net = MultiLayerNetwork(_lenet_conf()).init()
+    _require(net.device.type == "cuda", f"the net runs on {net.device}")
+    scores = CollectScoresIterationListener(c["score_every"])
+    net.setListeners(ScoreIterationListener(c["score_every"]), scores)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # the ResNet-50 that later phases reuse stays allocated: the run's own
+    # peak is the peak less what was allocated before it
+    base = torch.cuda.memory_allocated() / 1e9
+    _reset_counters()
+    t0 = time.perf_counter()
+    net.fit(train, epochs=c["epochs"])
+    net.score()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ev = net.evaluate(test)
+    peak = torch.cuda.max_memory_allocated() / 1e9 - base
+    steps = net.iterationCount
+    print(ev.stats())
+    r = dict(steps=steps, ms_per_step=wall * 1e3 / steps,
+             images_per_s=c["batch"] * steps / wall, fit_s=wall,
+             peak_gb=peak, allocated_before_gb=base,
+             accuracy=ev.accuracy(),
+             is_synthetic=train.isSynthetic, scores=scores.getScores(),
+             card=card)
+    rec["lenet_mnist"] = r
+    print(f"LeNet-MNIST (examples/lenet_mnist.py settings; isSynthetic "
+          f"{train.isSynthetic}): {steps} steps of {c['batch']} in "
+          f"{wall:.2f} s, {r['ms_per_step']:.3f} ms/step, "
+          f"{r['images_per_s']:.0f} images/s, peak {peak:.3f} GB above "
+          f"the {base:.3f} GB allocated before, "
+          f"accuracy {ev.accuracy():.4f} on {ev.getNumRowCounter()} test "
+          f"images; {card}")
+    # one profiled step, on a clone so the trained net stays as it is
+    train.reset()
+    ds, twin = train.next(), net.clone()
+    twin.fit(ds)
+    p = r["step_profile"] = _device_breakdown(
+        torch, lambda: (twin.fit(ds), twin.score()), top=6)
+    counts = _counters()
+    if p["device_busy_ms"] is None:
+        print(f"profile lenet_step: no device time in the trace (not "
+              f"measured); {card}")
+    else:
+        r["idle_share_unprofiled"] = 1 - p["device_busy_ms"] / \
+            r["ms_per_step"]
+        print(f"profile lenet_step: wall {p['wall_ms']:.2f} ms, device busy "
+              f"{p['device_busy_ms']:.3f} ms, idle share "
+              f"{p['idle_share']:.3f} ({r['idle_share_unprofiled']:.3f} of "
+              f"an unprofiled step), {p['device_ops']} device kernels and "
+              f"copies; {card}")
+        for kname, kms in p["top"]:
+            print(f"  {kms:9.3f} ms  {kname}")
+    _no_launches(rec, "lenet_mnist", counts)
+    want = c["epochs"] * c["n_train"] // c["batch"]
+    _require(steps == want, f"iterationCount {steps}, expected {want}")
+    _require(scores.getScores() and all(math.isfinite(s) for _, s in
+                                        scores.getScores()),
+             f"scores not finite: {scores.getScores()}")
+    _require(ev.accuracy() > LENET_ACCURACY,
+             f"accuracy {ev.accuracy()} <= {LENET_ACCURACY}")
+    return net, train, test
+
+
+def _park(gnet, device):
+    """Move a graph's parameters, layer state and updater state to
+    ``device``, bit for bit; returns the graph."""
+    def move(tree):
+        return {k: move(v) if isinstance(v, dict) else v.to(device)
+                for k, v in tree.items()}
+    gnet.params_, gnet.state_ = move(gnet.params_), move(gnet.state_)
+    gnet.optState_ = move(gnet.optState_)
+    return gnet
+
+
+def _trees_equal(torch, a, b):
+    """Two nested dicts of tensors hold the same keys and the same bits."""
+    if isinstance(a, dict):
+        return isinstance(b, dict) and sorted(a) == sorted(b) and all(
+            _trees_equal(torch, a[k], b[k]) for k in a)
+    return a.dtype == b.dtype and torch.equal(a.cpu(), b.cpu())
+
+
+def phase_listeners(torch, rec, net, train, card):
+    """Two steps of a clone of the trained LeNet on the card with the
+    score-collecting, performance and checkpoint listeners."""
+    import tempfile
+    from deeplearning4j_tpu_torch.optimize import (
+        CheckpointListener, CollectScoresIterationListener,
+        PerformanceListener)
+    from deeplearning4j_tpu_torch.utils import ModelSerializer
+    c = net.clone()
+    train.reset()
+    batches = [train.next() for _ in range(2)]
+    _reset_counters()
+    with tempfile.TemporaryDirectory(dir=ROOT) as d:
+        col = CollectScoresIterationListener(1)
+        perf = PerformanceListener(frequency=1)
+        ckpt = CheckpointListener(d, saveEveryNIterations=1, keepLast=1)
+        c.setListeners(col, perf, ckpt)
+        same_scores = True
+        for ds in batches:
+            c.fit(ds)
+            same_scores &= col.getScores()[-1] == (c.iterationCount,
+                                                   c.score())
+        path = os.path.join(d, f"checkpoint_iter_{c.iterationCount}.zip")
+        back = ModelSerializer.restoreMultiLayerNetwork(path)
+        restored = _trees_equal(torch, back.params_, c.params_) and \
+            _trees_equal(torch, back.optState_, c.optState_)
+        files = sorted(os.listdir(d))
+    counts = _counters()
+    rec["listeners"] = dict(scores=col.getScores(),
+                            samples_per_s=perf.samplesPerSecond,
+                            checkpoints=files, launches=counts, card=card)
+    print(f"listeners on the card: scores {col.getScores()} equal score() "
+          f"after each step: {same_scores}; PerformanceListener "
+          f"{perf.samplesPerSecond:.0f} samples/s (synchronised); "
+          f"checkpoint {files} restores bit for bit: {restored}; {card}")
+    _no_launches(rec, "listeners", counts)
+    _require(same_scores, "collected scores differ from score()")
+    _require(back.device.type == "cuda",
+             f"the checkpoint restored on {back.device}, not cuda")
+    _require(restored, "the checkpoint does not restore bit for bit")
+
+
+def phase_serializer(torch, rec, net, train, test, resnet, card):
+    """ModelSerializer on the card: the trained LeNet with its updater
+    state and a NormalizerStandardize, then the full-width BFLOAT16
+    ResNet-50 of the resnet phases with its Nesterovs state."""
+    import tempfile
+    from deeplearning4j_tpu_torch.datasets import NormalizerStandardize
+    from deeplearning4j_tpu_torch.utils import ModelSerializer as MS
+    norm = NormalizerStandardize()
+    norm.fit(train)
+    test.reset()
+    x = test.next().features
+    _reset_counters()
+    res = {}
+    with tempfile.TemporaryDirectory(dir=ROOT) as d:
+        path = os.path.join(d, "lenet.zip")
+        t0 = time.perf_counter()
+        MS.writeModel(net, path, saveUpdater=True, normalizer=norm)
+        t1 = time.perf_counter()
+        back = MS.restoreMultiLayerNetwork(path)
+        nback = MS.restoreNormalizer(path)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        res["lenet"] = dict(
+            zip_mb=os.path.getsize(path) / 1e6, write_s=t1 - t0,
+            read_s=t2 - t1, on_card=back.device.type == "cuda",
+            params=_trees_equal(torch, back.params_, net.params_),
+            updater=_trees_equal(torch, back.optState_, net.optState_),
+            counters=(back.iterationCount, back.epochCount) ==
+            (net.iterationCount, net.epochCount),
+            output=bool(torch.equal(back.output(x), net.output(x))),
+            normalizer=bool((nback.mean == norm.mean).all()
+                            and (nback.std == norm.std).all()))
+        gnet, pool = resnet
+        path = os.path.join(d, "resnet50.zip")
+        t0 = time.perf_counter()
+        MS.writeModel(gnet, path, saveUpdater=True)
+        t1 = time.perf_counter()
+        gback = MS.restoreComputationGraph(path)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        r = dict(zip_mb=os.path.getsize(path) / 1e6, write_s=t1 - t0,
+                 read_s=t2 - t1, on_card=gback.device.type == "cuda",
+                 params=_trees_equal(torch, gback.params_, gnet.params_),
+                 state=_trees_equal(torch, gback.state_, gnet.state_),
+                 updater=_trees_equal(torch, gback.optState_,
+                                      gnet.optState_))
+    gnet.fit(pool[0])
+    gback.fit(pool[0])
+    a, b = gnet.score(), gback.score()
+    r.update(loss=a, restored_loss=b, loss_rel=abs(a - b) / abs(a))
+    res["resnet50"] = r
+    counts = _counters()
+    rec["serializer"] = dict(res, launches=counts, card=card)
+    for name, v in res.items():
+        checks = {k: x for k, x in v.items() if isinstance(x, bool)}
+        print(f"ModelSerializer {name}: {v['zip_mb']:.1f} MB zip, write "
+              f"{v['write_s']:.2f} s, read {v['read_s']:.2f} s; "
+              f"{checks}; {card}")
+    print(f"ResNet-50 one more step: loss {a:.7g}, restored {b:.7g} "
+          f"(rel {r['loss_rel']:.3g}, bound {SERDE_LOSS_RTOL}); {card}")
+    _no_launches(rec, "serializer", counts)
+    off = [n for n, v in res.items() if not v["on_card"]]
+    _require(not off, f"{off} not restored on cuda")
+    bad = [f"{n}.{k}" for n, v in res.items() for k, x in v.items()
+           if isinstance(x, bool) and not x and k != "on_card"]
+    _require(not bad, f"not restored bit for bit: {bad}")
+    _require(r["loss_rel"] <= SERDE_LOSS_RTOL,
+             f"the restored ResNet-50's step loss differs: {a} vs {b}")
+
+
+def phase_early_stopping(torch, rec, train, test, card):
+    """EarlyStoppingTrainer on the LeNet configuration, on the card."""
+    import tempfile
+    from deeplearning4j_tpu_torch.optimize import (
+        DataSetLossCalculator, EarlyStoppingConfiguration,
+        EarlyStoppingTrainer, LocalFileModelSaver,
+        MaxEpochsTerminationCondition,
+        ScoreImprovementEpochTerminationCondition)
+    _reset_counters()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=ROOT) as d:
+        es = (EarlyStoppingConfiguration.builder()
+              .epochTerminationConditions(
+                  MaxEpochsTerminationCondition(ES_MAX_EPOCHS),
+                  ScoreImprovementEpochTerminationCondition(ES_PATIENCE))
+              .scoreCalculator(DataSetLossCalculator(test))
+              .modelSaver(LocalFileModelSaver(d)).build())
+        result = EarlyStoppingTrainer(es, _lenet_conf(), train).fit()
+        best = result.getBestModel()
+        best_score = DataSetLossCalculator(test).calculateScore(best)
+    wall = time.perf_counter() - t0
+    counts = _counters()
+    sve = result.scoreVsEpoch
+    want_epoch = min(sve, key=sve.get)
+    rel = abs(best_score - result.bestModelScore) / abs(result.bestModelScore)
+    rec["early_stopping"] = dict(
+        reason=result.terminationReason, details=result.terminationDetails,
+        score_vs_epoch=sve, best_epoch=result.bestModelEpoch,
+        best_score=result.bestModelScore, restored_score=best_score,
+        score_rel=rel, total_epochs=result.totalEpochs, seconds=wall,
+        launches=counts, card=card)
+    print(f"early stopping on the card: {result}; scoreVsEpoch {sve}; the "
+          f"best model restored on {best.device} scores {best_score:.7g} "
+          f"(rel {rel:.3g}); {wall:.1f} s; {card}")
+    _no_launches(rec, "early_stopping", counts)
+    _require(result.bestModelEpoch == want_epoch and
+             result.bestModelScore == sve[want_epoch],
+             f"best epoch {result.bestModelEpoch} / score "
+             f"{result.bestModelScore} do not match scoreVsEpoch {sve}")
+    _require(best.device.type == "cuda", f"best model on {best.device}")
+    _require(rel <= ES_SCORE_RTOL,
+             f"restored best model scores {best_score}, recorded "
+             f"{result.bestModelScore}")
+
+
+def _solver_mlp(algo):
+    from deeplearning4j_tpu_torch.learning import Sgd
+    from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.conf.layers import (DenseLayer,
+                                                         OutputLayer)
+    return (NeuralNetConfiguration.builder().seed(11).optimizationAlgo(algo)
+            .updater(Sgd(0.1)).list()
+            .layer(DenseLayer.builder().nIn(3).nOut(32).activation("tanh")
+                   .build())
+            .layer(OutputLayer.builder("mse").nIn(32).nOut(2)
+                   .activation("identity").build()).build())
+
+
+def phase_solvers_transfer(torch, rec, net, train, resnet, card):
+    """The line-search solvers, transfer learning on the trained LeNet
+    and ComputationGraph.evaluate on ResNet-50, on the card."""
+    import math
+    import numpy as np
+    from deeplearning4j_tpu_torch.datasets import (DataSet,
+                                                   ListDataSetIterator)
+    from deeplearning4j_tpu_torch.models import (MultiLayerNetwork,
+                                                 TransferLearning)
+    from deeplearning4j_tpu_torch.nn.conf.layers import OutputLayer
+    rng = np.random.RandomState(0)
+    x = rng.randn(256, 3).astype(np.float32)
+    y = np.stack([np.sin(x[:, 0]) + x[:, 1], x[:, 2] * x[:, 0]], 1) \
+        .astype(np.float32)
+    _reset_counters()
+    solvers = {}
+    for algo in SOLVER_ALGOS:
+        m = MultiLayerNetwork(_solver_mlp(algo)).init()
+        scores = []
+        for _ in range(SOLVER_STEPS):
+            m.fit(DataSet(x, y))
+            scores.append(m.score())
+        solvers[algo] = scores
+    # transfer: freeze through the dense layer, a new 5-class head
+    t2 = (TransferLearning.Builder(net).setFeatureExtractor(4)
+          .removeOutputLayer()
+          .addLayer(OutputLayer.builder("negativeloglikelihood").nIn(500)
+                    .nOut(TRANSFER_NOUT).activation("softmax").build())
+          .build())
+    frozen0 = {k: v.clone() for k, v in t2.paramTable().items()
+               if int(k.split("_")[0]) <= 4}
+    head0 = t2.getParam("5_W").clone()
+    train.reset()
+    ds = train.next()
+    cls = ds.labels.argmax(1) % TRANSFER_NOUT
+    t2.fit(DataSet(ds.features, torch.eye(TRANSFER_NOUT)[cls]))
+    table = t2.paramTable()
+    frozen_same = all(torch.equal(table[k], v) for k, v in frozen0.items())
+    head_moved = not torch.equal(t2.getParam("5_W"), head0)
+    # ComputationGraph.evaluate on the ResNet-50 of the resnet phases
+    gnet, pool = resnet
+    ev = gnet.evaluate(ListDataSetIterator(pool))
+    counts = _counters()
+    rec["solvers_transfer"] = dict(
+        solver_scores=solvers, transfer_frozen_unchanged=frozen_same,
+        transfer_head_changed=head_moved, transfer_on=str(t2.device),
+        resnet_eval_count=ev.getNumRowCounter(), launches=counts, card=card)
+    for algo, s in solvers.items():
+        print(f"{algo} on the card, {SOLVER_STEPS} full-batch steps: "
+              f"scores {[round(v, 6) for v in s]}; {card}")
+    print(f"TransferLearning on the trained LeNet ({t2.device}): frozen "
+          f"layers 0-4 bit-unchanged {frozen_same}, new {TRANSFER_NOUT}-"
+          f"class head changed {head_moved}; ComputationGraph.evaluate on "
+          f"ResNet-50: {ev.getNumRowCounter()} examples, accuracy "
+          f"{ev.accuracy():.4f} (random labels); {card}")
+    _no_launches(rec, "solvers_transfer", counts)
+    bad = [a for a, s in solvers.items()
+           if not all(math.isfinite(v) for v in s) or not s[-1] < s[0]]
+    _require(not bad, f"solvers not finite or not decreasing: {bad}")
+    _require(t2.device.type == "cuda",
+             f"the transferred net runs on {t2.device}, not cuda")
+    _require(frozen_same and head_moved,
+             "transfer learning: frozen params moved or the head did not")
+    want = sum(d.numExamples() for d in pool)
+    _require(ev.getNumRowCounter() == want,
+             f"evaluate counted {ev.getNumRowCounter()}, expected {want}")
+
+
 def _kernel_entry(name, replaces, launches, t):
     return {"name": name, "route": "cuda",
             "source": f"deeplearning4j_tpu_torch/csrc/{name}.cu",
@@ -2127,7 +2550,9 @@ def main(argv) -> int:
                     pool)
             del gnet
             run("resnet_timing", phase_resnet_timing, torch, rec, net, pool)
-        del resnet
+            # phases 26 and 28 reuse this net: it waits on the host, so
+            # the memory peaks of phases 14-23 read as before
+            resnet = (_park(net, "cpu"), pool)
         rnn = run("rnn_init", _char_rnn_model, torch)
         if rnn is not None:
             net, params0, it = rnn
@@ -2147,6 +2572,23 @@ def main(argv) -> int:
             run("bert_step", phase_bert_step, torch, rec, *pair, card)
         del pair
         run("bert_iterator", phase_bert_iterator, torch, rec, card)
+        # the training user's loop around fit; the serializer and
+        # evaluate phases reuse the ResNet-50 the resnet phases trained
+        lenet = run("lenet_mnist", phase_lenet_mnist, torch, rec, card)
+        if resnet is not None:
+            _park(resnet[0], "cuda")
+        if lenet is not None:
+            net, train, test = lenet
+            run("listeners", phase_listeners, torch, rec, net, train, card)
+            if resnet is not None:
+                run("serializer", phase_serializer, torch, rec, net, train,
+                    test, resnet, card)
+            run("early_stopping", phase_early_stopping, torch, rec, train,
+                test, card)
+            if resnet is not None:
+                run("solvers_transfer", phase_solvers_transfer, torch, rec,
+                    net, train, resnet, card)
+        del lenet, resnet
 
     rec["card"] = card
     rec["failed"] = failed

@@ -13,7 +13,8 @@ PyTorch version beside it, which runs only for tensors on the CPU (the
 tests) — a CUDA tensor reaches the kernel or raises.
 
 Ported so far (the serving slice, the long-context training slice, the
-ResNet-50 slice, the recurrent slice, then BERT on SameDiff):
+ResNet-50 slice, the recurrent slice, BERT on SameDiff, then the training
+user's loop around ``fit`` with LeNet-MNIST):
 
 - ``parallel.ring``      — dense / blockwise / flash attention (forward and
                            backward kernels, ``FlashAttention``) and the
@@ -27,7 +28,7 @@ ResNet-50 slice, the recurrent slice, then BERT on SameDiff):
                            classification batches);
 - ``autodiff``           — SameDiff: the graph, its registered ops,
                            ``output``, gradients, ``fit``, the zip serde,
-                           listeners (``optimize.listeners``: the SPI);
+                           listeners, ``evaluate``;
 - ``nn``, ``nn.conf``    — activations, weight init, losses, ``InputType``,
                            preprocessors, the config DSL and its JSON,
                            ``DenseLayer``, ``LossLayer``, the CNN layers
@@ -36,13 +37,23 @@ ResNet-50 slice, the recurrent slice, then BERT on SameDiff):
                            of ``nn.conf.recurrent`` and ``MaskingLayer``;
 - ``learning``           — every updater, the ``ISchedule`` family and
                            L1/L2/``WeightDecay``;
-- ``datasets``           — ``DataSet``, ``MultiDataSet``,
-                           ``ListDataSetIterator`` and ``CharacterIterator``;
+- ``datasets``           — ``DataSet``, ``MultiDataSet``, the list,
+                           array and existing-collection iterators,
+                           ``CharacterIterator``, the MNIST, CIFAR-10,
+                           EMNIST and Iris iterators (offline synthetic
+                           sets) and the normalizers;
 - ``models``             — ``MultiLayerNetwork`` and ``ComputationGraph``
-                           (``init``, ``fit`` with truncated BPTT,
-                           ``output``, ``score``, ``rnnTimeStep`` and its
+                           (``init``, ``fit`` with truncated BPTT and the
+                           line-search solvers, listeners, ``output``,
+                           ``score``, ``evaluate``, ``rnnTimeStep`` and its
                            stored state, the flat param views, layer
-                           state) and the graph DSL (``graph_conf``);
+                           state), the graph DSL (``graph_conf``) and
+                           transfer learning;
+- ``eval``               — every evaluation class;
+- ``optimize``           — the stock listeners, early stopping and the
+                           line-search solvers;
+- ``utils``              — ``ModelSerializer`` (zips either package
+                           reads);
 - ``zoo``                — ``LeNet``, ``ResNet50`` and BERT on SameDiff
                            (``Bert``, ``BertBase``);
 - ``ops.fused``          — ``matmul_bn_stats`` / ``conv1x1_bn_stats`` (the

@@ -21,8 +21,7 @@ masters, and the gradients arrive in float32 for the updater.
 Not ported yet, and raising where they are called: the control-flow ops
 (``whileLoop`` / ``ifCond`` / ``forLoop``), the ``ops_ext`` families with
 ``sd.image()`` / ``sd.rnn()`` / ``sd.linalg()``, ``execDebug``,
-``stepCostAnalysis`` and ``invokeGraphOn`` (ROADMAP A12b), and
-``evaluate`` (it needs ``eval/``, ROADMAP A9).
+``stepCostAnalysis`` and ``invokeGraphOn`` (ROADMAP A12b).
 """
 from __future__ import annotations
 
@@ -1772,8 +1771,34 @@ class SameDiff:
         return ph
 
     def evaluate(self, iterator, outputVariable, evaluation=None):
-        raise NotImplementedError(
-            "SameDiff.evaluate needs eval/, not ported yet (ROADMAP A9)")
+        """Reference: SameDiff.evaluate(DataSetIterator, outputVariable,
+        IEvaluation) — features bind through the TrainingConfig's feature
+        mapping, labels come from each DataSet, predictions from
+        ``outputVariable`` (one device-to-host copy per batch)."""
+        from deeplearning4j_tpu_torch.eval.evaluation import Evaluation
+        if self._training_config is None:
+            raise ValueError("setTrainingConfig first (feature mappings)")
+        cfg = self._training_config
+        ev = evaluation or Evaluation()
+        name = outputVariable.name() if isinstance(outputVariable,
+                                                   SDVariable) \
+            else outputVariable
+        if hasattr(iterator, "reset"):
+            iterator.reset()
+        for ds in iterator:
+            ph = self._bind(ds, cfg)
+            out = self.outputSingle(
+                {k: v for k, v in ph.items()
+                 if k in cfg.dataSetFeatureMapping}, name)
+            labels = ds.labels[0] if isinstance(ds.labels, list) \
+                else ds.labels
+            lmask = getattr(ds, "labelsMasks", None)   # MultiDataSet plural
+            if isinstance(lmask, list):
+                lmask = lmask[0] if lmask else None
+            if lmask is None:
+                lmask = getattr(ds, "labelsMask", None)
+            ev.eval(labels, out.cpu(), lmask)
+        return ev
 
     # ---------------- listeners (reference: BaseListener SPI) ----------
     def setListeners(self, *listeners) -> None:

@@ -1,15 +1,19 @@
-"""DataSetIterator SPI and the list iterator — the port of
+"""DataSetIterator SPI and the stock in-memory iterators — the port of
 ``deeplearning4j_tpu/datasets/iterator.py`` (the reference's
-``DataSetIterator.java`` and ``ListDataSetIterator.java``).  The Python
+``DataSetIterator.java``, ``ListDataSetIterator.java``, and the
+iterators over arrays and over an existing collection).  The Python
 iterator protocol is supported too (``for ds in it``, resetting first).
 """
 from __future__ import annotations
 
-from typing import List
+from typing import Iterable, List, Optional
+
+import numpy as np
 
 from deeplearning4j_tpu_torch.datasets.dataset import DataSet
 
-__all__ = ["DataSetIterator", "ListDataSetIterator"]
+__all__ = ["DataSetIterator", "ListDataSetIterator",
+           "INDArrayDataSetIterator", "ExistingDataSetIterator"]
 
 
 class DataSetIterator:
@@ -97,3 +101,64 @@ class ListDataSetIterator(DataSetIterator):
 
     def inputColumns(self) -> int:
         return int(self._ds[0].features.shape[-1]) if self._ds else -1
+
+
+class INDArrayDataSetIterator(DataSetIterator):
+    """Mini-batches over in-memory (features, labels) arrays, optionally
+    shuffled each epoch by a seeded ``numpy.random.RandomState`` (the
+    reference's draws, so one seed gives the same batches in both
+    packages)."""
+
+    def __init__(self, features, labels, batchSize: int,
+                 shuffle: bool = False, seed: Optional[int] = None):
+        self._f = np.asarray(features)
+        self._l = np.asarray(labels)
+        self._bs = int(batchSize)
+        self._shuffle = shuffle
+        self._rng = np.random.RandomState(seed)
+        self._order = np.arange(self._f.shape[0])
+        self._i = 0
+        if shuffle:
+            self._rng.shuffle(self._order)
+
+    def hasNext(self) -> bool:
+        return self._i < self._f.shape[0]
+
+    def next(self, num: int = 0) -> DataSet:
+        j = min(self._i + self._bs, self._f.shape[0])
+        idx = self._order[self._i:j]
+        self._i = j
+        return self._applyPre(DataSet(self._f[idx], self._l[idx]))
+
+    def reset(self) -> None:
+        self._i = 0
+        if self._shuffle:
+            self._rng.shuffle(self._order)
+
+    def batch(self) -> int:
+        return self._bs
+
+    def totalOutcomes(self) -> int:
+        return self._l.shape[-1]
+
+    def inputColumns(self) -> int:
+        return self._f.shape[-1]
+
+
+class ExistingDataSetIterator(DataSetIterator):
+    """Iterate an existing collection of DataSets."""
+
+    def __init__(self, iterable: Iterable[DataSet]):
+        self._src = list(iterable)
+        self._i = 0
+
+    def hasNext(self) -> bool:
+        return self._i < len(self._src)
+
+    def next(self, num: int = 0) -> DataSet:
+        ds = self._src[self._i]
+        self._i += 1
+        return self._applyPre(ds)
+
+    def reset(self) -> None:
+        self._i = 0

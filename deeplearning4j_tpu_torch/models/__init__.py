@@ -1,7 +1,8 @@
-"""Model classes (the port of ``deeplearning4j_tpu/models``).  So far
-``MultiLayerNetwork`` and ``ComputationGraph``; transfer learning waits for
-ROADMAP A9."""
+"""Model classes (the port of ``deeplearning4j_tpu/models``):
+``MultiLayerNetwork``, ``ComputationGraph`` and transfer learning."""
 from deeplearning4j_tpu_torch.models.graph import (  # noqa: F401
     ComputationGraph)
 from deeplearning4j_tpu_torch.models.multilayer import (  # noqa: F401
     MultiLayerNetwork)
+from deeplearning4j_tpu_torch.models.transferlearning import (  # noqa: F401
+    FineTuneConfiguration, FrozenLayer, TransferLearning)

@@ -15,28 +15,31 @@ dicts keyed by vertex name, as the JAX graph's ``params_``/``state_``, so
 master parameters, state, optimizer state and losses.  Recurrent vertices
 carry their state as in ``MultiLayerNetwork``: truncated BPTT passes each
 chunk's final carries, detached, to the next, and ``rnnTimeStep`` keeps
-them between calls.
+them between calls.  Listeners, ``evaluate``, the line-search solvers and
+frozen vertices work as in ``MultiLayerNetwork``.
 
-Not ported yet, and raising where they are asked for: the line-search
-solvers, ``evaluate`` and listeners (A9), and ``MultiDataSet`` (A5).
+Not ported yet, and raising where it is asked for: ``MultiDataSet`` (A5).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
 from deeplearning4j_tpu_torch import resolve_device
 from deeplearning4j_tpu_torch.datasets.dataset import DataSet
 from deeplearning4j_tpu_torch.datasets.iterator import DataSetIterator
+from deeplearning4j_tpu_torch.eval.evaluation import Evaluation
 from deeplearning4j_tpu_torch.models.graph_conf import \
     ComputationGraphConfiguration
 from deeplearning4j_tpu_torch.models.multilayer import (
-    _HALF_TYPES, _apply_updates, _cast_tree, _iter_leaf_params, _leaves,
-    _reg_penalty, _set_leaf, _to_device, _to_tensor, _tree_map,
+    _HALF_TYPES, _apply_updates, _cast_tree, _detached_leaves,
+    _frozen_keys, _grads_of, _iter_leaf_params, _leaves, _reg_penalty,
+    _set_leaf, _solver_step, _to_device, _to_tensor, _tree_map,
     _updater_for)
 from deeplearning4j_tpu_torch.nn.conf import BackpropType
 from deeplearning4j_tpu_torch.nn.conf.layers import Layer
+from deeplearning4j_tpu_torch.optimize.listeners import notifyListeners
 
 __all__ = ["ComputationGraph"]
 
@@ -62,6 +65,8 @@ class ComputationGraph:
         self._fitGen = torch.Generator(device=self.device).manual_seed(
             self._rngSeed ^ 0x6EED)
         self._rnnCarries = None  # rnnTimeStep's stored state, by vertex
+        self._listeners: List = []
+        self._solver = None      # the line-search solver, once bound
 
     # ------------------------------------------------------------------
     def init(self, params: Optional[Dict] = None) -> "ComputationGraph":
@@ -200,10 +205,12 @@ class ComputationGraph:
             self._fitBatch(data)
         elif isinstance(data, DataSetIterator):
             for _ in range(epochs):
+                notifyListeners(self._listeners, "onEpochStart", self)
                 data.reset()
                 while data.hasNext():
                     self._fitBatch(data.next())
                 self.epochCount += 1
+                notifyListeners(self._listeners, "onEpochEnd", self)
         elif labels is not None:
             self._fitBatch(DataSet(data, labels))
         elif type(data).__name__ == "MultiDataSet":
@@ -225,14 +232,12 @@ class ComputationGraph:
         self.lastBatchSize = int(inputs[0].shape[0])
         algo = str(self.conf.globalConf.get("optimizationAlgo")
                    or "STOCHASTIC_GRADIENT_DESCENT").upper()
-        if algo != "STOCHASTIC_GRADIENT_DESCENT":
-            raise NotImplementedError(
-                f"optimizationAlgo {algo}: the line-search solvers are not "
-                "ported yet (ROADMAP A9)")
         # TBPTT needs per-timestep (rank-3) labels on every output (the
         # reference's ComputationGraph.doTruncatedBPTT); one iteration per
         # batch, whatever its number of chunks
-        if self.conf.backpropType == BackpropType.TruncatedBPTT \
+        if algo != "STOCHASTIC_GRADIENT_DESCENT":
+            self._runSolverStep(inputs, labels, masks, fmask, algo)
+        elif self.conf.backpropType == BackpropType.TruncatedBPTT \
                 and all(i.dim() == 3 for i in inputs) \
                 and all(l.dim() == 3 for l in labels) \
                 and inputs[0].shape[2] > self.conf.tbpttFwdLength:
@@ -240,28 +245,28 @@ class ComputationGraph:
         else:
             self._runTrainStep(inputs, labels, masks, fmask)
         self.iterationCount += 1
+        notifyListeners(self._listeners, "iterationDone", self,
+                        self.iterationCount, self.epochCount)
+
+    def _runSolverStep(self, inputs, labels, masks, fmask, algo: str):
+        _solver_step(self, algo, self._rngSeed ^ 0x6EED,
+                     lambda p, gen, ins, labs, mks, fm: self._lossFn(
+                         p, ins, labs, mks, True, gen, fm)[0],
+                     inputs, labels, masks, fmask)
 
     def _runTrainStep(self, inputs, labels, masks, fmask, carries=None):
         """One step of forward, losses, backward and updates from
         ``carries``; returns the RNN vertices' final carries, detached."""
-        leaves = [(name, path, v.detach().requires_grad_(True))
-                  for name, lp in self.params_.items()
-                  for path, _pname, v in _iter_leaf_params(lp)]
-        params: Dict = {}
-        for name, path, v in leaves:
-            _set_leaf(params.setdefault(name, {}), path, v)
+        units = [(name, self.conf.nodes[name][0]) for name in self.params_]
+        leaves, params = _detached_leaves(self.params_, _frozen_keys(units))
         loss, new_state, new_carries = self._lossFn(
             params, inputs, labels, masks, True, self._fitGen, fmask,
             carries)
-        grads_flat = torch.autograd.grad(loss, [v for _, _, v in leaves])
-        grads: Dict = {}
-        for (name, path, _), g in zip(leaves, grads_flat):
-            _set_leaf(grads.setdefault(name, {}), path, g)
+        grads = _grads_of(loss, leaves)
         with torch.no_grad():
             self.params_, self.optState_ = _apply_updates(
-                ((name, self.conf.nodes[name][0]) for name in self.params_),
-                self.conf.globalConf, self.params_, grads, self.optState_,
-                self.iterationCount, self.epochCount)
+                units, self.conf.globalConf, self.params_, grads,
+                self.optState_, self.iterationCount, self.epochCount)
         self.state_.update(new_state)
         # left on the device: score() reads it, so a step never waits on
         # the host
@@ -380,13 +385,35 @@ class ComputationGraph:
             self._rnnCarries = {}
         self._rnnCarries[vertexName] = state
 
-    def evaluate(self, it):
-        raise NotImplementedError("evaluate is not ported yet (ROADMAP A9)")
+    def evaluate(self, it: DataSetIterator) -> Evaluation:
+        """Run ``it`` through ``output`` (the first output) and accumulate
+        an ``Evaluation``; one device-to-host copy per batch."""
+        ev = Evaluation()
+        it.reset()
+        while it.hasNext():
+            ds = it.next()
+            out = self.output(ds.features, featuresMask=ds.featuresMask)
+            if isinstance(out, list):
+                out = out[0]
+            ev.eval(ds.labels, out.cpu(), ds.labelsMask)
+        it.reset()
+        return ev
 
-    def setListeners(self, *listeners):
-        raise NotImplementedError("listeners are not ported yet (ROADMAP A9)")
+    # -- listeners -------------------------------------------------------
+    def setListeners(self, *listeners) -> None:
+        if len(listeners) == 1 and isinstance(listeners[0], (list, tuple)):
+            listeners = tuple(listeners[0])
+        self._listeners = list(listeners)
 
-    addListeners = setListeners
+    def addListeners(self, *listeners) -> None:
+        self._listeners.extend(listeners)
+
+    def getListeners(self) -> List:
+        return self._listeners
+
+    def removeListener(self, listener) -> None:
+        if listener in self._listeners:
+            self._listeners.remove(listener)
 
     # -- params ----------------------------------------------------------
     def _leaf_items(self):

@@ -24,14 +24,20 @@ layer: zeros for fresh sequences, or the carries of the previous TBPTT
 chunk (detached, so the backward stops at the chunk's start) or of the
 previous ``rnnTimeStep`` call (the reference's rnn ``stateMap``).
 
-Not ported yet, and raising where a configuration asks for them: the
-line-search solvers (A9).  Listeners, evaluation, telemetry spans, the AOT
-compile cache, the fault supervisor's learning-rate scale and the mesh
-hooks are left out (A9, A10, A12).
+Around the step: training listeners (``onEpochStart`` / ``onEpochEnd``
+per epoch, ``iterationDone`` once per batch, however many TBPTT chunks it
+has), ``evaluate`` (one device-to-host copy per batch, the metrics in
+numpy), the line-search solvers over the flat parameter vector
+(``optimizationAlgo`` other than SGD), and frozen layers (transfer
+learning): their parameters take no gradient and no update.
+
+Not ported yet: ``pretrain`` (it needs the autoencoder layers, ROADMAP
+A9), telemetry spans, the AOT compile cache, the fault supervisor's
+learning-rate scale and the mesh hooks (A10, A12).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -39,12 +45,16 @@ import torch
 from deeplearning4j_tpu_torch import resolve_device
 from deeplearning4j_tpu_torch.datasets.dataset import DataSet
 from deeplearning4j_tpu_torch.datasets.iterator import DataSetIterator
+from deeplearning4j_tpu_torch.eval.evaluation import (Evaluation,
+                                                      RegressionEvaluation,
+                                                      ROC)
 from deeplearning4j_tpu_torch.learning.config import Sgd
 from deeplearning4j_tpu_torch.learning.regularization import (
     L1Regularization, L2Regularization, WeightDecay)
 from deeplearning4j_tpu_torch.nn.conf import (BackpropType,
                                               GradientNormalization,
                                               MultiLayerConfiguration)
+from deeplearning4j_tpu_torch.optimize.listeners import notifyListeners
 
 __all__ = ["MultiLayerNetwork"]
 
@@ -96,6 +106,12 @@ def _tree_map(fn, tree):
     return fn(tree)
 
 
+def _clone_tree(tree, device=None):
+    """Copies of every tensor of a parameter, state or updater tree (on
+    ``device``, else where each lies)."""
+    return _tree_map(lambda t: t.to(device or t.device, copy=True), tree)
+
+
 def _cast_tree(tree, dtype):
     """f32 leaves -> the compute ``dtype`` (a no-op at full precision)."""
     if dtype == torch.float32 or tree is None:
@@ -108,6 +124,90 @@ def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
     return [tree]
+
+
+def _detached_leaves(params, frozen):
+    """``(leaves, tree)``: every param leaf detached, as ``(key, path,
+    leaf)`` rows and as a tree of the same leaves; the leaves of keys not
+    in ``frozen`` require grad."""
+    leaves = [(k, path, v.detach().requires_grad_(k not in frozen))
+              for k, lp in params.items()
+              for path, _pname, v in _iter_leaf_params(lp)]
+    tree: Dict = {}
+    for k, path, v in leaves:
+        _set_leaf(tree.setdefault(k, {}), path, v)
+    return leaves, tree
+
+
+def _grads_of(loss, leaves):
+    """The gradient tree of ``loss`` over the leaves that require grad."""
+    train = [(k, path, v) for k, path, v in leaves if v.requires_grad]
+    grads: Dict = {}
+    if train:
+        flat = torch.autograd.grad(loss, [v for _k, _p, v in train])
+        for (k, path, _v), g in zip(train, flat):
+            _set_leaf(grads.setdefault(k, {}), path, g)
+    return grads
+
+
+def _sorted_leaves(tree, prefix: str = ""):
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            yield from _sorted_leaves(v, prefix + k + "/")
+        else:
+            yield prefix + k, v
+
+
+def _ravel(tree):
+    """``(flat, unravel)``: the leaves in sorted key order (the reference's
+    ``ravel_pytree`` order) as one vector, and the map from such a vector
+    back to a tree of views of it."""
+    items = [(path, tuple(v.shape), v.numel())
+             for path, v in _sorted_leaves(tree)]
+    flat = torch.cat([v.reshape(-1) for _p, v in _sorted_leaves(tree)])
+
+    def unravel(vec):
+        out: Dict = {}
+        pos = 0
+        for path, shape, n in items:
+            _set_leaf(out, path, vec[pos:pos + n].view(shape))
+            pos += n
+        return out
+
+    return flat, unravel
+
+
+def _frozen_keys(units):
+    """The keys of the frozen layers among ``(key, layer)`` pairs."""
+    return {k for k, layer in units if getattr(layer, "frozen", False)}
+
+
+def _solver_step(model, algo: str, seed: int, loss_of, *batch) -> None:
+    """One line-searched iteration of the ``optimizationAlgo`` solver over
+    the flat vector of ``model.params_`` (the reference's Solver
+    semantics, ``optimize/solvers.py``).  ``loss_of(params, gen, *batch)``
+    is the model's training loss; every probe draws dropout from a
+    generator seeded with ``seed``, so it sees the same masks.  The
+    solver, and L-BFGS's history, stays on the model across calls."""
+    from deeplearning4j_tpu_torch.optimize.solvers import make_solver
+    flat, unravel = _ravel(model.params_)
+    if model._solver is None or model._solverAlgo != algo or \
+            model._solverSize != flat.numel():
+        model._solver = make_solver(
+            algo, int(model.conf.globalConf.get(
+                "maxNumLineSearchIterations") or 5))
+        model._solverAlgo, model._solverSize = algo, flat.numel()
+
+        def loss_flat(v, *b):
+            gen = torch.Generator(device=model.device).manual_seed(seed)
+            return loss_of(unravel(v), gen, *b)
+
+        model._solver.bind(loss_flat)
+    new_flat, f_new = model._solver.step(flat, *batch)
+    model.params_ = unravel(new_flat.detach())
+    model._score = float(f_new)
+    model._scoreArr = None
 
 
 def _to_tensor(v, device) -> torch.Tensor:
@@ -163,14 +263,20 @@ def _updater_for(globalConf, layer, pname: str):
 def _apply_updates(units, globalConf, params, grads, optState, iteration,
                    epoch):
     """Apply the updaters over every parameter leaf.  ``units`` is an
-    iterable of ``(key, layer)``; a layer with gradient normalization gets
-    its norms over exactly its own leaves; weight decay (the reference's
-    ``WeightDecay``, applied after the updater and scaled by the learning
-    rate) touches weights only.  Returns ``(new_params, new_opt)``."""
+    iterable of ``(key, layer)``; a frozen layer (transfer learning) keeps
+    its parameters and updater state; a layer with gradient normalization
+    gets its norms over exactly its own leaves; weight decay (the
+    reference's ``WeightDecay``, applied after the updater and scaled by
+    the learning rate) touches weights only.  Returns ``(new_params,
+    new_opt)``."""
     new_params: Dict = {}
     new_opt: Dict = {}
     for key, layer in units:
         if key not in params:
+            continue
+        if getattr(layer, "frozen", False):
+            new_params[key] = params[key]
+            new_opt[key] = optState[key]
             continue
         new_params[key] = {}
         new_opt[key] = {}
@@ -220,6 +326,7 @@ class MultiLayerNetwork:
         self.lastBatchSize = 0
         self._score = 0.0
         self._scoreArr = None   # the last step's loss, left on the device
+        self._listeners: List = []
         self._rngSeed = int(conf.globalConf.get("seed", 123) or 123)
         self._dtype = torch.float32
         dt = str(conf.globalConf.get("dataType") or "FLOAT").upper()
@@ -229,6 +336,7 @@ class MultiLayerNetwork:
         self._fitGen = torch.Generator(device=self.device).manual_seed(
             self._rngSeed ^ 0x5EED)
         self._rnnCarries = None  # rnnTimeStep's stored state, by layer
+        self._solver = None      # the line-search solver, once bound
 
     def _cast_compute(self, tree):
         return _cast_tree(tree, self._computeDtype)
@@ -349,10 +457,12 @@ class MultiLayerNetwork:
             self._fitBatch(data)
         elif isinstance(data, DataSetIterator):
             for _ in range(epochs):
+                notifyListeners(self._listeners, "onEpochStart", self)
                 data.reset()
                 while data.hasNext():
                     self._fitBatch(data.next())
                 self.epochCount += 1
+                notifyListeners(self._listeners, "onEpochEnd", self)
         elif labels is not None:
             self._fitBatch(DataSet(data, labels))
         else:
@@ -369,41 +479,39 @@ class MultiLayerNetwork:
         self.lastBatchSize = int(x.shape[0])
         algo = str(self.conf.globalConf.get("optimizationAlgo")
                    or "STOCHASTIC_GRADIENT_DESCENT").upper()
-        if algo != "STOCHASTIC_GRADIENT_DESCENT":
-            raise NotImplementedError(
-                f"optimizationAlgo {algo}: the line-search solvers are not "
-                "ported yet (ROADMAP A9)")
         # TBPTT needs per-timestep (rank-3) labels; otherwise standard BP
         # (the reference's doTruncatedBPTT label-rank requirement).  The
         # iteration counts the batch once, whatever its number of chunks
-        if (self.conf.backpropType == BackpropType.TruncatedBPTT
+        if algo != "STOCHASTIC_GRADIENT_DESCENT":
+            self._runSolverStep(x, y, fmask, lmask, algo)
+        elif (self.conf.backpropType == BackpropType.TruncatedBPTT
                 and x.dim() == 3 and y.dim() == 3
                 and x.shape[2] > self.conf.tbpttFwdLength):
             self._fitTbptt(x, y, fmask, lmask)
         else:
             self._runTrainStep(x, y, fmask, lmask)
         self.iterationCount += 1
+        notifyListeners(self._listeners, "iterationDone", self,
+                        self.iterationCount, self.epochCount)
+
+    def _runSolverStep(self, x, y, fmask, lmask, algo: str) -> None:
+        _solver_step(self, algo, self._rngSeed ^ 0x5EED,
+                     lambda p, gen, xb, yb, fm, lm: self._score_of(
+                         p, xb, yb, fm, lm, True, gen)[0],
+                     x, y, fmask, lmask)
 
     def _runTrainStep(self, x, y, fmask, lmask, carries=None):
         """One step of forward, loss, backward and updates from
         ``carries``; returns the RNN layers' final carries, detached."""
-        leaves = [(li, path, v.detach().requires_grad_(True))
-                  for li, lp in self.params_.items()
-                  for path, _pname, v in _iter_leaf_params(lp)]
-        params: Params = {}
-        for li, path, v in leaves:
-            _set_leaf(params.setdefault(li, {}), path, v)
+        units = [(str(i), layer) for i, layer in enumerate(self.conf.layers)]
+        leaves, params = _detached_leaves(self.params_, _frozen_keys(units))
         loss, new_state, new_carries = self._score_of(
             params, x, y, fmask, lmask, True, self._fitGen, carries)
-        grads_flat = torch.autograd.grad(loss, [v for _, _, v in leaves])
-        grads: Dict = {}
-        for (li, path, _), g in zip(leaves, grads_flat):
-            _set_leaf(grads.setdefault(li, {}), path, g)
+        grads = _grads_of(loss, leaves)
         with torch.no_grad():
             self.params_, self.optState_ = _apply_updates(
-                ((str(i), layer) for i, layer in enumerate(self.conf.layers)),
-                self.conf.globalConf, self.params_, grads, self.optState_,
-                self.iterationCount, self.epochCount)
+                units, self.conf.globalConf, self.params_, grads,
+                self.optState_, self.iterationCount, self.epochCount)
         self.state_.update(new_state)
         # left on the device: score() reads it, so a step never waits on
         # the host
@@ -445,6 +553,22 @@ class MultiLayerNetwork:
                                       self.state_, self._cast_compute(xv),
                                       False, None, fm)
         return out.float()
+
+    def feedForward(self, x) -> List[torch.Tensor]:
+        """Every layer's activation (inference mode, float32), the input
+        first."""
+        with torch.no_grad():
+            cur = self._on_device(x, self._dtype)
+            acts = [cur]
+            for i, layer in enumerate(self.conf.layers):
+                if i in self.conf.preProcessors:
+                    cur = self.conf.preProcessors[i].preProcess(
+                        cur, cur.shape[0])
+                cur, _ = layer.forward(self.params_.get(str(i), {}), cur,
+                                       False, None,
+                                       self.state_.get(str(i), {}))
+                acts.append(cur)
+        return acts
 
     def predict(self, x) -> np.ndarray:
         """Class indices: the argmax over the class axis, which is axis 1
@@ -508,6 +632,42 @@ class MultiLayerNetwork:
                 self._on_device(ds.labels), self._on_device(ds.featuresMask),
                 self._on_device(ds.labelsMask), False)[0])
 
+    def evaluate(self, it: DataSetIterator, metric: str = "classification"):
+        """Run ``it`` through ``output`` and accumulate an ``Evaluation``
+        (``metric`` "regression": ``RegressionEvaluation``, "roc":
+        ``ROC``); each batch's output is copied to the host once."""
+        ev = {"classification": Evaluation, "regression": RegressionEvaluation,
+              "roc": ROC}[metric]()
+        it.reset()
+        while it.hasNext():
+            ds = it.next()
+            out = self.output(ds.features, featuresMask=ds.featuresMask)
+            ev.eval(ds.labels, out.cpu(), ds.labelsMask)
+        it.reset()
+        return ev
+
+    def evaluateROC(self, it: DataSetIterator) -> ROC:
+        return self.evaluate(it, metric="roc")
+
+    def evaluateRegression(self, it: DataSetIterator) -> RegressionEvaluation:
+        return self.evaluate(it, metric="regression")
+
+    # -- listeners -------------------------------------------------------
+    def setListeners(self, *listeners) -> None:
+        if len(listeners) == 1 and isinstance(listeners[0], (list, tuple)):
+            listeners = tuple(listeners[0])
+        self._listeners = list(listeners)
+
+    def addListeners(self, *listeners) -> None:
+        self._listeners.extend(listeners)
+
+    def getListeners(self) -> List:
+        return self._listeners
+
+    def removeListener(self, listener) -> None:
+        if listener in self._listeners:
+            self._listeners.remove(listener)
+
     # -- params ----------------------------------------------------------
     def _leaf_items(self):
         for i in range(len(self.conf.layers)):
@@ -544,9 +704,52 @@ class MultiLayerNetwork:
     def paramTable(self) -> Dict[str, torch.Tensor]:
         return {f"{li}_{path}": v for li, path, v in self._leaf_items()}
 
+    def getParam(self, key: str) -> torch.Tensor:
+        """The parameter ``"<layer>_<path>"`` (``paramTable``'s keys)."""
+        li, path = key.split("_", 1)
+        return _get_leaf(self.params_[li], path)
+
+    def setParam(self, key: str, value) -> None:
+        li, path = key.split("_", 1)
+        cur = _get_leaf(self.params_[li], path)
+        _set_leaf(self.params_[li], path,
+                  _to_device(value, self.device, cur.dtype)
+                  .reshape(cur.shape))
+
     # -- bookkeeping ----------------------------------------------------
     def getEpochCount(self) -> int:
         return self.epochCount
 
     def getIterationCount(self) -> int:
         return self.iterationCount
+
+    def getLayerWiseConfigurations(self) -> MultiLayerConfiguration:
+        return self.conf
+
+    def getnLayers(self) -> int:
+        return len(self.conf.layers)
+
+    def clone(self) -> "MultiLayerNetwork":
+        """A new net on the same device with copies of the parameters,
+        layer state and updater state (not the counters, as in the
+        reference)."""
+        net = MultiLayerNetwork(self.conf, device=self.device)
+        net.params_ = _clone_tree(self.params_)
+        net.state_ = _clone_tree(self.state_)
+        net.optState_ = _clone_tree(self.optState_)
+        return net
+
+    def summary(self) -> str:
+        lines = [f"{'idx':<4} {'layer':<28} {'params':>10} {'in -> out'}"]
+        total = 0
+        for i, layer in enumerate(self.conf.layers):
+            n = sum(v.numel() for _p, _k, v in
+                    _iter_leaf_params((self.params_ or {}).get(str(i), {})))
+            total += n
+            it = self.conf.layerInputTypes[i]
+            ot = layer.getOutputType(it) if it else None
+            lines.append(f"{i:<4} {type(layer).__name__:<28} {n:>10} "
+                         f"{it.getShape() if it else '?'} -> "
+                         f"{ot.getShape() if ot else '?'}")
+        lines.append(f"Total params: {total}")
+        return "\n".join(lines)

@@ -1,20 +1,27 @@
-"""Training listener SPI — the port of the first part of
-``deeplearning4j_tpu/optimize/listeners.py`` (the reference's
-``org/deeplearning4j/optimize/api/TrainingListener.java``):
-``TrainingStopSignal``, ``notifyListeners`` and ``TrainingListener``.  The
-stock listeners (score, performance, checkpoint, stats) wait for ROADMAP
-A9.
+"""Training listeners — the port of ``deeplearning4j_tpu/optimize/
+listeners.py`` (the reference's ``org/deeplearning4j/optimize/api/
+TrainingListener.java`` and the stock listeners under
+``optimize/listeners/**``): the SPI, ``notifyListeners``, and the score,
+performance, score-collecting, time, evaluative and checkpoint listeners.
+``StatsListener`` waits for ``ui/`` (ROADMAP A12).
 
-The reference counts a swallowed listener error in its telemetry registry;
-telemetry waits for ROADMAP A12, so until then the count is kept in
+The reference counts a swallowed listener error and the performance
+listener's rates in its telemetry registry; telemetry waits for ROADMAP
+A12, so until then the count is kept in
 :data:`dl4j_tpu_train_listener_errors_total` here, beside the same
-warning.
+warning, and the rates on the listener.
 """
 from __future__ import annotations
 
 import logging
+import os
+import time
+from typing import List, Optional, Tuple
 
-__all__ = ["TrainingStopSignal", "notifyListeners", "TrainingListener"]
+__all__ = ["TrainingStopSignal", "notifyListeners", "TrainingListener",
+           "ScoreIterationListener", "PerformanceListener",
+           "CollectScoresIterationListener", "TimeIterationListener",
+           "EvaluativeListener", "CheckpointListener"]
 
 log = logging.getLogger("deeplearning4j_tpu_torch")
 
@@ -81,3 +88,151 @@ class TrainingListener:
 
     def onGradientCalculation(self, model) -> None:
         pass
+
+
+class ScoreIterationListener(TrainingListener):
+    """Print the score every N iterations (``ScoreIterationListener.java``)."""
+
+    def __init__(self, printIterations: int = 10):
+        self.printIterations = max(int(printIterations), 1)
+
+    def iterationDone(self, model, iteration, epoch):
+        if iteration % self.printIterations == 0:
+            print(f"Score at iteration {iteration} is {model.score()}")
+
+
+class PerformanceListener(TrainingListener):
+    """Throughput (``PerformanceListener.java``).
+
+    The train loops return before the device finishes a step, so a bare
+    timestamp here would measure the host's launch rate.  On a reporting
+    iteration the listener first waits for the model's device
+    (``torch.cuda.synchronize``) and only then stamps the time: the rates
+    are the card's, and the wait is paid once per ``frequency``
+    iterations.  The last rates stay on the listener
+    (``iterationsPerSecond``, ``samplesPerSecond``)."""
+
+    def __init__(self, frequency: int = 10, reportScore: bool = False):
+        self.frequency = max(int(frequency), 1)
+        self.reportScore = reportScore
+        self._last: Optional[float] = None
+        self._lastIter = 0
+        self.iterationsPerSecond: Optional[float] = None
+        self.samplesPerSecond: Optional[float] = None
+
+    def iterationDone(self, model, iteration, epoch):
+        if iteration % self.frequency:
+            return
+        device = getattr(model, "device", None)
+        if device is not None and device.type == "cuda":
+            import torch
+            torch.cuda.synchronize(device)
+        now = time.perf_counter()
+        if self._last is not None and iteration > self._lastIter:
+            dt = now - self._last
+            its = (iteration - self._lastIter) / dt if dt > 0 else 0.0
+            bs = getattr(model, "lastBatchSize", 0)
+            self.iterationsPerSecond, self.samplesPerSecond = its, its * bs
+            msg = (f"iteration {iteration}; iterations/sec: {its:.2f}; "
+                   f"samples/sec: {its * bs:.2f}")
+            if self.reportScore:
+                msg += f"; score: {model.score()}"
+            print(msg)
+        self._last = now
+        self._lastIter = iteration
+
+
+class CollectScoresIterationListener(TrainingListener):
+    """Keep ``(iteration, score)`` every ``frequency`` iterations."""
+
+    def __init__(self, frequency: int = 1):
+        self.frequency = max(int(frequency), 1)
+        self.scores: List[Tuple[int, float]] = []
+
+    def iterationDone(self, model, iteration, epoch):
+        if iteration % self.frequency == 0:
+            self.scores.append((iteration, model.score()))
+
+    def getScores(self):
+        return self.scores
+
+
+class TimeIterationListener(TrainingListener):
+    """Print the remaining time estimated from the mean iteration time
+    (``TimeIterationListener.java``)."""
+
+    def __init__(self, iterationCount: int, frequency: int = 50):
+        self.iterationCount = iterationCount
+        self.frequency = max(frequency, 1)
+        self._start = time.time()
+
+    def iterationDone(self, model, iteration, epoch):
+        if iteration and iteration % self.frequency == 0:
+            elapsed = time.time() - self._start
+            per = elapsed / max(iteration, 1)
+            remain = (self.iterationCount - iteration) * per
+            print(f"Remaining time estimate: {remain:.0f}s "
+                  f"(iteration {iteration}/{self.iterationCount})")
+
+
+class EvaluativeListener(TrainingListener):
+    """Evaluate on a held-out iterator every ``frequency`` epochs or
+    iterations (``EvaluativeListener.java``)."""
+
+    def __init__(self, iterator, frequency: int = 1, unit: str = "epoch"):
+        self.iterator = iterator
+        self.frequency = max(int(frequency), 1)
+        self.unit = unit
+        self.lastEvaluation = None
+
+    def _evaluate(self, model):
+        self.lastEvaluation = model.evaluate(self.iterator)
+        print(self.lastEvaluation.stats())
+
+    def iterationDone(self, model, iteration, epoch):
+        if self.unit == "iteration" and iteration % self.frequency == 0:
+            self._evaluate(model)
+
+    def onEpochEnd(self, model):
+        if self.unit == "epoch" and \
+                model.getEpochCount() % self.frequency == 0:
+            self._evaluate(model)
+
+
+class CheckpointListener(TrainingListener):
+    """Write the model (with its updater state) through
+    ``ModelSerializer`` every N iterations or epochs, keeping the last
+    ``keepLast`` (``CheckpointListener.java``)."""
+
+    failOnError = True     # a run with no checkpoints must not look green
+
+    def __init__(self, saveDir: str, saveEveryNIterations: int = 0,
+                 saveEveryNEpochs: int = 0, keepLast: int = 3):
+        self.saveDir = saveDir
+        os.makedirs(saveDir, exist_ok=True)
+        self.everyIter = saveEveryNIterations
+        self.everyEpoch = saveEveryNEpochs
+        self.keepLast = keepLast
+        self._saved: List[str] = []
+
+    def _save(self, model, tag: str):
+        from deeplearning4j_tpu_torch.utils.model_serializer import \
+            ModelSerializer
+        path = os.path.join(self.saveDir, f"checkpoint_{tag}.zip")
+        ModelSerializer.writeModel(model, path, saveUpdater=True)
+        self._saved.append(path)
+        while self.keepLast > 0 and len(self._saved) > self.keepLast:
+            old = self._saved.pop(0)
+            try:
+                os.remove(old)
+            except OSError:
+                pass
+
+    def iterationDone(self, model, iteration, epoch):
+        if self.everyIter and iteration and iteration % self.everyIter == 0:
+            self._save(model, f"iter_{iteration}")
+
+    def onEpochEnd(self, model):
+        ep = model.getEpochCount()
+        if self.everyEpoch and ep and ep % self.everyEpoch == 0:
+            self._save(model, f"epoch_{ep}")

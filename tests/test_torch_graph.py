@@ -561,8 +561,10 @@ def test_set_params_round_trips():
 
 def test_unported_pieces_raise_naming_their_roadmap_item():
     """What is still unported raises naming its ROADMAP item; what this
-    test once refused (A3's schedules, A5's TBPTT, A8's rnnTimeStep) now
-    runs: a graph without RNN vertices steps as ``output`` and a TBPTT
+    test once refused (A3's schedules, A5's TBPTT, A8's rnnTimeStep, A9's
+    evaluate, listeners and line-search solvers) now runs: a graph without
+    RNN vertices steps as ``output``, ``evaluate`` counts its examples,
+    listeners attach, LBFGS makes one iteration per ``fit``, and a TBPTT
     graph fed rank-4 images trains by standard backpropagation."""
     with pytest.raises(NotImplementedError, match="A6"):
         tgc.vertex_from_json({"@class": "SubsetVertex"})
@@ -570,10 +572,11 @@ def test_unported_pieces_raise_naming_their_roadmap_item():
         .init()
     f, l = _narrow_batches(1)[0]
     torch.testing.assert_close(net.rnnTimeStep(f[:1]), net.output(f[:1]))
-    with pytest.raises(NotImplementedError, match="A9"):
-        net.evaluate(None)
-    with pytest.raises(NotImplementedError, match="A9"):
-        net.setListeners(object())
+    assert net.evaluate(tds.ListDataSetIterator(
+        [tds.DataSet(f, l)])).getNumRowCounter() == f.shape[0]
+    net.setListeners(object())
+    assert len(net.getListeners()) == 1
+    net.setListeners()
     with pytest.raises(NotImplementedError, match="A9"):
         TResNet50().initPretrained()
     fixed = tlearn.Nesterovs(momentumSchedule=tlearn.FixedSchedule(0.5))
@@ -583,8 +586,9 @@ def test_unported_pieces_raise_naming_their_roadmap_item():
         torch.testing.assert_close(a, b)
     conf = _narrow(PORT, "FLOAT")
     conf.globalConf["optimizationAlgo"] = "LBFGS"
-    with pytest.raises(NotImplementedError, match="A9"):
-        tmodels.ComputationGraph(conf, device="cpu").fit(f, l)
+    lbfgs = tmodels.ComputationGraph(conf, device="cpu")
+    lbfgs.fit(f, l)
+    assert lbfgs.iterationCount == 1 and np.isfinite(lbfgs.score())
     conf = _narrow(PORT, "FLOAT")
     conf.backpropType = "TruncatedBPTT"
     conf.tbpttFwdLength = 2

@@ -94,3 +94,34 @@ def test_entry_points_default_to_cuda_and_never_fall_back():
         Bert(BertConfig(vocabSize=16, hiddenSize=8, numLayers=1, numHeads=2,
                         intermediateSize=8, maxSeqLength=4))
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_training_loop_entry_points_default_to_cuda(tmp_path):
+    """``ModelSerializer.restore*``, ``EarlyStoppingTrainer`` given a
+    configuration and ``TransferLearning`` builders place their model on
+    ``cuda`` unless told otherwise, and raise without a card."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is usable")
+    from deeplearning4j_tpu_torch.models import TransferLearning
+    from deeplearning4j_tpu_torch.optimize import (
+        EarlyStoppingConfiguration, EarlyStoppingTrainer)
+    from deeplearning4j_tpu_torch.utils import ModelSerializer
+    net = LeNet().init(device="cpu")
+    path = str(tmp_path / "lenet.zip")
+    ModelSerializer.writeModel(net, path)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ModelSerializer.restoreMultiLayerNetwork(path)
+    assert ModelSerializer.restoreMultiLayerNetwork(
+        path, device="cpu").device == torch.device("cpu")
+    graph = ComputationGraph(ResNet50(numClasses=4, inputShape=(3, 32, 32))
+                             .graphBuilder().build(), device="cpu").init()
+    ModelSerializer.writeModel(graph, path)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ModelSerializer.restoreComputationGraph(path)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        EarlyStoppingTrainer(EarlyStoppingConfiguration.builder().build(),
+                             net.conf, None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TransferLearning.Builder(net).setFeatureExtractor(1).build()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TransferLearning.GraphBuilder(graph).build()
