@@ -183,7 +183,33 @@ which must pass or the script exits non-zero without a result line:
    parameters bit for bit over a ``fit`` step and moves the head; and
    ``ComputationGraph.evaluate`` on ResNet-50's two batches counts 128
    examples.  Phases 24-28 launch no kernel (counters read zero across
-   each).
+   each);
+29. ``tf_decode``: BASELINE config 3's named route,
+   ``examples/bert_tf_import_finetune.py``, at BERT-base width.  The
+   committed skeleton of HF ``TFBertModel(BertConfig())`` frozen at 32 x
+   128 (``tests/fixtures/tf_bert_base_b32_t128_skeleton.pb``: every node,
+   the 88 Consts over 4,096 bytes without their content) is read by the
+   port's GraphDef decoder and held to its manifest: 1,647 nodes, each
+   stripped Const's dtype and shape;
+30. ``tf_import_bert``: the stripped Consts refilled from
+   ``RandomState(0)`` with N(0, 0.02) (``_fill_stripped_consts``);
+   ``TFGraphMapper.importGraph`` onto the card must give the reference's
+   1,061 SameDiff ops of 19 kinds; ``outputSingle`` of
+   ``last_hidden_state`` at 32 x 128 in FLOAT against the same graph
+   imported with ``device="cpu"`` (atol below); import seconds, forward
+   ms and peak memory;
+31. ``tf_finetune``: the example's flow on the card: a ``cls/W`` head (768
+   x 2) on the mean over the sequence, ``softmaxCrossEntropy`` against a
+   ``labels`` placeholder [32, 2], ``TrainingConfig(Adam(3e-4))`` and
+   ``fit(MultiDataSet)`` for 16 steps on one seeded batch: the loss must
+   fall.  Its first step is also run on the CPU from the same variables
+   and held as ``bert_step`` holds its step.  ms per step, tokens/s (32 x
+   128 a step), peak memory and a profiled step (device time, idle share);
+32. ``tf_graphrunner``: ``GraphRunner(..., backend="samediff")`` on the
+   refilled graph gives phase 30's card output bit for bit.  Phases 29-32
+   launch no kernel (counters read zero across each): the imported
+   attention is the graph's ``BatchMatMulV2`` / ``Softmax`` chain, as in
+   the reference.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``.  With ``--record PATH`` it also
@@ -356,6 +382,36 @@ ES_MAX_EPOCHS, ES_PATIENCE, ES_SCORE_RTOL = 4, 2, 1e-6
 SOLVER_ALGOS = ("LBFGS", "CONJUGATE_GRADIENT", "LINE_GRADIENT_DESCENT")
 SOLVER_STEPS = 5
 TRANSFER_NOUT = 5
+
+# BASELINE config 3's named route (examples/bert_tf_import_finetune.py):
+# BERT-base imported from a frozen TF GraphDef.  HF TFBertModel(BertConfig())
+# (the published bert-base-uncased widths) frozen at batch 32 x 128, the
+# usual fine-tuning batch, with the content of its Consts over 4,096 bytes
+# stripped (tests/fixtures/make_tf_bert_skeleton.py); the stripped weights
+# are refilled from RandomState(seed) with N(0, 0.02), BERT's
+# initializer_range.  The example's head and updater: cls/W 768 x 2,
+# Adam(3e-4), 16 steps on one batch.
+TF_BERT = dict(stem=os.path.join(ROOT, "tests", "fixtures",
+                                 "tf_bert_base_b32_t128_skeleton"),
+               nodes=1647, stripped=88, batch=32, seq=128, vocab=30522,
+               hidden=768, classes=2, seed=0, std=0.02, lr=3e-4, steps=16)
+# what the reference's TFGraphMapper makes of that graph
+TF_BERT_OPS = {"add": 172, "all": 1, "cast": 1, "div": 12, "erfc": 12,
+               "expandDims": 1, "gather": 3, "identity": 259, "lt": 1,
+               "mean": 50, "mmul": 96, "mul": 112, "neg": 12, "permute": 48,
+               "reshape": 193, "rsqrt": 25, "softmax": 12,
+               "squaredDifference": 25, "sub": 26}
+# The imported forward, card against CPU, FLOAT with TF32 off: 12 float32
+# layers whose products sum in another order on each (cuBLAS against the
+# CPU's BLAS), ~1e-6 relative per layer; LayerNorm keeps the hidden states
+# O(1), so they hold to 1e-4, as BERT_OUT_ATOL holds the native build's.
+TF_BERT_OUT_ATOL = 1e-4
+# One FLOAT fine-tune step, card against CPU: as bert_step, the loss to
+# 1e-4 relative; Adam's first step moves each variable by about lr
+# whatever its gradient's size, so 99.9 % of the variables hold to 1e-6 and
+# every one to 2 lr + 1e-6.
+TF_BERT_LOSS_RTOL = 1e-4
+TF_BERT_PARAM_ATOL, TF_BERT_PARAM_SHARE = 1e-6, 0.999
 
 SERVE_SHAPE = (BATCH, GPT2_SMALL["nHeads"], PROMPT, PROMPT,
                GPT2_SMALL["headSize"])
@@ -2471,6 +2527,269 @@ def phase_solvers_transfer(torch, rec, net, train, resnet, card):
              f"evaluate counted {ev.getNumRowCounter()}, expected {want}")
 
 
+def _fill_stripped_consts(gd, manifest, seed=TF_BERT["seed"],
+                          std=TF_BERT["std"]):
+    """Refill, in place, the content of the Consts the skeleton's
+    generator stripped: in the manifest's order, each from one
+    ``np.random.RandomState(seed)`` as N(0, std) in the Const's dtype.
+    ``gd`` is the port's decoded GraphDef or a tensorflow one (the tests
+    refill both).  Returns ``gd``."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    nodes = {n.name: n for n in gd.node}
+    for e in manifest["stripped"]:
+        arr = rng.normal(0.0, std, e["shape"]).astype(e["dtype"])
+        nodes[e["name"]].attr["value"].tensor.tensor_content = arr.tobytes()
+    return gd
+
+
+def _tf_bert_io(gd):
+    """The frozen graph's input placeholders (ids, mask) and its output
+    (the last Identity: ``last_hidden_state``), as the example finds
+    them."""
+    phs = [n.name for n in gd.node if n.op == "Placeholder"]
+    out = [n.name for n in gd.node if n.op == "Identity"][-1]
+    return ([p for p in phs if "input_ids" in p][0],
+            [p for p in phs if "attention_mask" in p][0], out)
+
+
+def _tf_bert_batch(c=TF_BERT):
+    """A seeded batch: token ids, an attention mask that pads the last
+    BERT_PAD positions of every other row, one-hot labels."""
+    import numpy as np
+    b, t = c["batch"], c["seq"]
+    rng = np.random.RandomState(c["seed"])
+    ids = rng.randint(0, c["vocab"], (b, t)).astype(np.int32)
+    mask = np.ones((b, t), np.int32)
+    mask[::2, t - BERT_PAD:] = 0
+    y = np.eye(c["classes"], dtype=np.float32)[
+        rng.randint(0, c["classes"], b)]
+    return ids, mask, y
+
+
+def phase_tf_decode(torch, rec, card, c=TF_BERT):
+    """Decode the committed skeleton with the port's decoder and hold it to
+    its manifest.  Returns (GraphDef, manifest)."""
+    from deeplearning4j_tpu_torch.imports.graphdef import (decode_graphdef,
+                                                           dtype_name)
+    _reset_counters()
+    with open(c["stem"] + ".json") as f:
+        manifest = json.load(f)
+    t0 = time.perf_counter()
+    gd = decode_graphdef(c["stem"] + ".pb")
+    decode_s = time.perf_counter() - t0
+    nodes = {n.name: n for n in gd.node}
+    bad = []
+    for e in manifest["stripped"]:
+        n = nodes.get(e["name"])
+        t = n.attr["value"].tensor if n is not None else None
+        if t is None or n.op != "Const" or t.tensor_content \
+                or dtype_name(t.dtype) != e["dtype"] \
+                or [d.size for d in t.tensor_shape.dim] != e["shape"]:
+            bad.append(e["name"])
+    counts = _counters()
+    size = os.path.getsize(c["stem"] + ".pb")
+    rec["tf_decode"] = dict(nodes=len(gd.node),
+                            stripped=len(manifest["stripped"]),
+                            pb_bytes=size, decode_s=decode_s,
+                            mismatched=bad, launches=counts, card=card)
+    print(f"TF skeleton: {size} bytes, {len(gd.node)} nodes decoded in "
+          f"{decode_s:.3f} s, {len(manifest['stripped'])} stripped Consts, "
+          f"{len(bad)} unlike the manifest; {card}")
+    _no_launches(rec, "tf_decode", counts)
+    _require(len(gd.node) == c["nodes"] == manifest["nodes"],
+             f"{len(gd.node)} nodes, manifest {manifest['nodes']}, "
+             f"expected {c['nodes']}")
+    _require(len(manifest["stripped"]) == c["stripped"] and not bad,
+             f"stripped Consts unlike the manifest: {bad}")
+    return gd, manifest
+
+
+def phase_tf_import_bert(torch, rec, gd, manifest, card, c=TF_BERT):
+    """Refill the skeleton, import it onto the card and run its FLOAT
+    forward against the same graph imported on the CPU.  Returns (the card
+    graph, the CPU graph, the card's output on the host)."""
+    from collections import Counter
+    from deeplearning4j_tpu_torch.imports import TFGraphMapper
+    _reset_counters()
+    t0 = time.perf_counter()
+    _fill_stripped_consts(gd, manifest, c["seed"], c["std"])
+    fill_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sd = TFGraphMapper.importGraph(gd)
+    torch.cuda.synchronize()
+    import_s = time.perf_counter() - t0
+    _require(sd.device.type == "cuda", f"the graph lives on {sd.device}")
+    hist = dict(Counter(n.op for n in sd._ops))
+    n_vars = sum(v.numel() for v in sd._var_values().values())
+    ids_ph, mask_ph, out = _tf_bert_io(gd)
+    ids, mask, _ = _tf_bert_batch(c)
+    feed = {ids_ph: ids, mask_ph: mask}
+    g = sd.outputSingle(feed, out)                      # warm-up
+    n = 5
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        g = sd.outputSingle(feed, out)
+    torch.cuda.synchronize()
+    fwd_ms = (time.perf_counter() - t0) * 1e3 / n
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    cpu = TFGraphMapper.importGraph(gd, device="cpu")
+    t0 = time.perf_counter()
+    h = cpu.outputSingle(feed, out)
+    cpu_s = time.perf_counter() - t0
+    g = g.cpu()
+    err = float((g - h).abs().max())
+    counts = _counters()
+    rec["tf_import_bert"] = dict(
+        fill_s=fill_s, import_s=import_s, forward_ms=fwd_ms, peak_gb=peak,
+        ops=sum(hist.values()), op_kinds=len(hist), histogram=hist,
+        variables=len(sd._var_values()), parameters=n_vars,
+        out_err_vs_cpu=err, cpu_forward_s=cpu_s, launches=counts,
+        card=card)
+    print(f"TF import of BERT-base: refill {fill_s:.2f} s, import onto the "
+          f"card {import_s:.2f} s, {sum(hist.values())} ops of {len(hist)} "
+          f"kinds, {len(sd._var_values())} variables ({n_vars} "
+          f"parameters); {card}")
+    print(f"TF BERT-base FLOAT forward {c['batch']} x {c['seq']} (last "
+          f"{BERT_PAD} positions of half the rows masked): {fwd_ms:.2f} ms, "
+          f"peak {peak:.2f} GB; card vs CPU |d|max {err:.3g} (atol "
+          f"{TF_BERT_OUT_ATOL}; CPU forward {cpu_s:.1f} s); {card}")
+    _no_launches(rec, "tf_import_bert", counts)
+    _require(hist == TF_BERT_OPS,
+             f"op histogram {hist}, the reference's {TF_BERT_OPS}")
+    _require(tuple(g.shape) == (c["batch"], c["seq"], c["hidden"])
+             and bool(g.isfinite().all()) and err <= TF_BERT_OUT_ATOL,
+             f"output {tuple(g.shape)}, card vs CPU |d|max {err}")
+    return sd, cpu, g.numpy()
+
+
+def _tf_head(sd, gd, c=TF_BERT):
+    """The example's classification head and training config."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.autodiff import TrainingConfig
+    from deeplearning4j_tpu_torch.learning import Adam
+    ids_ph, mask_ph, out = _tf_bert_io(gd)
+    rng = np.random.RandomState(c["seed"] + 1)
+    w = sd.var("cls/W", (rng.randn(c["hidden"], c["classes"]) * 0.05)
+               .astype(np.float32))
+    labels = sd.placeholder("labels", shape=[c["batch"], c["classes"]])
+    logits = sd.getVariable(out).mean(1).mmul(w)
+    loss = sd.loss().softmaxCrossEntropy(labels, logits, name="loss")
+    sd.setLossVariables(loss)
+    sd.setTrainingConfig(TrainingConfig(
+        updater=Adam(c["lr"]), dataSetFeatureMapping=[ids_ph, mask_ph],
+        dataSetLabelMapping=["labels"]))
+
+
+def phase_tf_finetune(torch, rec, gd, gpu, cpu, card, c=TF_BERT):
+    """The example's fine-tune on the card; its first step held against
+    the same step on the CPU."""
+    import math
+    from deeplearning4j_tpu_torch.datasets import MultiDataSet
+    ids_ph, mask_ph, _ = _tf_bert_io(gd)
+    for sd in (gpu, cpu):
+        _tf_head(sd, gd, c)
+    ids, mask, y = _tf_bert_batch(c)
+    mds = MultiDataSet(features=[ids, mask], labels=[y])
+    feed = {ids_ph: ids, mask_ph: mask, "labels": y}
+    _reset_counters()
+    l0 = float(gpu.outputSingle(feed, "loss"))
+    first = {}
+    for dev, sd in (("cuda", gpu), ("cpu", cpu)):
+        t0 = time.perf_counter()
+        first[dev] = sd.fit(mds).finalTrainingLoss()
+        rec.setdefault("tf_step_s", {})[dev] = time.perf_counter() - t0
+    e_l = abs(first["cuda"] - first["cpu"])
+    n_total = n_in = 0
+    e_p = 0.0
+    for n, v in cpu._var_values().items():
+        d = (gpu._arrays[n].cpu() - v).abs()
+        n_total += d.numel()
+        n_in += int((d <= TF_BERT_PARAM_ATOL).sum())
+        e_p = max(e_p, float(d.max()))
+    share = n_in / n_total
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    hist = gpu.fit(mds, epochs=c["steps"] - 1)   # ends in one loss fetch
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    l1 = float(gpu.outputSingle(feed, "loss"))
+    curve = [first["cuda"]] + hist.lossCurve()
+    p = _device_breakdown(torch, lambda: gpu.fit(mds), top=10)
+    counts = _counters()
+    ms = wall * 1e3 / (c["steps"] - 1)
+    r = dict(loss_before=l0, loss_after=l1, losses=curve,
+             iterations=gpu.iterationCount, ms_per_step=ms,
+             tokens_per_s=c["batch"] * c["seq"] * 1e3 / ms, peak_gb=peak,
+             step_loss_card=first["cuda"], step_loss_cpu=first["cpu"],
+             step_loss_err=e_l, step_params_err=e_p,
+             step_params_within_atol=share, step_profile=p,
+             launches=counts, card=card)
+    rec["tf_finetune"] = r
+    lr = c["lr"]
+    print(f"TF BERT-base FLOAT fine-tune step, {c['batch']} x {c['seq']}, "
+          f"card vs CPU: loss {first['cuda']:.7g} vs {first['cpu']:.7g} "
+          f"(|d| {e_l:.3g}, rtol {TF_BERT_LOSS_RTOL}); variables |d|max "
+          f"{e_p:.3g} (bound 2 lr + 1e-6 = {2 * lr + 1e-6:.3g}), "
+          f"{share:.6f} of them within {TF_BERT_PARAM_ATOL} (at least "
+          f"{TF_BERT_PARAM_SHARE}); {card}")
+    print(f"TF BERT-base fine-tune, Adam({lr}), {c['steps']} steps on one "
+          f"batch: loss {l0:.4f} -> {l1:.4f}; {ms:.2f} ms a step, "
+          f"{r['tokens_per_s']:.0f} tokens/s over {c['steps'] - 1} steps, "
+          f"peak {peak:.2f} GB; {card}")
+    if p["device_busy_ms"] is None:
+        print(f"profile tf_finetune step: no device time in the trace (not "
+              f"measured); {card}")
+    else:
+        r["idle_share_unprofiled"] = 1 - p["device_busy_ms"] / ms
+        print(f"profile tf_finetune step: wall {p['wall_ms']:.2f} ms, device "
+              f"busy {p['device_busy_ms']:.2f} ms, idle share "
+              f"{p['idle_share']:.3f} ({r['idle_share_unprofiled']:.3f} of "
+              f"an unprofiled step), {p['device_ops']} device kernels and "
+              f"copies; {card}")
+        for kname, kms in p["top"]:
+            print(f"  {kms:9.3f} ms  {kname}")
+    _no_launches(rec, "tf_finetune", counts)
+    _require(e_l <= TF_BERT_LOSS_RTOL * abs(first["cpu"])
+             and share >= TF_BERT_PARAM_SHARE and e_p <= 2 * lr + 1e-6,
+             f"the card's fine-tune step disagrees with the CPU's: "
+             f"loss {e_l}, variables {e_p}, share {share}")
+    _require(all(math.isfinite(v) for v in curve) and l1 < l0,
+             f"the fine-tune loss did not fall: {l0} -> {l1}, {curve}")
+
+
+def phase_tf_graphrunner(torch, rec, gd, out_ref, card, c=TF_BERT):
+    """GraphRunner(backend="samediff") on the refilled graph against the
+    importer's own output on the card."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.imports import GraphRunner
+    ids_ph, mask_ph, out = _tf_bert_io(gd)
+    ids, mask, _ = _tf_bert_batch(c)
+    _reset_counters()
+    t0 = time.perf_counter()
+    gr = GraphRunner(gd, [ids_ph, mask_ph], [out], backend="samediff")
+    res = gr.run({ids_ph: ids, mask_ph: mask})[out]
+    run_s = time.perf_counter() - t0
+    counts = _counters()
+    same = bool(np.array_equal(res, out_ref))
+    rec["tf_graphrunner"] = dict(bit_identical=same, run_s=run_s,
+                                 device=str(gr._sd.device),
+                                 launches=counts, card=card)
+    gr.close()
+    print(f"GraphRunner(backend='samediff') on {rec['tf_graphrunner']['device']}"
+          f": import and run {run_s:.2f} s, output bit-identical to the "
+          f"importer's: {same}; {card}")
+    _no_launches(rec, "tf_graphrunner", counts)
+    _require(rec["tf_graphrunner"]["device"].startswith("cuda") and same,
+             f"GraphRunner's output differs or ran on "
+             f"{rec['tf_graphrunner']['device']}")
+
+
 def _kernel_entry(name, replaces, launches, t):
     return {"name": name, "route": "cuda",
             "source": f"deeplearning4j_tpu_torch/csrc/{name}.cu",
@@ -2589,6 +2908,21 @@ def main(argv) -> int:
                 run("solvers_transfer", phase_solvers_transfer, torch, rec,
                     net, train, resnet, card)
         del lenet, resnet
+        # BASELINE config 3's named route: BERT-base through TF import
+        dec = run("tf_decode", phase_tf_decode, torch, rec, card)
+        if dec is not None:
+            gd, manifest = dec
+            imp = run("tf_import_bert", phase_tf_import_bert, torch, rec,
+                      gd, manifest, card)
+            if imp is not None:
+                gpu, cpu, out_ref = imp
+                imp = None
+                run("tf_finetune", phase_tf_finetune, torch, rec, gd, gpu,
+                    cpu, card)
+                del gpu, cpu
+                run("tf_graphrunner", phase_tf_graphrunner, torch, rec, gd,
+                    out_ref, card)
+        del dec
 
     rec["card"] = card
     rec["failed"] = failed
@@ -2605,7 +2939,8 @@ def main(argv) -> int:
     # launches: the serving run's and the training run's counts together
     # (B1 runs on both paths; B2 and B3 on the training path only), and B4's
     # from its run on ResNet-50's activations (the model dispatches none);
-    # the recurrent phases add none (each checked zero).
+    # the phases without a hand kernel on their path (recurrent, BERT, the
+    # loop around fit, TF import) add none (each checked zero).
     # B1's times are at the serving shape (f32, causal), B2's and B3's at
     # the training shape in its dtype (bf16, not causal), B4's at ResNet-50's
     # stage-0 shape in bf16; the record holds the other shapes too.

@@ -13,8 +13,9 @@ PyTorch version beside it, which runs only for tensors on the CPU (the
 tests) — a CUDA tensor reaches the kernel or raises.
 
 Ported so far (the serving slice, the long-context training slice, the
-ResNet-50 slice, the recurrent slice, BERT on SameDiff, then the training
-user's loop around ``fit`` with LeNet-MNIST):
+ResNet-50 slice, the recurrent slice, BERT on SameDiff, the training
+user's loop around ``fit`` with LeNet-MNIST, then BERT-base through TF
+import):
 
 - ``parallel.ring``      — dense / blockwise / flash attention (forward and
                            backward kernels, ``FlashAttention``) and the
@@ -26,9 +27,13 @@ user's loop around ``fit`` with LeNet-MNIST):
 - ``nlp.tokenization``   — WordPiece and the vocab helpers;
 - ``nlp.bert_iterator``  — ``BertIterator`` (MLM and sequence-
                            classification batches);
-- ``autodiff``           — SameDiff: the graph, its registered ops,
-                           ``output``, gradients, ``fit``, the zip serde,
-                           listeners, ``evaluate``;
+- ``autodiff``           — SameDiff: the graph, its registered ops (the
+                           core and the ``ops_ext`` ops the TF importer
+                           emits), ``output``, gradients, ``fit``, the zip
+                           serde, listeners, ``evaluate``;
+- ``imports``            — ``TFGraphMapper`` (frozen GraphDef -> SameDiff,
+                           read by the port's own wire decoder) and
+                           ``GraphRunner``;
 - ``nn``, ``nn.conf``    — activations, weight init, losses, ``InputType``,
                            preprocessors, the config DSL and its JSON,
                            ``DenseLayer``, ``LossLayer``, the CNN layers

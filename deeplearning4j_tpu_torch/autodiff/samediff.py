@@ -18,10 +18,11 @@ and float32 graph constants are cast to bf16 for the forward, each loss
 output is summed in float32, the L1/L2 penalties act on the float32
 masters, and the gradients arrive in float32 for the updater.
 
+The ``ops_ext`` modules register the extended ops the TF importer emits.
 Not ported yet, and raising where they are called: the control-flow ops
-(``whileLoop`` / ``ifCond`` / ``forLoop``), the ``ops_ext`` families with
-``sd.image()`` / ``sd.rnn()`` / ``sd.linalg()``, ``execDebug``,
-``stepCostAnalysis`` and ``invokeGraphOn`` (ROADMAP A12b).
+(``whileLoop`` / ``ifCond`` / ``forLoop``), the rest of the ``ops_ext``
+families with ``sd.image()`` / ``sd.rnn()`` / ``sd.linalg()``,
+``execDebug``, ``stepCostAnalysis`` and ``invokeGraphOn`` (ROADMAP A12b).
 """
 from __future__ import annotations
 
@@ -591,9 +592,9 @@ def _conv2d(kH=1, kW=1, sH=1, sW=1, pH=0, pW=0, dH=1, dW=1,
         # w: (kH, kW, inC, outC) — ND4J's conv weight layout for SameDiff
         if dataFormat == "NHWC":
             x = x.permute(0, 3, 1, 2)
-        if isSameMode:
-            x = _pad2d(x, (_same_pads(x.shape[2], kH, sH, dH),
-                           _same_pads(x.shape[3], kW, sW, dW)))
+        if isSameMode:      # the kernel's size is w's, whatever kH/kW say
+            x = _pad2d(x, (_same_pads(x.shape[2], w.shape[0], sH, dH),
+                           _same_pads(x.shape[3], w.shape[1], sW, dW)))
             pad = 0
         else:
             pad = (pH, pW)
@@ -1863,3 +1864,12 @@ class SameDiff:
         for n in self._ops:
             lines.append(f"  OP {n.op:<24} {n.inputs} -> {n.outputs}")
         return "\n".join(lines)
+
+
+# The ops of the reference's ops_ext families that the TF importer emits
+# register themselves into OP_IMPLS on import (the rest is ROADMAP A12b).
+from deeplearning4j_tpu_torch.autodiff import ops_ext  # noqa: E402,F401  isort:skip
+from deeplearning4j_tpu_torch.autodiff import ops_ext2  # noqa: E402,F401  isort:skip
+from deeplearning4j_tpu_torch.autodiff import ops_ext3  # noqa: E402,F401  isort:skip
+from deeplearning4j_tpu_torch.autodiff import ops_ext4  # noqa: E402,F401  isort:skip
+from deeplearning4j_tpu_torch.autodiff import ops_ext5  # noqa: E402,F401  isort:skip

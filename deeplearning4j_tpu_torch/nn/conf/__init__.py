@@ -26,7 +26,8 @@ from deeplearning4j_tpu_torch.nn.conf.preprocessors import (
     RnnToFeedForwardPreProcessor)
 
 __all__ = ["NeuralNetConfiguration", "MultiLayerConfiguration",
-           "GradientNormalization", "BackpropType", "InputType"]
+           "GradientNormalization", "BackpropType", "InputType",
+           "WorkspaceMode"]
 
 
 class GradientNormalization:
@@ -41,6 +42,14 @@ class GradientNormalization:
 class BackpropType:
     Standard = "Standard"
     TruncatedBPTT = "TruncatedBPTT"
+
+
+class WorkspaceMode:
+    """Accepted for parity (the configuration's workspace keys); PyTorch's
+    caching allocator owns the buffers, so no mode changes anything."""
+    ENABLED = "ENABLED"
+    NONE = "NONE"
+    SINGLE = "SINGLE"
 
 
 _GLOBAL_KEYS = ["seed", "updater", "biasUpdater", "weightInit", "activation",

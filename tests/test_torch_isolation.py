@@ -1,6 +1,9 @@
 """The port stands alone: ``deeplearning4j_tpu_torch`` and ``chip_smoke.py``
-import neither ``jax`` nor anything of ``deeplearning4j_tpu``, and the
-port's entry points default to CUDA with no silent CPU fallback."""
+import neither ``jax`` nor anything of ``deeplearning4j_tpu``; importing
+the port loads no other framework (tensorflow, onnx, transformers, keras:
+the TF importer reads GraphDefs with its own decoder); the port's entry
+points default to CUDA with no silent CPU fallback; and the reference's
+public import paths resolve in the port too (ROADMAP C7)."""
 import ast
 import os
 import subprocess
@@ -37,6 +40,10 @@ sys.exit(1 if bad else 0)
 """
 
 
+OTHER_FRAMEWORKS = ("tensorflow", "onnx", "transformers", "keras",
+                    "tf_keras")
+
+
 def _top(name):
     return name.split(".")[0]
 
@@ -49,6 +56,35 @@ def test_importing_every_port_module_loads_no_jax():
         cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "leaked: []" in proc.stdout
+
+
+def test_importing_every_port_module_loads_no_other_framework():
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run(
+        [sys.executable, "-c",
+         _IMPORT_ALL.format(forbidden=set(OTHER_FRAMEWORKS))],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "leaked: []" in proc.stdout
+
+
+def test_only_graphrunners_tensorflow_backend_names_tensorflow():
+    """The port imports tensorflow in one place: inside the call that runs
+    ``GraphRunner(backend="tensorflow")`` (the reference's meaning of that
+    backend)."""
+    found = []
+    for path in sorted(PKG.rglob("*.py")):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module]
+            else:
+                continue
+            if [n for n in names if _top(n) in OTHER_FRAMEWORKS]:
+                found.append((str(path.relative_to(REPO)), names))
+    assert found == [("deeplearning4j_tpu_torch/imports/graphrunner.py",
+                      ["tensorflow"])]
 
 
 @pytest.mark.parametrize("path", sorted(
@@ -125,3 +161,40 @@ def test_training_loop_entry_points_default_to_cuda(tmp_path):
         TransferLearning.Builder(net).setFeatureExtractor(1).build()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TransferLearning.GraphBuilder(graph).build()
+
+
+def test_importer_entry_points_default_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is usable")
+    from deeplearning4j_tpu_torch.imports import GraphRunner, TFGraphMapper
+    skeleton = str(REPO / "tests" / "fixtures"
+                   / "tf_bert_base_b32_t128_skeleton.pb")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TFGraphMapper.importGraph(skeleton)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        GraphRunner(skeleton, backend="samediff")
+
+
+C7_NAMES = [("models", "GraphBuilder"),
+            ("models", "ComputationGraphConfiguration"),
+            ("models", "MergeVertex"), ("models", "ElementWiseVertex"),
+            ("parallel", "dot_product_attention"),
+            ("parallel", "flash_attention"),
+            ("parallel", "blockwise_attention"),
+            ("nn.conf", "WorkspaceMode"),
+            ("imports", "TFGraphMapper"), ("imports", "GraphRunner")]
+
+
+@pytest.mark.parametrize("module,name", C7_NAMES)
+def test_reference_public_names_import_from_both_packages(module, name):
+    """ROADMAP C7: ``from <package>.<module> import <name>`` works for the
+    reference and the port alike."""
+    import importlib
+    ref = getattr(importlib.import_module(f"deeplearning4j_tpu.{module}"),
+                  name)
+    port = getattr(importlib.import_module(
+        f"deeplearning4j_tpu_torch.{module}"), name)
+    assert callable(ref) and callable(port)
+    if name == "WorkspaceMode":
+        assert {k: v for k, v in vars(port).items() if k.isupper()} == \
+            {k: v for k, v in vars(ref).items() if k.isupper()}
