@@ -209,7 +209,56 @@ which must pass or the script exits non-zero without a result line:
    refilled graph gives phase 30's card output bit for bit.  Phases 29-32
    launch no kernel (counters read zero across each): the imported
    attention is the graph's ``BatchMatMulV2`` / ``Softmax`` chain, as in
-   the reference.
+   the reference;
+33. ``serve_start``: the serving tier.  An ``InferenceServer`` on
+   127.0.0.1 (an ephemeral port) with three routes: ``"lm"``, a
+   ``ContinuousBatcher`` over ``TransformerLM`` at openai-community/gpt2's
+   published widths (12 layers, 12 heads x 64, FFN 3072, vocab 50257,
+   ``maxLen`` 1024 = n_positions; seeded random weights) with a
+   speculative draft at distilbert/distilgpt2's widths (6 layers: the
+   target's embeddings and its layers 0, 2, 4, 7, 9, 11), ``draftK`` 4,
+   ``pageSize`` 16, ``maxSlots`` 8 (521 pages: 614,596,608 bytes of K and
+   V, half that for the draft); ``"lm_group"``, ``GenerativeServing`` over
+   the same LM, batch buckets 1-8 and prompt buckets 64-512; and
+   ``"classifier"``, ``ForwardServing`` over ``examples/lenet_mnist.py``'s
+   LeNet, batch buckets 1-32.  Prints each route's warm-up seconds, the
+   pool bytes and the peak memory;
+34. ``serve_requests``: 16 client threads send ``"lm"`` requests (seeded
+   ragged prompts of 16-512 tokens, 32-64 new tokens, half streamed as
+   NDJSON), 8 go to ``"lm_group"`` and 8 to ``"classifier"`` (1-32 rows),
+   all at once: every answer must be a 200; ``/metrics`` must show as many
+   ``"lm"`` sequences retired as admitted, decode tokens and no shed; one
+   request's ``/v1/requests/<X-Trace-Id>`` must hold its enqueue, admit,
+   first-token and retire events; ``/healthz`` must answer;
+35. ``serve_check``: every ``"lm"`` (speculative) and ``"lm_group"`` answer
+   against ``TransformerLM.generate`` (target-only greedy) of its prompt
+   alone, equal up to the first position whose top-two logits lie within
+   1e-4 (at least half the tokens must be compared); the classifier's rows
+   against ``net.output`` (1e-5); one ``JsonModelServer`` round trip
+   through ``JsonRemoteInference`` on the LeNet and one
+   ``SameDiffJsonModelServer`` round trip on a small SameDiff graph; 8 of
+   the ``"lm"`` prompts through ``"lm_self"``, a speculative route whose
+   draft is the target itself, against ``generate`` by the same rule, and
+   at least one draft proposal must be accepted (the random-weight draft
+   of ``"lm"`` agrees with its target on none, so only this route runs
+   the multi-token accept branch);
+36. ``serve_replicas``: a ``ReplicaSet`` of two such batchers behind
+   ``"lm"`` on the one card; ``arm_replica_crash("lm/0")`` while 8 streams
+   are in flight: every stream must finish (on ``lm/1``, the only
+   survivor) with ``generate``'s tokens, each token once; the failover
+   counter and ``lm/0``'s health gauge must show it; then
+   ``armAutoscale``'s firing edge (a backlog of 16 requests) must add a
+   replica and its resolved edge take one away;
+37. ``serve_timing``: 8 slots, 16 streaming clients, on the speculative
+   route, on the self-drafted one and on a target-only batcher: time to first token (p50, p99),
+   inter-token latency, decode tokens/s and goodput (tokens of 200 answers
+   over the wall), slot occupancy, pages in use, the draft's acceptance
+   rate; then 4 profiled decode steps with every slot decoding, the
+   profiler started and stopped on the batcher's stepping thread
+   (device time, device ops and idle share a decode step).  Phases 33-37 launch no kernel (counters
+   read zero across each): the tier always masks its prefill (ROADMAP
+   C2) and its decode attention is ``paged_attention``'s torch ops.  Each
+   number is printed beside the card's name and power limit.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``.  With ``--record PATH`` it also
@@ -217,6 +266,7 @@ writes the full record (every check, timing and profile row) as JSON.
 """
 from __future__ import annotations
 
+import faulthandler
 import json
 import os
 import statistics
@@ -412,6 +462,29 @@ TF_BERT_OUT_ATOL = 1e-4
 # every one to 2 lr + 1e-6.
 TF_BERT_LOSS_RTOL = 1e-4
 TF_BERT_PARAM_ATOL, TF_BERT_PARAM_SHARE = 1e-6, 0.999
+
+# The serving tier (phases 33-37): an InferenceServer on 127.0.0.1 serving
+# GPT-2 small at openai-community/gpt2's published widths (maxLen 1024 =
+# n_positions) through a ContinuousBatcher with a speculative draft at
+# distilbert/distilgpt2's widths (6 layers), a GenerativeServing group
+# route over the same LM, and examples/lenet_mnist.py's LeNet as a
+# classifier.  Seeded random weights; the draft copies the target's
+# embeddings and layers 0, 2, 4, 7, 9, 11.
+SERVE = dict(lm=dict(vocabSize=50257, nLayers=12, nHeads=12, headSize=64,
+                     ffnMult=4, maxLen=1024, seed=0),
+             draft_layers=(0, 2, 4, 7, 9, 11), draftK=4, pageSize=16,
+             maxSlots=8, group_batch=(1, 2, 4, 8),
+             group_seq=(64, 128, 256, 512), cls_batch=(1, 2, 4, 8, 16, 32),
+             clients=16, prompt=(16, 512), new=(32, 64), group_requests=8,
+             cls_requests=8, cls_rows=(1, 32), replica_streams=8,
+             replica_slowdown=0.02, autoscale_rows=4, backlog_new=8,
+             self_draft_requests=8, timing_clients=16, profile_steps=4,
+             device="cuda", seed=7)
+# Tokens are held to generate's up to the first position whose top-two
+# logits lie within SERVE_NEAR_TIE (float32 summation order may decide a
+# closer tie either way); served outputs of one model on one card to 1e-5.
+SERVE_NEAR_TIE = 1e-4
+SERVE_OUT_ATOL = 1e-5
 
 SERVE_SHAPE = (BATCH, GPT2_SMALL["nHeads"], PROMPT, PROMPT,
                GPT2_SMALL["headSize"])
@@ -2790,6 +2863,733 @@ def phase_tf_graphrunner(torch, rec, gd, out_ref, card, c=TF_BERT):
              f"{rec['tf_graphrunner']['device']}")
 
 
+# ---------------------------------------------------------------------------
+# the serving tier (phases 33-37)
+# ---------------------------------------------------------------------------
+
+def _serve_dev(torch, c):
+    return torch.device(c["device"])
+
+
+def _serve_sync(torch, c):
+    if _serve_dev(torch, c).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _serve_models(torch, c):
+    """GPT-2 small (seeded random weights) and its draft: DistilGPT2's
+    widths, its embeddings and layers copied from the target's layers
+    ``draft_layers``, the way the DistilGPT2 student was initialised from
+    GPT-2."""
+    from deeplearning4j_tpu_torch.nlp.transformer import (
+        TransformerLM, TransformerLMConfig)
+    lm = TransformerLM(TransformerLMConfig(**c["lm"]), device=c["device"])
+    draft = TransformerLM(TransformerLMConfig(
+        **dict(c["lm"], nLayers=len(c["draft_layers"]))),
+        device=c["device"])
+    with torch.no_grad():
+        for name in ("emb", "pos", "lnf_g", "lnf_b"):
+            getattr(draft, name).copy_(getattr(lm, name))
+        for dst, li in zip(draft.layers, c["draft_layers"]):
+            for name, p in lm.layers[li].named_parameters():
+                getattr(dst, name).copy_(p)
+    return lm, draft
+
+
+def _batcher(lm, draft, name, c):
+    from deeplearning4j_tpu_torch.remote import (AdmissionControl,
+                                                 ContinuousBatcher)
+    return ContinuousBatcher(lm, name=name, draft=draft, draftK=c["draftK"],
+                             pageSize=c["pageSize"], maxSlots=c["maxSlots"],
+                             admission=AdmissionControl(maxQueueRows=1024))
+
+
+def _http(port, route, payload, stream=False, timeout=600):
+    """One POST to the serving tier: (status, body or [tokens], headers,
+    seconds to each streamed token).  A streamed reply is read line by
+    line as it arrives (NDJSON, keep-alive lines skipped); an error line
+    fails the phase."""
+    import urllib.error
+    import urllib.request
+    body = dict(payload, stream=True) if stream else payload
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{route}", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            headers = dict(resp.headers)
+            if not stream:
+                return resp.status, json.loads(resp.read()), headers, []
+            toks, times, done = [], [], False
+            for line in resp:
+                if not line.startswith(b"{"):
+                    continue
+                obj = json.loads(line)
+                if "token" in obj:
+                    toks.append(obj["token"])
+                    times.append(time.perf_counter() - t0)
+                elif "error" in obj:
+                    raise PhaseFailed(f"stream error: {obj['error']}")
+                done = done or obj.get("done", False)
+            _require(done, "a stream ended without its done line")
+            return resp.status, toks, headers, times
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"{}"), dict(e.headers), []
+
+
+def _get(port, path, timeout=60):
+    import urllib.request
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=timeout) as resp:
+        return resp.status, resp.read()
+
+
+def _exposed(text, name, **labels):
+    """A sample's value in Prometheus text (labels in declared order), or
+    None when the series is absent."""
+    key = name + ("{" + ",".join(f'{k}="{v}"' for k, v in labels.items())
+                  + "}" if labels else "")
+    for line in text.splitlines():
+        if line.startswith(key + " "):
+            return float(line.rsplit(" ", 1)[1])
+    return None
+
+
+def _parallel(fn, items):
+    """fn(item) on one client thread per item; results in order (an
+    exception is re-raised once every thread is joined)."""
+    import threading
+    out, errs = [None] * len(items), []
+
+    def run(i):
+        try:
+            out[i] = fn(items[i])
+        except BaseException as e:       # noqa: BLE001 — re-raised below
+            errs.append(e)
+
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(items))]
+    try:
+        for th in threads:
+            th.start()
+    finally:
+        for th in threads:
+            th.join(900)
+    _require(not any(th.is_alive() for th in threads),
+             "a client thread did not finish")
+    if errs:
+        raise errs[0]
+    return out
+
+
+def _serve_requests_spec(c, seed, n, lo, hi):
+    """n seeded (prompt, maxNewTokens) pairs: prompts of lo..hi tokens,
+    maxNewTokens over c["new"]."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    vocab = c["lm"]["vocabSize"]
+    return [(rng.randint(0, vocab, int(rng.randint(lo, hi + 1))
+                         ).astype(np.int32),
+             int(rng.randint(c["new"][0], c["new"][1] + 1)))
+            for _ in range(n)]
+
+
+def _near_tie_check(torch, lm, pairs, answers, eps=SERVE_NEAR_TIE,
+                    refs=None):
+    """Each answer against ``generate`` of its prompt alone: tokens equal
+    up to the first position whose top-two logits (of ``generate``'s own
+    run, recomputed by one forward) lie within ``eps``.  ``refs`` (a dict)
+    keeps each prompt's reference and cut for a later check of the same
+    prompts.  Returns (tokens compared, tokens in all)."""
+    import numpy as np
+    refs = {} if refs is None else refs
+    compared = total = 0
+    for (prompt, n), got in zip(pairs, answers):
+        key = (prompt.tobytes(), n)
+        if key not in refs:
+            ref = lm.generate(prompt[None], n)[0]
+            seq = np.concatenate([prompt, ref[:-1]])[None]
+            top2 = torch.topk(lm.forward(seq)[0, len(prompt) - 1:], 2,
+                              dim=-1).values
+            close = torch.nonzero(top2[:, 0] - top2[:, 1] < eps)
+            refs[key] = (ref, int(close[0]) if len(close) else n)
+        ref, cut = refs[key]
+        got = np.asarray(got).ravel()
+        _require(got.shape == ref.shape,
+                 f"an answer of {got.shape[0]} tokens, expected {n}")
+        _require(bool((got[:cut] == ref[:cut]).all()),
+                 f"tokens part from generate before the first near tie "
+                 f"({cut}): {got[:cut].tolist()} vs {ref[:cut].tolist()}")
+        compared += cut
+        total += n
+    return compared, total
+
+
+def phase_serve_start(torch, rec, card, c=SERVE):
+    """Start an InferenceServer with the three routes; warm each.
+    Returns the serving state for the later phases."""
+    from deeplearning4j_tpu_torch.models import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.remote import (BucketLadder,
+                                                 ForwardServing,
+                                                 GenerativeServing,
+                                                 InferenceServer,
+                                                 ModelRegistry)
+    from deeplearning4j_tpu_torch.telemetry import get_registry
+    dev = _serve_dev(torch, c)
+    _serve_sync(torch, c)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() / 1e9 if dev.type == "cuda" \
+        else 0.0
+    _reset_counters()
+    t0 = time.perf_counter()
+    lm, draft = _serve_models(torch, c)
+    net = MultiLayerNetwork(_lenet_conf(), device=c["device"]).init()
+    init_s = time.perf_counter() - t0
+    reg = ModelRegistry()
+    cb = reg.register("lm", _batcher(lm, draft, "lm", c))
+    reg.register("lm_group", GenerativeServing(lm, BucketLadder(
+        batchSizes=c["group_batch"], seqLens=c["group_seq"])))
+    reg.register("classifier", ForwardServing(
+        net, BucketLadder(batchSizes=c["cls_batch"], seqLens=()),
+        inputShape=(784,)))
+    t0 = time.perf_counter()
+    server = InferenceServer(reg, port=0).start()
+    start_s = time.perf_counter() - t0
+    _serve_sync(torch, c)
+    hist = get_registry().get("dl4j_tpu_serving_warmup_seconds")
+    warm = {r: hist.sum(model=r) for r in ("lm", "lm_group", "classifier")}
+    pool_bytes = cb.pool.k.nbytes + cb.pool.v.nbytes
+    draft_bytes = cb.draftPool.k.nbytes + cb.draftPool.v.nbytes
+    lc = c["lm"]
+    pages = 1 + c["maxSlots"] * -(-(lc["maxLen"] + c["draftK"])
+                                  // c["pageSize"])
+    want = 2 * lc["nLayers"] * pages * lc["nHeads"] * c["pageSize"] * \
+        lc["headSize"] * 4
+    peak = torch.cuda.max_memory_allocated() / 1e9 - base \
+        if dev.type == "cuda" else None
+    counts = _counters()
+    r = rec["serve_start"] = dict(
+        port=server.port, init_s=init_s, start_s=start_s, warmup_s=warm,
+        pages=cb.pool.numPages, pool_bytes=pool_bytes,
+        draft_pool_bytes=draft_bytes, expected_pool_bytes=want,
+        ladder=list(cb.ladder.seqLens), peak_gb=peak, launches=counts,
+        card=card)
+    print(f"serve_start: InferenceServer on 127.0.0.1:{server.port}, "
+          f"routes {reg.names()}; models built in {init_s:.2f} s, started "
+          f"(warmed) in {start_s:.2f} s; warm-up s per route "
+          f"{ {k: round(v, 3) for k, v in warm.items()} }; lm ladder "
+          f"{r['ladder']}, {cb.pool.numPages} pages of {c['pageSize']}; "
+          f"pool {pool_bytes} B target + {draft_bytes} B draft; peak "
+          f"{peak if peak is None else round(peak, 3)} GB; {card}")
+    _no_launches(rec, "serve_start", counts)
+    _require(pool_bytes == want and draft_bytes * lc["nLayers"] ==
+             want * len(c["draft_layers"]),
+             f"pool bytes {pool_bytes} / {draft_bytes}, expected {want}")
+    _require(cb.pool.k.device.type == dev.type,
+             f"the pool lives on {cb.pool.k.device}")
+    return dict(server=server, reg=reg, lm=lm, draft=draft, net=net, cb=cb)
+
+
+def phase_serve_requests(torch, rec, st, card, c=SERVE):
+    """16 lm clients (half streaming), 8 lm_group and 8 classifier
+    requests at once; every answer 200; /metrics, the timeline and
+    /healthz.  Returns the requests and answers."""
+    import numpy as np
+    port = st["server"].port
+    _reset_counters()
+    lm_pairs = _serve_requests_spec(c, c["seed"], c["clients"],
+                                    *c["prompt"])
+    grp_pairs = _serve_requests_spec(c, c["seed"] + 1,
+                                     c["group_requests"], *c["prompt"])
+    rng = np.random.RandomState(c["seed"] + 2)
+    cls_x = [rng.rand(int(rng.randint(c["cls_rows"][0],
+                                      c["cls_rows"][1] + 1)), 784
+                      ).astype(np.float32) for _ in range(c["cls_requests"])]
+    jobs = [("lm", i) for i in range(len(lm_pairs))] + \
+        [("lm_group", i) for i in range(len(grp_pairs))] + \
+        [("classifier", i) for i in range(len(cls_x))]
+
+    def send(job):
+        route, i = job
+        if route == "classifier":
+            return _http(port, "/v1/serving/classifier",
+                         {"features": cls_x[i].tolist()})
+        prompt, n = (lm_pairs if route == "lm" else grp_pairs)[i]
+        return _http(port, f"/v1/serving/{route}",
+                     {"tokens": prompt.tolist(), "maxNewTokens": n},
+                     stream=route == "lm" and i % 2 == 0)
+
+    _serve_sync(torch, c)
+    t0 = time.perf_counter()
+    res = _parallel(send, jobs)
+    wall = time.perf_counter() - t0
+    statuses = [r[0] for r in res]
+    answers = {"lm": [], "lm_group": [], "classifier": []}
+    for (route, i), (status, body, headers, _) in zip(jobs, res):
+        if route == "classifier":
+            answers[route].append(np.asarray(body.get("output")))
+        elif route == "lm" and i % 2 == 0:
+            answers[route].append(body)
+        else:
+            answers[route].append(body.get("tokens", [[]])[0])
+    text = _get(port, "/metrics")[1].decode()
+    admitted = _exposed(text, "dl4j_tpu_serving_sequences_admitted_total",
+                        model="lm")
+    retired = _exposed(text, "dl4j_tpu_serving_sequences_retired_total",
+                       model="lm")
+    decoded = _exposed(text, "dl4j_tpu_serving_decode_tokens_total",
+                       model="lm")
+    sheds = sum(float(ln.rsplit(" ", 1)[1]) for ln in text.splitlines()
+                if ln.startswith("dl4j_tpu_serving_shed_total{"))
+    tid = res[0][2].get("X-Trace-Id")
+    tl = json.loads(_get(port, f"/v1/requests/{tid}")[1])
+    events = sorted({e["event"] for e in tl["events"]})
+    health = _get(port, "/healthz")
+    counts = _counters()
+    r = rec["serve_requests"] = dict(
+        requests=len(jobs), statuses=statuses, wall_s=wall,
+        lm_admitted=admitted, lm_retired=retired, lm_decode_tokens=decoded,
+        shed=sheds, trace_events=events, healthz=health[0],
+        launches=counts, card=card)
+    print(f"serve_requests: {len(jobs)} requests ({c['clients']} lm, half "
+          f"streamed; {len(grp_pairs)} lm_group; {len(cls_x)} classifier) in "
+          f"{wall:.2f} s, statuses {sorted(set(statuses))}; lm admitted "
+          f"{admitted}, retired {retired}, decode tokens {decoded}, sheds "
+          f"{sheds}; timeline of {tid}: {events}; /healthz {health[0]}; "
+          f"{card}")
+    _no_launches(rec, "serve_requests", counts)
+    _require(all(s == 200 for s in statuses),
+             f"requests answered {statuses}")
+    _require(admitted == retired == len(lm_pairs),
+             f"lm admitted {admitted}, retired {retired}")
+    _require(decoded and decoded > 0 and sheds == 0,
+             f"decode tokens {decoded}, sheds {sheds}")
+    _require({"serving.enqueue", "serving.admit", "serving.first_token",
+              "serving.retire"} <= set(events),
+             f"the timeline lacks events: {events}")
+    _require(health[0] == 200, f"/healthz answered {health[0]}")
+    return dict(lm_pairs=lm_pairs, grp_pairs=grp_pairs, cls_x=cls_x,
+                answers=answers)
+
+
+def _sd_graph(torch, c):
+    """A small SameDiff classifier on the card: softmax(x W + b)."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.autodiff import SameDiff
+    sd = SameDiff.create(device=c["device"])
+    rng = np.random.RandomState(3)
+    x = sd.placeholder("x", shape=(-1, 16))
+    w = sd.var("w", rng.randn(16, 4).astype(np.float32))
+    b = sd.var("b", rng.randn(4).astype(np.float32))
+    sd.nn().softmax(x.mmul(w) + b, name="probs")
+    return sd
+
+
+def phase_serve_check(torch, rec, st, req, card, c=SERVE):
+    """Hold every answer of serve_requests against its model alone, and
+    one JsonModelServer and one SameDiffJsonModelServer round trip; serve
+    some of the lm prompts through a speculative route whose draft is the
+    target itself, hold them to generate and require accepted proposals."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.remote import (InferenceServer,
+                                                 JsonModelServer,
+                                                 JsonRemoteInference,
+                                                 ModelRegistry,
+                                                 SameDiffJsonModelServer)
+    from deeplearning4j_tpu_torch.telemetry import serving_metrics
+    lm, net = st["lm"], st["net"]
+    _reset_counters()
+    t0 = time.perf_counter()
+    refs = {}
+    cmp_lm = _near_tie_check(torch, lm, req["lm_pairs"],
+                             req["answers"]["lm"], refs=refs)
+    cmp_grp = _near_tie_check(torch, lm, req["grp_pairs"],
+                              req["answers"]["lm_group"])
+    cls_err = max(float(np.abs(a - net.output(x).cpu().numpy()).max())
+                  for a, x in zip(req["answers"]["classifier"],
+                                  req["cls_x"]))
+    x = req["cls_x"][0][:4]
+    srv = JsonModelServer(net).start()
+    try:
+        pred = JsonRemoteInference(port=srv.port).predict(x)
+    finally:
+        srv.stop()
+    json_err = float(np.abs(pred - net.output(x).cpu().numpy()).max())
+    sd = _sd_graph(torch, c)
+    xs = np.random.RandomState(4).randn(5, 16).astype(np.float32)
+    srv = SameDiffJsonModelServer(sd, outputNames=["probs"]).start()
+    try:
+        sd_pred = JsonRemoteInference(port=srv.port).predict(xs)
+    finally:
+        srv.stop()
+    sd_err = float(np.abs(sd_pred - sd.output({"x": xs}, "probs")[
+        "probs"].cpu().numpy()).max())
+    # the accept branch: with random weights the "lm" route's draft never
+    # agrees with its target, so a route whose draft is the target itself
+    # takes several tokens a step
+    sm = serving_metrics()
+    reg = ModelRegistry()
+    reg.register("lm_self", _batcher(lm, lm, "lm_self", c))
+    self_pairs = req["lm_pairs"][:c["self_draft_requests"]]
+    server = InferenceServer(reg, port=0).start()
+    try:
+        res = _parallel(lambda i: _http(
+            server.port, "/v1/serving/lm_self",
+            {"tokens": self_pairs[i][0].tolist(),
+             "maxNewTokens": self_pairs[i][1]}, stream=i % 2 == 0),
+            list(range(len(self_pairs))))
+    finally:
+        server.stop()
+    _require(all(x[0] == 200 for x in res),
+             f"lm_self: statuses {[x[0] for x in res]}")
+    cmp_self = _near_tie_check(
+        torch, lm, self_pairs,
+        [x[1] if i % 2 == 0 else x[1]["tokens"][0]
+         for i, x in enumerate(res)], refs=refs)
+    proposed = sm.draft_proposed().value(model="lm_self")
+    accepted = sm.draft_accepted().value(model="lm_self")
+    counts = _counters()
+    r = rec["serve_check"] = dict(
+        lm_tokens_compared=cmp_lm, group_tokens_compared=cmp_grp,
+        self_draft_tokens_compared=cmp_self,
+        self_draft_accept_rate=accepted / proposed if proposed else None,
+        classifier_max_abs_err=cls_err, json_server_max_abs_err=json_err,
+        samediff_server_max_abs_err=sd_err,
+        check_s=time.perf_counter() - t0, launches=counts, card=card)
+    print(f"serve_check: lm (speculative) tokens equal to generate's "
+          f"(target-only greedy) on {cmp_lm[0]} of {cmp_lm[1]} before the "
+          f"first near tie, lm_group on {cmp_grp[0]} of {cmp_grp[1]}, "
+          f"lm_self (the target as its own draft) on {cmp_self[0]} of "
+          f"{cmp_self[1]} with {accepted:g} of {proposed:g} proposals "
+          f"accepted; classifier max |d| {cls_err:.3g} (atol "
+          f"{SERVE_OUT_ATOL}); JsonModelServer {json_err:.3g}, "
+          f"SameDiffJsonModelServer {sd_err:.3g}; {r['check_s']:.2f} s; "
+          f"{card}")
+    _no_launches(rec, "serve_check", counts)
+    _require(min(cmp[0] - 0.5 * cmp[1] for cmp in (cmp_lm, cmp_grp,
+                                                    cmp_self)) >= 0,
+             "the near-tie rule left fewer than half the tokens compared")
+    _require(accepted > 0, f"lm_self accepted {accepted:g} of "
+             f"{proposed:g} proposals: the accept branch did not run")
+    _require(max(cls_err, json_err, sd_err) <= SERVE_OUT_ATOL,
+             f"served outputs disagree: {cls_err}, {json_err}, {sd_err}")
+
+
+def phase_serve_replicas(torch, rec, st, card, c=SERVE):
+    """A ReplicaSet of two batchers behind "lm": crash lm/0 under 8
+    streams, every stream finishes on lm/1 exactly once; then the
+    autoscale edges."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.fault import injection as inj
+    from deeplearning4j_tpu_torch.remote import (InferenceServer,
+                                                 ModelRegistry, ReplicaSet)
+    from deeplearning4j_tpu_torch.telemetry import (HealthMonitor,
+                                                    get_registry,
+                                                    serving_metrics)
+    lm, draft = st["lm"], st["draft"]
+    st["server"].stop()                # the single batcher leaves "lm"
+    _reset_counters()
+    sm = serving_metrics()
+    before = sm.failovers().value(model="lm")
+    rs = ReplicaSet(lambda idx: _batcher(lm, draft, f"lm/{idx}", c),
+                    name="lm", replicas=2, maxReplicas=3,
+                    probeInterval=0.05, probeTimeout=5.0,
+                    probeFailThreshold=1, seed=0)
+    reg = ModelRegistry()
+    reg.register("lm", rs)
+    t0 = time.perf_counter()
+    server = InferenceServer(reg, port=0).start()
+    up_s = time.perf_counter() - t0
+    pairs = _serve_requests_spec(c, c["seed"] + 3, c["replica_streams"],
+                                 *c["prompt"])
+    import threading
+    first = threading.Barrier(len(pairs) + 1, timeout=120)
+    try:
+        for name in ("lm/0", "lm/1"):
+            inj.set_replica_slowdown(name, c["replica_slowdown"])
+
+        def stream(pair):
+            import urllib.request
+            prompt, n = pair
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{server.port}/v1/serving/lm",
+                data=json.dumps({"tokens": prompt.tolist(),
+                                 "maxNewTokens": n,
+                                 "stream": True}).encode(),
+                headers={"Content-Type": "application/json"})
+            toks, waited = [], False
+            with urllib.request.urlopen(req, timeout=600) as resp:
+                tid = resp.headers.get("X-Trace-Id")
+                for line in resp:
+                    if not line.startswith(b"{"):
+                        continue
+                    obj = json.loads(line)
+                    _require("error" not in obj, f"stream error {obj}")
+                    if "token" in obj:
+                        toks.append(obj["token"])
+                        if not waited:
+                            waited = True
+                            first.wait()     # every stream is in flight
+            return toks, tid
+
+        import concurrent.futures
+        with concurrent.futures.ThreadPoolExecutor(len(pairs)) as pool:
+            futs = [pool.submit(stream, p) for p in pairs]
+            first.wait()
+            with rs._lock:
+                busy = {ex.name: ex.busy() for ex in rs._replicas}
+            inj.arm_replica_crash("lm/0")
+            inj.set_replica_slowdown("lm/1", 0)
+            got = [f.result(timeout=300) for f in futs]
+        deadline = time.monotonic() + 30
+        while time.monotonic() < deadline and rs.replicaCount() != 1:
+            time.sleep(0.05)
+        with rs._lock:
+            survivors = [ex.name for ex in rs._replicas]
+        failovers = sm.failovers().value(model="lm") - before
+        health0 = sm.replica_health().value(model="lm", replica="lm/0")
+        hops = json.loads(_get(server.port,
+                               f"/v1/requests/{got[0][1]}")[1])["events"]
+        cmp = _near_tie_check(torch, lm, pairs, [g[0] for g in got])
+        # the autoscale edges: a backlog fires the queue-depth rule (one
+        # replica up), its draining resolves it (one down)
+        mon = HealthMonitor(rules=[])
+        rs.armAutoscale(mon, highQueueRows=c["autoscale_rows"])
+        inj.set_replica_slowdown("lm/1", c["replica_slowdown"])
+        backlog = [(p, c["backlog_new"]) for p, _ in _serve_requests_spec(
+            c, c["seed"] + 4, 2 * c["maxSlots"], 16, 64)]
+        with concurrent.futures.ThreadPoolExecutor(len(backlog)) as pool:
+            futs = [pool.submit(_http, server.port, "/v1/serving/lm",
+                                {"tokens": p.tolist(), "maxNewTokens": n})
+                    for p, n in backlog]
+            deadline = time.monotonic() + 60
+            while time.monotonic() < deadline and \
+                    rs.queuedRows() < c["autoscale_rows"]:
+                time.sleep(0.01)
+            queued = rs.queuedRows()
+            t0 = time.perf_counter()
+            mon.evaluate_once(now=100.0)
+            scale_up_s = time.perf_counter() - t0
+            up = rs.replicaCount()
+            inj.set_replica_slowdown("lm/1", 0)
+            backlog_status = [f.result(timeout=300)[0] for f in futs]
+        mon.evaluate_once(now=200.0)
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline and rs.replicaCount() != 1:
+            time.sleep(0.05)
+        down = rs.replicaCount()
+        acted = get_registry().get("dl4j_tpu_health_actions_total")
+        actions = dict((tuple(k), v) for k, v in acted.data()["cells"])
+    finally:
+        inj.clear_serving_faults()
+        server.stop()
+    counts = _counters()
+    r = rec["serve_replicas"] = dict(
+        start_s=up_s, busy_at_crash=busy, survivors=survivors,
+        failovers=failovers, replica_health_lm0=health0,
+        stream_tokens=[len(g[0]) for g in got], tokens_compared=cmp,
+        first_stream_events=[e["event"] for e in hops],
+        backlog_queued=queued, replicas_after_up=up,
+        scale_up_s=scale_up_s, replicas_after_down=down,
+        backlog_statuses=backlog_status,
+        actions={"/".join(k): v for k, v in actions.items()},
+        launches=counts, card=card)
+    print(f"serve_replicas: 2 replicas up in {up_s:.2f} s; busy when lm/0 "
+          f"was armed to crash {busy}; survivors {survivors}; "
+          f"{failovers:g} sequences failed over; lm/0 health {health0:g}; "
+          f"{len(got)} streams of {r['stream_tokens']} tokens equal to "
+          f"generate on {cmp[0]} of {cmp[1]} before the first near tie; "
+          f"autoscale: {queued} rows queued -> {up} replicas (warmed in "
+          f"{scale_up_s:.2f} s) -> {down} after the backlog drained; "
+          f"actions {r['actions']}; {card}")
+    _no_launches(rec, "serve_replicas", counts)
+    _require(busy.get("lm/0"), f"lm/0 held no stream when armed: {busy}")
+    _require(survivors == ["lm/1"], f"survivors {survivors}")
+    _require(failovers >= 1 and health0 == 0,
+             f"failovers {failovers}, lm/0 health {health0}")
+    _require([len(g[0]) for g in got] == [n for _, n in pairs],
+             "a stream delivered a token twice or dropped one")
+    _require(cmp[0] >= 0.5 * cmp[1], "too few tokens compared")
+    _require(up == 2 and down == 1 and all(s == 200 for s in backlog_status),
+             f"autoscale {up} -> {down}, statuses {backlog_status}")
+    _require(actions.get(("serving_queue_depth_high", "ok"), 0) >= 2,
+             f"health actions {actions}")
+
+
+def _profile_steps(torch, cb, n, top):
+    """Arm a profile of ``n`` consecutive decode steps of the batcher
+    ``cb``, taken on its own stepping thread at the first step that finds
+    every slot busy.  The profiler starts and stops on the thread that
+    runs the device work while no other thread runs a torch op: stopping
+    it from another thread while the stepping thread is inside torch ops
+    faults the process (SIGSEGV in the profiler's stop, seen on the H100
+    with torch 2.11).  Returns a dict that gets ``prof`` (as
+    ``_device_breakdown``'s) and ``steps`` (decode steps counted in the
+    window); its ``done`` event is set when the window closed."""
+    import threading
+    from deeplearning4j_tpu_torch.telemetry import serving_metrics
+    sm, orig = serving_metrics(), cb._stepOnce
+    out = {"done": threading.Event()}
+
+    def stepOnce():
+        if cb._slotSeq.count(None) > 0:
+            return orig()
+        del cb._stepOnce                 # one window: back to the class's
+        try:
+            steps0 = sm.decode_steps().value(model=cb.name)
+            out["prof"] = _device_breakdown(
+                torch, lambda: [orig() for _ in range(n)], top=top)
+            out["steps"] = sm.decode_steps().value(model=cb.name) - steps0
+        finally:
+            out["done"].set()
+
+    cb._stepOnce = stepOnce
+    return out
+
+
+def phase_serve_timing(torch, rec, st, card, c=SERVE):
+    """8 slots, 16 streaming clients: TTFT, inter-token latency, decode
+    tokens/s and goodput, slot occupancy, pages in use, the draft's
+    acceptance rate, speculative (the DistilGPT2-width draft, and the
+    target as its own draft) against target-only tokens/s; then profiled
+    decode steps (``_profile_steps``)."""
+    import threading
+
+    import numpy as np
+    from deeplearning4j_tpu_torch.remote import InferenceServer, ModelRegistry
+    from deeplearning4j_tpu_torch.telemetry import serving_metrics
+    lm, draft = st["lm"], st["draft"]
+    sm = serving_metrics()
+    _reset_counters()
+    reg = ModelRegistry()
+    spec = reg.register("spec", _batcher(lm, draft, "spec", c))
+    greedy = reg.register("greedy", _batcher(lm, None, "greedy", c))
+    spec_self = reg.register("spec_self", _batcher(lm, lm, "spec_self", c))
+    server = InferenceServer(reg, port=0).start()
+    pairs = _serve_requests_spec(c, c["seed"] + 5, c["timing_clients"],
+                                 *c["prompt"])
+    out = {}
+    try:
+        for route, cb in (("spec", spec), ("greedy", greedy),
+                          ("spec_self", spec_self)):
+            pages, stop = [], threading.Event()
+
+            def sample(cb=cb, pages=pages, stop=stop):
+                while not stop.wait(0.005):
+                    pages.append(cb.pool.usedPages())
+
+            sampler = threading.Thread(target=sample)
+            steps0 = sm.decode_steps().value(model=route)
+            prop0 = sm.draft_proposed().value(model=route)
+            acc0 = sm.draft_accepted().value(model=route)
+            tok0 = sm.decode_tokens().value(model=route)
+            busy0, n0 = cb._busySteps, cb._steps
+            sampler.start()
+            try:
+                t0 = time.perf_counter()
+                res = _parallel(lambda p: _http(
+                    server.port, f"/v1/serving/{route}",
+                    {"tokens": p[0].tolist(), "maxNewTokens": p[1]},
+                    stream=True), pairs)
+                wall = time.perf_counter() - t0
+            finally:
+                stop.set()
+                sampler.join(30)
+            _require(all(x[0] == 200 for x in res),
+                     f"{route}: statuses {[x[0] for x in res]}")
+            times = [x[3] for x in res]
+            ttft = [t[0] for t in times]
+            itl = [b - a for t in times for a, b in zip(t, t[1:])]
+            delivered = sum(len(x[1]) for x in res)
+            steps = sm.decode_steps().value(model=route) - steps0
+            proposed = sm.draft_proposed().value(model=route) - prop0
+            accepted = sm.draft_accepted().value(model=route) - acc0
+            out[route] = dict(
+                wall_s=wall, requests=len(pairs), tokens=delivered,
+                ttft_p50_s=float(np.percentile(ttft, 50)),
+                ttft_p99_s=float(np.percentile(ttft, 99)),
+                itl_p50_s=float(np.percentile(itl, 50)),
+                itl_p99_s=float(np.percentile(itl, 99)),
+                itl_mean_s=float(np.mean(itl)),
+                decode_tokens_per_s=(sm.decode_tokens().value(model=route)
+                                     - tok0) / wall,
+                goodput_tokens_per_s=delivered / wall,
+                decode_steps=steps, ms_per_step=wall * 1e3 / max(steps, 1),
+                slot_occupancy=(cb._busySteps - busy0) / max(
+                    cb._steps - n0, 1),
+                pages_in_use_max=max(pages) if pages else None,
+                pages_in_use_mean=float(np.mean(pages)) if pages else None,
+                pages=cb.pool.numPages - 1,
+                accept_rate=accepted / proposed if proposed else None)
+            _require(out[route]["tokens"] == sum(n for _, n in pairs),
+                     f"{route}: {delivered} tokens delivered")
+        # profiled decode steps: every slot of the speculative route busy
+        # (admitted, past its prefill), no request arriving
+        import concurrent.futures
+        window = _profile_steps(torch, spec, c["profile_steps"], top=6)
+        with concurrent.futures.ThreadPoolExecutor(c["maxSlots"]) as pool:
+            futs = [pool.submit(_http, server.port, "/v1/serving/spec",
+                                {"tokens": p.tolist(),
+                                 "maxNewTokens": c["new"][1]})
+                    for p, _ in pairs[:c["maxSlots"]]]
+            _require(all(f.result(timeout=300)[0] == 200 for f in futs),
+                     "a profiled request failed")
+        _require(window["done"].wait(60) and "prof" in window,
+                 "the profiled steps did not run")
+        prof, psteps = window["prof"], window["steps"]
+    finally:
+        server.stop()
+    counts = _counters()
+    s, g, ss = out["spec"], out["greedy"], out["spec_self"]
+    r = rec["serve_timing"] = dict(spec=s, greedy=g, spec_self=ss,
+                                   profile=prof, profiled_steps=psteps,
+                                   speedup=s["goodput_tokens_per_s"] /
+                                   g["goodput_tokens_per_s"],
+                                   self_speedup=ss["goodput_tokens_per_s"] /
+                                   g["goodput_tokens_per_s"],
+                                   launches=counts, card=card)
+    for route, t in out.items():
+        print(f"serve_timing {route} ({c['maxSlots']} slots, "
+              f"{len(pairs)} streaming clients): TTFT p50 "
+              f"{t['ttft_p50_s'] * 1e3:.1f} ms, p99 "
+              f"{t['ttft_p99_s'] * 1e3:.1f} ms; inter-token p50 "
+              f"{t['itl_p50_s'] * 1e3:.2f} ms, p99 "
+              f"{t['itl_p99_s'] * 1e3:.2f} ms, mean "
+              f"{t['itl_mean_s'] * 1e3:.2f} ms; decode "
+              f"{t['decode_tokens_per_s']:.1f} tokens/s, goodput "
+              f"{t['goodput_tokens_per_s']:.1f} tokens/s; "
+              f"{t['decode_steps']:g} steps, {t['ms_per_step']:.2f} ms "
+              f"each; slot occupancy {t['slot_occupancy']:.3f}; pages in "
+              f"use max {t['pages_in_use_max']} mean "
+              f"{t['pages_in_use_mean']} of {t['pages']}; accept rate "
+              f"{t['accept_rate']}; {card}")
+    print(f"serve_timing: speculative / target-only goodput "
+          f"{r['speedup']:.3f}, self-drafted / target-only "
+          f"{r['self_speedup']:.3f}; {card}")
+    if prof["device_busy_ms"] is None:
+        print(f"profile serve_decode: no device time in the trace (not "
+              f"measured); {card}")
+    else:
+        r["device_ms_per_step"] = prof["device_busy_ms"] / max(psteps, 1)
+        r["device_ops_per_step"] = prof["device_ops"] / max(psteps, 1)
+        # the profiler slows the stepping thread's dispatch: the idle
+        # share of an unprofiled step is against the timed route's step
+        r["idle_share_unprofiled"] = 1 - r["device_ms_per_step"] / \
+            s["ms_per_step"]
+        print(f"profile serve_decode: {psteps:g} speculative steps in "
+              f"{prof['wall_ms']:.1f} ms wall, device busy "
+              f"{prof['device_busy_ms']:.2f} ms (idle share "
+              f"{prof['idle_share']:.3f}, "
+              f"{r['idle_share_unprofiled']:.3f} of an unprofiled step); "
+              f"{r['device_ms_per_step']:.3f} ms and "
+              f"{r['device_ops_per_step']:.0f} device ops a step; {card}")
+        for kname, kms in prof["top"]:
+            print(f"  {kms:9.3f} ms  {kname}")
+    _no_launches(rec, "serve_timing", counts)
+
+
 def _kernel_entry(name, replaces, launches, t):
     return {"name": name, "route": "cuda",
             "source": f"deeplearning4j_tpu_torch/csrc/{name}.cu",
@@ -2802,6 +3602,9 @@ def _kernel_entry(name, replaces, launches, t):
 def main(argv) -> int:
     record = argv[argv.index("--record") + 1] if "--record" in argv \
         else None
+    # a fatal signal (a fault in native code on any thread) prints every
+    # thread's Python stack to stderr before the process dies
+    faulthandler.enable(all_threads=True)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2923,6 +3726,22 @@ def main(argv) -> int:
                 run("tf_graphrunner", phase_tf_graphrunner, torch, rec, gd,
                     out_ref, card)
         del dec
+        # the serving tier: one server, three routes, then a replica set
+        serve = run("serve_start", phase_serve_start, torch, rec, card)
+        if serve is not None:
+            try:
+                req = run("serve_requests", phase_serve_requests, torch, rec,
+                          serve, card)
+                if req is not None:
+                    run("serve_check", phase_serve_check, torch, rec, serve,
+                        req, card)
+                run("serve_replicas", phase_serve_replicas, torch, rec,
+                    serve, card)
+                run("serve_timing", phase_serve_timing, torch, rec, serve,
+                    card)
+            finally:
+                serve["server"].stop()
+        del serve
 
     rec["card"] = card
     rec["failed"] = failed

@@ -14,16 +14,29 @@ tests) — a CUDA tensor reaches the kernel or raises.
 
 Ported so far (the serving slice, the long-context training slice, the
 ResNet-50 slice, the recurrent slice, BERT on SameDiff, the training
-user's loop around ``fit`` with LeNet-MNIST, then BERT-base through TF
-import):
+user's loop around ``fit`` with LeNet-MNIST, BERT-base through TF import,
+then the serving tier):
 
 - ``parallel.ring``      — dense / blockwise / flash attention (forward and
                            backward kernels, ``FlashAttention``) and the
                            ``dot_product_attention`` dispatch;
-- ``nn.conf.attention``  — ``SelfAttentionLayer``, ``KVCache`` and
-                           ``cached_attention``;
+- ``nn.conf.attention``  — ``SelfAttentionLayer``, ``KVCache``,
+                           ``cached_attention`` and ``paged_attention``;
 - ``nlp.transformer``    — ``TransformerLM`` prefill, KV decode, greedy and
-                           speculative generation;
+                           speculative generation, the paged step builders;
+- ``remote``             — the serving tier: ``InferenceServer``,
+                           ``ModelRegistry``, ``BucketedExecutor`` with
+                           ``ForwardServing`` / ``GenerativeServing``,
+                           ``AdmissionControl``, ``ContinuousBatcher``
+                           (paged KV pool, speculative decode),
+                           ``ReplicaSet``, ``JsonModelServer``,
+                           ``SameDiffJsonModelServer``,
+                           ``JsonRemoteInference``;
+- ``telemetry``          — the registry and ``/metrics``, tracer, flight
+                           recorder, trace context and request timelines,
+                           ``ThresholdRule`` / ``HealthMonitor``, the
+                           retention ring, ``ServingMetrics``;
+- ``fault``              — the serving tier's injected replica faults;
 - ``nlp.tokenization``   — WordPiece and the vocab helpers;
 - ``nlp.bert_iterator``  — ``BertIterator`` (MLM and sequence-
                            classification batches);

@@ -18,9 +18,13 @@ Weights follow the pre-LN GPT block (LN → attention → residual, LN → FFN
 numbers as the JAX model's from one seed; :meth:`TransformerLM.loadParams`
 copies the JAX model's parameters in.
 
-The paged builders (``buildPaged*Fn``) wait for the scheduler slice, and
-``compileCacheSize`` (a jit-cache probe) has no counterpart in eager
-PyTorch.
+The paged builders (``buildPagedDecodeFn``, ``buildPagedProposeFn``,
+``buildPagedPrefillWriteFn``) are the continuous batcher's step functions
+(``remote/scheduler.py``) over a ``KVCachePool``'s buffers, which they
+write IN PLACE (the reference donates the buffers and returns new ones;
+these return the same tensors, so the call sites keep their shape).
+``compileCacheSize`` returns None: eager PyTorch keeps no jit cache to
+probe.
 """
 from __future__ import annotations
 
@@ -34,7 +38,8 @@ from torch import nn
 
 from deeplearning4j_tpu_torch import resolve_device
 from deeplearning4j_tpu_torch.nn.conf.attention import (KVCache,
-                                                        cached_attention)
+                                                        cached_attention,
+                                                        paged_attention)
 from deeplearning4j_tpu_torch.parallel.ring import dot_product_attention
 
 __all__ = ["TransformerLMConfig", "TransformerLM"]
@@ -102,6 +107,14 @@ class _Block(nn.Module):
         qh, kh, vh = self._qkv(x)
         ctx, cache = cached_attention(qh, kh, vh, cache)
         return self._out(x, ctx), cache
+
+    def paged(self, x, poolK, poolV, pageTable, pos, start):
+        """The cached block with :func:`paged_attention` in place of the
+        private dense cache; writes the new K/V into the pool layer."""
+        qh, kh, vh = self._qkv(x)
+        ctx, _, _ = paged_attention(qh, kh, vh, poolK, poolV, pageTable,
+                                    pos, start)
+        return self._out(x, ctx)
 
 
 class TransformerLM(nn.Module):
@@ -440,6 +453,87 @@ class TransformerLM(nn.Module):
         computation the first admission used, so the step-by-step replay
         that follows regenerates the identical token prefix."""
         return self.prefillRaw(tokens, lengths=lengths)
+
+    # ------------------------------------------------------------------
+    # paged decode — the continuous-batching scheduler's step functions
+    # ------------------------------------------------------------------
+    def _slot_ids(self, a) -> torch.Tensor:
+        """Page tables, positions, tokens: host arrays or tensors, as long
+        on the model's device."""
+        return torch.as_tensor(a, device=self.device).long()
+
+    def _paged_step_math(self, poolK, poolV, toks, pageTable, pos, start):
+        """toks (S, tq) against the stacked pools (L, pages, h, ps, d),
+        written in place: returns ((S, tq) greedy tokens int32, poolK,
+        poolV).  Position-embedding ids are clipped so a speculative write
+        past ``maxLen`` (tokens the accept rule will discard) cannot index
+        out of the table."""
+        tq = toks.shape[1]
+        pos_ids = ((pos - start)[:, None] + torch.arange(
+            tq, device=self.device)[None, :]).clamp(0, self.config.maxLen - 1)
+        x = self._embed(toks, pos_ids)
+        for li, blk in enumerate(self.layers):
+            x = blk.paged(x, poolK[li], poolV[li], pageTable, pos, start)
+        greedy = torch.argmax(self._logits(x), dim=-1).to(torch.int32)
+        return greedy, poolK, poolV
+
+    def buildPagedDecodeFn(self):
+        """The paged decode/verify step over a ``KVCachePool``'s buffers:
+        ``(poolK, poolV, toks (S, tq), pageTable, pos, start) -> (greedy
+        (S, tq) int32, poolK, poolV)``.  tq=1 is the plain decode step,
+        tq=draftK+1 the speculative verify.  The pools are written in
+        place and returned; the reference's first argument (the jitted
+        function's params) is the module's own parameters here."""
+        @torch.no_grad()
+        def step(poolK, poolV, toks, pageTable, pos, start):
+            return self._paged_step_math(
+                poolK, poolV, self._slot_ids(toks), self._slot_ids(pageTable),
+                self._slot_ids(pos), self._slot_ids(start))
+        return step
+
+    def buildPagedProposeFn(self, draftK: int):
+        """The paged draft proposal: ``(poolK, poolV, tok (S,), pageTable,
+        pos, start) -> (proposals (S, draftK) int32, poolK, poolV)``, by
+        draftK+1 greedy steps (a Python loop where the reference scans), so
+        the k-th proposal's K/V is already paged in on a full accept."""
+        draftK = int(draftK)
+
+        @torch.no_grad()
+        def propose(poolK, poolV, tok, pageTable, pos, start):
+            tok, pageTable = self._slot_ids(tok), self._slot_ids(pageTable)
+            pos, start = self._slot_ids(pos), self._slot_ids(start)
+            props = []
+            for _ in range(draftK + 1):
+                greedy, poolK, poolV = self._paged_step_math(
+                    poolK, poolV, tok[:, None], pageTable, pos, start)
+                tok = greedy[:, 0].long()
+                props.append(greedy[:, 0])
+                pos = pos + 1
+            return torch.stack(props, dim=1)[:, :draftK], poolK, poolV
+        return propose
+
+    def buildPagedPrefillWriteFn(self):
+        """The pool write after a prefill: copy one sequence's stacked K/V
+        ((L, h, Tp, d), Tp a page multiple) into the pages named by
+        ``pageIds`` ((Tp / pageSize,) int), in place; returns (poolK,
+        poolV)."""
+        @torch.no_grad()
+        def write(poolK, poolV, kStack, vStack, pageIds):
+            L, h, Tp, d = kStack.shape
+            ps = poolK.shape[3]
+            nP = Tp // ps
+            ids = self._slot_ids(pageIds)
+            poolK[:, ids] = kStack.reshape(L, h, nP, ps, d).transpose(
+                1, 2).to(poolK.dtype)
+            poolV[:, ids] = vStack.reshape(L, h, nP, ps, d).transpose(
+                1, 2).to(poolV.dtype)
+            return poolK, poolV
+        return write
+
+    def compileCacheSize(self) -> None:
+        """None: eager PyTorch keeps no executable cache to count (the
+        reference's probe of its jit caches)."""
+        return None
 
     # ------------------------------------------------------------------
     def generate(self, prompts, maxNewTokens: int, lengths=None

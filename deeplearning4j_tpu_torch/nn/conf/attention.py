@@ -1,7 +1,9 @@
 """Attention layers and KV-cached attention — the port of
 ``deeplearning4j_tpu/nn/conf/attention.py``: ``_mha`` and
 ``SelfAttentionLayer`` (the reference's ``conf/layers/SelfAttentionLayer.
-java``), ``KVCache`` and ``cached_attention``.
+java``), ``KVCache``, ``cached_attention`` and ``paged_attention`` (the
+continuous batcher's paged-pool attention, plain torch ops as the
+reference's is plain ``jnp``).
 
 The score/softmax/context chain dispatches through
 ``parallel.ring.dot_product_attention``: the Hopper flash kernels (forward
@@ -9,10 +11,9 @@ and backward) for unmasked sequences of 1024 or more on CUDA, dense
 attention otherwise.  Data format follows the DL4J RNN convention
 (b, nIn, t); masks are (b, t) with 1 = valid.
 
-``SelfAttentionLayer.initCache``/``decodeStep``, ``paged_attention`` and
-the other three attention layers (``LearnedSelfAttentionLayer``,
-``RecurrentAttentionLayer``, ``KerasMultiHeadAttention``) wait for ROADMAP
-A7 and A11.
+``SelfAttentionLayer.initCache``/``decodeStep`` and the other three
+attention layers (``LearnedSelfAttentionLayer``, ``RecurrentAttentionLayer``,
+``KerasMultiHeadAttention``) wait for ROADMAP A7.
 """
 from __future__ import annotations
 
@@ -28,7 +29,8 @@ from deeplearning4j_tpu_torch.nn.conf.layers import BaseLayer, register_layer
 from deeplearning4j_tpu_torch.nn.weights import init_weight
 from deeplearning4j_tpu_torch.parallel.ring import dot_product_attention
 
-__all__ = ["SelfAttentionLayer", "KVCache", "cached_attention"]
+__all__ = ["SelfAttentionLayer", "KVCache", "cached_attention",
+           "paged_attention"]
 
 
 def _mha(x_btn, Wq, Wk, Wv, Wo, nHeads, mask=None, q_btn=None, impl="auto",
@@ -183,3 +185,66 @@ def cached_attention(qh, kh_new, vh_new, cache: KVCache):
     w = torch.softmax(s, dim=-1)
     ctx = torch.einsum("bhqk,bhkd->bhqd", w, v)
     return ctx, KVCache(cache.k, cache.v, end, cache.start)
+
+
+def paged_attention(qh, kh_new, vh_new, poolK, poolV, pageTable, pos,
+                    start):
+    """Causal attention of ``tq`` new positions against a PAGED KV pool —
+    the attention the continuous-batching scheduler (``remote/
+    scheduler.py``) decodes through: K/V live in a shared pool of
+    fixed-size pages and each decode SLOT addresses its own pages through a
+    page table, so admitting or retiring a sequence is a host-side
+    page-table edit, never a reallocation.
+
+    - ``qh``/``kh_new``/``vh_new``: (slots, heads, tq, headSize) for the
+      new positions only;
+    - ``poolK``/``poolV``: (numPages, heads, pageSize, headSize) — ONE
+      layer's shared page pool (page 0 is the scratch page inactive slots
+      write into);
+    - ``pageTable``: (slots, maxPagesPerSeq) int physical page ids in
+      logical order (unallocated tail entries point at the scratch page
+      and are masked out by ``pos``);
+    - ``pos``/``start``: (slots,) int — next write index and first valid
+      key index per slot (``KVCache.pos``/``KVCache.start``, per slot).
+
+    Writes the new K/V into their pages IN PLACE (``tq`` may span a page
+    boundary — each token's page and offset are computed on their own),
+    gathers every slot's pages back in logical order and attends with the
+    validity mask of :func:`cached_attention` (key index within
+    ``[start[s], pos[s]+i]`` for query ``i``).  Every written position must
+    lie inside the slot's table (the scheduler guarantees it).  Returns
+    ``(ctx, poolK, poolV)``, the pools being the tensors passed in (the
+    reference returns new arrays from a donated buffer).  Inactive slots
+    all write the scratch page at the same offsets: which of those writes
+    lands is unspecified, and harmless, because page 0 is never a valid
+    key.
+    """
+    S, h, tq, d = qh.shape
+    pageSize = poolK.shape[2]
+    pageTable = pageTable.long()
+    wpos = pos.long()[:, None] + torch.arange(tq, device=qh.device)[None, :]
+    phys = torch.gather(pageTable, 1, wpos // pageSize)          # (S, tq)
+    off = wpos % pageSize
+    # two index tensors around a slice: the indexed dims go first (numpy's
+    # rule, as in the reference's .at[phys, :, off, :]), (S, tq, h, d)
+    kv_shape = (S, tq, poolK.shape[1], poolK.shape[3])
+    k_new = kh_new.transpose(1, 2).to(poolK.dtype)
+    v_new = vh_new.transpose(1, 2).to(poolV.dtype)
+    if tuple(k_new.shape) != kv_shape or tuple(v_new.shape) != kv_shape:
+        raise ValueError(f"new K/V of shape {tuple(k_new.shape)} do not "
+                         f"fit the pool's (slots, tq, heads, headSize) "
+                         f"{kv_shape}")
+    poolK[phys, :, off, :] = k_new
+    poolV[phys, :, off, :] = v_new
+    cap = pageTable.shape[1] * pageSize
+    k = poolK[pageTable].transpose(1, 2).reshape(S, h, cap, d)
+    v = poolV[pageTable].transpose(1, 2).reshape(S, h, cap, d)
+    kpos = torch.arange(cap, device=qh.device)
+    valid = (kpos[None, None, :] <= wpos[:, :, None]) & \
+        (kpos[None, None, :] >= start.long()[:, None, None])  # (S, tq, cap)
+    s = torch.einsum("bhqd,bhkd->bhqk", qh, k.to(qh.dtype)) * \
+        (1.0 / math.sqrt(d))
+    s = torch.where(valid[:, None], s, -1e30)
+    w = torch.softmax(s, dim=-1)
+    ctx = torch.einsum("bhqk,bhkd->bhqd", w, v.to(qh.dtype))
+    return ctx, poolK, poolV

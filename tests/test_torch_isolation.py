@@ -198,3 +198,92 @@ def test_reference_public_names_import_from_both_packages(module, name):
     if name == "WorkspaceMode":
         assert {k: v for k, v in vars(port).items() if k.isupper()} == \
             {k: v for k, v in vars(ref).items() if k.isupper()}
+
+
+_IMPORT_ONE = """
+import importlib, sys
+importlib.import_module({name!r})
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in {forbidden!r})
+print("leaked:", bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+@pytest.mark.parametrize("sub", ["remote", "telemetry", "fault"])
+def test_serving_subpackages_import_no_jax_alone(sub):
+    """The serving tier's subpackages, each imported on its own, load
+    neither ``jax`` nor the JAX package (their telemetry and fault hooks
+    are the port's own copies)."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run(
+        [sys.executable, "-c", _IMPORT_ONE.format(
+            name=f"deeplearning4j_tpu_torch.{sub}",
+            forbidden=set(FORBIDDEN))],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+SERVING_NAMES = [
+    *(("remote", n) for n in (
+        "ContinuousBatcher", "KVCachePool", "ReplicaSet", "JsonModelServer",
+        "JsonRemoteInference", "SameDiffJsonModelServer",
+        "AdmissionControl", "BucketedExecutor", "BucketLadder",
+        "ForwardServing", "GenerativeServing", "InferenceServer",
+        "ModelRegistry", "ServiceOverloaded")),
+    *(("remote.serving", n) for n in (
+        "DeadlineExceeded", "NoHealthyReplicas", "histogram_quantile")),
+    *(("remote.server", n) for n in ("reply_safely", "stream_ndjson",
+                                     "KEEPALIVE")),
+    *(("telemetry", n) for n in (
+        "RequestContext", "TimelineStore", "current_context",
+        "parse_traceparent", "request_context", "set_timeline_store",
+        "timeline_store", "FlightRecorder", "flight_recorder",
+        "set_flight_recorder", "AlertRule", "HealthMonitor",
+        "ThresholdRule", "health_summary", "ServingMetrics",
+        "clear_exemplars", "exemplar_for", "latency_exemplars",
+        "observe_exemplar", "serving_metrics", "DEFAULT_BUCKETS",
+        "Counter", "Gauge", "Histogram", "MetricsRegistry", "get_registry",
+        "set_registry", "MetricsRetention", "ensure_retention",
+        "retention", "set_retention", "Tracer", "device_trace_active",
+        "set_device_trace_active", "set_tracer", "tracer")),
+    ("telemetry.http", "observability_route"),
+    *(("fault", n) for n in (
+        "InjectedReplicaCrash", "arm_replica_crash", "check_replica_crash",
+        "replica_dead", "revive_replica", "set_replica_slowdown",
+        "replica_slowdown", "clear_serving_faults")),
+    ("nn.conf.attention", "paged_attention"),
+]
+
+
+@pytest.mark.parametrize("module,name", SERVING_NAMES)
+def test_serving_tier_names_import_from_both_packages(module, name):
+    """The reference's public names of the serving tier, its telemetry and
+    its fault hooks resolve in the port under the same paths."""
+    import importlib
+    ref = getattr(importlib.import_module(f"deeplearning4j_tpu.{module}"),
+                  name)
+    port = getattr(importlib.import_module(
+        f"deeplearning4j_tpu_torch.{module}"), name)
+    if callable(ref):
+        assert callable(port)
+    else:
+        assert port == ref or type(port).__name__ == type(ref).__name__
+
+
+def test_serving_entry_points_default_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is usable")
+    from deeplearning4j_tpu_torch.remote import ContinuousBatcher, KVCachePool
+    from deeplearning4j_tpu_torch.remote.scheduler import place_replica
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        KVCachePool(1, 1, 4)
+    lm = TransformerLM(TransformerLMConfig(vocabSize=16, nLayers=1,
+                                           nHeads=1, headSize=4, maxLen=16),
+                       device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        place_replica(lm, None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ContinuousBatcher(lm, device="cuda", maxSlots=1)
+    cb = ContinuousBatcher(lm, maxSlots=1)          # follows the model
+    assert cb.pool.k.device.type == "cpu"
