@@ -258,7 +258,35 @@ which must pass or the script exits non-zero without a result line:
    (device time, device ops and idle share a decode step).  Phases 33-37 launch no kernel (counters
    read zero across each): the tier always masks its prefill (ROADMAP
    C2) and its decode attention is ``paged_attention``'s torch ops.  Each
-   number is printed beside the card's name and power limit.
+   number is printed beside the card's name and power limit;
+38. ``onnx_fixtures``: BASELINE config 3's model through the ONNX route
+   begins with the torch-exported fixtures of ``tests/test_onnx_oracle.py``
+   (``tests/fixtures/torch_{tiny_cnn,tiny_mlp,tiny_rnn,bert_mini}.onnx``)
+   and the narrow BERT export ``onnx_bert_narrow_b2_t16.onnx``, each
+   imported onto the card by ``OnnxImporter.importModel`` and held to
+   torch's own output (the oracle's tolerances, below);
+39. ``onnx_decode``: the committed skeleton of HF
+   ``BertModel(BertConfig(), add_pooling_layer=False)`` exported at 32 x
+   128 (``tests/fixtures/onnx_bert_base_b32_t128_skeleton.onnx``: every
+   node, the raw data of the 76 initializers over 4,096 bytes dropped) is
+   read by the port's ModelProto reader and held to its manifest: 639
+   nodes, their op histogram, each stripped initializer's dtype and shape;
+40. ``onnx_import_bert``: the stripped initializers refilled from
+   ``RandomState(0)`` with N(0, 0.02) (``_fill_stripped_initializers``, the
+   complete ModelProto re-encoded into a temporary file inside the
+   checkout), imported by ``OnnxImporter.importModel(path)`` onto the card
+   and with ``device="cpu"``: the reference's 419 SameDiff ops of 13 kinds,
+   78 variables; ``outputSingle`` of ``last_hidden_state`` at 32 x 128 in
+   FLOAT (int64 ids, the TF route's mask, token types 0 then 1) against
+   the CPU's (atol below); import seconds, forward ms and peak memory;
+41. ``onnx_finetune``: a 768 x 2 head on the CLS row,
+   ``softmaxCrossEntropy``, ``TrainingConfig(Adam(3e-4))`` and
+   ``fit(MultiDataSet)`` for 16 steps on one seeded batch: the loss must
+   fall; its first step is also run on the CPU from the same variables
+   and held as ``tf_finetune`` holds its step; ms per step, tokens/s, peak
+   memory and a profiled step.  Phases 38-41 launch no kernel (counters
+   read zero across each): the exported attention is the graph's
+   MatMul / Softmax chain.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``.  With ``--record PATH`` it also
@@ -462,6 +490,33 @@ TF_BERT_OUT_ATOL = 1e-4
 # every one to 2 lr + 1e-6.
 TF_BERT_LOSS_RTOL = 1e-4
 TF_BERT_PARAM_ATOL, TF_BERT_PARAM_SHARE = 1e-6, 0.999
+
+# BASELINE config 3's model through the ONNX route (phases 38-41): HF
+# BertModel(BertConfig(), add_pooling_layer=False) with eager attention
+# (the published bert-base-uncased widths), exported by torch's TorchScript
+# exporter at opset 17 through a wrapper that builds the additive mask by
+# broadcasting, at batch 32 x 128 (int64 input_ids, attention_mask,
+# token_type_ids), with the raw data of its 76 initializers over 4,096
+# bytes stripped (tests/fixtures/make_onnx_bert_skeleton.py); refilled from
+# RandomState(seed) with N(0, 0.02), BERT's initializer_range.  The TF
+# route's head and updater (a 768 x 2 head, Adam(3e-4), 16 steps on one
+# batch), on the CLS row.
+ONNX_BERT = dict(stem=os.path.join(ROOT, "tests", "fixtures",
+                                   "onnx_bert_base_b32_t128_skeleton"),
+                 nodes=639, stripped=76, batch=32, seq=128, vocab=30522,
+                 hidden=768, classes=2, seed=0, std=0.02, lr=3e-4,
+                 steps=16)
+# what the reference's OnnxImporter makes of that graph
+ONNX_BERT_OPS = {"add": 122, "cast": 1, "div": 24, "erf": 12,
+                 "expandDims": 2, "gather": 3, "layerNorm": 25, "mmul": 96,
+                 "mul": 25, "permute": 48, "reshape": 48, "softmax": 12,
+                 "sub": 1}
+# The torch-exported fixtures and their goldens (torch's eval forward):
+# the tolerances of tests/test_onnx_oracle.py, and the narrow BERT export
+# of the same generator at the CNN's
+ONNX_FIXTURES = {"torch_tiny_cnn": 1e-4, "torch_tiny_mlp": 1e-4,
+                 "torch_tiny_rnn": 1e-4, "torch_bert_mini": 2e-4,
+                 "onnx_bert_narrow_b2_t16": 1e-4}
 
 # The serving tier (phases 33-37): an InferenceServer on 127.0.0.1 serving
 # GPT-2 small at openai-community/gpt2's published widths (maxLen 1024 =
@@ -2864,6 +2919,314 @@ def phase_tf_graphrunner(torch, rec, gd, out_ref, card, c=TF_BERT):
 
 
 # ---------------------------------------------------------------------------
+# BERT-base through ONNX import (phases 38-41)
+# ---------------------------------------------------------------------------
+
+def _skeleton_writer():
+    """The skeleton generator's wire-level writer
+    (``tests/fixtures/make_onnx_bert_skeleton.py``; importing it needs
+    neither torch nor transformers)."""
+    import importlib.util
+    path = os.path.join(ROOT, "tests", "fixtures",
+                        "make_onnx_bert_skeleton.py")
+    spec = importlib.util.spec_from_file_location("make_onnx_bert_skeleton",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _fill_stripped_initializers(skeleton, manifest, seed=ONNX_BERT["seed"],
+                                std=ONNX_BERT["std"]):
+    """The complete ModelProto's bytes: the skeleton with the raw_data of
+    each initializer its generator stripped put back, in the manifest's
+    order each drawn from one ``np.random.RandomState(seed)`` as N(0, std)
+    in the initializer's dtype.  Every other byte is the skeleton's."""
+    import numpy as np
+    gen = _skeleton_writer()
+    rng = np.random.RandomState(seed)
+    raw = {e["name"]: rng.normal(0.0, std, e["shape"]).astype(e["dtype"])
+           .tobytes() for e in manifest["stripped"]}
+
+    def fill(tensor):                                 # TensorProto.raw_data
+        name = gen.tensor_header(tensor)[0]
+        return tensor + gen.field(9, raw.pop(name)) if name in raw \
+            else tensor
+
+    out = gen.rewrite_initializers(skeleton, fill)
+    if raw:
+        raise ValueError(f"initializers of the manifest not in the "
+                         f"skeleton: {sorted(raw)[:5]}")
+    return out
+
+
+def phase_onnx_fixtures(torch, rec, card):
+    """The torch-exported ONNX fixtures imported onto the card, each held
+    to torch's own output."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.imports import OnnxImporter
+    fix = os.path.join(ROOT, "tests", "fixtures")
+    _reset_counters()
+    res, bad = {}, []
+    for stem, tol in ONNX_FIXTURES.items():
+        io = np.load(os.path.join(fix, f"{stem}_io.npz"))
+        t0 = time.perf_counter()
+        sd, ins, outs = OnnxImporter.importModel(
+            os.path.join(fix, f"{stem}.onnx"))
+        feed = {n: io[n if n in io else "x"] for n in ins}
+        got = sd.outputSingle(feed, outs[0]).cpu().numpy()
+        err = float(np.abs(got - io["y"]).max()) \
+            if got.shape == io["y"].shape else float("inf")
+        res[stem] = dict(device=str(sd.device), max_abs_err=err, atol=tol,
+                         ops=len(sd._ops), s=time.perf_counter() - t0)
+        if err > tol or sd.device.type != "cuda":
+            bad.append(stem)
+        print(f"ONNX {stem}: {len(sd._ops)} ops on {sd.device}, |d|max "
+              f"{err:.3g} against torch's output (atol {tol}); {card}")
+    counts = _counters()
+    rec["onnx_fixtures"] = dict(fixtures=res, launches=counts, card=card)
+    _no_launches(rec, "onnx_fixtures", counts)
+    _require(not bad, f"ONNX fixtures unlike torch's output: {bad}")
+
+
+def _onnx_skeleton(c=ONNX_BERT):
+    with open(c["stem"] + ".json") as f:
+        manifest = json.load(f)
+    with open(c["stem"] + ".onnx", "rb") as f:
+        return f.read(), manifest
+
+
+def phase_onnx_decode(torch, rec, card, c=ONNX_BERT):
+    """Decode the committed skeleton with the port's ModelProto reader and
+    hold it to its manifest.  Returns (skeleton bytes, manifest)."""
+    from collections import Counter
+    from deeplearning4j_tpu_torch.imports.onnx_import import (
+        _DTYPES, _Node, _collect, _unpack_varints)
+    _reset_counters()
+    skeleton, manifest = _onnx_skeleton(c)
+    t0 = time.perf_counter()
+    graph = _collect(_collect(skeleton)[7][0])
+    nodes = [_Node(b) for b in graph.get(1, [])]
+    inits = {}
+    for b in graph.get(5, []):
+        f = _collect(b)
+        inits[f[8][0].decode()] = (
+            _DTYPES[f.get(2, [1])[0]].__name__, _unpack_varints(f.get(1, [])),
+            9 in f)
+    decode_s = time.perf_counter() - t0
+    hist = dict(Counter(n.op_type for n in nodes))
+    bad = [e["name"] for e in manifest["stripped"]
+           if inits.get(e["name"]) != (e["dtype"], e["shape"], False)]
+    counts = _counters()
+    rec["onnx_decode"] = dict(nodes=len(nodes), initializers=len(inits),
+                              stripped=len(manifest["stripped"]),
+                              onnx_bytes=len(skeleton), decode_s=decode_s,
+                              histogram=hist, mismatched=bad,
+                              launches=counts, card=card)
+    print(f"ONNX skeleton: {len(skeleton)} bytes, {len(nodes)} nodes and "
+          f"{len(inits)} initializers decoded in {decode_s:.3f} s, "
+          f"{len(manifest['stripped'])} stripped, {len(bad)} unlike the "
+          f"manifest; {card}")
+    _no_launches(rec, "onnx_decode", counts)
+    _require(len(nodes) == c["nodes"] == manifest["nodes"]
+             and hist == manifest["ops"],
+             f"{len(nodes)} nodes {hist}, manifest {manifest['nodes']} "
+             f"{manifest['ops']}")
+    _require(len(manifest["stripped"]) == c["stripped"] and not bad,
+             f"stripped initializers unlike the manifest: {bad}")
+    return skeleton, manifest
+
+
+def _onnx_bert_batch(c=ONNX_BERT):
+    """The TF route's seeded batch as the export's int64 inputs, with
+    token types 0 then 1."""
+    import numpy as np
+    ids, mask, y = _tf_bert_batch(c)
+    tt = np.zeros_like(ids)
+    tt[:, c["seq"] // 2:] = 1
+    return {"input_ids": ids.astype(np.int64),
+            "attention_mask": mask.astype(np.int64),
+            "token_type_ids": tt.astype(np.int64)}, y
+
+
+def phase_onnx_import_bert(torch, rec, skeleton, manifest, card,
+                           c=ONNX_BERT):
+    """Refill the skeleton, import it onto the card through
+    ``OnnxImporter.importModel(path)`` and run its FLOAT forward against
+    the same file imported on the CPU.  Returns (the card graph, the CPU
+    graph, the graph's input and output names)."""
+    import tempfile
+    from collections import Counter
+    from deeplearning4j_tpu_torch.imports import OnnxImporter
+    _reset_counters()
+    t0 = time.perf_counter()
+    model = _fill_stripped_initializers(skeleton, manifest, c["seed"],
+                                        c["std"])
+    fill_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        path = os.path.join(tmp, "bert_base.onnx")
+        with open(path, "wb") as f:
+            f.write(model)
+        del model
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated() / 1e9
+        t0 = time.perf_counter()
+        sd, ins, outs = OnnxImporter.importModel(path)
+        torch.cuda.synchronize()
+        import_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu, cins, couts = OnnxImporter.importModel(path, device="cpu")
+        cpu_import_s = time.perf_counter() - t0
+    _require(sd.device.type == "cuda" and (ins, outs) == (cins, couts),
+             f"the graph lives on {sd.device}; inputs {ins} {cins}")
+    hist = dict(Counter(n.op for n in sd._ops))
+    n_vars = sum(v.numel() for v in sd._var_values().values())
+    feed, _ = _onnx_bert_batch(c)
+    out = outs[0]
+    g = sd.outputSingle(feed, out)                      # warm-up
+    n = 5
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        g = sd.outputSingle(feed, out)
+    torch.cuda.synchronize()
+    fwd_ms = (time.perf_counter() - t0) * 1e3 / n
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    h = cpu.outputSingle(feed, out)
+    cpu_s = time.perf_counter() - t0
+    g = g.cpu()
+    err = float((g - h).abs().max())
+    counts = _counters()
+    rec["onnx_import_bert"] = dict(
+        fill_s=fill_s, import_s=import_s, cpu_import_s=cpu_import_s,
+        forward_ms=fwd_ms, peak_gb=peak, held_before_gb=held,
+        ops=sum(hist.values()),
+        op_kinds=len(hist), histogram=hist,
+        variables=len(sd._var_values()), parameters=n_vars,
+        out_err_vs_cpu=err, cpu_forward_s=cpu_s, launches=counts,
+        card=card)
+    print(f"ONNX import of BERT-base: refill {fill_s:.2f} s, import onto "
+          f"the card {import_s:.2f} s (CPU {cpu_import_s:.2f} s), "
+          f"{sum(hist.values())} ops of {len(hist)} kinds, "
+          f"{len(sd._var_values())} variables ({n_vars} parameters); {card}")
+    print(f"ONNX BERT-base FLOAT forward {c['batch']} x {c['seq']} (last "
+          f"{BERT_PAD} positions of half the rows masked): {fwd_ms:.2f} ms, "
+          f"peak {peak:.2f} GB ({held:.2f} GB of it held before the "
+          f"phase); card vs CPU |d|max {err:.3g} (atol {TF_BERT_OUT_ATOL}; "
+          f"CPU forward {cpu_s:.1f} s); {card}")
+    _no_launches(rec, "onnx_import_bert", counts)
+    _require(hist == ONNX_BERT_OPS,
+             f"op histogram {hist}, the reference's {ONNX_BERT_OPS}")
+    _require(tuple(g.shape) == (c["batch"], c["seq"], c["hidden"])
+             and bool(g.isfinite().all()) and err <= TF_BERT_OUT_ATOL,
+             f"output {tuple(g.shape)}, card vs CPU |d|max {err}")
+    return sd, cpu, ins, out
+
+
+def _onnx_head(sd, ins, out, c=ONNX_BERT):
+    """A two-class head on the CLS row and the TF route's training
+    config."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.autodiff import TrainingConfig
+    from deeplearning4j_tpu_torch.learning import Adam
+    rng = np.random.RandomState(c["seed"] + 1)
+    w = sd.var("cls/W", (rng.randn(c["hidden"], c["classes"]) * 0.05)
+               .astype(np.float32))
+    labels = sd.placeholder("labels", shape=[c["batch"], c["classes"]])
+    cls = sd.getVariable(out).get(slice(None), 0).reshape(c["batch"],
+                                                          c["hidden"])
+    loss = sd.loss().softmaxCrossEntropy(labels, cls.mmul(w), name="loss")
+    sd.setLossVariables(loss)
+    sd.setTrainingConfig(TrainingConfig(
+        updater=Adam(c["lr"]), dataSetFeatureMapping=list(ins),
+        dataSetLabelMapping=["labels"]))
+
+
+def phase_onnx_finetune(torch, rec, gpu, cpu, ins, out, card, c=ONNX_BERT):
+    """Fine-tune the imported BERT-base on the card; its first step held
+    against the same step on the CPU."""
+    import math
+    from deeplearning4j_tpu_torch.datasets import MultiDataSet
+    for sd in (gpu, cpu):
+        _onnx_head(sd, ins, out, c)
+    feed, y = _onnx_bert_batch(c)
+    mds = MultiDataSet(features=[feed[n] for n in ins], labels=[y])
+    feed = {**feed, "labels": y}
+    _reset_counters()
+    l0 = float(gpu.outputSingle(feed, "loss"))
+    first = {}
+    for dev, sd in (("cuda", gpu), ("cpu", cpu)):
+        t0 = time.perf_counter()
+        first[dev] = sd.fit(mds).finalTrainingLoss()
+        rec.setdefault("onnx_step_s", {})[dev] = time.perf_counter() - t0
+    e_l = abs(first["cuda"] - first["cpu"])
+    n_total = n_in = 0
+    e_p = 0.0
+    for n, v in cpu._var_values().items():
+        d = (gpu._arrays[n].cpu() - v).abs()
+        n_total += d.numel()
+        n_in += int((d <= TF_BERT_PARAM_ATOL).sum())
+        e_p = max(e_p, float(d.max()))
+    share = n_in / n_total
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    hist = gpu.fit(mds, epochs=c["steps"] - 1)   # ends in one loss fetch
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    l1 = float(gpu.outputSingle(feed, "loss"))
+    curve = [first["cuda"]] + hist.lossCurve()
+    p = _device_breakdown(torch, lambda: gpu.fit(mds), top=10)
+    counts = _counters()
+    ms = wall * 1e3 / (c["steps"] - 1)
+    r = dict(loss_before=l0, loss_after=l1, losses=curve,
+             iterations=gpu.iterationCount, ms_per_step=ms,
+             tokens_per_s=c["batch"] * c["seq"] * 1e3 / ms, peak_gb=peak,
+             held_before_gb=held,
+             step_loss_card=first["cuda"], step_loss_cpu=first["cpu"],
+             step_loss_err=e_l, step_params_err=e_p,
+             step_params_within_atol=share, step_profile=p,
+             launches=counts, card=card)
+    rec["onnx_finetune"] = r
+    lr = c["lr"]
+    print(f"ONNX BERT-base FLOAT fine-tune step, {c['batch']} x {c['seq']},"
+          f" card vs CPU: loss {first['cuda']:.7g} vs {first['cpu']:.7g} "
+          f"(|d| {e_l:.3g}, rtol {TF_BERT_LOSS_RTOL}); variables |d|max "
+          f"{e_p:.3g} (bound 2 lr + 1e-6 = {2 * lr + 1e-6:.3g}), "
+          f"{share:.6f} of them within {TF_BERT_PARAM_ATOL} (at least "
+          f"{TF_BERT_PARAM_SHARE}); CPU step {rec['onnx_step_s']['cpu']:.1f}"
+          f" s; {card}")
+    print(f"ONNX BERT-base fine-tune, Adam({lr}), {c['steps']} steps on one"
+          f" batch: loss {l0:.4f} -> {l1:.4f}; {ms:.2f} ms a step, "
+          f"{r['tokens_per_s']:.0f} tokens/s over {c['steps'] - 1} steps, "
+          f"peak {peak:.2f} GB ({held:.2f} GB of it held before the "
+          f"steps); {card}")
+    if p["device_busy_ms"] is None:
+        print(f"profile onnx_finetune step: no device time in the trace "
+              f"(not measured); {card}")
+    else:
+        r["idle_share_unprofiled"] = 1 - p["device_busy_ms"] / ms
+        print(f"profile onnx_finetune step: wall {p['wall_ms']:.2f} ms, "
+              f"device busy {p['device_busy_ms']:.2f} ms, idle share "
+              f"{p['idle_share']:.3f} ({r['idle_share_unprofiled']:.3f} of "
+              f"an unprofiled step), {p['device_ops']} device kernels and "
+              f"copies; {card}")
+        for kname, kms in p["top"]:
+            print(f"  {kms:9.3f} ms  {kname}")
+    _no_launches(rec, "onnx_finetune", counts)
+    _require(e_l <= TF_BERT_LOSS_RTOL * abs(first["cpu"])
+             and share >= TF_BERT_PARAM_SHARE and e_p <= 2 * lr + 1e-6,
+             f"the card's fine-tune step disagrees with the CPU's: "
+             f"loss {e_l}, variables {e_p}, share {share}")
+    _require(all(math.isfinite(v) for v in curve) and l1 < l0,
+             f"the fine-tune loss did not fall: {l0} -> {l1}, {curve}")
+
+
+# ---------------------------------------------------------------------------
 # the serving tier (phases 33-37)
 # ---------------------------------------------------------------------------
 
@@ -3742,6 +4105,19 @@ def main(argv) -> int:
             finally:
                 serve["server"].stop()
         del serve
+        # BASELINE config 3's model through the ONNX route
+        run("onnx_fixtures", phase_onnx_fixtures, torch, rec, card)
+        dec = run("onnx_decode", phase_onnx_decode, torch, rec, card)
+        if dec is not None:
+            imp = run("onnx_import_bert", phase_onnx_import_bert, torch, rec,
+                      *dec, card)
+            if imp is not None:
+                gpu, cpu, ins, out = imp
+                imp = None
+                run("onnx_finetune", phase_onnx_finetune, torch, rec, gpu,
+                    cpu, ins, out, card)
+                del gpu, cpu
+        del dec
 
     rec["card"] = card
     rec["failed"] = failed
@@ -3759,7 +4135,8 @@ def main(argv) -> int:
     # (B1 runs on both paths; B2 and B3 on the training path only), and B4's
     # from its run on ResNet-50's activations (the model dispatches none);
     # the phases without a hand kernel on their path (recurrent, BERT, the
-    # loop around fit, TF import) add none (each checked zero).
+    # loop around fit, TF import, serving tier, ONNX import) add none (each
+    # checked zero).
     # B1's times are at the serving shape (f32, causal), B2's and B3's at
     # the training shape in its dtype (bf16, not causal), B4's at ResNet-50's
     # stage-0 shape in bf16; the record holds the other shapes too.

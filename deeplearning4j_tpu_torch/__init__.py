@@ -15,7 +15,7 @@ tests) — a CUDA tensor reaches the kernel or raises.
 Ported so far (the serving slice, the long-context training slice, the
 ResNet-50 slice, the recurrent slice, BERT on SameDiff, the training
 user's loop around ``fit`` with LeNet-MNIST, BERT-base through TF import,
-then the serving tier):
+the serving tier, then BERT-base through ONNX import):
 
 - ``parallel.ring``      — dense / blockwise / flash attention (forward and
                            backward kernels, ``FlashAttention``) and the
@@ -41,12 +41,15 @@ then the serving tier):
 - ``nlp.bert_iterator``  — ``BertIterator`` (MLM and sequence-
                            classification batches);
 - ``autodiff``           — SameDiff: the graph, its registered ops (the
-                           core and the ``ops_ext`` ops the TF importer
-                           emits), ``output``, gradients, ``fit``, the zip
-                           serde, listeners, ``evaluate``;
+                           core and the ``ops_ext`` ops the TF and ONNX
+                           importers emit), ``output``, gradients,
+                           ``fit``, the zip serde, listeners,
+                           ``evaluate``;
 - ``imports``            — ``TFGraphMapper`` (frozen GraphDef -> SameDiff,
-                           read by the port's own wire decoder) and
-                           ``GraphRunner``;
+                           read by the port's own wire decoder),
+                           ``GraphRunner`` and ``OnnxImporter`` (ONNX
+                           ModelProto -> SameDiff, read by the port's own
+                           reader);
 - ``nn``, ``nn.conf``    — activations, weight init, losses, ``InputType``,
                            preprocessors, the config DSL and its JSON,
                            ``DenseLayer``, ``LossLayer``, the CNN layers

@@ -1,6 +1,9 @@
 """Extended SameDiff ops, part 1: the port of the ops of
-``deeplearning4j_tpu/autodiff/ops_ext.py`` that the TF importer's rules
-emit (math, segment, scatter/gather, shape surgery, top-k, linalg, image).
+``deeplearning4j_tpu/autodiff/ops_ext.py`` that the TF and ONNX
+importers' rules emit (math, segment, scatter/gather, shape surgery, top-k,
+linalg, image; ``hardSwish``, ``logSumExp``, ``prelu``,
+``thresholdRelu``, ``standardize``, ``takeAlongAxis``, ``putAlongAxis``
+and ``split`` for ONNX).
 
 Only those ops come over; the rest of the file (its other ops and the
 ``sd.image()`` / ``sd.rnn()`` / ``sd.linalg()`` namespaces) waits for
@@ -14,8 +17,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from deeplearning4j_tpu_torch.autodiff.samediff import (OP_IMPLS, _simple,
-                                                        register_op)
+from deeplearning4j_tpu_torch.autodiff.samediff import (OP_IMPLS, _axis_op,
+                                                        _simple, register_op)
 from deeplearning4j_tpu_torch.nn.conf.layers import _pad2d, _same_pads
 
 # ---------------------------------------------------------------------------
@@ -451,3 +454,77 @@ def _extract_patches(kH=3, kW=3, sH=1, sW=1, isSameMode=False, **_):
         return p.permute(0, 3, 4, 2, 1).reshape(b, oh, ow, kh * kw * c)
     return f
 
+
+# ---------------------------------------------------------------------------
+# the ops the ONNX importer's rules emit (HardSwish, ReduceLogSumExp, PRelu,
+# ThresholdedRelu, MeanVarianceNormalization, GatherElements,
+# ScatterElements, Split)
+# ---------------------------------------------------------------------------
+_simple("hardSwish", lambda x: x * torch.clamp(x / 6.0 + 0.5, 0.0, 1.0))
+_axis_op("logSumExp", torch.logsumexp)
+
+
+@register_op("prelu")
+def _prelu(**_):
+    return lambda x, alpha: torch.where(x >= 0, x, alpha * x)
+
+
+@register_op("thresholdRelu")
+def _threshold_relu(cutoff=0.0, **_):
+    return lambda x: torch.where(x > cutoff, x, 0.0)
+
+
+@register_op("standardize")
+def _standardize(dims=None, **_):
+    ax = tuple(dims) if dims is not None else (-1,)
+
+    def f(x):
+        mu = torch.mean(x, dim=ax, keepdim=True)
+        sd = torch.std(x, dim=ax, correction=0, keepdim=True)
+        return (x - mu) / torch.clamp(sd, min=1e-12)
+    return f
+
+
+@register_op("takeAlongAxis")
+def _take_along_axis(axis=-1, **_):
+    def f(x, i):
+        # numpy's rules: a negative index wraps, and x and the indices
+        # broadcast against each other in every dim but ``axis``
+        ax = int(axis) % x.dim()
+        i = i.to(torch.int64)
+        i = torch.where(i < 0, i + x.shape[ax], i)
+        rest = torch.broadcast_shapes(
+            tuple(1 if d == ax else n for d, n in enumerate(x.shape)),
+            tuple(1 if d == ax else n for d, n in enumerate(i.shape)))
+        xs, ix = list(rest), list(rest)
+        xs[ax], ix[ax] = x.shape[ax], i.shape[ax]
+        return torch.gather(x.expand(xs), ax, i.expand(ix))
+    return f
+
+
+@register_op("putAlongAxis")
+def _put_along_axis(axis=-1, reduction="none", **_):
+    """Element-wise scatter (np.put_along_axis / ONNX ScatterElements):
+    out[..., idx[i,j], ...] = upd[i,j] along ``axis``, any rank."""
+    def f(x, idx, upd):
+        ax = int(axis) % x.dim()
+        idx = idx.to(torch.int64)
+        idx = torch.where(idx < 0, idx + x.shape[ax], idx)
+        upd = upd.to(x.dtype).expand(idx.shape)
+        if reduction == "add":
+            return x.scatter_add(ax, idx, upd)
+        if reduction == "mul":
+            return x.scatter_reduce(ax, idx, upd, "prod")
+        return x.scatter(ax, idx, upd)
+    return f
+
+
+@register_op("split")
+def _split(numSplit=2, dimension=0, **_):
+    def f(x):
+        d, n = int(dimension), int(numSplit)
+        if x.shape[d] % n:
+            raise ValueError(f"split: {x.shape[d]} does not divide into "
+                             f"{n} equal parts")
+        return list(torch.split(x, x.shape[d] // n, dim=d))
+    return f

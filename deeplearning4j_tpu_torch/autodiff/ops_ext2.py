@@ -1,7 +1,9 @@
 """Extended SameDiff ops, part 2: the port of the ops of
-``deeplearning4j_tpu/autodiff/ops_ext2.py`` that the TF importer's rules
-emit (math stragglers, bitwise, fft, decompositions, the bounded dynamic
-ops, histogram, LRN, random, colour spaces, non-max suppression).
+``deeplearning4j_tpu/autodiff/ops_ext2.py`` that the TF and ONNX
+importers' rules emit (math stragglers, bitwise, fft, decompositions, the
+bounded dynamic ops, histogram, LRN, random, colour spaces, non-max
+suppression; ``l2Normalize``, ``triu``, ``tril`` and ``deconv2d`` for
+ONNX).
 
 Only those ops come over; the rest waits for ROADMAP A12b.  The bounded
 dynamic ops keep the reference's static-shape convention: outputs are
@@ -16,8 +18,10 @@ import math
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from deeplearning4j_tpu_torch.autodiff.samediff import (OP_IMPLS, _gen,
+from deeplearning4j_tpu_torch.autodiff.samediff import (OP_IMPLS, SDMath,
+                                                        _gen, _ns_unary,
                                                         _simple, register_op)
 
 # ---------------------------------------------------------------------------
@@ -426,4 +430,53 @@ def _nms(maxOutputSize=10, iouThreshold=0.5, scoreThreshold=-math.inf,
             overlaps = iou(boxes[best], boxes) > iouThreshold
             live = live & ~overlaps & (ar != best) & ok
         return torch.stack(out).to(torch.int32)
+    return f
+
+
+# ---------------------------------------------------------------------------
+# the ops the ONNX importer's rules emit (LpNormalization, Trilu,
+# ConvTranspose)
+# ---------------------------------------------------------------------------
+@register_op("l2Normalize")
+def _l2_normalize(dims=None, **_):
+    # axis-aware (ONNX LpNormalization passes dims); default last axis
+    ax = tuple(dims) if dims is not None else (-1,)
+    return lambda x: x / torch.clamp(
+        torch.sqrt(torch.sum(x * x, dim=ax, keepdim=True)), min=1e-12)
+
+
+_simple("triu", torch.triu)
+_simple("tril", torch.tril)
+
+# the ONNX rules call these through sd.math(), as the reference's
+# ops_ext2 adds them there
+for _n in ["asinh", "acosh", "atanh"]:
+    setattr(SDMath, _n, _ns_unary(_n))
+del _n
+
+
+@register_op("deconv2d")
+def _deconv2d(sH=1, sW=1, pH=0, pW=0, isSameMode=False, **_):
+    def f(x, w, *bias):   # w (o, i, kh, kw)
+        # the reference's lowering: a fractionally-strided conv with the
+        # kernel flipped (the input dilated by the stride, then padded —
+        # negative pads crop — and convolved)
+        sh, sw = int(sH), int(sW)
+        kh, kw = w.shape[2], w.shape[3]
+        b, c, h, wd = x.shape
+        if isSameMode:
+            oh, ow = h * sh, wd * sw
+            th = (h - 1) * sh + kh - oh
+            tw = (wd - 1) * sw + kw - ow
+            pads = [((kh - 1) - th // 2 - th % 2, (kh - 1) - th // 2),
+                    ((kw - 1) - tw // 2 - tw % 2, (kw - 1) - tw // 2)]
+        else:
+            pads = [(kh - 1 - int(pH),) * 2, (kw - 1 - int(pW),) * 2]
+        xd = x.new_zeros((b, c, (h - 1) * sh + 1, (wd - 1) * sw + 1))
+        xd[:, :, ::sh, ::sw] = x
+        xd = F.pad(xd, (pads[1][0], pads[1][1], pads[0][0], pads[0][1]))
+        y = F.conv2d(xd, torch.flip(w, (2, 3)))
+        if bias:
+            y = y + bias[0].reshape(1, -1, 1, 1)
+        return y
     return f

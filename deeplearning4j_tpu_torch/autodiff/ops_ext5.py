@@ -2,12 +2,14 @@
 ``deeplearning4j_tpu/autodiff/ops_ext5.py`` that the TF importer's rules
 emit (TF's LSTM blocks, the tensor-scatter family, ``einsum``,
 ``searchsorted`` / ``bucketize``, shape utilities, ``imageResize``,
-``diagPart`` and the ``multinomial`` alias).  The rest waits for ROADMAP
-A12b.
+``diagPart`` and the ``multinomial`` alias), and those the ONNX importer's
+rules emit (``instanceNorm``, ``groupNorm``, ``pnormPool2d``, ``splitV``).
+The rest waits for ROADMAP A12b.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from deeplearning4j_tpu_torch.autodiff.ops_ext import (_jax_resize,
                                                        _nd_index)
@@ -183,3 +185,53 @@ def _image_resize(height=0, width=0, method="bilinear", **_):
 
 
 OP_IMPLS["multinomial"] = OP_IMPLS["random_multinomial"]
+
+
+# ---------------------------------------------------------------------------
+# the ops the ONNX importer's rules emit (InstanceNormalization,
+# GroupNormalization, LpPool, Split with sizes)
+# ---------------------------------------------------------------------------
+@register_op("instanceNorm")
+def _instance_norm(epsilon=1e-5, **_):
+    def f(x, gamma, beta):
+        # x: (b, c, *spatial) — normalize each (b, c) over spatial dims
+        ax = tuple(range(2, x.dim()))
+        mu = torch.mean(x, dim=ax, keepdim=True)
+        var = torch.var(x, dim=ax, correction=0, keepdim=True)
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        return ((x - mu) * torch.rsqrt(var + epsilon)
+                * gamma.reshape(shape) + beta.reshape(shape))
+    return f
+
+
+@register_op("groupNorm")
+def _group_norm(numGroups=2, epsilon=1e-5, **_):
+    def f(x, gamma, beta):
+        b, c = x.shape[0], x.shape[1]
+        spatial = tuple(x.shape[2:])
+        g = x.reshape((b, numGroups, c // numGroups) + spatial)
+        ax = tuple(range(2, g.dim()))
+        mu = torch.mean(g, dim=ax, keepdim=True)
+        var = torch.var(g, dim=ax, correction=0, keepdim=True)
+        g = (g - mu) * torch.rsqrt(var + epsilon)
+        shape = (1, -1) + (1,) * len(spatial)
+        return g.reshape(x.shape) * gamma.reshape(shape) + beta.reshape(shape)
+    return f
+
+
+@register_op("pnormPool2d")
+def _pnorm_pool2d(kH=2, kW=2, sH=2, sW=2, pnorm=2, **_):
+    def f(x):
+        # x: (b, c, h, w) NCHW (DL4J PnormLayer convention); the window's
+        # sum of |x|^p (an average pool that divides by 1), VALID
+        p = float(pnorm)
+        s = F.avg_pool2d(torch.abs(x) ** p, (int(kH), int(kW)),
+                         (int(sH), int(sW)), divisor_override=1)
+        return s ** (1.0 / p)
+    return f
+
+
+@register_op("splitV")
+def _split_v(sizes=(), axis=0, **_):
+    sz = [int(s) for s in sizes]
+    return lambda x: list(torch.split(x, sz, dim=int(axis)))

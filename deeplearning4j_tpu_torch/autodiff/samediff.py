@@ -18,7 +18,8 @@ and float32 graph constants are cast to bf16 for the forward, each loss
 output is summed in float32, the L1/L2 penalties act on the float32
 masters, and the gradients arrive in float32 for the updater.
 
-The ``ops_ext`` modules register the extended ops the TF importer emits.
+The ``ops_ext`` modules register the extended ops the TF and ONNX
+importers emit.
 Not ported yet, and raising where they are called: the control-flow ops
 (``whileLoop`` / ``ifCond`` / ``forLoop``), the rest of the ``ops_ext``
 families with ``sd.image()`` / ``sd.rnn()`` / ``sd.linalg()``,
@@ -1866,8 +1867,9 @@ class SameDiff:
         return "\n".join(lines)
 
 
-# The ops of the reference's ops_ext families that the TF importer emits
-# register themselves into OP_IMPLS on import (the rest is ROADMAP A12b).
+# The ops of the reference's ops_ext families that the TF and ONNX importers
+# emit register themselves into OP_IMPLS on import (the rest is ROADMAP
+# A12b).
 from deeplearning4j_tpu_torch.autodiff import ops_ext  # noqa: E402,F401  isort:skip
 from deeplearning4j_tpu_torch.autodiff import ops_ext2  # noqa: E402,F401  isort:skip
 from deeplearning4j_tpu_torch.autodiff import ops_ext3  # noqa: E402,F401  isort:skip

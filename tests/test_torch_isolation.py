@@ -1,7 +1,7 @@
 """The port stands alone: ``deeplearning4j_tpu_torch`` and ``chip_smoke.py``
 import neither ``jax`` nor anything of ``deeplearning4j_tpu``; importing
 the port loads no other framework (tensorflow, onnx, transformers, keras:
-the TF importer reads GraphDefs with its own decoder); the port's entry
+the TF and ONNX importers read their protobufs with their own readers); the port's entry
 points default to CUDA with no silent CPU fallback; and the reference's
 public import paths resolve in the port too (ROADMAP C7)."""
 import ast
@@ -287,3 +287,65 @@ def test_serving_entry_points_default_to_cuda():
         ContinuousBatcher(lm, device="cuda", maxSlots=1)
     cb = ContinuousBatcher(lm, maxSlots=1)          # follows the model
     assert cb.pool.k.device.type == "cpu"
+
+
+ONNX_MODULES = ["onnx_import", "onnx_import_ext", "onnx_import_ext2",
+                "onnx_import_ext3"]
+
+
+@pytest.mark.parametrize("mod", ONNX_MODULES)
+def test_onnx_importer_modules_import_no_jax_alone(mod):
+    """Each module of the ONNX importer, imported on its own, loads
+    neither ``jax``, the JAX package nor the ``onnx`` package (the
+    ModelProto reader is the port's own)."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run(
+        [sys.executable, "-c", _IMPORT_ONE.format(
+            name=f"deeplearning4j_tpu_torch.imports.{mod}",
+            forbidden=set(FORBIDDEN) | {"onnx"})],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("name", ["OnnxImporter", "importOnnxModel"])
+def test_onnx_importer_names_import_from_both_packages(name):
+    import importlib
+    for pkg in ("deeplearning4j_tpu", "deeplearning4j_tpu_torch"):
+        assert callable(getattr(importlib.import_module(f"{pkg}.imports"),
+                                name))
+    from deeplearning4j_tpu_torch.imports import onnx_import
+    assert getattr(onnx_import, name) is getattr(
+        importlib.import_module("deeplearning4j_tpu_torch.imports"), name)
+
+
+def test_onnx_rule_table_is_the_references():
+    from deeplearning4j_tpu.imports.onnx_import import _ONNX_OPS as ref
+    from deeplearning4j_tpu_torch.imports.onnx_import import _ONNX_OPS
+    assert len(ref) == 142 and sorted(_ONNX_OPS) == sorted(ref)
+
+
+def test_op_registry_holds_the_onnx_rules_ops():
+    """The ONNX slice took the registry from 251 ops to 282: the 14
+    ``onnx_*`` helper ops and the 17 core ops the rules emit, each a name
+    of the reference's registry."""
+    import deeplearning4j_tpu.imports  # noqa: F401  (registers onnx_*)
+    import deeplearning4j_tpu_torch.imports  # noqa: F401
+    from deeplearning4j_tpu.autodiff.samediff import OP_IMPLS as REF
+    from deeplearning4j_tpu_torch.autodiff.samediff import OP_IMPLS
+    assert len(OP_IMPLS) == 282
+    assert sorted(set(OP_IMPLS) - set(REF)) == []
+    assert len([n for n in OP_IMPLS if n.startswith("onnx_")]) == 14
+
+
+def test_onnx_importer_entry_points_default_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is usable")
+    from deeplearning4j_tpu_torch.imports import (OnnxImporter,
+                                                  importOnnxModel)
+    model = str(REPO / "tests" / "fixtures" / "torch_tiny_mlp.onnx")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        OnnxImporter.importModel(model)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        importOnnxModel(model)
+    sd, _, _ = importOnnxModel(model, device="cpu")
+    assert sd.device.type == "cpu"

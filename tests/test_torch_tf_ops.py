@@ -345,6 +345,10 @@ def test_every_op_the_tf_rules_emit_is_ported():
     core = set(re.findall(r'"(\w+)"', Path(samediff.__file__).read_text()))
     ported = set(OP_IMPLS) - core
     assert "tf_conv2dBackpropInput" in ported and "einsum" in ported
+    # the ops the ONNX importer's rules added are held by their own cases
+    import test_torch_onnx_ops as onnx_ops
+    tested |= {c.values[0]["op"] for c in onnx_ops.CASES} | {
+        "onnx_bernoulli"}
     untested = ported - tested - {"random_shuffle", "random_multinomial",
                                   "multinomial", "random_truncated_normal",
                                   "unique", "uniqueWithCounts"}
