@@ -286,7 +286,39 @@ which must pass or the script exits non-zero without a result line:
    and held as ``tf_finetune`` holds its step; ms per step, tokens/s, peak
    memory and a profiled step.  Phases 38-41 launch no kernel (counters
    read zero across each): the exported attention is the graph's
-   MatMul / Softmax chain.
+   MatMul / Softmax chain;
+42. ``yolo2_train``: the zoo's main path, ``YOLO2().init()`` as the
+   reference builds it (80 classes, (3, 416, 416), the five COCO priors;
+   50,962,889 parameters) on the card in FLOAT, trained by
+   ``ComputationGraph.fit(ListDataSetIterator, epochs=1)`` on 4 seeded
+   batches of 16 synthetic images with labels in ``Yolo2OutputLayer``'s
+   DL4J format (1-4 boxes an image): ``iterationCount`` 4 and finite
+   scores, then one batch refit 8 times: the score must fall;
+43. ``yolo2_step``: one FLOAT step at batch 2 from the same initial
+   parameters on the card and on the CPU (loss and BN running statistics
+   at the ResNet-50 step's tolerances, parameters at Adam's, below);
+44. ``yolo2_transfer``: dl4j-examples' HouseNumberDetection flow.  The
+   trained net saved by ``ModelSerializer`` as
+   ``pretrained/YOLO2_IMAGENET.zip`` under a ``DL4J_TPU_DATA_DIR`` in a
+   temporary directory inside the checkout, ``YOLO2().initPretrained()``
+   restores it onto the card bit for bit and scores (ROADMAP C16: the
+   reference's restore cannot); ``TransferLearning.GraphBuilder`` with
+   ``Adam(1e-4)``, the backbone frozen through ``c21_bn``, ``pred`` and
+   ``yolo`` replaced for 10 classes and the example's priors, 8 steps at
+   batch 10: the frozen parameters bit-unchanged, the head moved, the
+   loss finite and falling;
+45. ``yolo2_timing``: ms a step and images/s at batch 16, peak memory,
+   the convolutions' FLOPs and their share of the FP32 peak, one
+   profiled step (device time, idle share, device ops, top kernels);
+46. ``zoo_sweep``: every other ported zoo model (``SimpleCNN``,
+   ``AlexNet``, ``VGG16``, ``VGG19``, ``SqueezeNet``, ``Darknet19``,
+   ``TinyYOLO``, ``UNet``, ``Xception``, ``InceptionResNetV1``,
+   ``NASNet``, ``FaceNetNN4Small2``, ``TextGenerationLSTM``, ``C3D``) at
+   its default input shape and classes, built on the card: the output
+   shape the configuration gives, one fit step at batch 2 with a finite
+   score, FaceNet's embeddings of unit norm (1e-4); parameters, step ms
+   and peak memory each.  Phases 42-46 launch no kernel (counters read
+   zero across each): no TPU kernel is on the zoo's path.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``.  With ``--record PATH`` it also
@@ -517,6 +549,50 @@ ONNX_BERT_OPS = {"add": 122, "cast": 1, "div": 24, "erf": 12,
 ONNX_FIXTURES = {"torch_tiny_cnn": 1e-4, "torch_tiny_mlp": 1e-4,
                  "torch_tiny_rnn": 1e-4, "torch_bert_mini": 2e-4,
                  "onnx_bert_narrow_b2_t16": 1e-4}
+
+# The zoo (phases 42-46): YOLO2 as the reference's zoo builds it
+# (zoo/models4.py YOLO2(): 80 classes, (3, 416, 416), the five COCO priors;
+# 23 convolutions, the 26x26 passthrough reorganised by SpaceToDepthLayer(2))
+# in FLOAT, on seeded synthetic images with DL4J-format labels: 4 batches
+# of 16 through fit, a batch refit 8 times, then timed.
+YOLO2_RUN = dict(batch=16, batches=4, refit=8, check_batch=2, warm=2,
+                 timed=5, boxes=(1, 4), seed=0, refit_lr=1e-5)
+# The zoo's own updater, Adam(1e-3), does not train YOLO2 from random
+# weights: Adam's first steps move every parameter by ~lr whatever its
+# gradient, the backbone's features shift along the head's weights, the
+# head's wh grows and exp(wh) with it, and the loss rises until it
+# overflows (the reference's does the same on the same batches;
+# tests/test_torch_zoo.py holds one step of each to the other).  So the
+# 4-batch fit checks finite scores only, and the descent check refits a
+# copy of the initial net at Adam(1e-5), where the first steps do not
+# overshoot (at 1e-4 the first step still does); that net is the one
+# timed.
+YOLO2_PARAMS = 50_962_889          # the reference's numParams() of YOLO2()
+# The fine-tune of dl4j-examples' HouseNumberDetection: the backbone
+# through c21_bn frozen, pred and yolo replaced for 10 classes and its
+# priors, Adam 1e-4, 8 steps at batch 10 on one seeded batch.
+YOLO2_TRANSFER = dict(numClasses=10, batch=10, steps=8, lr=1e-4,
+                      frozen_through="c21_bn", seed=3,
+                      priors=((2, 5), (2.5, 6), (3, 7), (3.5, 8), (4, 9)))
+# The FLOAT step at batch 2, card against CPU: the loss and the BN running
+# statistics at the ResNet-50 step's tolerances (RESNET_STEP_TOL).  The
+# parameters: Adam's first step moves each by lr·g/(|g| + eps), lr·sign(g)
+# wherever |g| is well above eps, and the backbone's float32 gradient
+# carries the BatchNorm backward's cancellation noise (under 2 % relative
+# L2 against float64, tests/test_torch_zoo_numerics.py), so a gradient
+# inside that noise may take the other sign on the other device and move
+# its parameter 2·lr away.  Every parameter within 2·lr + 1e-6, and
+# YOLO2_STEP_SHARE of them within 1e-5 (the CPU test's bar).
+YOLO2_STEP_SHARE = 0.98
+# The rest of the zoo at each model's default inputShape and numClasses,
+# built on the card and stepped once at batch 2.
+ZOO_SWEEP = ("SimpleCNN", "AlexNet", "VGG16", "VGG19", "SqueezeNet",
+             "Darknet19", "TinyYOLO", "UNet", "Xception", "InceptionResNetV1",
+             "NASNet", "FaceNetNN4Small2", "TextGenerationLSTM", "C3D")
+ZOO_SWEEP_T = 100                  # TextGenerationLSTM's sequence length
+# Peak of one H100 for float32 products outside the tensor cores (TF32
+# off): the convolutions' yardstick.
+PEAK_FP32_CUDA_CORES = 67e12
 
 # The serving tier (phases 33-37): an InferenceServer on 127.0.0.1 serving
 # GPT-2 small at openai-community/gpt2's published widths (maxLen 1024 =
@@ -3953,6 +4029,418 @@ def phase_serve_timing(torch, rec, st, card, c=SERVE):
     _no_launches(rec, "serve_timing", counts)
 
 
+def _yolo2_batch(rng, b, nC, grid=13, boxes=YOLO2_RUN["boxes"]):
+    """Seeded synthetic images (b, 3, 416, 416) and labels in the layer's
+    DL4J format (b, 4 + nC, grid, grid): 1-4 boxes an image, [x1, y1, x2,
+    y2] in grid units and a one-hot class in the cell of the box's centre,
+    zero elsewhere."""
+    import numpy as np
+    x = rng.randn(b, 3, grid * 32, grid * 32).astype(np.float32)
+    y = np.zeros((b, 4 + nC, grid, grid), np.float32)
+    for e in range(b):
+        for _ in range(rng.randint(boxes[0], boxes[1] + 1)):
+            i, j = rng.randint(0, grid, 2)
+            cx, cy = j + rng.rand(), i + rng.rand()
+            w, h = 0.5 + 3.5 * rng.rand(), 0.5 + 3.5 * rng.rand()
+            y[e, :, i, j] = 0.0
+            y[e, 0:4, i, j] = (cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2)
+            y[e, 4 + rng.randint(0, nC), i, j] = 1.0
+    return x, y
+
+
+def _yolo2_model(torch):
+    """``YOLO2().init()`` on the card (the entry point's default device), a
+    copy of its initial parameters, and the seeded batches."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.zoo import YOLO2
+    c = YOLO2_RUN
+    t0 = time.perf_counter()
+    net = YOLO2().init()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    _require(net.device.type == "cuda", f"YOLO2 runs on {net.device}")
+    _require(net.numParams() == YOLO2_PARAMS,
+             f"YOLO2 has {net.numParams()} parameters, not {YOLO2_PARAMS}")
+    params0 = {v: {k: t.clone() for k, t in lp.items()}
+               for v, lp in net.params_.items()}
+    rng = np.random.RandomState(c["seed"])
+    pool = [DataSet(*_yolo2_batch(rng, c["batch"], 80))
+            for _ in range(c["batches"])]
+    print(f"YOLO2: {net.numParams()} params, init {init_s:.1f} s, batches "
+          f"of {c['batch']}x3x416x416, labels {tuple(pool[0].labels.shape)}"
+          f", FLOAT")
+    return net, params0, pool
+
+
+def _conv_flops(conf, batch):
+    """Multiply-add FLOPs (2 a MAC) of a graph's convolutions for one
+    forward of ``batch`` images, from their shapes."""
+    total = 0
+    for name in conf.topoOrder:
+        node = conf.nodes[name][0]
+        if type(node).__name__ == "ConvolutionLayer":
+            it = conf.vertexInputTypes[name]
+            ot = conf.vertexOutputTypes[name]
+            kh, kw = node.kernelSize
+            total += 2 * it.channels * kh * kw * ot.channels * ot.height \
+                * ot.width
+    return total * batch
+
+
+def phase_yolo2_train(torch, rec, net, params0, pool, card):
+    """``fit(ListDataSetIterator, epochs=1)`` over the 4 batches with the
+    zoo's configuration: 4 iterations, finite scores.  Then a copy of the
+    initial net at Adam(1e-5) refits one batch 8 times: the score must
+    fall.  Returns that net."""
+    import math
+    from deeplearning4j_tpu_torch.datasets import ListDataSetIterator
+    from deeplearning4j_tpu_torch.learning import Adam
+    from deeplearning4j_tpu_torch.optimize import \
+        CollectScoresIterationListener
+    c = YOLO2_RUN
+    col = CollectScoresIterationListener(1)
+    net.setListeners(col)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 1e9
+    _reset_counters()
+    t0 = time.perf_counter()
+    net.fit(ListDataSetIterator(pool), epochs=1)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    scores = [s for _i, s in col.getScores()]
+    net.setListeners()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    tuned = _yolo2_float(params0, "cuda", Adam(c["refit_lr"]))
+    refit = []
+    for _ in range(c["refit"]):
+        tuned.fit(pool[0])
+        refit.append(tuned.score())
+    counts = _counters()
+    rec["yolo2_train"] = dict(fit_s=fit_s, scores=scores, refit=refit,
+                              iterations=net.iterationCount, peak_gb=peak,
+                              held_gb=held)
+    print(f"YOLO2 fit 1 epoch x {len(pool)} batches of {c['batch']} (the "
+          f"zoo's Adam(1e-3)): {net.iterationCount} iterations in "
+          f"{fit_s:.2f} s, scores {[round(v, 4) for v in scores]}, peak "
+          f"{peak:.2f} GB ({held:.2f} GB of it held before the fit); refit "
+          f"of batch 0 from the initial parameters "
+          f"with Adam({c['refit_lr']}): {[round(v, 4) for v in refit]}; "
+          f"{card}")
+    _require(len(scores) == c["batches"] == net.iterationCount,
+             f"{net.iterationCount} iterations, {len(scores)} scores")
+    _require(all(math.isfinite(v) for v in scores + refit),
+             f"YOLO2 scores not finite: {scores} {refit}")
+    _require(refit[-1] < refit[0], f"YOLO2 refit did not fall: {refit}")
+    _no_launches(rec, "yolo2_train", counts)
+    return tuned
+
+
+def _yolo2_float(params0, device, updater=None):
+    """YOLO2's graph from ``params0`` on ``device``; ``updater`` in place
+    of the zoo's global Adam(1e-3) (set on the builder before ``build``
+    resolves each layer's)."""
+    from deeplearning4j_tpu_torch.models import ComputationGraph
+    from deeplearning4j_tpu_torch.zoo import YOLO2
+    gb = YOLO2().graphBuilder()
+    if updater is not None:
+        gb._g["updater"] = updater
+    return ComputationGraph(gb.build(), device=device).init(params=params0)
+
+
+def phase_yolo2_step(torch, rec, params0, pool):
+    """One FLOAT step at batch 2 from the same parameters, on the card and
+    on the CPU."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    b, lr = YOLO2_RUN["check_batch"], 1e-3      # YOLO2's Adam(1e-3)
+    ds = DataSet(pool[1].features[:b], pool[1].labels[:b])
+    _reset_counters()
+    nets = {}
+    for dev in ("cuda", "cpu"):
+        net = _yolo2_float(params0, dev)
+        net.fit(ds)
+        nets[dev] = net
+    counts = _counters()
+    gpu, cpu = nets["cuda"], nets["cpu"]
+    loss_g, loss_c = gpu.score(), cpu.score()
+    e_l, ok_l = _max_err(torch.tensor([loss_g]), torch.tensor([loss_c]),
+                         **RESNET_STEP_TOL)
+    d = (gpu.params().cpu() - cpu.params()).abs()
+    share = float((d <= 1e-5).float().mean())
+    ok_p = float(d.max()) <= 2 * lr + 1e-6 and share >= YOLO2_STEP_SHARE
+    e_s, ok_s = 0.0, True
+    for v, st in gpu.state_.items():
+        for k in ("mean", "var"):
+            e, ok = _max_err(st[k].cpu(), cpu.state_[v][k],
+                             **RESNET_STEP_TOL)
+            e_s, ok_s = max(e_s, e), ok_s and ok
+    rec["yolo2_step_card_vs_cpu"] = dict(
+        loss_card=loss_g, loss_cpu=loss_c, loss_err=e_l,
+        params_err=float(d.max()), share_within_1e5=share, state_err=e_s)
+    print(f"YOLO2 FLOAT step, batch {b}, card vs CPU: loss {loss_g:.7g} vs "
+          f"{loss_c:.7g} (|d| {e_l:.3g}), BN running stats |d|max {e_s:.3g} "
+          f"({RESNET_STEP_TOL}); params |d|max {float(d.max()):.3g} (at "
+          f"most 2 lr + 1e-6), {share:.5f} of them within 1e-5 (at least "
+          f"{YOLO2_STEP_SHARE})")
+    _require(ok_l and ok_p and ok_s,
+             f"the card's YOLO2 step disagrees with the CPU's: "
+             f"{rec['yolo2_step_card_vs_cpu']}")
+    _no_launches(rec, "yolo2_step", counts)
+
+
+def phase_yolo2_transfer(torch, rec, net, pool, card):
+    """dl4j-examples' HouseNumberDetection flow: the trained net saved to
+    the local weight repository, restored by ``initPretrained`` bit for
+    bit, scored (ROADMAP C16: the reference's restore cannot), then
+    fine-tuned with the backbone frozen."""
+    import math
+    import tempfile
+    import numpy as np
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.learning import Adam
+    from deeplearning4j_tpu_torch.models import (FineTuneConfiguration,
+                                                 TransferLearning)
+    from deeplearning4j_tpu_torch.nn.conf.convolutional import \
+        Yolo2OutputLayer
+    from deeplearning4j_tpu_torch.nn.conf.layers import ConvolutionLayer
+    from deeplearning4j_tpu_torch.utils import ModelSerializer
+    from deeplearning4j_tpu_torch.zoo import YOLO2
+    c = YOLO2_TRANSFER
+    _reset_counters()
+    old = os.environ.get("DL4J_TPU_DATA_DIR")
+    with tempfile.TemporaryDirectory(dir=ROOT) as d:
+        os.environ["DL4J_TPU_DATA_DIR"] = d
+        try:
+            os.makedirs(os.path.join(d, "pretrained"))
+            path = os.path.join(d, "pretrained", "YOLO2_IMAGENET.zip")
+            t0 = time.perf_counter()
+            ModelSerializer.writeModel(net, path, saveUpdater=False)
+            write_s = time.perf_counter() - t0
+            size_mb = os.path.getsize(path) / 1e6
+            t0 = time.perf_counter()
+            restored = YOLO2().initPretrained()
+            torch.cuda.synchronize()
+            read_s = time.perf_counter() - t0
+        finally:
+            if old is None:
+                os.environ.pop("DL4J_TPU_DATA_DIR", None)
+            else:
+                os.environ["DL4J_TPU_DATA_DIR"] = old
+    _require(restored.device.type == "cuda",
+             f"initPretrained placed YOLO2 on {restored.device}")
+    same = _trees_equal(torch, restored.params_, net.params_) and \
+        _trees_equal(torch, restored.state_, net.state_)
+    s_net, s_back = net.score(pool[0]), restored.score(pool[0])
+    print(f"YOLO2 pretrained zip: {size_mb:.1f} MB written in {write_s:.2f} "
+          f"s, initPretrained {read_s:.2f} s onto {restored.device}; params "
+          f"and BN state bit-identical {same}; the restored 80-class net "
+          f"scores {s_back:.6g} (saved net {s_net:.6g}; the reference's "
+          f"restore raises here, ROADMAP C16)")
+    _require(same, "initPretrained did not restore YOLO2 bit for bit")
+    # inference mode: a NaN here (running statistics a few EMA steps from
+    # their start under a diverging loss) must be the saved net's NaN
+    _require(s_back == s_net or (math.isnan(s_back) and math.isnan(s_net)),
+             f"restored YOLO2 scores {s_back}, saved {s_net}")
+
+    ft = FineTuneConfiguration.builder().updater(Adam(c["lr"])).build()
+    nB = len(c["priors"])
+    tl = (TransferLearning.GraphBuilder(restored).fineTuneConfiguration(ft)
+          .setFeatureExtractor(c["frozen_through"])
+          .removeVertexKeepConnections("pred")
+          .removeVertexKeepConnections("yolo")
+          .addLayer("pred", ConvolutionLayer.builder()
+                    .nOut(nB * (5 + c["numClasses"])).kernelSize(1, 1)
+                    .build(), c["frozen_through"])
+          .addLayer("yolo", Yolo2OutputLayer.builder()
+                    .boundingBoxes(np.asarray(c["priors"])).build(), "pred")
+          .setOutputs("yolo").build())
+    _require(tl.device.type == "cuda", f"the fine-tune net is on {tl.device}")
+    frozen = [n for n, (node, _) in tl.conf.nodes.items()
+              if getattr(node, "frozen", False)]
+    p0 = {n: {k: v.clone() for k, v in tl.params_[n].items()}
+          for n in frozen if n in tl.params_}
+    s0 = {n: {k: v.clone() for k, v in tl.state_[n].items()}
+          for n in frozen if n in tl.state_}
+    head0 = tl.params_["pred"]["W"].clone()
+    ds = DataSet(*_yolo2_batch(np.random.RandomState(c["seed"]), c["batch"],
+                               c["numClasses"]))
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(c["steps"]):
+        tl.fit(ds)
+        losses.append(tl.score())
+    ft_s = time.perf_counter() - t0
+    counts = _counters()
+    frozen_same = _trees_equal(torch, {n: tl.params_[n] for n in p0}, p0)
+    # a frozen layer runs in training mode, as in the reference, so its
+    # BatchNormalization moves its running statistics (ROADMAP C17)
+    bn_moved = max(float((tl.state_[n][k] - s0[n][k]).abs().max())
+                   for n in s0 for k in s0[n])
+    head_moved = not torch.equal(tl.params_["pred"]["W"], head0)
+    rec["yolo2_transfer"] = dict(
+        zip_mb=size_mb, write_s=write_s, init_pretrained_s=read_s,
+        restored_score=s_back, frozen_vertices=len(frozen),
+        frozen_unchanged=frozen_same, frozen_bn_state_moved=bn_moved,
+        head_moved=head_moved, losses=losses,
+        ms_per_step=ft_s / c["steps"] * 1e3)
+    print(f"fine-tune (Adam {c['lr']}, {len(frozen)} vertices frozen "
+          f"through {c['frozen_through']}, {nB} x (5 + {c['numClasses']}) "
+          f"head): {c['steps']} steps at batch {c['batch']}, "
+          f"{ft_s / c['steps'] * 1e3:.1f} ms a step, loss {losses[0]:.4f} "
+          f"-> {losses[-1]:.4f}; frozen params bit-unchanged "
+          f"{frozen_same}, frozen BN running statistics moved by up to "
+          f"{bn_moved:.3g} (training mode, as the reference: C17), head "
+          f"moved {head_moved}; {card}")
+    _require(frozen_same and head_moved,
+             "fine-tune: frozen params moved, or the head did not")
+    _require(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+             f"fine-tune loss not finite or not falling: {losses}")
+    _no_launches(rec, "yolo2_transfer", counts)
+
+
+def phase_yolo2_timing(torch, rec, net, pool, card):
+    """ms a step and images/s at batch 16 (FLOAT), peak memory, the
+    convolutions' FLOPs and their share of the FP32 peak, one profiled
+    step."""
+    c = YOLO2_RUN
+    _reset_counters()
+    for i in range(c["warm"]):
+        net.fit(pool[i % len(pool)])
+    net.score()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    for i in range(c["timed"]):
+        net.fit(pool[i % len(pool)])
+    net.score()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ms = wall / c["timed"] * 1e3
+    flops = 3 * _conv_flops(net.conf, c["batch"])   # forward + 2 backward
+    r = dict(ms_per_step=ms, images_per_s=c["batch"] * c["timed"] / wall,
+             peak_gb=torch.cuda.max_memory_allocated() / 1e9, held_gb=held,
+             conv_tflop_per_step=flops / 1e12,
+             conv_share_of_fp32_peak=flops / (ms / 1e3)
+             / PEAK_FP32_CUDA_CORES)
+    p = _device_breakdown(torch, lambda: (net.fit(pool[0]), net.score()),
+                          top=8)
+    r["profile"] = p
+    if p["device_busy_ms"] is not None:
+        r["idle_share_unprofiled"] = 1 - p["device_busy_ms"] / ms
+    rec["yolo2_timing"] = r
+    counts = _counters()
+    print(f"YOLO2 training (FLOAT, batch {c['batch']}): {ms:.2f} ms/step, "
+          f"{r['images_per_s']:.1f} images/s ({c['timed']} steps after "
+          f"{c['warm']} warm), peak {r['peak_gb']:.2f} GB ({held:.2f} GB "
+          f"of it held before the steps), "
+          f"{r['conv_tflop_per_step']:.3f} TFLOP of convolution a step = "
+          f"{r['conv_share_of_fp32_peak']:.3f} of the FP32 peak; {card}")
+    if p["device_busy_ms"] is None:
+        print("profile yolo2_step: no device time in the trace "
+              "(not measured)")
+    else:
+        print(f"profile yolo2_step: wall {p['wall_ms']:.2f} ms, device busy "
+              f"{p['device_busy_ms']:.2f} ms, idle share {p['idle_share']:.3f}"
+              f" profiled, {r['idle_share_unprofiled']:.3f} unprofiled, "
+              f"{p['device_ops']} device kernels and copies")
+        for kname, kms in p["top"]:
+            print(f"  {kms:9.3f} ms  {kname}")
+    _no_launches(rec, "yolo2_timing", counts)
+
+
+def _zoo_sweep_batch(name, model, b):
+    """Seeded features and labels of ``b`` examples for a zoo model."""
+    import numpy as np
+    rng = np.random.RandomState(11)
+    if name == "TextGenerationLSTM":
+        n, t = model.numClasses, ZOO_SWEEP_T
+        idx = rng.randint(0, n, (b, t + 1))
+        x = np.eye(n, dtype=np.float32)[idx[:, :-1]].transpose(0, 2, 1)
+        y = np.eye(n, dtype=np.float32)[idx[:, 1:]].transpose(0, 2, 1)
+        return x.copy(), y.copy()
+    if name == "C3D":
+        x = rng.randn(b, *model.inputShape3d).astype(np.float32)
+    else:
+        x = rng.randn(b, *model.inputShape).astype(np.float32)
+    if name == "TinyYOLO":
+        return _yolo2_batch(rng, b, model.numClasses)
+    if name == "UNet":
+        return x, (rng.rand(b, model.numClasses, *model.inputShape[1:])
+                   > 0.5).astype(np.float32)
+    if name == "FaceNetNN4Small2":
+        return x, np.zeros((b, model.numClasses), np.float32)
+    return x, np.eye(model.numClasses, dtype=np.float32)[
+        rng.randint(0, model.numClasses, b)]
+
+
+def _expected_shape(net, b):
+    """The output shape the configuration's output type gives for ``b``
+    examples (-1 where it leaves a length open)."""
+    conf = net.conf
+    if hasattr(conf, "topoOrder"):
+        return tuple(conf.vertexOutputTypes[conf.outputs[0]].getShape(b))
+    last = conf.layers[-1]
+    return tuple(last.getOutputType(conf.layerInputTypes[-1]).getShape(b))
+
+
+def phase_zoo_sweep(torch, rec, card):
+    """Every other ported zoo model at its default inputShape and
+    numClasses: built on the card, its output shape against the
+    configuration's, one fit step at batch 2 with a finite score."""
+    import math
+    import deeplearning4j_tpu_torch.zoo as zoo
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    b, res = 2, {}
+    _reset_counters()
+    for name in ZOO_SWEEP:
+        model = getattr(zoo, name)()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        net = model.init()
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        x, y = _zoo_sweep_batch(name, model, b)
+        out = net.output(x)
+        out = out[0] if isinstance(out, list) else out
+        want = _expected_shape(net, b)
+        shape_ok = len(want) == out.dim() and all(
+            w in (-1, g) for w, g in zip(want, out.shape))
+        norm_err = float((out.norm(dim=1) - 1).abs().max()) \
+            if name == "FaceNetNN4Small2" else None
+        net.fit(DataSet(x, y))          # first step: cuDNN's set-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        net.fit(DataSet(x, y))
+        score = net.score()
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+        res[name] = dict(params=net.numParams(), init_s=init_s,
+                         out_shape=list(out.shape), expected=list(want),
+                         step_ms=step_ms, score=score,
+                         peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                         embedding_norm_err=norm_err)
+        print(f"zoo {name}: {net.numParams()} params on {net.device}, "
+              f"output {tuple(out.shape)} (conf {want}), step "
+              f"{step_ms:.1f} ms at batch {b}, score {score:.5g}, peak "
+              f"{res[name]['peak_gb']:.2f} GB"
+              + (f", |norm - 1| max {norm_err:.2g}" if norm_err is not None
+                 else ""))
+        _require(net.device.type == "cuda", f"{name} runs on {net.device}")
+        _require(shape_ok, f"{name}: output {tuple(out.shape)}, conf {want}")
+        _require(math.isfinite(score), f"{name}: score {score}")
+        if norm_err is not None:
+            _require(norm_err <= 1e-4, f"{name}: embeddings' norm off by "
+                     f"{norm_err}")
+        del net, out
+    rec["zoo_sweep"] = res
+    print(card)
+    _no_launches(rec, "zoo_sweep", _counters())
+
+
 def _kernel_entry(name, replaces, launches, t):
     return {"name": name, "route": "cuda",
             "source": f"deeplearning4j_tpu_torch/csrc/{name}.cu",
@@ -4118,6 +4606,22 @@ def main(argv) -> int:
                     cpu, ins, out, card)
                 del gpu, cpu
         del dec
+        # the zoo: YOLO2 trains, restores through initPretrained and
+        # fine-tunes; every other zoo model steps once
+        yolo = run("yolo2_init", _yolo2_model, torch)
+        if yolo is not None:
+            net, params0, pool = yolo
+            tuned = run("yolo2_train", phase_yolo2_train, torch, rec, net,
+                        params0, pool, card)
+            run("yolo2_step", phase_yolo2_step, torch, rec, params0, pool)
+            run("yolo2_transfer", phase_yolo2_transfer, torch, rec, net,
+                pool, card)
+            if tuned is not None:
+                run("yolo2_timing", phase_yolo2_timing, torch, rec, tuned,
+                    pool, card)
+            del net, tuned
+        del yolo
+        run("zoo_sweep", phase_zoo_sweep, torch, rec, card)
 
     rec["card"] = card
     rec["failed"] = failed
@@ -4135,8 +4639,8 @@ def main(argv) -> int:
     # (B1 runs on both paths; B2 and B3 on the training path only), and B4's
     # from its run on ResNet-50's activations (the model dispatches none);
     # the phases without a hand kernel on their path (recurrent, BERT, the
-    # loop around fit, TF import, serving tier, ONNX import) add none (each
-    # checked zero).
+    # loop around fit, TF import, serving tier, ONNX import, the zoo) add
+    # none (each checked zero).
     # B1's times are at the serving shape (f32, causal), B2's and B3's at
     # the training shape in its dtype (bf16, not causal), B4's at ResNet-50's
     # stage-0 shape in bf16; the record holds the other shapes too.

@@ -88,7 +88,7 @@ import torch
 
 __version__ = "0.1.0"
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "unported"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -101,3 +101,17 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device is present; pass device='cpu' to run the "
             "plain PyTorch path on the CPU")
     return dev
+
+
+def unported(name: str, item: str, what: str = "is not ported yet"):
+    """A stand-in for a reference class the port does not have yet: it
+    keeps the reference's import path working, and building it (by its
+    constructor or ``builder()``) raises naming the ROADMAP item."""
+    msg = f"{name} {what} (ROADMAP {item})"
+
+    def refuse(*args, **kwargs):
+        raise NotImplementedError(msg)
+
+    return type(name, (), {"__init__": refuse,
+                           "builder": staticmethod(refuse),
+                           "__doc__": msg})

@@ -23,6 +23,8 @@ import torch.nn.functional as F
 from deeplearning4j_tpu_torch.autodiff.samediff import (OP_IMPLS, SDMath,
                                                         _gen, _ns_unary,
                                                         _simple, register_op)
+from deeplearning4j_tpu_torch.nn.conf.convolutional import (
+    _transposed_conv, _transposed_pads)
 
 # ---------------------------------------------------------------------------
 # math (generic/transforms + parity_ops stragglers)
@@ -458,24 +460,11 @@ del _n
 @register_op("deconv2d")
 def _deconv2d(sH=1, sW=1, pH=0, pW=0, isSameMode=False, **_):
     def f(x, w, *bias):   # w (o, i, kh, kw)
-        # the reference's lowering: a fractionally-strided conv with the
-        # kernel flipped (the input dilated by the stride, then padded —
-        # negative pads crop — and convolved)
-        sh, sw = int(sH), int(sW)
-        kh, kw = w.shape[2], w.shape[3]
-        b, c, h, wd = x.shape
-        if isSameMode:
-            oh, ow = h * sh, wd * sw
-            th = (h - 1) * sh + kh - oh
-            tw = (wd - 1) * sw + kw - ow
-            pads = [((kh - 1) - th // 2 - th % 2, (kh - 1) - th // 2),
-                    ((kw - 1) - tw // 2 - tw % 2, (kw - 1) - tw // 2)]
-        else:
-            pads = [(kh - 1 - int(pH),) * 2, (kw - 1 - int(pW),) * 2]
-        xd = x.new_zeros((b, c, (h - 1) * sh + 1, (wd - 1) * sw + 1))
-        xd[:, :, ::sh, ::sw] = x
-        xd = F.pad(xd, (pads[1][0], pads[1][1], pads[0][0], pads[0][1]))
-        y = F.conv2d(xd, torch.flip(w, (2, 3)))
+        # the reference's lowering, as Deconvolution2D's
+        stride = (int(sH), int(sW))
+        pads = _transposed_pads(x.shape[2:], w.shape[2:], stride,
+                                (int(pH), int(pW)), isSameMode)
+        y = _transposed_conv(x, w, stride, pads)
         if bias:
             y = y + bias[0].reshape(1, -1, 1, 1)
         return y

@@ -16,9 +16,9 @@ master parameters, state, optimizer state and losses.  Recurrent vertices
 carry their state as in ``MultiLayerNetwork``: truncated BPTT passes each
 chunk's final carries, detached, to the next, and ``rnnTimeStep`` keeps
 them between calls.  Listeners, ``evaluate``, the line-search solvers and
-frozen vertices work as in ``MultiLayerNetwork``.
-
-Not ported yet, and raising where it is asked for: ``MultiDataSet`` (A5).
+frozen vertices work as in ``MultiLayerNetwork``.  ``fit`` and
+``score`` take a ``MultiDataSet`` (one array per input and per output, its
+masks aligned with them) as well as a ``DataSet``.
 """
 from __future__ import annotations
 
@@ -27,7 +27,7 @@ from typing import Dict, List, Optional, Sequence
 import torch
 
 from deeplearning4j_tpu_torch import resolve_device
-from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+from deeplearning4j_tpu_torch.datasets.dataset import DataSet, MultiDataSet
 from deeplearning4j_tpu_torch.datasets.iterator import DataSetIterator
 from deeplearning4j_tpu_torch.eval.evaluation import Evaluation
 from deeplearning4j_tpu_torch.models.graph_conf import \
@@ -166,8 +166,11 @@ class ComputationGraph:
 
     def _sumLosses(self, acts, labels, masks):
         """Every output layer's mean loss, summed — the loss of training
-        and of ``score``."""
-        total = 0.0
+        and of ``score``; 0 for a graph whose outputs carry no loss (an
+        embedding graph such as FaceNetNN4Small2, where a step then moves
+        nothing but BatchNormalization's running statistics, as in the
+        reference)."""
+        total = torch.zeros((), device=self.device)
         for i, name in enumerate(self.conf.outputs):
             node = self.conf.nodes[name][0]
             if isinstance(node, Layer) and node.hasLoss():
@@ -196,12 +199,12 @@ class ComputationGraph:
 
     # ------------------------------------------------------------------
     def fit(self, data, labels=None, epochs: int = 1) -> None:
-        """Train on a ``DataSet`` (one step), a ``DataSetIterator``
-        (``epochs`` passes, one step per batch) or ``(features, labels)``
-        (one step)."""
+        """Train on a ``DataSet`` or ``MultiDataSet`` (one step), a
+        ``DataSetIterator`` (``epochs`` passes, one step per batch) or
+        ``(features, labels)`` (one step)."""
         if self.params_ is None:
             self.init()
-        if isinstance(data, DataSet):
+        if isinstance(data, (DataSet, MultiDataSet)):
             self._fitBatch(data)
         elif isinstance(data, DataSetIterator):
             for _ in range(epochs):
@@ -213,22 +216,35 @@ class ComputationGraph:
                 notifyListeners(self._listeners, "onEpochEnd", self)
         elif labels is not None:
             self._fitBatch(DataSet(data, labels))
-        elif type(data).__name__ == "MultiDataSet":
-            raise NotImplementedError(
-                "MultiDataSet is not ported yet (ROADMAP A5)")
         else:
             raise TypeError(f"Cannot fit on {type(data)}")
 
     def _on_device(self, a, dtype=None):
         return _to_device(a, self.device, dtype)
 
-    def _fitBatch(self, ds: DataSet) -> None:
-        inputs = (self._on_device(ds.features, self._dtype),)
-        labels = (self._on_device(ds.labels),)
-        masks = (self._on_device(ds.labelsMask),) \
-            if ds.labelsMask is not None else None
-        fmask = (self._on_device(ds.featuresMask),) \
+    def _batch(self, ds):
+        """``(inputs, labels, labels' masks, features' masks)`` of a
+        ``DataSet`` or ``MultiDataSet`` on the graph's device, as tuples
+        aligned with ``conf.inputs`` / ``conf.outputs`` (a masks tuple is
+        None when the batch has none; a features' mask may be None inside
+        it)."""
+        dev = self._on_device
+        if isinstance(ds, MultiDataSet):
+            inputs = tuple(dev(f, self._dtype) for f in ds.features)
+            labels = tuple(dev(l) for l in ds.labels)
+            masks = tuple(dev(m) for m in ds.labelsMasks) \
+                if ds.labelsMasks else None
+            fmask = tuple(dev(m) for m in ds.featuresMasks) \
+                if ds.featuresMasks else None
+            return inputs, labels, masks, fmask
+        masks = (dev(ds.labelsMask),) if ds.labelsMask is not None else None
+        fmask = (dev(ds.featuresMask),) \
             if ds.featuresMask is not None else None
+        return ((dev(ds.features, self._dtype),), (dev(ds.labels),), masks,
+                fmask)
+
+    def _fitBatch(self, ds) -> None:
+        inputs, labels, masks, fmask = self._batch(ds)
         self.lastBatchSize = int(inputs[0].shape[0])
         algo = str(self.conf.globalConf.get("optimizationAlgo")
                    or "STOCHASTIC_GRADIENT_DESCENT").upper()
@@ -321,25 +337,18 @@ class ComputationGraph:
         out = self.output(*inputs)
         return out[0] if isinstance(out, list) else out
 
-    def score(self, ds: Optional[DataSet] = None) -> float:
-        """The last fit step's loss, or the loss of ``ds`` (inference mode,
-        L1/L2 penalty included)."""
+    def score(self, ds=None) -> float:
+        """The last fit step's loss, or the loss of the ``DataSet`` or
+        ``MultiDataSet`` ``ds`` (inference mode, L1/L2 penalty included)."""
         if ds is None:
             if self._scoreArr is not None:
                 self._score = float(self._scoreArr)
                 self._scoreArr = None
             return self._score
-        if type(ds).__name__ == "MultiDataSet":
-            raise NotImplementedError(
-                "MultiDataSet is not ported yet (ROADMAP A5)")
-        masks = (self._on_device(ds.labelsMask),) \
-            if ds.labelsMask is not None else None
-        fmask = (self._on_device(ds.featuresMask),) \
-            if ds.featuresMask is not None else None
+        inputs, labels, masks, fmask = self._batch(ds)
         with torch.no_grad():
-            loss, _, _ = self._lossFn(
-                self.params_, (self._on_device(ds.features, self._dtype),),
-                (self._on_device(ds.labels),), masks, False, None, fmask)
+            loss, _, _ = self._lossFn(self.params_, inputs, labels, masks,
+                                      False, None, fmask)
         return float(loss)
 
     # ------------------------------------------------------------------

@@ -6,10 +6,9 @@ configs of ``conf/graph/``).
 The topological order is the reference's sorted-ready Kahn's algorithm, so
 ``ComputationGraph.params()`` lays its flat vector out as the JAX graph
 does.  For the layers and vertices the port has, ``toJson()`` writes the
-reference's JSON.  Ported vertices: ``MergeVertex`` and
-``ElementWiseVertex``; the others (subset, scale, shift, stack, unstack,
-L2-normalize, preprocessor) wait for ROADMAP A6 and fail in
-``vertex_from_json``.
+reference's JSON.  Every vertex of the reference is here: merge,
+element-wise, subset, scale, shift, stack, unstack, L2-normalize and
+preprocessor.
 """
 from __future__ import annotations
 
@@ -26,7 +25,9 @@ from deeplearning4j_tpu_torch.nn.conf.layers import Layer, layer_from_json
 from deeplearning4j_tpu_torch.nn.conf.preprocessors import InputPreProcessor
 
 __all__ = ["ComputationGraphConfiguration", "GraphBuilder", "GraphVertex",
-           "MergeVertex", "ElementWiseVertex", "vertex_from_json"]
+           "MergeVertex", "ElementWiseVertex", "SubsetVertex", "ScaleVertex",
+           "ShiftVertex", "StackVertex", "UnstackVertex", "L2NormalizeVertex",
+           "PreprocessorVertex", "vertex_from_json"]
 
 
 @dataclasses.dataclass
@@ -98,15 +99,100 @@ class ElementWiseVertex(GraphVertex):
         raise ValueError(f"Unknown ElementWiseVertex op {self.op}")
 
 
-_VERTEX_REGISTRY = {c.__name__: c for c in [MergeVertex, ElementWiseVertex]}
+@dataclasses.dataclass
+class SubsetVertex(GraphVertex):
+    """Features ``fromIndex`` .. ``toIndex`` (inclusive, as the reference)
+    along axis 1."""
+    fromIndex: int = 0
+    toIndex: int = 0
+
+    def getOutputType(self, *its):
+        n = self.toIndex - self.fromIndex + 1
+        it = its[0]
+        if it.kind == "CNN":
+            return InputType.convolutional(it.height, it.width, n)
+        if it.kind == "RNN":
+            return InputType.recurrent(n, it.timeSeriesLength)
+        return InputType.feedForward(n)
+
+    def forward(self, *inputs):
+        return inputs[0][:, self.fromIndex:self.toIndex + 1]
+
+
+@dataclasses.dataclass
+class ScaleVertex(GraphVertex):
+    scaleFactor: float = 1.0
+
+    def forward(self, *inputs):
+        return inputs[0] * self.scaleFactor
+
+
+@dataclasses.dataclass
+class ShiftVertex(GraphVertex):
+    shiftFactor: float = 0.0
+
+    def forward(self, *inputs):
+        return inputs[0] + self.shiftFactor
+
+
+@dataclasses.dataclass
+class StackVertex(GraphVertex):
+    """Stack along axis 0 (the minibatch) — reference ``StackVertex``."""
+
+    def forward(self, *inputs):
+        return torch.cat(inputs, dim=0)
+
+
+@dataclasses.dataclass
+class UnstackVertex(GraphVertex):
+    """Slice ``fromIndex`` of ``stackSize`` equal parts of the minibatch."""
+    fromIndex: int = 0
+    stackSize: int = 1
+
+    def forward(self, *inputs):
+        x = inputs[0]
+        n = x.shape[0] // self.stackSize
+        return x[self.fromIndex * n:(self.fromIndex + 1) * n]
+
+
+@dataclasses.dataclass
+class L2NormalizeVertex(GraphVertex):
+    """x / (||x|| + eps), the norm over every axis but the minibatch."""
+    eps: float = 1e-8
+
+    def forward(self, *inputs):
+        x = inputs[0]
+        norm = torch.sqrt(torch.sum(x * x, dim=tuple(range(1, x.dim())),
+                                    keepdim=True))
+        return x / (norm + self.eps)
+
+
+@dataclasses.dataclass
+class PreprocessorVertex(GraphVertex):
+    preProcessor: Optional[InputPreProcessor] = None
+
+    def getOutputType(self, *its):
+        return self.preProcessor.getOutputType(its[0])
+
+    def forward(self, *inputs):
+        return self.preProcessor.preProcess(inputs[0], inputs[0].shape[0])
+
+    def toJson(self) -> dict:
+        return {"@class": "PreprocessorVertex",
+                "preProcessor": self.preProcessor.toJson()}
+
+
+_VERTEX_REGISTRY = {c.__name__: c for c in [
+    MergeVertex, ElementWiseVertex, SubsetVertex, ScaleVertex, ShiftVertex,
+    StackVertex, UnstackVertex, L2NormalizeVertex]}
 
 
 def vertex_from_json(d: dict) -> GraphVertex:
     d = dict(d)
     name = d.pop("@class")
-    if name not in _VERTEX_REGISTRY:
-        raise NotImplementedError(
-            f"graph vertex {name} is not ported yet (ROADMAP A6)")
+    if name == "PreprocessorVertex":
+        return PreprocessorVertex(InputPreProcessor.fromJson(
+            d["preProcessor"]))
     return _VERTEX_REGISTRY[name](**d)
 
 

@@ -140,13 +140,17 @@ def _detached_leaves(params, frozen):
 
 
 def _grads_of(loss, leaves):
-    """The gradient tree of ``loss`` over the leaves that require grad."""
+    """The gradient tree of ``loss`` over the leaves that require grad; a
+    leaf the loss does not reach gets zeros (``jax.grad``'s answer)."""
     train = [(k, path, v) for k, path, v in leaves if v.requires_grad]
     grads: Dict = {}
     if train:
-        flat = torch.autograd.grad(loss, [v for _k, _p, v in train])
-        for (k, path, _v), g in zip(train, flat):
-            _set_leaf(grads.setdefault(k, {}), path, g)
+        flat = torch.autograd.grad(
+            loss, [v for _k, _p, v in train], allow_unused=True) \
+            if loss.requires_grad else [None] * len(train)
+        for (k, path, v), g in zip(train, flat):
+            _set_leaf(grads.setdefault(k, {}), path,
+                      torch.zeros_like(v) if g is None else g)
     return grads
 
 

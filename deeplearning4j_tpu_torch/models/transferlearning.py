@@ -8,7 +8,10 @@ configuration overriding the global settings of the result.
 
 Freezing is a flag the train step reads: a frozen layer's parameters
 take no gradient, and its parameters and updater state pass through the
-update unchanged.  The flag is not part of the layer's JSON (nor is it in
+update unchanged.  Its forward runs in training mode, as the JAX
+package's does, so a frozen BatchNormalization normalises with batch
+statistics and moves its running statistics — where DL4J's
+``FrozenLayer`` runs the layer as at inference (ROADMAP C17, kept).  The flag is not part of the layer's JSON (nor is it in
 the reference).  ``build`` copies the kept parameters into a new network
 on ``cuda`` unless the caller passes another device.
 """

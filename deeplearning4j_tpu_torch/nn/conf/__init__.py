@@ -7,8 +7,11 @@ For the layers the port has, ``toJson()`` writes the same JSON as the JAX
 package, so one JSON builds both nets.
 
 ``graphBuilder()`` returns the ComputationGraph builder of
-``models/graph_conf.py``; the layers not ported yet (A4, A9 and later) fail
-in ``layer_from_json``.
+``models/graph_conf.py``.  Every layer module of the reference is here but
+the autoencoder and VAE layers (ROADMAP A4), the SameDiff layers (A12b)
+and the recommender tier's embedding bag (A11): their names import, and
+building one (or reading one in ``layer_from_json``) raises naming its
+item.
 """
 from __future__ import annotations
 
@@ -16,13 +19,14 @@ import dataclasses
 import json
 from typing import Any, Dict, List, Optional
 
+from deeplearning4j_tpu_torch import unported
 from deeplearning4j_tpu_torch.learning.config import IUpdater, Sgd
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.conf.layers import Layer, layer_from_json
 from deeplearning4j_tpu_torch.nn.conf.preprocessors import (
     Cnn3DToFeedForwardPreProcessor, CnnToFeedForwardPreProcessor,
     CnnToRnnPreProcessor, FeedForwardToCnnPreProcessor,
-    FeedForwardToRnnPreProcessor, InputPreProcessor,
+    FeedForwardToRnnPreProcessor, InputPreProcessor, RnnToCnnPreProcessor,
     RnnToFeedForwardPreProcessor)
 
 __all__ = ["NeuralNetConfiguration", "MultiLayerConfiguration",
@@ -268,5 +272,13 @@ def _json_default(o):
 
 # importing these registers their layers with ``layer_from_json``
 from deeplearning4j_tpu_torch.nn.conf import attention  # noqa: E402,F401
+from deeplearning4j_tpu_torch.nn.conf import convolutional  # noqa: E402,F401
+from deeplearning4j_tpu_torch.nn.conf import convolutional3d  # noqa: E402,F401,E501
 from deeplearning4j_tpu_torch.nn.conf import misc  # noqa: E402,F401
 from deeplearning4j_tpu_torch.nn.conf import recurrent  # noqa: E402,F401
+
+SameDiffLambdaLayer = unported("SameDiffLambdaLayer", "A12b")
+SameDiffLayer = unported("SameDiffLayer", "A12b")
+SDLayerParams = unported("SDLayerParams", "A12b")
+AutoEncoder = unported("AutoEncoder", "A4")
+VariationalAutoencoder = unported("VariationalAutoencoder", "A4")

@@ -7,13 +7,15 @@ over a dict of parameter tensors; autograd of the composed network gives
 backprop.  ``gen`` is the ``torch.Generator`` (on the activations' device)
 that input dropout draws from, or None (no dropout).
 
-Ported so far: ``Layer``, ``BaseLayer``, ``DenseLayer``, the CNN layers of
-LeNet and ResNet-50 (``ConvolutionLayer``/``Convolution2D``,
-``SubsamplingLayer``, ``BatchNormalization``, ``ActivationLayer``,
-``GlobalPoolingLayer``), ``OutputLayer`` and ``LossLayer``, with the
+Every layer of the reference module is here: ``DenseLayer``, the CNN
+layers (``ConvolutionLayer``/``Convolution2D``, ``SubsamplingLayer``,
+``BatchNormalization``, ``ActivationLayer``, ``ELULayer``,
+``LeakyReLULayer``, ``DropoutLayer``, ``GlobalPoolingLayer``,
+``LocalResponseNormalization``), ``EmbeddingLayer``,
+``EmbeddingSequenceLayer``, ``OutputLayer`` and ``LossLayer``, with the
 ``_Builder``/``register_layer``/``layer_from_json`` machinery; the
-attention, recurrent and misc layers register from their own modules.  The
-other layers (dropout, embedding, LRN, ...) wait for ROADMAP A4.
+attention, recurrent, convolutional, 3-D and misc layers register from
+their own modules.  The autoencoder and VAE layers wait for ROADMAP A4.
 
 Convolutions are ``torch.nn.functional.conv2d`` (NCHW input, OIHW weights),
 as the reference leaves them to XLA.  ``ConvolutionMode.Same`` pads as
@@ -41,8 +43,10 @@ from deeplearning4j_tpu_torch.nn.weights import init_weight
 
 __all__ = ["Layer", "BaseLayer", "DenseLayer", "ConvolutionLayer",
            "Convolution2D", "SubsamplingLayer", "BatchNormalization",
-           "ActivationLayer", "GlobalPoolingLayer", "OutputLayer",
-           "LossLayer", "PoolingType", "ConvolutionMode", "register_layer",
+           "ActivationLayer", "ELULayer", "LeakyReLULayer", "DropoutLayer",
+           "EmbeddingLayer", "EmbeddingSequenceLayer", "GlobalPoolingLayer",
+           "LocalResponseNormalization", "OutputLayer", "LossLayer",
+           "PoolingType", "ConvolutionMode", "register_layer",
            "layer_from_json"]
 
 
@@ -107,6 +111,22 @@ def _pad2d(x, pads, value=0.0):
     if t == b == l == r == 0:
         return x
     return F.pad(x, (l, r, t, b), value=value)
+
+
+def _conv2d(x, w, stride, padding, same: bool, dilation=(1, 1),
+            groups: int = 1):
+    """``lax.conv_general_dilated`` over NCHW ``x`` and OIHW ``w``:
+    ``padding`` (ph, pw) on both sides, or SAME's pads (the extra pixel of an
+    odd total at the end, padded explicitly)."""
+    if same:
+        pads = [_same_pads(x.shape[2 + a], w.shape[2 + a], stride[a],
+                           dilation[a]) for a in (0, 1)]
+        if all(lo == hi for lo, hi in pads):
+            padding = (pads[0][0], pads[1][0])
+        else:
+            x, padding = _pad2d(x, pads), (0, 0)
+    return F.conv2d(x, w, stride=stride, padding=padding, dilation=dilation,
+                    groups=groups)
 
 
 @dataclasses.dataclass
@@ -293,18 +313,8 @@ class ConvolutionLayer(BaseLayer):
 
     def forward(self, params, x, train, gen, state):
         x = self._dropin(x, train, gen)
-        if self._same():
-            pads = [_same_pads(x.shape[2 + a], self.kernelSize[a],
-                               self.stride[a], self.dilation[a])
-                    for a in (0, 1)]
-            if all(lo == hi for lo, hi in pads):
-                padding = (pads[0][0], pads[1][0])
-            else:
-                x, padding = _pad2d(x, pads), (0, 0)
-        else:
-            padding = self.padding
-        y = F.conv2d(x, params["W"], stride=self.stride, padding=padding,
-                     dilation=self.dilation)
+        y = _conv2d(x, params["W"], self.stride, self.padding, self._same(),
+                    self.dilation)
         if self.hasBias:
             y = y + params["b"].reshape(1, -1, 1, 1)
         return get_activation(self.activation or "identity")(y), state
@@ -471,6 +481,110 @@ class ActivationLayer(BaseLayer):
 
 
 @dataclasses.dataclass
+class ELULayer(ActivationLayer):
+    """Parameterized ELU (the keras ``ELU(alpha)`` import target; the string
+    activation table is fixed at alpha 1.0)."""
+    alpha: float = 1.0
+
+    def forward(self, params, x, train, gen, state):
+        return F.elu(x, self.alpha), state
+
+
+@dataclasses.dataclass
+class LeakyReLULayer(ActivationLayer):
+    """Parameterized leaky ReLU (the keras ``LeakyReLU`` import target; the
+    string activation table is fixed at alpha 0.01)."""
+    alpha: float = 0.3
+
+    def forward(self, params, x, train, gen, state):
+        return F.leaky_relu(x, self.alpha), state
+
+
+@dataclasses.dataclass
+class DropoutLayer(BaseLayer):
+    """Input dropout as a layer; ``dropOut`` (the RETAIN probability)
+    defaults to 0.5.  It draws from the model's generator, so its bits are
+    not the reference's; at inference it is the identity."""
+
+    def __post_init__(self):
+        if self.dropOut is None:
+            self.dropOut = 0.5
+
+    def forward(self, params, x, train, gen, state):
+        return self._dropin(x, train, gen), state
+
+
+def _embedding_params(layer, gen, dtype, device):
+    dev = resolve_device(device)
+    p = {"W": init_weight(gen, (layer.nIn, layer.nOut), layer.nIn,
+                          layer.nOut, layer.weightInit or "XAVIER", dtype,
+                          dev)}
+    if layer.hasBias:
+        p["b"] = torch.full((layer.nOut,), float(layer.biasInit or 0.0),
+                            dtype=dtype, device=dev)
+    return p
+
+
+def _lookup(W, x):
+    """Rows of ``W`` at the integer part of ``x``, by ``jnp.take``'s rules
+    (the reference's lookup): an index in [-n, 0) counts from the end, one
+    outside [-n, n) gives a row of NaN."""
+    from deeplearning4j_tpu_torch.autodiff.samediff import _take
+    return _take(W, x.long(), axis=0)
+
+
+@dataclasses.dataclass
+class EmbeddingLayer(BaseLayer):
+    """Index lookup.  Reference: ``conf/layers/EmbeddingLayer.java`` —
+    input (b,) or (b, 1) integer indices, output (b, nOut)."""
+    nIn: int = 0
+    nOut: int = 0
+    hasBias: bool = False
+
+    def preferredFormat(self):
+        return "FF"
+
+    def getOutputType(self, inputType):
+        return InputType.feedForward(self.nOut)
+
+    def initParams(self, gen, inputType, dtype=torch.float32, device=None):
+        return _embedding_params(self, gen, dtype, device)
+
+    def forward(self, params, x, train, gen, state):
+        y = _lookup(params["W"], x.reshape(x.shape[0], -1)[:, 0])
+        if self.hasBias:
+            y = y + params["b"]
+        return get_activation(self.activation or "identity")(y), state
+
+
+@dataclasses.dataclass
+class EmbeddingSequenceLayer(BaseLayer):
+    """Sequence lookup: (b, t) or (b, 1, t) indices -> RNN format
+    (b, nOut, t).  Reference: ``conf/layers/EmbeddingSequenceLayer.java``."""
+    nIn: int = 0
+    nOut: int = 0
+    inputLength: int = -1
+    hasBias: bool = False
+
+    def preferredFormat(self):
+        return None
+
+    def getOutputType(self, inputType):
+        return InputType.recurrent(self.nOut, self.inputLength)
+
+    def initParams(self, gen, inputType, dtype=torch.float32, device=None):
+        return _embedding_params(self, gen, dtype, device)
+
+    def forward(self, params, x, train, gen, state):
+        if x.dim() == 3:  # (b, 1, t)
+            x = x[:, 0, :]
+        y = _lookup(params["W"], x)                     # (b, t, nOut)
+        if self.hasBias:
+            y = y + params["b"]
+        return y.transpose(1, 2), state                 # (b, nOut, t)
+
+
+@dataclasses.dataclass
 class GlobalPoolingLayer(BaseLayer):
     """Pool the CNN spatial axes or the RNN time axis to FF.  Reference:
     ``conf/layers/GlobalPoolingLayer.java`` (mask-aware over time)."""
@@ -529,6 +643,27 @@ class GlobalPoolingLayer(BaseLayer):
 
 
 @dataclasses.dataclass
+class LocalResponseNormalization(BaseLayer):
+    """Reference: ``conf/layers/LocalResponseNormalization.java`` (AlexNet's
+    LRN): x / (k + alpha·Σx²)^beta, the sum over a window of ``int(n)``
+    channels zero-padded by ``n // 2`` on each side.  alpha is not divided
+    by n, so ``F.local_response_norm`` (which divides) is not this."""
+    k: float = 2.0
+    n: float = 5.0
+    alpha: float = 1e-4
+    beta: float = 0.75
+
+    def preferredFormat(self):
+        return "CNN"
+
+    def forward(self, params, x, train, gen, state):
+        half, n = int(self.n) // 2, int(self.n)
+        padded = F.pad(x * x, (0, 0, 0, 0, half, half))
+        ssum = sum(padded[:, i:i + x.shape[1]] for i in range(n))
+        return x / (self.k + self.alpha * ssum) ** self.beta, state
+
+
+@dataclasses.dataclass
 class OutputLayer(DenseLayer):
     """Dense + activation + loss.  Reference: ``conf/layers/OutputLayer.java``
     / ``layers/BaseOutputLayer.java``."""
@@ -583,8 +718,10 @@ def register_layer(cls):
 
 
 for _cls in (DenseLayer, ConvolutionLayer, SubsamplingLayer,
-             BatchNormalization, ActivationLayer, GlobalPoolingLayer,
-             OutputLayer, LossLayer):
+             BatchNormalization, ActivationLayer, ELULayer, LeakyReLULayer,
+             DropoutLayer, EmbeddingLayer, EmbeddingSequenceLayer,
+             GlobalPoolingLayer, LocalResponseNormalization, OutputLayer,
+             LossLayer):
     register_layer(_cls)
 
 
@@ -593,7 +730,9 @@ def layer_from_json(d: dict) -> Layer:
     name = d.pop("@class")
     if name not in _LAYER_REGISTRY:
         raise NotImplementedError(
-            f"layer {name} is not ported yet (ROADMAP A4 and later)")
+            f"layer {name} is not ported yet (ROADMAP A4: the autoencoder "
+            f"and VAE layers; A11: the recommender tier's; A12b: the "
+            f"SameDiff layers)")
     for k in ("updater", "biasUpdater"):
         if d.get(k):
             d[k] = IUpdater.fromJson(d[k])

@@ -17,7 +17,10 @@ either package restores in the other:
 - ``meta.json``: the model's type and its iteration and epoch counts;
 - ``normalizer.npz`` (with a normalizer): its kind and statistics.
 
-A restore places the model on ``cuda`` unless the caller passes another
+The entries are stored, not deflated (the reference deflates; either
+package reads both): float32 parameters and updater state barely
+compress, and deflate is the slow part of writing a large model.  A
+restore places the model on ``cuda`` unless the caller passes another
 device.
 """
 from __future__ import annotations
@@ -81,7 +84,7 @@ class ModelSerializer:
                 "iterationCount": getattr(model, "iterationCount", 0),
                 "epochCount": getattr(model, "epochCount", 0),
                 "framework": "deeplearning4j_tpu_torch"}
-        with zipfile.ZipFile(path, "w", zipfile.ZIP_DEFLATED) as z:
+        with zipfile.ZipFile(path, "w", zipfile.ZIP_STORED) as z:
             z.writestr(CONFIG_JSON, model.conf.toJson())
             z.writestr(COEFFICIENTS_BIN,
                        _host(model.params()).astype("<f4").tobytes())

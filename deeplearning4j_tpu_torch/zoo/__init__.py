@@ -1,8 +1,20 @@
-"""Model zoo (the port of ``deeplearning4j_tpu/zoo``).  So far ``LeNet``,
-``ResNet50`` and BERT (``BertConfig``, ``Bert``, ``BertBase``, a SameDiff
-graph); the other architectures and the pretrained weights wait for
-ROADMAP A9."""
+"""Model zoo (the port of ``deeplearning4j_tpu/zoo``): every architecture
+of the reference's zoo, BERT on SameDiff, and the local-file pretrained
+loader.  ``TwoTowerRecommender`` and ``DLRM`` wait for the recommender
+tier (ROADMAP A11), ``SRGAN`` and ``PixelShuffleLayer`` for
+``SameDiffLambdaLayer`` (A12b): their names import, and building one
+raises naming its item."""
+from deeplearning4j_tpu_torch.zoo.models import (  # noqa: F401
+    DLRM, AlexNet, LeNet, ResNet50, SimpleCNN, TwoTowerRecommender, VGG16,
+    ZooModel)
 from deeplearning4j_tpu_torch.zoo.bert import (  # noqa: F401
     Bert, BertBase, BertConfig)
-from deeplearning4j_tpu_torch.zoo.models import (  # noqa: F401
-    LeNet, ResNet50, ZooModel)
+from deeplearning4j_tpu_torch.zoo.models2 import (  # noqa: F401
+    C3D, Darknet19, InceptionResNetV1, SqueezeNet, TinyYOLO, UNet, VGG19,
+    Xception)
+from deeplearning4j_tpu_torch.zoo.models4 import (  # noqa: F401
+    FaceNetNN4Small2, TextGenerationLSTM, YOLO2)
+from deeplearning4j_tpu_torch.zoo.models3 import (  # noqa: F401
+    NASNet, PixelShuffleLayer, SRGAN)
+from deeplearning4j_tpu_torch.zoo.pretrained import (  # noqa: F401
+    resolvePretrained, transplant, weightsDir)

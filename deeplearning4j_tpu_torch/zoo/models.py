@@ -1,13 +1,16 @@
 """Zoo architectures — the port of ``deeplearning4j_tpu/zoo/models.py``
-(the reference's ``zoo/model/{LeNet,ResNet50}.java``: architectures built
-with the config DSL).  ``init`` builds the model on ``cuda`` unless the
-caller passes another device.
+(the reference's ``zoo/model/{LeNet,SimpleCNN,AlexNet,VGG16,ResNet50}.java``:
+architectures built with the config DSL).  ``init`` and ``initPretrained``
+build the model on ``cuda`` unless the caller passes another device.
+``TwoTowerRecommender`` and ``DLRM`` wait for the recommender tier
+(ROADMAP A11).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Tuple
 
+from deeplearning4j_tpu_torch import unported
 from deeplearning4j_tpu_torch.learning.config import Adam, Nesterovs
 from deeplearning4j_tpu_torch.models.graph import ComputationGraph
 from deeplearning4j_tpu_torch.models.graph_conf import ElementWiseVertex
@@ -19,11 +22,13 @@ from deeplearning4j_tpu_torch.nn.conf.layers import (ActivationLayer,
                                                      ConvolutionMode,
                                                      DenseLayer,
                                                      GlobalPoolingLayer,
+                                                     LocalResponseNormalization,
                                                      OutputLayer,
                                                      SubsamplingLayer,
                                                      _Builder)
 
-__all__ = ["ZooModel", "LeNet", "ResNet50"]
+__all__ = ["ZooModel", "LeNet", "SimpleCNN", "AlexNet", "VGG16", "ResNet50",
+           "TwoTowerRecommender", "DLRM"]
 
 
 @dataclasses.dataclass
@@ -41,9 +46,14 @@ class ZooModel:
         raise NotImplementedError
 
     def initPretrained(self, pretrainedType: str = "IMAGENET",
-                       path: Optional[str] = None):
-        raise NotImplementedError(
-            "pretrained zoo weights are not ported yet (ROADMAP A9)")
+                       path: Optional[str] = None, device=None):
+        """Reference: ``ZooModel.initPretrained(PretrainedType)``: the
+        checkpoint from the local weight repository
+        (``$DL4J_TPU_DATA_DIR/pretrained``) or ``path``, restored onto
+        ``device`` (``cuda`` unless the caller passes another).  See
+        ``zoo/pretrained.py``."""
+        from deeplearning4j_tpu_torch.zoo.pretrained import loadPretrained
+        return loadPretrained(self, pretrainedType, path, device)
 
     def metaData(self):
         return {"name": type(self).__name__, "inputShape": self.inputShape,
@@ -83,7 +93,104 @@ class LeNet(ZooModel):
 
 
 @dataclasses.dataclass
-class ResNet50(ZooModel):
+class SimpleCNN(ZooModel):
+    """Reference: zoo/model/SimpleCNN.java."""
+    numClasses: int = 10
+    inputShape: Tuple[int, int, int] = (3, 48, 48)
+
+    def init(self, device=None) -> MultiLayerNetwork:
+        b = (NeuralNetConfiguration.builder().seed(self.seed)
+             .updater(Adam(1e-3)).weightInit("RELU")
+             .convolutionMode(ConvolutionMode.Same).list())
+        for nOut in (16, 32, 64):
+            b.layer(ConvolutionLayer.builder().nOut(nOut).kernelSize(3, 3)
+                    .activation("relu").build())
+            b.layer(BatchNormalization.builder().build())
+            b.layer(SubsamplingLayer.builder().poolingType("MAX")
+                    .kernelSize(2, 2).stride(2, 2).build())
+        b.layer(GlobalPoolingLayer.builder().poolingType("AVG").build())
+        b.layer(OutputLayer.builder("negativeloglikelihood")
+                .nOut(self.numClasses).activation("softmax").build())
+        return MultiLayerNetwork(b.setInputType(self._it()).build(),
+                                 device=device).init()
+
+
+@dataclasses.dataclass
+class AlexNet(ZooModel):
+    """Reference: zoo/model/AlexNet.java (one-tower variant)."""
+
+    def init(self, device=None) -> MultiLayerNetwork:
+        c, h, w = self.inputShape
+        conf = (NeuralNetConfiguration.builder().seed(self.seed)
+                .updater(Nesterovs(1e-2, momentum=0.9)).weightInit("NORMAL")
+                .list()
+                .layer(ConvolutionLayer.builder().nIn(c).nOut(96)
+                       .kernelSize(11, 11).stride(4, 4).activation("relu")
+                       .build())
+                .layer(LocalResponseNormalization.builder().build())
+                .layer(SubsamplingLayer.builder().kernelSize(3, 3)
+                       .stride(2, 2).build())
+                .layer(ConvolutionLayer.builder().nOut(256).kernelSize(5, 5)
+                       .padding(2, 2).activation("relu").build())
+                .layer(LocalResponseNormalization.builder().build())
+                .layer(SubsamplingLayer.builder().kernelSize(3, 3)
+                       .stride(2, 2).build())
+                .layer(ConvolutionLayer.builder().nOut(384).kernelSize(3, 3)
+                       .padding(1, 1).activation("relu").build())
+                .layer(ConvolutionLayer.builder().nOut(384).kernelSize(3, 3)
+                       .padding(1, 1).activation("relu").build())
+                .layer(ConvolutionLayer.builder().nOut(256).kernelSize(3, 3)
+                       .padding(1, 1).activation("relu").build())
+                .layer(SubsamplingLayer.builder().kernelSize(3, 3)
+                       .stride(2, 2).build())
+                .layer(DenseLayer.builder().nOut(4096).activation("relu")
+                       .dropOut(0.5).build())
+                .layer(DenseLayer.builder().nOut(4096).activation("relu")
+                       .dropOut(0.5).build())
+                .layer(OutputLayer.builder("negativeloglikelihood")
+                       .nOut(self.numClasses).activation("softmax").build())
+                .setInputType(self._it()).build())
+        return MultiLayerNetwork(conf, device=device).init()
+
+
+def _vgg(model, reps, device):
+    """VGG16 / VGG19: 3x3 SAME convs in five blocks of ``reps`` each, 2x2
+    max pools, two dense 4096 and the softmax head."""
+    b = (NeuralNetConfiguration.builder().seed(model.seed)
+         .updater(Nesterovs(1e-2, momentum=0.9)).weightInit("XAVIER")
+         .convolutionMode(ConvolutionMode.Same).list())
+    for n, r in zip((64, 128, 256, 512, 512), reps):
+        for _ in range(r):
+            b.layer(ConvolutionLayer.builder().nOut(n).kernelSize(3, 3)
+                    .activation("relu").build())
+        b.layer(SubsamplingLayer.builder().poolingType("MAX")
+                .kernelSize(2, 2).stride(2, 2).build())
+    b.layer(DenseLayer.builder().nOut(4096).activation("relu").build())
+    b.layer(DenseLayer.builder().nOut(4096).activation("relu").build())
+    b.layer(OutputLayer.builder("negativeloglikelihood")
+            .nOut(model.numClasses).activation("softmax").build())
+    return MultiLayerNetwork(b.setInputType(model._it()).build(),
+                             device=device).init()
+
+
+@dataclasses.dataclass
+class VGG16(ZooModel):
+    """Reference: zoo/model/VGG16.java."""
+
+    def init(self, device=None) -> MultiLayerNetwork:
+        return _vgg(self, (2, 2, 3, 3, 3), device)
+
+
+class _GraphZooModel(ZooModel):
+    """A zoo model that is a ComputationGraph of its ``graphBuilder``."""
+
+    def init(self, device=None) -> ComputationGraph:
+        return ComputationGraph(self.graphBuilder().build(),
+                                device=device).init()
+
+
+@dataclasses.dataclass
+class ResNet50(_GraphZooModel):
     """Reference: zoo/model/ResNet50.java — a ComputationGraph of bottleneck
     residual blocks (ElementWiseVertex Add), stages [3, 4, 6, 3]."""
 
@@ -141,6 +248,6 @@ class ResNet50(ZooModel):
         gb.setOutputs("fc")
         return gb
 
-    def init(self, device=None) -> ComputationGraph:
-        return ComputationGraph(self.graphBuilder().build(),
-                                device=device).init()
+
+TwoTowerRecommender = unported("TwoTowerRecommender", "A11")
+DLRM = unported("DLRM", "A11")

@@ -10,10 +10,15 @@ side from copied parameters.
 - ``_char_conf``: the GravesLSTM char-RNN of
   ``examples/lstm_charmodelling.py`` (the recurrent slice);
 - ``_bert_pair`` / ``_bert_batches``: BERT on SameDiff at small widths and
-  ``bench.py``'s seeded MLM batches (the BERT slice).
+  ``bench.py``'s seeded MLM batches (the BERT slice);
+- ``_layer_parity`` / ``_loss_parity`` / ``_json_round_trip``: one layer
+  through both packages (the layers of the zoo slice);
+- ``_zoo_conf`` / ``_carried`` / ``_yolo_labels``: zoo configurations,
+  zoo nets carrying the same parameters, DL4J-format YOLO labels.
 """
 import jax
 import numpy as np
+import pytest
 import torch
 
 import deeplearning4j_tpu.datasets as jds
@@ -236,3 +241,191 @@ def _bert_batches(pkg, n, batch, seq, vocab, seed=0):
         pool.append(pkg.ds.MultiDataSet(features=[toks, segs, mask],
                                         labels=[labels, lmask]))
     return pool
+
+
+# ---------------------------------------------------------------------------
+# one layer through both packages (the layer slices' tests)
+# ---------------------------------------------------------------------------
+
+def _layer_parity(jl, tl, params, x, state=None, train=False, mask=None,
+                  grad=True, atol=1e-5, rtol=1e-5, seed=0):
+    """``jl.forward`` against ``tl.forward`` on the same numpy ``params``,
+    input ``x`` (and ``state`` / ``mask``), then the gradients of
+    sum(output · R), R a seeded random array, with respect to every
+    parameter and to a floating-point ``x`` (``jax.grad`` against
+    autograd).  The reference runs under one ``jax.jit`` (a compile per
+    case instead of one per op).  Returns (port output, reference
+    output)."""
+    state = state or {}
+    jp = {k: jax.numpy.asarray(v) for k, v in params.items()}
+    tp = {k: torch.tensor(v, requires_grad=grad) for k, v in params.items()}
+    floating = np.issubdtype(np.asarray(x).dtype, np.floating)
+    tx = torch.tensor(x, requires_grad=grad and floating)
+    jkw = {} if mask is None else {"mask": jax.numpy.asarray(mask)}
+    tkw = {} if mask is None else {"mask": torch.tensor(mask)}
+    jst = {k: jax.numpy.asarray(v) for k, v in state.items()}
+    tst = {k: torch.tensor(v) for k, v in state.items()}
+    jx = jax.numpy.asarray(x)
+
+    def fwd(p, xx):
+        return jl.forward(p, xx, train, None, jst, **jkw)[0]
+
+    shape = jax.eval_shape(fwd, jp, jx)
+    r = np.random.RandomState(seed).randn(*shape.shape).astype(shape.dtype)
+    argnums = (0, 1) if floating else (0,)
+
+    def ref_and_grads(p, xx):
+        gs = jax.grad(lambda p, xx: jax.numpy.sum(fwd(p, xx) * r),
+                      argnums=argnums)(p, xx) if grad else None
+        return fwd(p, xx), gs
+
+    ref, gs = jax.jit(ref_and_grads)(jp, jx)
+    ref = np.asarray(ref)
+    out, _ = tl.forward(tp, tx, train, None, tst, **tkw)
+    assert tuple(out.shape) == ref.shape
+    np.testing.assert_allclose(out.detach().numpy(), ref, atol=atol,
+                               rtol=rtol)
+    if grad:
+        (out * torch.from_numpy(r)).sum().backward()
+        for k in params:
+            np.testing.assert_allclose(tp[k].grad.numpy(),
+                                       np.asarray(gs[0][k]), atol=atol,
+                                       rtol=rtol, err_msg=f"d/d{k}")
+        if floating:
+            # no path to the input (ids read as integers) is a zero gradient
+            gx = tx.grad if tx.grad is not None else torch.zeros_like(tx)
+            np.testing.assert_allclose(gx.numpy(), np.asarray(gs[1]),
+                                       atol=atol, rtol=rtol,
+                                       err_msg="d/dx")
+    return out.detach(), ref
+
+
+def _loss_parity(jl, tl, labels, output, mask=None, atol=1e-5, rtol=1e-5):
+    """``computeScore`` of both layers (per example) on the same labels,
+    output and mask, and its mean's gradient with respect to the output
+    (the reference under one ``jax.jit``).  Returns (port scores,
+    reference scores)."""
+    jm = None if mask is None else jax.numpy.asarray(mask)
+    tm = None if mask is None else torch.tensor(mask)
+    jlab = jax.numpy.asarray(labels)
+
+    def ref_and_grad(o):
+        score = lambda o: jl.computeScore(jlab, o, jm)  # noqa: E731
+        return score(o), jax.grad(lambda o: jax.numpy.mean(score(o)))(o)
+
+    ref, g = jax.jit(ref_and_grad)(jax.numpy.asarray(output))
+    to = torch.tensor(output, requires_grad=True)
+    got = tl.computeScore(torch.tensor(labels), to, tm)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(ref),
+                               atol=atol, rtol=rtol)
+    got.mean().backward()
+    np.testing.assert_allclose(to.grad.numpy(), np.asarray(g), atol=atol,
+                               rtol=rtol, err_msg="d/doutput")
+    return got.detach(), np.asarray(ref)
+
+
+def _json_round_trip(jlayer):
+    """The reference layer's JSON read by the port's ``layer_from_json``
+    and written back: (port layer, reference JSON text, port JSON text)."""
+    import json
+    ref = json.dumps(jlayer.toJson(), default=str)
+    layer = tlayers.layer_from_json(json.loads(ref))
+    return layer, ref, json.dumps(layer.toJson(), default=str)
+
+
+# ---------------------------------------------------------------------------
+# the zoo (the zoo slice's tests)
+# ---------------------------------------------------------------------------
+
+def _zoo_conf(model, monkeypatch):
+    """A zoo model's configuration, built as its ``init`` builds it; for a
+    MultiLayerNetwork, ``init`` is stubbed for the call, so nothing is
+    drawn."""
+    if hasattr(model, "graphBuilder"):
+        return model.graphBuilder().build()
+    torch_side = type(model).__module__.startswith("deeplearning4j_tpu_torch")
+    mln = tmodels.MultiLayerNetwork if torch_side else \
+        jmodels.MultiLayerNetwork
+    with monkeypatch.context() as m:
+        m.setattr(mln, "init", lambda self, *a, **k: self)
+        return model.init(**({"device": "cpu"} if torch_side else {})).conf
+
+
+def _carried(name, kw):
+    """(port zoo net on the CPU, the reference's) from the port's drawn
+    parameters, carried by ``init(params=)``."""
+    import deeplearning4j_tpu.zoo as jz
+    import deeplearning4j_tpu_torch.zoo as tz
+    net = getattr(tz, name)(**kw).init(device="cpu")
+    model = getattr(jz, name)(**kw)
+    jmodel = jmodels.ComputationGraph if hasattr(model, "graphBuilder") \
+        else jmodels.MultiLayerNetwork
+    jnet = jmodel(_zoo_conf(model, pytest.MonkeyPatch()))
+    jnet.init(params=jax.tree.map(lambda t: jax.numpy.asarray(t.numpy()),
+                                  net.params_))
+    return net, jnet
+
+
+def _yolo_labels(rng, b, nC, grid):
+    """DL4J's YOLO labels (b, 4 + nC, g, g): one or two boxes an image in
+    grid units, [x1, y1, x2, y2] and a one-hot class; zero elsewhere."""
+    lab = np.zeros((b, 4 + nC, grid, grid), np.float32)
+    for e in range(b):
+        for _ in range(1 + e % 2):
+            i, j = rng.randint(0, grid, 2)
+            cx, cy = j + rng.rand(), i + rng.rand()
+            w, h = 0.3 + rng.rand() * 1.5, 0.3 + rng.rand() * 1.5
+            lab[e, 0:4, i, j] = (cx - w / 2, cy - h / 2, cx + w / 2,
+                                 cy + h / 2)
+            lab[e, 4:, i, j] = 0.0
+            lab[e, 4 + rng.randint(0, nC), i, j] = 1.0
+    return lab
+
+
+def _narrow_yolo2(pkg, numClasses=3, size=32):
+    """Built as ``YOLO2.graphBuilder`` builds YOLO2 (the same conv-BN
+    leaky-ReLU blocks, pools, the 26x26-equivalent passthrough through
+    ``SpaceToDepthLayer(2)`` and ``MergeVertex``, the 1x1 head and
+    ``Yolo2OutputLayer`` with the five COCO priors), at a 16th of its
+    widths over a ``size`` x ``size`` input."""
+    L = pkg.layers
+    from importlib import import_module
+    conv = import_module(pkg.layers.__name__.rsplit(".", 1)[0]
+                         + ".convolutional")
+    gb = (pkg.conf.NeuralNetConfiguration.builder().seed(4)
+          .updater(pkg.learn.Adam(1e-3)).weightInit("RELU")
+          .convolutionMode("Same").graphBuilder())
+    gb.addInputs("input").setInputTypes(
+        pkg.conf.InputType.convolutional(size, size, 3))
+
+    def conv_bn(name, inp, n, k):
+        gb.addLayer(name, L.ConvolutionLayer.builder().nOut(n)
+                    .kernelSize(k, k).hasBias(False).build(), inp)
+        gb.addLayer(name + "_bn", L.BatchNormalization.builder()
+                    .activation("leakyrelu").build(), name)
+        return name + "_bn"
+
+    def pool(name, inp):
+        gb.addLayer(name, L.SubsamplingLayer.builder().poolingType("MAX")
+                    .kernelSize(2, 2).stride(2, 2).build(), inp)
+        return name
+
+    x = pool("p1", conv_bn("c1", "input", 2, 3))
+    x = pool("p2", conv_bn("c2", x, 4, 3))
+    x = pool("p3", conv_bn("c5", conv_bn("c4", conv_bn("c3", x, 8, 3), 4,
+                                           1), 8, 3))
+    route = conv_bn("c13", conv_bn("c9", x, 32, 3), 32, 3)
+    x = conv_bn("c20", conv_bn("c14", pool("p5", route), 64, 3), 64, 3)
+    r = conv_bn("route_r", route, 4, 1)
+    gb.addLayer("reorg", conv.SpaceToDepthLayer.builder().blockSize(2)
+                .build(), r)
+    gb.addVertex("concat", pkg.gc.MergeVertex(), "reorg", x)
+    x = conv_bn("c21", "concat", 64, 3)
+    gb.addLayer("pred", L.ConvolutionLayer.builder()
+                .nOut(5 * (5 + numClasses)).kernelSize(1, 1).build(), x)
+    gb.addLayer("yolo", conv.Yolo2OutputLayer.builder().boundingBoxes(
+        np.asarray(((0.57273, 0.677385), (1.87446, 2.06253),
+                    (3.33843, 5.47434), (7.88282, 3.52778),
+                    (9.77052, 9.16828)))).build(), "pred")
+    gb.setOutputs("yolo")
+    return gb.build()

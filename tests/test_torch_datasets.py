@@ -234,3 +234,94 @@ def test_standardize_save_load_both_ways(tmp_path):
     back = tds.NormalizerStandardize.load(tmp_path / "jax.npz")
     np.testing.assert_array_equal(back.mean, jn.mean)
     assert back.std.dtype == np.float64
+
+
+# ---------------------------------------------------------------------------
+# DataSet's methods (reference datasets/dataset.py:47-140)
+# ---------------------------------------------------------------------------
+
+def _ds_pair(masks=True):
+    """The same DataSet in both packages: 10 examples of (3, 4) features,
+    one-hot labels and, with ``masks``, (10, 4) masks."""
+    rng = np.random.RandomState(41)
+    arrs = [rng.randn(10, 3, 4).astype(np.float32),
+            np.eye(3, dtype=np.float32)[rng.randint(0, 3, 10)]]
+    if masks:
+        arrs += [(rng.rand(10, 4) > 0.3).astype(np.float32),
+                 (rng.rand(10, 4) > 0.5).astype(np.float32)]
+    return jds.DataSet(*arrs), tds.DataSet(*arrs)
+
+
+def _parts(ds):
+    return [None if a is None else _np(a) for a in
+            (ds.features, ds.labels, ds.featuresMask, ds.labelsMask)]
+
+
+def _assert_same(jd, td):
+    for a, b in zip(_parts(jd), _parts(td)):
+        assert (a is None) == (b is None)
+        if a is not None:
+            np.testing.assert_array_equal(b, a)
+
+
+@pytest.mark.parametrize("seed", [0, 7, None])
+def test_shuffle_gives_the_references_order(seed):
+    """``RandomState(seed).permutation``, over every array; a None seed
+    draws from the OS in both, so only the pairing of rows is held."""
+    jd, td = _ds_pair()
+    jd.shuffle(seed)
+    td.shuffle(seed)
+    if seed is None:
+        f, l = _parts(td)[:2]
+        _, t0 = _ds_pair()
+        order = [int(np.argmax((_np(t0.features) == row).all(axis=(1, 2))))
+                 for row in f]
+        np.testing.assert_array_equal(l, _np(t0.labels)[order])
+        return
+    _assert_same(jd, td)
+
+
+@pytest.mark.parametrize("k", [0.7, 3, 0.0, 10])
+def test_split_test_and_train(k):
+    jd, td = _ds_pair()
+    js, ts = jd.splitTestAndTrain(k), td.splitTestAndTrain(k)
+    _assert_same(js.getTrain(), ts.getTrain())
+    _assert_same(js.getTest(), ts.getTest())
+    assert type(ts).__name__ == "SplitTestAndTrain"
+
+
+@pytest.mark.parametrize("masks", [True, False])
+def test_sample_merge_and_as_list(masks):
+    jd, td = _ds_pair(masks)
+    _assert_same(jd.sample(4, seed=3), td.sample(4, seed=3))
+    parts = [_ds_pair(masks), _ds_pair(False)]
+    _assert_same(jds.DataSet.merge([p[0] for p in parts]),
+                 tds.DataSet.merge([p[1] for p in parts]))
+    _assert_same(jds.DataSet.merge([jd, jd]), tds.DataSet.merge([td, td]))
+    jl, tl = jd.asList(), td.asList()
+    assert len(jl) == len(tl) == 10
+    for a, b in zip(jl, tl):
+        _assert_same(a, b)
+
+
+@pytest.mark.parametrize("masks", [True, False])
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_save_load_across_packages(writer, masks, tmp_path):
+    """The reference's ``.npz`` keys: a file either package writes loads
+    in the other, array for array."""
+    jd, td = _ds_pair(masks)
+    path = str(tmp_path / "ds.npz")
+    (jd if writer == "jax" else td).save(path)
+    with np.load(path) as z:
+        assert sorted(z.files) == sorted(
+            ["features", "labels"] + (["featuresMask", "labelsMask"]
+                                      if masks else []))
+    _assert_same(jds.DataSet.load(path), tds.DataSet.load(path))
+    _assert_same(jd, tds.DataSet.load(path))
+
+
+def test_get_offsets():
+    offsets = np.array([0, 2, 5], np.int64)
+    td = tds.DataSet(np.zeros((2, 3)), np.zeros((2, 1)), offsets=offsets)
+    np.testing.assert_array_equal(_np(td.getOffsets()), offsets)
+    assert tds.DataSet(np.zeros((1, 1))).getOffsets() is None

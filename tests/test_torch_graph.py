@@ -512,10 +512,14 @@ def test_multi_output_graph_fit_and_output_match_reference():
     for o, r in zip(outs, jnet.output(b, a)):
         np.testing.assert_allclose(o.numpy(), np.asarray(r.jax), atol=1e-6)
     torch.testing.assert_close(net.outputSingle(b, a), outs[0])
-    # one-input DataSets cannot feed a two-input graph: the reference's
-    # MultiDataSet is not ported
-    with pytest.raises(NotImplementedError, match="A5"):
-        net.fit(type("MultiDataSet", (), {})())
+    # a two-input, two-output graph fits on a MultiDataSet (ROADMAP A6)
+    y0 = np.eye(3, dtype=np.float32)[rng.randint(0, 3, 5)]
+    y1 = rng.randn(5, 2).astype(np.float32)
+    jnet.fit(JAX.ds.MultiDataSet([b, a], [y0, y1]))
+    net.fit(PORT.ds.MultiDataSet([b, a], [y0, y1]))
+    assert abs(net.score() - jnet.score()) <= 1e-5
+    np.testing.assert_allclose(net.params().numpy(),
+                               np.asarray(jnet.params().jax), atol=1e-6)
 
 
 def test_fit_iterator_two_epochs_equals_batches_in_turn():
@@ -561,13 +565,17 @@ def test_set_params_round_trips():
 
 def test_unported_pieces_raise_naming_their_roadmap_item():
     """What is still unported raises naming its ROADMAP item; what this
-    test once refused (A3's schedules, A5's TBPTT, A8's rnnTimeStep, A9's
-    evaluate, listeners and line-search solvers) now runs: a graph without
+    test once refused (A3's schedules, A5's TBPTT, A6's vertices, A8's
+    rnnTimeStep, A9's evaluate, listeners, line-search solvers and the
+    pretrained loader, which now asks for a checkpoint) now runs: a graph without
     RNN vertices steps as ``output``, ``evaluate`` counts its examples,
     listeners attach, LBFGS makes one iteration per ``fit``, and a TBPTT
     graph fed rank-4 images trains by standard backpropagation."""
-    with pytest.raises(NotImplementedError, match="A6"):
-        tgc.vertex_from_json({"@class": "SubsetVertex"})
+    # A6's vertices, which this test once refused, now build
+    assert tgc.vertex_from_json({"@class": "SubsetVertex", "fromIndex": 1,
+                                 "toIndex": 2}).toIndex == 2
+    with pytest.raises(NotImplementedError, match="A4"):
+        tlayers.layer_from_json({"@class": "VariationalAutoencoder"})
     net = tmodels.ComputationGraph(_narrow(PORT, "FLOAT"), device="cpu") \
         .init()
     f, l = _narrow_batches(1)[0]
@@ -577,8 +585,8 @@ def test_unported_pieces_raise_naming_their_roadmap_item():
     net.setListeners(object())
     assert len(net.getListeners()) == 1
     net.setListeners()
-    with pytest.raises(NotImplementedError, match="A9"):
-        TResNet50().initPretrained()
+    with pytest.raises(RuntimeError, match="no pretrained checkpoint"):
+        TResNet50().initPretrained(path=None, pretrainedType="NONE_SUCH")
     fixed = tlearn.Nesterovs(momentumSchedule=tlearn.FixedSchedule(0.5))
     for a, b in zip(fixed.apply(torch.ones(2), {"v": torch.ones(2)}, 0.1, 0),
                     tlearn.Nesterovs(momentum=0.5).apply(

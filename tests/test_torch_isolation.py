@@ -349,3 +349,88 @@ def test_onnx_importer_entry_points_default_to_cuda():
         importOnnxModel(model)
     sd, _, _ = importOnnxModel(model, device="cpu")
     assert sd.device.type == "cpu"
+
+
+ZOO_SLICE_MODULES = ["nn.conf.layers", "nn.conf.convolutional",
+                     "nn.conf.convolutional3d", "nn.conf.misc",
+                     "models.graph_conf", "models.graph",
+                     "datasets.dataset", "zoo.models", "zoo.models2",
+                     "zoo.models3", "zoo.models4", "zoo.pretrained"]
+
+
+@pytest.mark.parametrize("mod", ZOO_SLICE_MODULES)
+def test_zoo_slice_modules_import_no_jax_alone(mod):
+    """Each module the zoo slice added or grew, imported on its own, loads
+    neither ``jax`` nor the JAX package."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run(
+        [sys.executable, "-c", _IMPORT_ONE.format(
+            name=f"deeplearning4j_tpu_torch.{mod}",
+            forbidden=set(FORBIDDEN))],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_zoo_entry_points_default_to_cuda(tmp_path, monkeypatch):
+    """Every zoo model's ``init`` and ``initPretrained`` place their model
+    on ``cuda`` unless told otherwise, and raise without a card."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is usable")
+    import deeplearning4j_tpu_torch.zoo as tz
+    from deeplearning4j_tpu_torch.utils import ModelSerializer
+    small = dict(inputShape=(3, 32, 32), numClasses=3)
+    for name in ("SimpleCNN", "AlexNet", "VGG16", "VGG19", "SqueezeNet",
+                 "Darknet19", "TinyYOLO", "UNet", "Xception",
+                 "InceptionResNetV1", "NASNet", "FaceNetNN4Small2", "YOLO2"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            getattr(tz, name)(**small).init()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tz.TextGenerationLSTM().init()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tz.C3D().init()
+    monkeypatch.setenv("DL4J_TPU_DATA_DIR", str(tmp_path))
+    (tmp_path / "pretrained").mkdir()
+    net = tz.SimpleCNN(**small).init(device="cpu")
+    ModelSerializer.writeModel(net, str(tmp_path / "pretrained"
+                                        / "SimpleCNN_IMAGENET.zip"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tz.SimpleCNN(**small).initPretrained()
+    assert tz.SimpleCNN(**small).initPretrained(
+        device="cpu").device == torch.device("cpu")
+
+
+def _reference_names(module):
+    """The classes and functions a reference module offers that are its
+    package's own (not typing helpers, not submodules)."""
+    import importlib
+    ref = importlib.import_module(f"deeplearning4j_tpu.{module}")
+    return sorted(n for n, v in vars(ref).items()
+                  if not n.startswith("_") and callable(v)
+                  and getattr(v, "__module__", "").startswith(
+                      "deeplearning4j_tpu"))
+
+
+ZOO_SLICE_NAMES = [(m, n) for m in ("nn.conf", "nn.conf.convolutional",
+                                    "models", "zoo")
+                   for n in _reference_names(m)]
+
+
+@pytest.mark.parametrize("module,name", ZOO_SLICE_NAMES)
+def test_zoo_slice_public_names_import_from_both_packages(module, name):
+    """Every public name of the reference's ``nn.conf``,
+    ``nn.conf.convolutional``, ``models`` and ``zoo`` imports from the port
+    under the same path; the ones still unported raise naming their
+    ROADMAP item when built."""
+    import importlib
+    port = getattr(importlib.import_module(
+        f"deeplearning4j_tpu_torch.{module}"), name)
+    assert callable(port)
+    unported = {"SameDiffLambdaLayer": "A12b", "SameDiffLayer": "A12b",
+                "SDLayerParams": "A12b", "AutoEncoder": "A4",
+                "VariationalAutoencoder": "A4", "SRGAN": "A12b",
+                "PixelShuffleLayer": "A12b", "TwoTowerRecommender": "A11",
+                "DLRM": "A11"}
+    if name in unported:
+        with pytest.raises(NotImplementedError,
+                           match=f"ROADMAP {unported[name]}"):
+            port()

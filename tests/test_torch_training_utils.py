@@ -477,3 +477,44 @@ def test_lenet_mnist_end_to_end():
     ev = net.evaluate(MnistDataSetIterator(256, False, 123, numExamples=512))
     assert ev.getNumRowCounter() == 512
     assert ev.accuracy() > 0.90, ev.stats()
+
+
+def test_c17_frozen_batchnorm_moves_its_statistics_as_in_the_reference():
+    """ROADMAP C17, a reference behaviour the port keeps: a frozen vertex
+    runs in training mode (DL4J's ``FrozenLayer`` runs it as at
+    inference), so a frozen BatchNormalization normalises with batch
+    statistics and moves its running statistics — in both packages, by
+    the same amounts (1e-5); its parameters stay bit for bit."""
+    from _torch_parity import _narrow
+    jg = JAX.models.ComputationGraph(_narrow(JAX, "FLOAT")).init()
+    g = PORT.models.ComputationGraph(_narrow(PORT, "FLOAT"),
+                                     device="cpu").init(
+        params=jax.tree.map(np.array, jg.params_))
+
+    def surgery(tl, pkg, net):
+        return (tl.GraphBuilder(net).setFeatureExtractor("avgpool")
+                .removeVertexKeepConnections("fc")
+                .addLayer("fc", pkg.layers.OutputLayer.builder("mcxent")
+                          .nOut(3).activation("softmax").build(), "avgpool")
+                .setOutputs("fc"))
+
+    j2 = surgery(JTL, JAX, jg).build()
+    t2 = surgery(TransferLearning, PORT, g).build(device="cpu")
+    t2.params_["fc"] = {k: torch.from_numpy(np.array(v))
+                        for k, v in j2.params_["fc"].items()}
+    t2._initOptState()
+    rng = np.random.RandomState(5)
+    x = rng.randn(4, 3, 16, 16).astype(np.float32)
+    y = np.eye(3, dtype=np.float32)[rng.randint(0, 3, 4)]
+    st0 = {k: _np(st["mean"]).copy() for k, st in t2.state_.items()}
+    w0 = _np(t2.params_["stem_conv"]["W"]).copy()
+    t2.fit(PORT.ds.DataSet(x, y))
+    j2.fit(JAX.ds.DataSet(x, y))
+    assert abs(t2.score() - j2.score()) <= 1e-5
+    np.testing.assert_array_equal(_np(t2.params_["stem_conv"]["W"]), w0)
+    assert not np.array_equal(_np(t2.state_["stem_bn"]["mean"]),
+                              st0["stem_bn"])
+    for k, st in t2.state_.items():
+        np.testing.assert_allclose(_np(st["mean"]),
+                                   np.asarray(j2.state_[k]["mean"]),
+                                   atol=1e-5, rtol=1e-5)
