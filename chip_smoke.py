@@ -320,6 +320,49 @@ which must pass or the script exits non-zero without a result line:
    and peak memory each.  Phases 42-46 launch no kernel (counters read
    zero across each): no TPU kernel is on the zoo's path.
 
+47. ``keras_hdf5``: the port's HDF5 reader (``imports/hdf5.py``; the
+   card's machine has no h5py) decodes each committed Keras fixture
+   (``tests/fixtures/make_keras_fixtures.py``): the ResNet-50 skeleton, the
+   transformer ``.h5`` and the ``.keras`` archive's ``model.weights.h5``;
+   groups, datasets (shape, dtype, allocated) and attribute names against
+   the h5py manifest the generator wrote, every dataset read;
+48. ``keras_attention``: the long-context Keras transformer (``KERAS``)
+   through ``KerasModelImport.importKerasModelAndWeights`` onto the card
+   (a ``ComputationGraph`` with two ``KerasMultiHeadAttention``).
+   Counters set to 0 just before and read just after each run: one
+   inference forward on the 4 x 2048 seeded inputs launches B1 twice (once
+   per block) and no backward kernel, and its pooled features and
+   probabilities match keras's committed outputs (``KERAS_OUT_TOL``);
+   ``fit`` on two seeded batches for 2 epochs (Adam 1e-3) launches B1, B2
+   and B3 twice a step; one FLOAT step against the same step with dense
+   attention forced; ms a step, tokens/s, peak memory;
+49. ``keras_resnet50``: keras's ResNet-50 (25,636,712 numbers) from the
+   weight-stripped skeleton, refilled by ``_keras_refill`` from its seed
+   and imported by ``_build_net`` (what the entry points call) on the
+   card: the forward at batch 2 against keras's committed ``avg_pool``
+   features and probabilities and against the same net on the CPU
+   (``KERAS_RESNET_TOL``; the refilled net's features reach ~3e4, so the
+   features are held relative to their largest), ``fit`` 4 steps at batch
+   32; decode s, import s, forward ms, ms a step, images/s, peak memory;
+   no kernel launch (nothing dispatches B4);
+50. ``keras_v3``: the narrow ``.keras`` archive onto the card against
+   keras's committed outputs; its compile state gives Adam; no launch;
+51. ``vae_pretrain``: dl4j-examples' ``VaeMNISTAnomaly`` (``VAE``) on
+   60,000 synthetic MNIST-shaped images: ``MultiLayerNetwork.pretrain``
+   one epoch (the negative ELBO of the test images, at fixed ε, must
+   fall), ``reconstructionLogProbability(numSamples=16)`` of the 10,000
+   test images; a stacked denoising ``AutoEncoder`` (784 -> 250 -> 10,
+   corruption 0.3, xent) pretrains 20 batches a layer (its reconstruction
+   error must fall), and one pretrain step of it on the card equals the
+   CPU's (parameters 1e-5, the summed loss 1e-6 relative) with each
+   layer's corruption mask drawn on the CPU and passed in; no launch;
+52. ``attention_layers``: the other A7 layers at small widths
+   (``ATTENTION_LAYERS``), card against CPU from the same parameters:
+   ``SelfAttentionLayer.initCache`` / ``decodeStep`` chained against the
+   causal forward, ``LearnedSelfAttentionLayer``,
+   ``RecurrentAttentionLayer``; at t 1024 the recurrent layer's ``_mha``
+   launches B1 once (counted).
+
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``.  With ``--record PATH`` it also
 writes the full record (every check, timing and profile row) as JSON.
@@ -616,6 +659,144 @@ SERVE = dict(lm=dict(vocabSize=50257, nLayers=12, nHeads=12, headSize=64,
 # closer tie either way); served outputs of one model on one card to 1e-5.
 SERVE_NEAR_TIE = 1e-4
 SERVE_OUT_ATOL = 1e-5
+
+# Keras import (phases 47-52).  The committed fixtures, written by
+# tests/fixtures/make_keras_fixtures.py with keras and h5py (neither is on
+# the card's machine; the port reads them with its own HDF5 reader):
+# - keras.applications.ResNet50(weights=None) (224 x 224 x 3, 1000 classes,
+#   25,636,712 parameters) saved as .h5 with every dataset left
+#   unallocated, refilled here by _keras_refill from resnet_seed, and
+#   keras's avg_pool features and probabilities for that refill on
+#   RandomState(resnet_input_seed) normal images of batch 2;
+# - the long-context Keras transformer: keras.io's "Text classification
+#   with Transformer" block (MultiHeadAttention, Dropout 0.1, Add,
+#   LayerNormalization 1e-6, Dense ff relu, Dense d, Dropout 0.1, Add,
+#   LayerNormalization 1e-6) at the widths of bench.py's long-context net
+#   (input (2048, 128), 2 blocks, 8 heads of key_dim 16, ff 256), then
+#   GlobalAveragePooling1D and Dense(10, softmax); keras's own random
+#   weights from keras_seed, with keras's probabilities and pooled
+#   features on RandomState(transformer_input_seed) normal inputs of 4;
+# - a narrow .keras archive (Conv1D, MultiHeadAttention, LayerNormalization,
+#   Bidirectional LSTM, pooling, Dense softmax) with keras's outputs;
+# - an h5py manifest of each HDF5 file (groups, datasets, attributes).
+KERAS = dict(fixtures=os.path.join(ROOT, "tests", "fixtures"),
+             resnet="keras_resnet50_skeleton.h5",
+             transformer="keras_transformer_t2048.h5",
+             v3="keras_narrow_v3.keras", io="keras_fixtures_io.npz",
+             manifest="keras_fixtures_manifest.json",
+             resnet_params=25_636_712, resnet_seed=0, resnet_input_seed=1,
+             resnet_batch=2, resnet_train_batch=32, resnet_train_steps=4,
+             t=2048, d=128, heads=8, key_dim=16, ff=256, blocks=2,
+             classes=10, batch=4, keras_seed=5, transformer_input_seed=2,
+             train_seed=3, train_epochs=2, v3_input_seed=4,
+             v3_shape=(2, 16, 8))
+# The ResNet-50 forward against keras's: the avg_pool features and the
+# probabilities, each |ours - keras| <= atol + rtol·|keras| (float32
+# through 53 convolutions in a different order, and the card's float32
+# products with TF32 off); the transformer's and the narrow archive's
+# outputs the same way.
+KERAS_RESNET_TOL = dict(atol=1e-4, rtol=1e-3)
+KERAS_OUT_TOL = dict(atol=2e-5, rtol=1e-4)
+# dl4j-examples' VaeMNISTAnomaly: VariationalAutoencoder(784 -> 32,
+# encoder and decoder (256, 256), leakyrelu, bernoulli reconstruction),
+# Adam(1e-3), XAVIER, l2 1e-4, batch 128, one pretrain epoch over 60,000
+# MNIST-shaped images, then reconstructionLogProbability(numSamples=16)
+# over the 10,000 test images; the stacked denoising AutoEncoder of
+# dl4j-examples' deep autoencoder family, 784 -> 250 -> 10, corruption
+# 0.3, xent.
+VAE = dict(nIn=784, nOut=32, hidden=(256, 256), lr=1e-3, l2=1e-4,
+           batch=128, n_train=60_000, n_test=10_000, samples=16, seed=12345,
+           ae_sizes=(250, 10), ae_corruption=0.3, ae_steps=20)
+# The other A7 layers at small widths, card against CPU; the recurrent
+# attention layer at t 1024 reaches B1 through its _mha.
+ATTENTION_LAYERS = dict(nIn=32, nHeads=4, headSize=8, nOut=32, t=64,
+                        batch=3, nQueries=5, long_t=1024, seed=9)
+ATTENTION_TOL = dict(atol=1e-4, rtol=1e-4)
+
+
+def _keras_refill(name, shape, rng):
+    """The seeded value of an unallocated keras weight, by its last path
+    component: kernels N(0, sqrt(2 / fan_in)) (fan_in the product of all
+    but the last dimension), biases 0.01·N, BatchNormalization gamma
+    1 + 0.1·N, beta 0.1·N, moving mean 0.1·N and moving variance
+    U(0.5, 1.5); float32."""
+    import numpy as np
+    leaf = name.rsplit("/", 1)[-1]
+    if leaf == "kernel":
+        fan_in = int(np.prod(shape[:-1]))
+        v = rng.standard_normal(shape) * np.sqrt(2.0 / fan_in)
+    elif leaf == "bias":
+        v = 0.01 * rng.standard_normal(shape)
+    elif leaf == "gamma":
+        v = 1.0 + 0.1 * rng.standard_normal(shape)
+    elif leaf in ("beta", "moving_mean"):
+        v = 0.1 * rng.standard_normal(shape)
+    elif leaf == "moving_variance":
+        v = rng.uniform(0.5, 1.5, shape)
+    else:
+        raise ValueError(f"no refill rule for the keras weight {name!r}")
+    return v.astype(np.float32)
+
+
+def _keras_refill_all(datasets, seed):
+    """``{path: array}`` for ``(path, shape)`` pairs in the file's visit
+    order, drawn from one ``RandomState(seed)`` in that order."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    return {path: _keras_refill(path, tuple(shape), rng)
+            for path, shape in datasets}
+
+
+def _keras_path(key):
+    return os.path.join(KERAS["fixtures"], KERAS[key])
+
+
+class _RefilledStore:
+    """A keras ``.h5``'s weights by layer (``model_weights/<layer>``, in
+    ``weight_names`` order), each unallocated dataset's from ``filled``."""
+
+    def __init__(self, f, filled):
+        self.root, self.filled = f["model_weights"], filled
+
+    def get(self, layer_name):
+        import numpy as np
+        if layer_name not in self.root:
+            return []
+        g = self.root[layer_name]
+        out = []
+        for n in g.attrs.get("weight_names"):
+            ds = g[n.decode() if isinstance(n, bytes) else n]
+            path = ds.name.lstrip("/")
+            out.append(self.filled[path] if path in self.filled
+                       else np.asarray(ds))
+        return out
+
+
+def _keras_resnet_import(device=None, timing=None):
+    """The committed ResNet-50 skeleton decoded by the port's reader, its
+    unallocated datasets refilled (``_keras_refill_all``, visit order,
+    ``resnet_seed``), and the importer's ``_build_net`` (the function the
+    public entry points call) on ``device``: ``(file, filled, net)``.
+    ``timing``, a dict, gets the decode and import seconds."""
+    from deeplearning4j_tpu_torch.imports import hdf5
+    from deeplearning4j_tpu_torch.imports.keras_import import _build_net
+    t0 = time.perf_counter()
+    f = hdf5.File(_keras_path("resnet"))
+    stripped = []
+    f.visititems(lambda n, o: stripped.append((n, o.shape))
+                 if isinstance(o, hdf5.Dataset) and not o.allocated
+                 else None)
+    filled = _keras_refill_all(stripped, KERAS["resnet_seed"])
+    cfg = json.loads(f.attrs["model_config"])
+    t1 = time.perf_counter()
+    net = _build_net(cfg["class_name"], cfg["config"],
+                     cfg["config"]["layers"], _RefilledStore(f, filled),
+                     None, device=device)
+    if timing is not None:
+        timing["decode_s"] = t1 - t0
+        timing["import_s"] = time.perf_counter() - t1
+    return f, filled, net
+
 
 SERVE_SHAPE = (BATCH, GPT2_SMALL["nHeads"], PROMPT, PROMPT,
                GPT2_SMALL["headSize"])
@@ -4441,6 +4622,583 @@ def phase_zoo_sweep(torch, rec, card):
     _no_launches(rec, "zoo_sweep", _counters())
 
 
+# ---------------------------------------------------------------------------
+# Keras import (phases 47-52)
+# ---------------------------------------------------------------------------
+
+def _manifest_of(f):
+    """Groups, datasets (shape, dtype, allocated) and attribute names of a
+    file read by the port's HDF5 reader, in the fixture manifest's form."""
+    from deeplearning4j_tpu_torch.imports import hdf5
+    groups, datasets, attrs = [], {}, {"/": list(f.attrs.keys())}
+
+    def visit(name, obj):
+        attrs[name] = list(obj.attrs.keys())
+        if isinstance(obj, hdf5.Dataset):
+            datasets[name] = [list(obj.shape), obj.dtype.str, obj.allocated]
+        else:
+            groups.append(name)
+    f.visititems(visit)
+    return {"groups": groups, "datasets": datasets, "attrs": attrs}
+
+
+def phase_keras_hdf5(torch, rec, card):
+    """The port's HDF5 reader on every committed Keras fixture (the card's
+    machine has no h5py): groups, datasets and attribute names against the
+    h5py manifest the fixture generator wrote, and every dataset read."""
+    import io
+    import zipfile
+    import numpy as np
+    from deeplearning4j_tpu_torch.imports import hdf5
+    with open(_keras_path("manifest")) as fh:
+        man = json.load(fh)
+    _reset_counters()
+    res = {}
+    for key in ("resnet", "transformer", "v3"):
+        path = _keras_path(key)
+        t0 = time.perf_counter()
+        if key == "v3":
+            with zipfile.ZipFile(path) as z:
+                f = hdf5.File(io.BytesIO(z.read("model.weights.h5")))
+            name = KERAS[key] + ":model.weights.h5"
+        else:
+            f = hdf5.File(path)
+            name = KERAS[key]
+        got = _manifest_of(f)
+        n_bytes = sum(np.asarray(f[d]).nbytes for d in got["datasets"])
+        decode_s = time.perf_counter() - t0
+        want = man[name]
+        same = {part: got[part] == want[part]
+                for part in ("groups", "datasets", "attrs")}
+        res[name] = dict(decode_s=decode_s, groups=len(got["groups"]),
+                         datasets=len(got["datasets"]), bytes=n_bytes,
+                         same=same)
+        print(f"keras_hdf5 {name}: {len(got['groups'])} groups, "
+              f"{len(got['datasets'])} datasets ({n_bytes} bytes read), "
+              f"decoded in {decode_s:.3f} s; against the h5py manifest "
+              f"{same}")
+        _require(all(same.values()), f"{name} differs from its manifest: "
+                 f"{same}")
+    rec["keras_hdf5"] = res
+    print(card)
+    _no_launches(rec, "keras_hdf5", _counters())
+
+
+def _keras_transformer_batches():
+    """The seeded inputs of the transformer's committed outputs (keras
+    layout (b, t, d), and ours (b, d, t)), and two seeded training batches
+    with one-hot labels."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    c = KERAS
+    x = np.random.RandomState(c["transformer_input_seed"]).standard_normal(
+        (c["batch"], c["t"], c["d"])).astype(np.float32)
+    rng = np.random.RandomState(c["train_seed"])
+    pool = [DataSet(rng.standard_normal((c["batch"], c["d"], c["t"]))
+                    .astype(np.float32),
+                    np.eye(c["classes"], dtype=np.float32)[
+                        rng.randint(0, c["classes"], c["batch"])])
+            for _ in range(2)]
+    return np.ascontiguousarray(x.transpose(0, 2, 1)), pool
+
+
+def _keras_transformer(updater=True):
+    """The long-context Keras transformer imported onto the card by the
+    public entry point, with ``Adam(1e-3)`` for its fit (the file carries
+    no compile state)."""
+    from deeplearning4j_tpu_torch.imports import KerasModelImport
+    from deeplearning4j_tpu_torch.learning import Adam
+    net = KerasModelImport.importKerasModelAndWeights(
+        _keras_path("transformer"))
+    if updater:
+        net.conf.globalConf["updater"] = Adam(1e-3)
+        net._initOptState()
+    return net
+
+
+def _tol_err(got, want, atol, rtol):
+    """max |got - want| and whether every element is within atol +
+    rtol·|want|."""
+    import numpy as np
+    d = np.abs(np.asarray(got, np.float64) - np.asarray(want, np.float64))
+    return float(d.max()), bool((d <= atol + rtol * np.abs(want)).all())
+
+
+def phase_keras_attention(torch, rec, card):
+    """Model 1: the long-context Keras transformer through
+    ``KerasModelImport.importKerasModelAndWeights`` on the card.  Counters
+    zeroed before and read after each run: an inference forward launches
+    B1 once per block and no backward kernel; ``fit`` two seeded batches
+    for 2 epochs launches B1, B2 and B3 once per block a step.  The
+    forward against keras's committed outputs; one FLOAT step against the
+    same step with dense attention forced."""
+    import math
+    import numpy as np
+    import deeplearning4j_tpu_torch.nn.conf.attention as amod
+    from deeplearning4j_tpu_torch.datasets import ListDataSetIterator
+    c = KERAS
+    io_ref = np.load(_keras_path("io"))
+    x, pool = _keras_transformer_batches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    net = _keras_transformer()
+    torch.cuda.synchronize()
+    import_s = time.perf_counter() - t0
+    _require(net.device.type == "cuda", f"the net runs on {net.device}")
+    kinds = [type(n[0]).__name__ for n in net.conf.nodes.values()]
+    _require(kinds.count("KerasMultiHeadAttention") == c["blocks"],
+             f"{kinds.count('KerasMultiHeadAttention')} attention layers")
+    _reset_counters()
+    probs = net.output(x)
+    torch.cuda.synchronize()
+    fwd_counts = _counters()
+    with torch.no_grad():
+        acts, _, _ = net._forward(net.params_, net.state_,
+                                  (net._on_device(x),), False, None)
+    pool_err, pool_ok = _tol_err(acts["pool"].cpu().numpy(),
+                                 io_ref["transformer_pool"],
+                                 **KERAS_OUT_TOL)
+    prob_err, prob_ok = _tol_err(probs.cpu().numpy(),
+                                 io_ref["transformer_probs"],
+                                 **KERAS_OUT_TOL)
+    fwd_ms = _time_ms(torch, lambda: net.output(x), iters=5, warmup=1)
+    # one FLOAT step, flash against dense attention forced (it also
+    # warms the card up for the timed fit)
+    def one_step():
+        n = _keras_transformer()
+        n.fit(pool[0])
+        return n.score(), n.params()
+
+    _reset_counters()
+    loss_f, p_f = one_step()
+    step_counts = _counters()
+    orig = amod.dot_product_attention
+    amod.dot_product_attention = _forced_dense(orig)
+    try:
+        _reset_counters()
+        loss_d, p_d = one_step()
+        dense_counts = _counters()
+    finally:
+        amod.dot_product_attention = orig
+
+    # fit: counters across the whole run
+    it = ListDataSetIterator(pool)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counters()
+    t0 = time.perf_counter()
+    net.fit(it, epochs=c["train_epochs"])
+    loss = net.score()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit_counts = _counters()
+    steps = net.iterationCount
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    step_ms = fit_s / steps * 1e3
+    rec["launches_keras"] = {k: fwd_counts[k] + fit_counts[k]
+                             for k in fwd_counts}
+    prof = _device_breakdown(torch, lambda: net.fit(pool[0]), top=6)
+    step_err = {"loss": abs(loss_f - loss_d),
+                "params": float((p_f - p_d).abs().max())}
+    rec["keras_attention"] = dict(
+        import_s=import_s, forward_ms=fwd_ms, pool_max_abs_err=pool_err,
+        probs_max_abs_err=prob_err, fit_steps=steps, fit_s=fit_s,
+        ms_per_step=step_ms,
+        tokens_per_s=c["batch"] * c["t"] * steps / fit_s, peak_gb=peak,
+        loss=loss, forward_launches=fwd_counts, fit_launches=fit_counts,
+        step_flash_vs_dense=dict(step_err, launches=step_counts),
+        profiled_step=prof)
+    print(f"keras_attention: {net.numParams()} params imported in "
+          f"{import_s:.3f} s; forward {fwd_ms:.2f} ms at {c['batch']} x "
+          f"{c['t']}, launches {fwd_counts}; against keras: pool |d|max "
+          f"{pool_err:.3g}, probabilities |d|max {prob_err:.3g} "
+          f"({KERAS_OUT_TOL}); fit {steps} steps in {fit_s:.3f} s "
+          f"({step_ms:.2f} ms a step, "
+          f"{rec['keras_attention']['tokens_per_s']:.0f} tokens/s, peak "
+          f"{peak:.2f} GB), loss {loss:.6g}, launches {fit_counts}; FLOAT "
+          f"step flash vs dense: loss |d| {step_err['loss']:.3g}, params "
+          f"|d|max {step_err['params']:.3g}; a profiled step "
+          f"{prof['wall_ms']:.2f} ms, device busy {prof['device_busy_ms']} "
+          f"ms in {prof['device_ops']} ops, idle share "
+          f"{prof['idle_share']}, top {prof['top'][:3]}")
+    print(card)
+    _require(fwd_counts["flash_attn_fwd"] == c["blocks"]
+             and fwd_counts["flash_attn_bwd_dq"] == 0
+             and fwd_counts["flash_attn_bwd_dkv"] == 0
+             and fwd_counts["matmul_bn_stats"] == 0,
+             f"the forward launched {fwd_counts}, expected {c['blocks']} B1 "
+             f"and nothing else")
+    _require(pool_ok and prob_ok, f"the imported transformer disagrees "
+             f"with keras: pool {pool_err}, probabilities {prob_err}")
+    want = c["blocks"] * steps
+    _require(steps == c["train_epochs"] * len(pool)
+             and all(fit_counts[k] == want for k in FLASH)
+             and fit_counts["matmul_bn_stats"] == 0,
+             f"{steps} steps launched {fit_counts}, expected {want} of each "
+             f"flash kernel")
+    _require(math.isfinite(loss), f"training loss {loss}")
+    _require(all(step_counts[k] == c["blocks"] for k in FLASH)
+             and not any(dense_counts.values()),
+             f"flash step {step_counts}, dense step {dense_counts}")
+    _require(step_err["loss"] <= TRAIN_LOSS_ATOL
+             and step_err["params"] <= TRAIN_PARAM_ATOL,
+             f"flash and dense steps disagree: {step_err}")
+
+
+def phase_keras_resnet50(torch, rec, card):
+    """Model 2: keras's ResNet-50 at full width from the committed
+    skeleton, refilled from the seed, imported by ``_build_net`` on the
+    card; the forward at batch 2 against keras's committed outputs and
+    the same net on the CPU; ``fit`` at batch 32, FLOAT.  No kernel: the
+    graph dispatches no B4, as in the reference."""
+    import math
+    import numpy as np
+    from deeplearning4j_tpu_torch.datasets import DataSet, ListDataSetIterator
+    c = KERAS
+    _reset_counters()
+    timing = {}
+    torch.cuda.synchronize()
+    _, filled, net = _keras_resnet_import(timing=timing)
+    torch.cuda.synchronize()
+    n_params = sum(v.numel() for lp in net.params_.values()
+                   for v in lp.values())
+    n_state = sum(v.numel() for st in net.state_.values()
+                  for v in st.values())
+    io_ref = np.load(_keras_path("io"))
+    x = np.random.RandomState(c["resnet_input_seed"]).standard_normal(
+        (c["resnet_batch"], 224, 224, 3)).astype(np.float32)
+    xin = np.ascontiguousarray(x.transpose(0, 3, 1, 2))
+
+    def features(n):
+        with torch.no_grad():
+            acts, _, _ = n._forward(n.params_, n.state_,
+                                    (n._on_device(xin),), False, None)
+        return acts["avg_pool"].cpu().numpy(), n.output(xin).cpu().numpy()
+
+    feats, probs = features(net)
+    scale = float(np.abs(io_ref["resnet_avg_pool"]).max())
+    feat_err = float(np.abs(feats - io_ref["resnet_avg_pool"]).max())
+    prob_err = float(np.abs(probs - io_ref["resnet_probs"]).max())
+    fwd_ms = _time_ms(torch, lambda: net.output(xin), iters=10, warmup=2)
+    _, _, cpu = _keras_resnet_import(device="cpu")
+    cfeats, cprobs = features(cpu)
+    del cpu
+    card_cpu = float(np.abs(feats - cfeats).max())
+    # fit at batch 32: seeded images and one-hot labels, 2 batches x 2
+    rng = np.random.RandomState(c["train_seed"])
+    b = c["resnet_train_batch"]
+    pool = [DataSet(rng.standard_normal((b, 3, 224, 224)).astype(
+        np.float32), np.eye(1000, dtype=np.float32)[rng.randint(0, 1000, b)])
+        for _ in range(2)]
+    net.fit(pool[0])                    # cuDNN's set-up, not timed
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    net.fit(ListDataSetIterator(pool), epochs=c["resnet_train_steps"] // 2)
+    loss = net.score()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    steps = c["resnet_train_steps"]
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    prof = _device_breakdown(torch, lambda: net.fit(pool[0]), top=6)
+    rec["keras_resnet50"] = dict(
+        timing, refilled=len(filled), params=n_params, state=n_state,
+        forward_ms=fwd_ms, avg_pool_max_abs_err=feat_err,
+        avg_pool_scale=scale, probs_max_abs_err=prob_err,
+        card_vs_cpu_avg_pool=card_cpu, ms_per_step=fit_s / steps * 1e3,
+        images_per_s=b * steps / fit_s, peak_gb=peak, loss=loss,
+        profiled_step=prof)
+    print(f"keras_resnet50: {len(filled)} datasets refilled, decode "
+          f"{timing['decode_s']:.3f} s, import {timing['import_s']:.3f} s, "
+          f"{n_params} params + {n_state} BN statistics; forward "
+          f"{fwd_ms:.2f} ms at batch {c['resnet_batch']}; against keras: "
+          f"avg_pool |d|max {feat_err:.4g} of max {scale:.4g}, "
+          f"probabilities |d|max {prob_err:.3g}; card vs CPU avg_pool "
+          f"|d|max {card_cpu:.4g}; fit {steps} steps at batch {b}: "
+          f"{fit_s / steps * 1e3:.2f} ms a step, {b * steps / fit_s:.1f} "
+          f"images/s, peak {peak:.2f} GB, loss {loss:.6g}; a profiled "
+          f"step {prof['wall_ms']:.2f} ms, device busy "
+          f"{prof['device_busy_ms']} ms in {prof['device_ops']} ops, idle "
+          f"share {prof['idle_share']}, top {prof['top'][:3]}")
+    print(card)
+    _require(n_params + n_state == c["resnet_params"],
+             f"{n_params} + {n_state} numbers, keras has "
+             f"{c['resnet_params']}")
+    rtol = KERAS_RESNET_TOL["rtol"]
+    _require(feat_err <= rtol * scale and card_cpu <= rtol * scale
+             and prob_err <= KERAS_RESNET_TOL["atol"],
+             f"ResNet-50 disagrees: keras {feat_err}, CPU {card_cpu} "
+             f"(scale {scale}), probabilities {prob_err}")
+    _require(math.isfinite(loss), f"training loss {loss}")
+    _no_launches(rec, "keras_resnet50", _counters())
+
+
+def phase_keras_v3(torch, rec, card):
+    """The narrow ``.keras`` archive (keras 3's native format: config.json
+    and model.weights.h5 in a zip) imported onto the card, against
+    keras's committed outputs; its compile state gives Adam."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.imports import KerasModelImport
+    c = KERAS
+    _reset_counters()
+    t0 = time.perf_counter()
+    net = KerasModelImport.importKerasModelAndWeights(_keras_path("v3"))
+    import_s = time.perf_counter() - t0
+    x = np.random.RandomState(c["v3_input_seed"]).standard_normal(
+        c["v3_shape"]).astype(np.float32)
+    out = net.output(np.ascontiguousarray(x.transpose(0, 2, 1)))
+    err, ok = _tol_err(out.cpu().numpy(), np.load(_keras_path("io"))[
+        "v3_probs"], **KERAS_OUT_TOL)
+    up = type(net.conf.globalConf["updater"]).__name__
+    rec["keras_v3"] = dict(import_s=import_s, max_abs_err=err, updater=up)
+    print(f"keras_v3: {type(net).__name__} of {net.numParams()} params on "
+          f"{net.device} in {import_s:.3f} s, updater {up}; against keras "
+          f"|d|max {err:.3g} ({KERAS_OUT_TOL})")
+    print(card)
+    _require(net.device.type == "cuda" and ok and up == "Adam",
+             f"the .keras import: {net.device}, |d| {err}, updater {up}")
+    _no_launches(rec, "keras_v3", _counters())
+
+
+def _vae_conf():
+    """dl4j-examples' VaeMNISTAnomaly configuration."""
+    from deeplearning4j_tpu_torch.learning import Adam
+    from deeplearning4j_tpu_torch.nn.conf import (NeuralNetConfiguration,
+                                                  VariationalAutoencoder)
+    c = VAE
+    return (NeuralNetConfiguration.builder().seed(c["seed"])
+            .updater(Adam(c["lr"])).weightInit("XAVIER").l2(c["l2"]).list()
+            .layer(VariationalAutoencoder(
+                nIn=c["nIn"], nOut=c["nOut"], encoderLayerSizes=c["hidden"],
+                decoderLayerSizes=c["hidden"], activation="leakyrelu",
+                reconstructionDistribution="bernoulli"))
+            .build())
+
+
+def _ae_conf():
+    """A stacked denoising autoencoder, 784 -> 250 -> 10, xent, and a
+    softmax head."""
+    from deeplearning4j_tpu_torch.learning import Adam
+    from deeplearning4j_tpu_torch.nn.conf import (AutoEncoder, InputType,
+                                                  NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.conf.layers import OutputLayer
+    c = VAE
+    b = (NeuralNetConfiguration.builder().seed(c["seed"])
+         .updater(Adam(c["lr"])).weightInit("XAVIER").list())
+    for n in c["ae_sizes"]:
+        b = b.layer(AutoEncoder(nOut=n, corruptionLevel=c["ae_corruption"],
+                                lossFunction="xent", activation="sigmoid"))
+    return (b.layer(OutputLayer.builder("mcxent").nOut(10)
+                    .activation("softmax").build())
+            .setInputType(InputType.feedForward(c["nIn"])).build())
+
+
+def phase_vae_pretrain(torch, rec, card):
+    """Model 3: ``VaeMNISTAnomaly`` at its widths on 60,000 MNIST-shaped
+    images: ``pretrain`` one epoch (the ELBO must fall), then
+    ``reconstructionLogProbability(numSamples=16)`` over the 10,000 test
+    images; a stacked denoising autoencoder pretrains, and one of its
+    pretrain steps on the card is held against the CPU's with the
+    corruption drawn on the CPU and passed in.  No kernel."""
+    import math
+    import numpy as np
+    from deeplearning4j_tpu_torch.datasets import (DataSet,
+                                                   ListDataSetIterator,
+                                                   MnistDataSetIterator)
+    from deeplearning4j_tpu_torch.models import MultiLayerNetwork
+    c = VAE
+    _reset_counters()
+    t0 = time.perf_counter()
+    train = MnistDataSetIterator(c["batch"], True, c["seed"],
+                                 numExamples=c["n_train"])
+    test = MnistDataSetIterator(c["n_test"], False, c["seed"],
+                                numExamples=c["n_test"])
+    data_s = time.perf_counter() - t0
+    net = MultiLayerNetwork(_vae_conf()).init()
+    layer = net.conf.layers[0]
+    xt = net._on_device(test.next().features)
+    eps = torch.randn((1, xt.shape[0], c["nOut"]), device=net.device,
+                      generator=torch.Generator(net.device).manual_seed(1))
+    with torch.no_grad():
+        elbo0 = layer.pretrainLossGivenNoise(net.params_["0"], xt, eps)\
+            .item()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    net.pretrain(train, epochs=1)
+    loss = net.score()
+    torch.cuda.synchronize()
+    pre_s = time.perf_counter() - t0
+    steps = math.ceil(c["n_train"] / c["batch"])
+    with torch.no_grad():
+        elbo1 = layer.pretrainLossGivenNoise(net.params_["0"], xt, eps)\
+            .item()
+        t1 = time.perf_counter()
+        scores = layer.reconstructionLogProbability(
+            net.params_["0"], xt, numSamples=c["samples"])
+        torch.cuda.synchronize()
+        score_s = time.perf_counter() - t1
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    # the stacked denoising autoencoder
+    ae = MultiLayerNetwork(_ae_conf()).init()
+    train.reset()
+    batches = [train.next() for _ in range(c["ae_steps"])]
+    x0 = net._on_device(batches[0].features)
+    err0 = ae.conf.layers[0].reconstructionError(ae.params_["0"], x0)\
+        .mean().item()
+    t0 = time.perf_counter()
+    ae.pretrain(ListDataSetIterator(batches), epochs=1)
+    torch.cuda.synchronize()
+    ae_s = time.perf_counter() - t0
+    err1 = ae.conf.layers[0].reconstructionError(ae.params_["0"], x0)\
+        .mean().item()
+    step = _ae_step_card_vs_cpu(torch, batches[0])
+    rec["vae_pretrain"] = dict(
+        data_s=data_s, steps=steps, pretrain_s=pre_s,
+        ms_per_step=pre_s / steps * 1e3, examples_per_s=c["n_train"] / pre_s,
+        elbo_before=elbo0, elbo_after=elbo1, loss=loss, score_s=score_s,
+        score_mean=float(scores.mean()), peak_gb=peak,
+        ae=dict(pretrain_s=ae_s, steps=2 * c["ae_steps"],
+                reconstruction_before=err0, reconstruction_after=err1,
+                step_card_vs_cpu=step))
+    print(f"vae_pretrain: {c['n_train']} + {c['n_test']} synthetic MNIST "
+          f"images in {data_s:.2f} s; pretrain 1 epoch, {steps} steps in "
+          f"{pre_s:.2f} s ({pre_s / steps * 1e3:.2f} ms a step, "
+          f"{c['n_train'] / pre_s:.0f} images/s, peak {peak:.2f} GB): "
+          f"negative ELBO on the test images {elbo0:.5g} -> {elbo1:.5g}; "
+          f"reconstructionLogProbability x{c['samples']} of "
+          f"{c['n_test']} images in {score_s * 1e3:.1f} ms, mean "
+          f"{float(scores.mean()):.5g}; autoencoder {c['ae_sizes']}: "
+          f"{2 * c['ae_steps']} steps in {ae_s:.2f} s, reconstruction "
+          f"{err0:.5g} -> {err1:.5g}; one step card vs CPU (loss relative "
+          f"1e-6) {step}")
+    print(card)
+    _require(elbo1 < elbo0 and math.isfinite(loss),
+             f"the ELBO did not improve: {elbo0} -> {elbo1}, loss {loss}")
+    _require(tuple(scores.shape) == (c["n_test"],)
+             and bool(scores.isfinite().all()), "scores not finite")
+    _require(err1 < err0, f"autoencoder reconstruction {err0} -> {err1}")
+    _require(step["params"] <= 1e-5 and step["loss"] <= 1e-6 * step["of"],
+             f"the autoencoder step differs card vs CPU: {step}")
+    _no_launches(rec, "vae_pretrain", _counters())
+
+
+def _ae_step_card_vs_cpu(torch, ds):
+    """One pretrain step of each autoencoder layer from the same
+    parameters on the card and on the CPU, each layer's corruption mask
+    drawn once on the CPU and passed in: the largest parameter and loss
+    differences."""
+    from deeplearning4j_tpu_torch.datasets import ListDataSetIterator
+    from deeplearning4j_tpu_torch.models import MultiLayerNetwork
+    nets = {}
+    gen = torch.Generator().manual_seed(VAE["seed"])
+    params0 = None
+    for dev in ("cuda", "cpu"):
+        net = MultiLayerNetwork(_ae_conf(), device=dev).init(params=params0)
+        params0 = params0 or {k: {n: v.cpu() for n, v in lp.items()}
+                              for k, lp in net.params_.items()}
+        nets[dev] = net
+    masks = {}
+    for i, layer in enumerate(nets["cpu"].conf.layers[:2]):
+        n_in = VAE["nIn"] if i == 0 else VAE["ae_sizes"][0]
+        masks[i] = torch.rand((ds.features.shape[0], n_in),
+                              generator=gen) < 1 - layer.corruptionLevel
+    for dev, net in nets.items():
+        for i, layer in enumerate(net.conf.layers[:2]):
+            layer.corruptionMask = (lambda x, g, m=masks[i]:
+                                    m.to(x.device))
+        net.pretrain(ListDataSetIterator([ds]), epochs=1)
+    dp = max(float((nets["cuda"].params_[k][n].cpu() - v).abs().max())
+             for k, lp in nets["cpu"].params_.items() for n, v in lp.items())
+    return {"params": dp, "loss": abs(nets["cuda"].score()
+                                      - nets["cpu"].score()),
+            "of": abs(nets["cpu"].score())}
+
+
+def phase_attention_layers(torch, rec, card):
+    """Item 4: the other A7 layers at small widths, card against CPU from
+    the same parameters: ``SelfAttentionLayer``'s chained ``decodeStep``
+    against its causal forward, ``LearnedSelfAttentionLayer``,
+    ``RecurrentAttentionLayer``; the recurrent layer at t 1024 reaches B1
+    through its ``_mha`` (counted: one launch)."""
+    from deeplearning4j_tpu_torch.nn.conf.attention import (
+        LearnedSelfAttentionLayer, RecurrentAttentionLayer,
+        SelfAttentionLayer)
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    c = ATTENTION_LAYERS
+    gen = torch.Generator().manual_seed(c["seed"])
+    kw = dict(nIn=c["nIn"], nHeads=c["nHeads"], headSize=c["headSize"],
+              nOut=c["nOut"])
+    res = {}
+
+    def pair(layer, t):
+        layer.inferNIn(InputType.recurrent(c["nIn"], t))
+        p = layer.initParams(gen, InputType.recurrent(c["nIn"], t),
+                             device="cpu")
+        x = torch.randn((c["batch"], c["nIn"], t), generator=gen)
+        return p, {k: v.cuda() for k, v in p.items()}, x
+
+    def card_vs_cpu(name, layer, t):
+        p, pc, x = pair(layer, t)
+        with torch.no_grad():
+            _reset_counters()
+            y = layer.forward(pc, x.cuda(), False, None, {})[0]
+            torch.cuda.synchronize()
+            counts = _counters()
+            ref = layer.forward(p, x, False, None, {})[0]
+        err = float((y.cpu() - ref).abs().max())
+        res[name] = dict(max_abs_err=err, launches=counts,
+                         shape=list(y.shape))
+        return err, counts
+
+    _reset_counters()
+    sa = SelfAttentionLayer(causal=True, **kw)
+    p, pc, x = pair(sa, c["t"])
+    with torch.no_grad():
+        full = sa.forward(pc, x.cuda(), False, None, {})[0]
+        cache = sa.initCache(c["batch"], c["t"])
+        pieces, pos = [], 0
+        for n in (1, 7, 16, c["t"] - 24):
+            y, cache = sa.decodeStep(pc, x[:, :, pos:pos + n].cuda(), cache)
+            pieces.append(y)
+            pos += n
+        chained = torch.cat(pieces, dim=2)
+        cpu_full = sa.forward(p, x, False, None, {})[0]
+    res["decode_vs_forward"] = float((chained - full).abs().max())
+    res["self_attention_card_vs_cpu"] = float((full.cpu() - cpu_full)
+                                              .abs().max())
+    short = _counters()
+    card_vs_cpu("learned", LearnedSelfAttentionLayer(
+        nQueries=c["nQueries"], **kw), c["t"])
+    card_vs_cpu("recurrent", RecurrentAttentionLayer(**kw), c["t"])
+    short = {k: short[k] + res["learned"]["launches"][k]
+             + res["recurrent"]["launches"][k] for k in short}
+    _, long_counts = card_vs_cpu("recurrent_t1024",
+                                 RecurrentAttentionLayer(**kw), c["long_t"])
+    rec["attention_layers"] = res
+    rec["launches_attention_layers"] = long_counts
+    print(f"attention_layers: decodeStep chained vs causal forward |d|max "
+          f"{res['decode_vs_forward']:.3g}; self-attention card vs CPU "
+          f"{res['self_attention_card_vs_cpu']:.3g}; learned "
+          f"{res['learned']['max_abs_err']:.3g}; recurrent "
+          f"{res['recurrent']['max_abs_err']:.3g} at t {c['t']} (launches "
+          f"{short}); recurrent at t {c['long_t']} "
+          f"{res['recurrent_t1024']['max_abs_err']:.3g}, launches "
+          f"{long_counts} ({ATTENTION_TOL})")
+    print(card)
+    tol = ATTENTION_TOL["atol"]
+    _require(max(res["decode_vs_forward"], res["self_attention_card_vs_cpu"],
+                 res["learned"]["max_abs_err"],
+                 res["recurrent"]["max_abs_err"],
+                 res["recurrent_t1024"]["max_abs_err"]) <= tol,
+             f"an attention layer disagrees: {res}")
+    _require(not any(short.values()), f"t {c['t']} launched {short}")
+    _require(long_counts["flash_attn_fwd"] == 1
+             and sum(long_counts.values()) == 1,
+             f"the recurrent layer at t {c['long_t']} launched "
+             f"{long_counts}, expected one B1")
+
+
 def _kernel_entry(name, replaces, launches, t):
     return {"name": name, "route": "cuda",
             "source": f"deeplearning4j_tpu_torch/csrc/{name}.cu",
@@ -4622,6 +5380,15 @@ def main(argv) -> int:
             del net, tuned
         del yolo
         run("zoo_sweep", phase_zoo_sweep, torch, rec, card)
+        # Keras import: the reader, the long-context transformer (B1-B3),
+        # ResNet-50 at full width, a .keras archive; then pretrain and the
+        # other A7 layers
+        run("keras_hdf5", phase_keras_hdf5, torch, rec, card)
+        run("keras_attention", phase_keras_attention, torch, rec, card)
+        run("keras_resnet50", phase_keras_resnet50, torch, rec, card)
+        run("keras_v3", phase_keras_v3, torch, rec, card)
+        run("vae_pretrain", phase_vae_pretrain, torch, rec, card)
+        run("attention_layers", phase_attention_layers, torch, rec, card)
 
     rec["card"] = card
     rec["failed"] = failed
@@ -4636,17 +5403,22 @@ def main(argv) -> int:
         return 1
 
     # launches: the serving run's and the training run's counts together
-    # (B1 runs on both paths; B2 and B3 on the training path only), and B4's
-    # from its run on ResNet-50's activations (the model dispatches none);
-    # the phases without a hand kernel on their path (recurrent, BERT, the
-    # loop around fit, TF import, serving tier, ONNX import, the zoo) add
-    # none (each checked zero).
+    # (B1 runs on both paths; B2 and B3 on the training path only), the
+    # imported Keras transformer's forward and fit (B1-B3) and the
+    # recurrent attention layer's at t 1024 (B1), and B4's from its run on
+    # ResNet-50's activations (the model dispatches none); the phases
+    # without a hand kernel on their path (recurrent, BERT, the loop around
+    # fit, TF import, serving tier, ONNX import, the zoo, the HDF5 reader,
+    # the imported ResNet-50 and .keras archive, pretrain) add none (each
+    # checked zero).
     # B1's times are at the serving shape (f32, causal), B2's and B3's at
     # the training shape in its dtype (bf16, not causal), B4's at ResNet-50's
     # stage-0 shape in bf16; the record holds the other shapes too.
     serve, train_t = rec["launches"], rec["train_kernel_timing"]
     launches = {k: serve[k] + rec["launches_train"][k]
                 + rec["launches_resnet"][k] + rec["launches_b4"][k]
+                + rec["launches_keras"][k]
+                + rec["launches_attention_layers"][k]
                 + sum(c[k] for c in rec["launches_no_kernel_phases"].values())
                 for k in serve}
     m, k, n = B4_RESNET_SHAPES[0]

@@ -31,9 +31,11 @@ numpy), the line-search solvers over the flat parameter vector
 (``optimizationAlgo`` other than SGD), and frozen layers (transfer
 learning): their parameters take no gradient and no update.
 
-Not ported yet: ``pretrain`` (it needs the autoencoder layers, ROADMAP
-A9), telemetry spans, the AOT compile cache, the fault supervisor's
-learning-rate scale and the mesh hooks (A10, A12).
+``pretrain`` trains the ``isPretrainLayer`` layers (``AutoEncoder``,
+``VariationalAutoencoder``) layer by layer on their own loss.
+
+Not ported yet: telemetry spans, the AOT compile cache, the fault
+supervisor's learning-rate scale and the mesh hooks (A10, A12).
 """
 from __future__ import annotations
 
@@ -621,6 +623,65 @@ class MultiLayerNetwork:
         if self._rnnCarries is None:
             self._rnnCarries = {}
         self._rnnCarries[str(layerIdx)] = state
+
+    def pretrain(self, iterator, epochs: int = 1) -> None:
+        """Layerwise unsupervised pretraining (reference:
+        ``MultiLayerNetwork.pretrain(DataSetIterator)``): every layer with
+        ``isPretrainLayer`` trains its own ``pretrainLoss`` on the
+        activations feeding it, the layers upstream of it frozen and run
+        at inference.  Each layer starts a fresh updater state from the
+        global updater (``Sgd(1e-2)`` when none is set) and counts its own
+        iterations; the step applies ``currentLr(it, 0)`` and no
+        regularization, as the reference's does.  The layers' noise
+        (corruption, ε) is drawn from the net's fit generator; the last
+        step's loss becomes the score."""
+        if self.params_ is None:
+            self.init()
+        updater = self.conf.globalConf.get("updater") or Sgd(1e-2)
+        for li, layer in enumerate(self.conf.layers):
+            if not getattr(layer, "isPretrainLayer", False):
+                continue
+            key = str(li)
+            params = self.params_[key]
+            opt = {n: updater.init(v) for n, v in params.items()}
+            it_count = 0
+            loss = None
+            for _ in range(int(epochs)):
+                if hasattr(iterator, "reset"):
+                    iterator.reset()
+                for ds in iterator:
+                    with torch.no_grad():
+                        h = self._pretrainInput(li, self._on_device(
+                            ds.features, self._dtype))
+                    p = {n: v.detach().requires_grad_(True)
+                         for n, v in params.items()}
+                    loss = layer.pretrainLoss(p, h, self._fitGen)
+                    grads = torch.autograd.grad(loss, list(p.values()))
+                    lr = updater.currentLr(it_count, 0)
+                    with torch.no_grad():
+                        new = {}
+                        for (n, v), g in zip(params.items(), grads):
+                            upd, opt[n] = updater.apply(g, opt[n], lr,
+                                                        it_count, param=v)
+                            new[n] = v - upd
+                    params = new
+                    it_count += 1
+            self.params_[key] = params
+            if loss is not None:
+                self._scoreArr = loss.detach()
+
+    def _pretrainInput(self, li: int, x):
+        """The input of layer ``li``: the layers before it at inference,
+        and the preprocessors up to and including its own."""
+        for j in range(li):
+            if j in self.conf.preProcessors:
+                x = self.conf.preProcessors[j].preProcess(x, x.shape[0])
+            x, _ = self.conf.layers[j].forward(
+                self.params_.get(str(j), {}), x, False, None,
+                self.state_.get(str(j), {}))
+        if li in self.conf.preProcessors:
+            x = self.conf.preProcessors[li].preProcess(x, x.shape[0])
+        return x
 
     def score(self, ds: Optional[DataSet] = None) -> float:
         """The last fit step's loss, or the loss of ``ds`` (inference mode,

@@ -8,10 +8,9 @@ package, so one JSON builds both nets.
 
 ``graphBuilder()`` returns the ComputationGraph builder of
 ``models/graph_conf.py``.  Every layer module of the reference is here but
-the autoencoder and VAE layers (ROADMAP A4), the SameDiff layers (A12b)
-and the recommender tier's embedding bag (A11): their names import, and
-building one (or reading one in ``layer_from_json``) raises naming its
-item.
+the SameDiff layers (ROADMAP A12b) and the recommender tier's embedding
+bag (A11): their names import, and building one (or reading one in
+``layer_from_json``) raises naming its item.
 """
 from __future__ import annotations
 
@@ -272,13 +271,14 @@ def _json_default(o):
 
 # importing these registers their layers with ``layer_from_json``
 from deeplearning4j_tpu_torch.nn.conf import attention  # noqa: E402,F401
+from deeplearning4j_tpu_torch.nn.conf.autoencoder import AutoEncoder  # noqa: E402,F401,E501
 from deeplearning4j_tpu_torch.nn.conf import convolutional  # noqa: E402,F401
 from deeplearning4j_tpu_torch.nn.conf import convolutional3d  # noqa: E402,F401,E501
 from deeplearning4j_tpu_torch.nn.conf import misc  # noqa: E402,F401
 from deeplearning4j_tpu_torch.nn.conf import recurrent  # noqa: E402,F401
+from deeplearning4j_tpu_torch.nn.conf.variational import (  # noqa: E402,F401
+    VariationalAutoencoder)
 
 SameDiffLambdaLayer = unported("SameDiffLambdaLayer", "A12b")
 SameDiffLayer = unported("SameDiffLayer", "A12b")
 SDLayerParams = unported("SDLayerParams", "A12b")
-AutoEncoder = unported("AutoEncoder", "A4")
-VariationalAutoencoder = unported("VariationalAutoencoder", "A4")

@@ -1,19 +1,19 @@
 """Attention layers and KV-cached attention — the port of
-``deeplearning4j_tpu/nn/conf/attention.py``: ``_mha`` and
-``SelfAttentionLayer`` (the reference's ``conf/layers/SelfAttentionLayer.
-java``), ``KVCache``, ``cached_attention`` and ``paged_attention`` (the
-continuous batcher's paged-pool attention, plain torch ops as the
-reference's is plain ``jnp``).
+``deeplearning4j_tpu/nn/conf/attention.py``: ``_mha``,
+``SelfAttentionLayer`` with its KV-cached ``initCache``/``decodeStep``,
+``LearnedSelfAttentionLayer`` and ``RecurrentAttentionLayer`` (the
+reference's ``conf/layers/{SelfAttentionLayer,LearnedSelfAttentionLayer,
+RecurrentAttentionLayer}.java``), ``KerasMultiHeadAttention`` (the layer
+the Keras importer builds for ``MultiHeadAttention``), ``KVCache``,
+``cached_attention`` and ``paged_attention`` (the continuous batcher's
+paged-pool attention, plain torch ops as the reference's is plain
+``jnp``).
 
-The score/softmax/context chain dispatches through
+The score/softmax/context chain of every layer dispatches through
 ``parallel.ring.dot_product_attention``: the Hopper flash kernels (forward
 and backward) for unmasked sequences of 1024 or more on CUDA, dense
 attention otherwise.  Data format follows the DL4J RNN convention
 (b, nIn, t); masks are (b, t) with 1 = valid.
-
-``SelfAttentionLayer.initCache``/``decodeStep`` and the other three
-attention layers (``LearnedSelfAttentionLayer``, ``RecurrentAttentionLayer``,
-``KerasMultiHeadAttention``) wait for ROADMAP A7.
 """
 from __future__ import annotations
 
@@ -24,13 +24,15 @@ from typing import NamedTuple
 import torch
 
 from deeplearning4j_tpu_torch import resolve_device
+from deeplearning4j_tpu_torch.nn.activations import get_activation
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.conf.layers import BaseLayer, register_layer
 from deeplearning4j_tpu_torch.nn.weights import init_weight
 from deeplearning4j_tpu_torch.parallel.ring import dot_product_attention
 
-__all__ = ["SelfAttentionLayer", "KVCache", "cached_attention",
-           "paged_attention"]
+__all__ = ["SelfAttentionLayer", "LearnedSelfAttentionLayer",
+           "RecurrentAttentionLayer", "KerasMultiHeadAttention",
+           "KVCache", "cached_attention", "paged_attention"]
 
 
 def _mha(x_btn, Wq, Wk, Wv, Wo, nHeads, mask=None, q_btn=None, impl="auto",
@@ -109,6 +111,264 @@ class SelfAttentionLayer(BaseLayer):
         else:
             eye = torch.eye(self.nIn, dtype=xt.dtype, device=xt.device)
             y = _mha(xt, eye, eye, eye, eye, 1, mask, causal=self.causal)
+        return y.transpose(1, 2), state
+
+    # -- incremental decode (KV cache) ----------------------------------
+    def initCache(self, batch: int, capacity: int, dtype=torch.float32,
+                  start=None, device=None) -> "KVCache":
+        """Fresh fixed-capacity cache for :meth:`decodeStep`, on
+        ``device`` (``cuda`` unless the caller asks for another)."""
+        if not self.causal:
+            raise ValueError(
+                "KV-cache decode requires causal=True (an incremental "
+                "step can only ever attend to the past)")
+        h = self.nHeads if self.projectInput else 1
+        d = self.headSize if self.projectInput else self.nIn
+        return KVCache.create(batch, h, capacity, d, dtype, start=start,
+                              device=device)
+
+    def decodeStep(self, params, x, cache: "KVCache"):
+        """Feed ``t_new`` timesteps (x: (b, nIn, t_new)), attending to
+        everything cached so far plus the new steps — the causal
+        ``forward`` restricted to the new positions.  Writes the cache in
+        place (:func:`cached_attention`); returns ``(y (b, nOut, t_new),
+        the cache advanced by t_new)``."""
+        xt = x.transpose(1, 2)                       # (b, t_new, nIn)
+        b, tq, _ = xt.shape
+
+        def heads(inp, w, n):
+            return torch.matmul(inp, w).reshape(b, tq, n, -1).transpose(1, 2)
+
+        if self.projectInput:
+            qh = heads(xt, params["Wq"], self.nHeads)
+            kh = heads(xt, params["Wk"], self.nHeads)
+            vh = heads(xt, params["Wv"], self.nHeads)
+            Wo = params["Wo"]
+        else:
+            qh = kh = vh = xt[:, None]               # (b, 1, t_new, nIn)
+            Wo = torch.eye(self.nIn, dtype=xt.dtype, device=xt.device)
+        ctx, cache = cached_attention(qh, kh, vh, cache)
+        y = torch.matmul(ctx.transpose(1, 2).reshape(b, tq, -1), Wo)
+        return y.transpose(1, 2), cache
+
+
+def _draw(gen, shapes, wi, dtype, dev):
+    """Weights of the given ``{name: shape}`` drawn from ``gen`` in that
+    order, each with fan-in ``shape[0]`` and fan-out ``shape[-1]``."""
+    return {n: init_weight(gen, s, s[0], s[-1], wi, dtype, dev)
+            for n, s in shapes.items()}
+
+
+@register_layer
+@dataclasses.dataclass
+class LearnedSelfAttentionLayer(BaseLayer):
+    """Attention with ``nQueries`` LEARNED query vectors: pools a
+    variable-length sequence (b, nIn, t) to a fixed (b, nOut, nQueries)
+    output.  Reference: ``conf/layers/LearnedSelfAttentionLayer.java``."""
+    nIn: int = 0
+    nOut: int = 0
+    nHeads: int = 1
+    headSize: int = 0
+    nQueries: int = 1
+    projectInput: bool = True
+
+    acceptsMask = True
+
+    def preferredFormat(self):
+        return "RNN"
+
+    def inferNIn(self, inputType):
+        if not self.nIn:
+            self.nIn = inputType.size
+        if not self.headSize:
+            self.headSize = (self.nOut or self.nIn) // self.nHeads
+        if not self.nOut:
+            self.nOut = self.nIn if not self.projectInput \
+                else self.nHeads * self.headSize
+
+    def getOutputType(self, inputType):
+        return InputType.recurrent(self.nOut, self.nQueries)
+
+    def weightParamKeys(self):
+        return ("Wq", "Wk", "Wv", "Wo", "Q")
+
+    def initParams(self, gen, inputType, dtype=torch.float32, device=None):
+        """Q (nIn, nQueries), and with ``projectInput`` Wq, Wk, Wv
+        (nIn, nHeads·headSize) and Wo (nHeads·headSize, nOut), on
+        ``device`` (``cuda`` unless the caller asks for another)."""
+        dev = resolve_device(device)
+        if not self.projectInput and self.nHeads > 1:
+            raise ValueError("projectInput=False requires nHeads == 1")
+        wi = self.weightInit or "XAVIER"
+        shapes = {"Q": (self.nIn, self.nQueries)}
+        if self.projectInput:
+            d = self.nHeads * self.headSize
+            shapes.update({"Wq": (self.nIn, d), "Wk": (self.nIn, d),
+                           "Wv": (self.nIn, d), "Wo": (d, self.nOut)})
+        return _draw(gen, shapes, wi, dtype, dev)
+
+    def forward(self, params, x, train, gen, state, mask=None):
+        x = self._dropin(x, train, gen)
+        xt = x.transpose(1, 2)                       # (b, t, nIn)
+        b = xt.shape[0]
+        q = params["Q"].T[None].expand(b, self.nQueries, self.nIn)
+        if self.projectInput:
+            y = _mha(xt, params["Wq"], params["Wk"], params["Wv"],
+                     params["Wo"], self.nHeads, mask, q_btn=q)
+        else:
+            eye = torch.eye(self.nIn, dtype=xt.dtype, device=xt.device)
+            y = _mha(xt, eye, eye, eye, eye, 1, mask, q_btn=q)
+        return y.transpose(1, 2), state              # (b, nOut, nQueries)
+
+
+@register_layer
+@dataclasses.dataclass
+class RecurrentAttentionLayer(BaseLayer):
+    """Recurrent cell whose per-timestep input is augmented with an
+    attention readout over the whole input sequence: output (b, nOut, t).
+    Reference: ``conf/layers/RecurrentAttentionLayer.java`` (SimpleRnn-style
+    recurrence + attention per step).  The attention context for ALL
+    timesteps is computed once, before the recurrence, as in the
+    reference; the recurrence (the reference's ``lax.scan``) is a loop
+    over t."""
+    nIn: int = 0
+    nOut: int = 0
+    nHeads: int = 1
+    headSize: int = 0
+    projectInput: bool = True
+
+    acceptsMask = True
+
+    def preferredFormat(self):
+        return "RNN"
+
+    def inferNIn(self, inputType):
+        if not self.nIn:
+            self.nIn = inputType.size
+        if not self.headSize:
+            self.headSize = (self.nOut or self.nIn) // self.nHeads
+
+    def getOutputType(self, inputType):
+        return InputType.recurrent(self.nOut, inputType.timeSeriesLength)
+
+    def weightParamKeys(self):
+        return ("W", "RW", "Wq", "Wk", "Wv", "Wo")
+
+    def initParams(self, gen, inputType, dtype=torch.float32, device=None):
+        """W (nIn + d, nOut), RW (nOut, nOut), b (nOut,) zeros and, with
+        ``projectInput``, Wq, Wk, Wv (nIn, d) and Wo (d, d), d the context
+        width (nHeads·headSize projected, nIn not), on ``device``."""
+        dev = resolve_device(device)
+        d = self.nHeads * self.headSize if self.projectInput else self.nIn
+        if not self.projectInput and self.nHeads > 1:
+            raise ValueError("projectInput=False requires nHeads == 1")
+        wi = self.weightInit or "XAVIER"
+        shapes = {"W": (self.nIn + d, self.nOut),
+                  "RW": (self.nOut, self.nOut)}
+        if self.projectInput:
+            shapes.update({"Wq": (self.nIn, d), "Wk": (self.nIn, d),
+                           "Wv": (self.nIn, d), "Wo": (d, d)})
+        p = _draw(gen, shapes, wi, dtype, dev)
+        p["b"] = torch.zeros((self.nOut,), dtype=dtype, device=dev)
+        return p
+
+    def forward(self, params, x, train, gen, state, mask=None):
+        x = self._dropin(x, train, gen)
+        xt = x.transpose(1, 2)                       # (b, t, nIn)
+        if self.projectInput:
+            ctx = _mha(xt, params["Wq"], params["Wk"], params["Wv"],
+                       params["Wo"], self.nHeads, mask)  # (b, t, d)
+        else:
+            eye = torch.eye(self.nIn, dtype=xt.dtype, device=xt.device)
+            ctx = _mha(xt, eye, eye, eye, eye, 1, mask)
+        inp = torch.cat([xt, ctx], dim=-1)           # (b, t, nIn+d)
+        act = get_activation(self.activation or "tanh")
+        pre = torch.einsum("btn,no->bto", inp, params["W"]) + params["b"]
+        h = torch.zeros((xt.shape[0], self.nOut), dtype=xt.dtype,
+                        device=xt.device)
+        ys = []
+        for t in range(pre.shape[1]):
+            h = act(pre[:, t] + torch.matmul(h, params["RW"]))
+            ys.append(h)
+        y = torch.stack(ys, dim=2)                   # (b, nOut, t)
+        if mask is not None:
+            y = y * mask[:, None, :].to(y.dtype)
+        return y, state
+
+
+@register_layer
+@dataclasses.dataclass
+class KerasMultiHeadAttention(BaseLayer):
+    """Keras-``MultiHeadAttention``-shaped self-attention: per-head q/k/v
+    projections with biases and a combining output projection, parameters
+    laid out as keras stores them — query/key kernels ``(nIn, h, keyDim)``,
+    value ``(nIn, h, valueDim)``, output ``(h, valueDim, nOut)`` — so
+    imported weights copy in directly (``imports/keras_import.py``).
+    Input/output follow the DL4J RNN convention (b, n, t); the score chain
+    dispatches through ``parallel.ring.dot_product_attention`` (the flash
+    kernels on CUDA for long unmasked sequences).  The (b, h, t, d) q, k, v
+    it hands over are transposed views: the flash wrapper lays them out
+    for its kernels."""
+    nIn: int = 0
+    nHeads: int = 1
+    keyDim: int = 0
+    valueDim: int = 0          # 0 -> keyDim
+    nOut: int = 0              # 0 -> nIn
+    hasBias: bool = True
+
+    acceptsMask = True
+
+    def preferredFormat(self):
+        return "RNN"
+
+    def inferNIn(self, inputType):
+        if not self.nIn:
+            self.nIn = inputType.size
+        if not self.valueDim:
+            self.valueDim = self.keyDim
+        if not self.nOut:
+            self.nOut = self.nIn
+
+    def getOutputType(self, inputType):
+        return InputType.recurrent(self.nOut or self.nIn,
+                                   inputType.timeSeriesLength)
+
+    def weightParamKeys(self):
+        return ("Wq", "Wk", "Wv", "Wo")
+
+    def initParams(self, gen, inputType, dtype=torch.float32, device=None):
+        """Wq, Wk (nIn, h, keyDim), Wv (nIn, h, valueDim), Wo (h, valueDim,
+        nOut) drawn in that order and, with ``hasBias``, zero biases bq,
+        bk (h, keyDim), bv (h, valueDim) and bo (nOut,), on ``device``."""
+        dev = resolve_device(device)
+        h, dk, dv = self.nHeads, self.keyDim, self.valueDim or self.keyDim
+        wi = self.weightInit or "XAVIER"
+        fans = {"Wq": ((self.nIn, h, dk), self.nIn, h * dk),
+                "Wk": ((self.nIn, h, dk), self.nIn, h * dk),
+                "Wv": ((self.nIn, h, dv), self.nIn, h * dv),
+                "Wo": ((h, dv, self.nOut), h * dv, self.nOut)}
+        p = {n: init_weight(gen, s, fi, fo, wi, dtype, dev)
+             for n, (s, fi, fo) in fans.items()}
+        if self.hasBias:
+            for n, s in (("bq", (h, dk)), ("bk", (h, dk)), ("bv", (h, dv)),
+                         ("bo", (self.nOut,))):
+                p[n] = torch.zeros(s, dtype=dtype, device=dev)
+        return p
+
+    def forward(self, params, x, train, gen, state, mask=None):
+        x = self._dropin(x, train, gen)
+        xt = x.transpose(1, 2)                             # (b, t, nIn)
+        q = torch.einsum("btf,fhk->bthk", xt, params["Wq"])
+        k = torch.einsum("btf,fhk->bthk", xt, params["Wk"])
+        v = torch.einsum("btf,fhv->bthv", xt, params["Wv"])
+        if self.hasBias:
+            q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
+        # (b, t, h, d) -> (b, h, t, d) for the shared dispatch point
+        ctx = dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                    v.transpose(1, 2), mask=mask)
+        y = torch.einsum("bhtv,hvo->bto", ctx, params["Wo"])
+        if self.hasBias:
+            y = y + params["bo"]
         return y.transpose(1, 2), state
 
 

@@ -730,9 +730,9 @@ def layer_from_json(d: dict) -> Layer:
     name = d.pop("@class")
     if name not in _LAYER_REGISTRY:
         raise NotImplementedError(
-            f"layer {name} is not ported yet (ROADMAP A4: the autoencoder "
-            f"and VAE layers; A11: the recommender tier's; A12b: the "
-            f"SameDiff layers)")
+            f"layer {name} is not ported yet (ROADMAP A11: the recommender "
+            f"tier's ShardedEmbeddingBag; A12b: the SameDiff layers, "
+            f"SameDiffLayer, SameDiffLambdaLayer and PixelShuffleLayer)")
     for k in ("updater", "biasUpdater"):
         if d.get(k):
             d[k] = IUpdater.fromJson(d[k])

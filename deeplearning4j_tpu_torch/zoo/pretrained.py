@@ -7,9 +7,9 @@ The download step is a local weight repository: checkpoints live under
 pretrained``) as ``<ModelName>_<TYPE>.zip`` (a ``ModelSerializer`` zip,
 written by either package) or ``<ModelName>_<TYPE>.h5`` (a Keras model,
 whose weights are transplanted into the zoo architecture by position and
-shape).  A zip restores onto the requested device (``cuda`` unless the
-caller passes another); the h5 route needs the Keras importer, which waits
-for ROADMAP A12d.
+shape).  Both routes land on the requested device (``cuda`` unless the
+caller passes another); the h5 route reads the file with the port's Keras
+importer and HDF5 reader.
 """
 from __future__ import annotations
 
@@ -140,7 +140,8 @@ def loadPretrained(model, pretrainedType: str = "IMAGENET",
         return ModelSerializer.restoreMultiLayerNetwork(p, device=device)
     if p.endswith(".h5"):
         from deeplearning4j_tpu_torch.imports import KerasModelImport
-        imported = KerasModelImport.importKerasModelAndWeights(p)
+        imported = KerasModelImport.importKerasModelAndWeights(
+            p, device=device)
         net = model.init(device=device)
         if not transplant(imported, net):
             raise ValueError(

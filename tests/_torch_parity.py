@@ -15,6 +15,11 @@ side from copied parameters.
   through both packages (the layers of the zoo slice);
 - ``_zoo_conf`` / ``_carried`` / ``_yolo_labels``: zoo configurations,
   zoo nets carrying the same parameters, DL4J-format YOLO labels.
+
+The reference's parameters of any layer, the 3-D ``KerasMultiHeadAttention``
+kernels and the VAE's ``We{i}`` / ``Wd{i}`` among them, cross into the
+port through ``init(params=)`` (``MultiLayerNetwork``,
+``ComputationGraph``) as numpy arrays of their own shapes.
 """
 import jax
 import numpy as np
@@ -288,9 +293,13 @@ def _layer_parity(jl, tl, params, x, state=None, train=False, mask=None,
     if grad:
         (out * torch.from_numpy(r)).sum().backward()
         for k in params:
-            np.testing.assert_allclose(tp[k].grad.numpy(),
-                                       np.asarray(gs[0][k]), atol=atol,
-                                       rtol=rtol, err_msg=f"d/d{k}")
+            # a parameter the forward does not reach (an autoencoder's
+            # decoder) gets jax.grad's zeros
+            g = tp[k].grad if tp[k].grad is not None else \
+                torch.zeros_like(tp[k])
+            np.testing.assert_allclose(g.numpy(), np.asarray(gs[0][k]),
+                                       atol=atol, rtol=rtol,
+                                       err_msg=f"d/d{k}")
         if floating:
             # no path to the input (ids read as integers) is a zero gradient
             gx = tx.grad if tx.grad is not None else torch.zeros_like(tx)

@@ -574,8 +574,12 @@ def test_unported_pieces_raise_naming_their_roadmap_item():
     # A6's vertices, which this test once refused, now build
     assert tgc.vertex_from_json({"@class": "SubsetVertex", "fromIndex": 1,
                                  "toIndex": 2}).toIndex == 2
-    with pytest.raises(NotImplementedError, match="A4"):
-        tlayers.layer_from_json({"@class": "VariationalAutoencoder"})
+    # A4's VAE, which this test once refused, loads; A11's layer does not
+    with pytest.raises(NotImplementedError, match="A11"):
+        tlayers.layer_from_json({"@class": "ShardedEmbeddingBag"})
+    assert type(tlayers.layer_from_json(
+        {"@class": "VariationalAutoencoder", "nIn": 4, "nOut": 2})) \
+        .__name__ == "VariationalAutoencoder"
     net = tmodels.ComputationGraph(_narrow(PORT, "FLOAT"), device="cpu") \
         .init()
     f, l = _narrow_batches(1)[0]

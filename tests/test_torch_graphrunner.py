@@ -116,15 +116,22 @@ def test_samediff_backend_defaults_to_cuda(mlp):
 
 
 # the ONNX importer is ported (its entry points are held in
-# test_torch_onnx_import.py); the Keras cases keep their ids
+# test_torch_onnx_import.py), and so is the Keras importer (ROADMAP A12d,
+# held in test_torch_keras_import.py): its entry points now read the file,
+# so a missing one is a FileNotFoundError, not a refusal naming an item;
+# the cases keep their ids
 @pytest.mark.parametrize("call,item", [
     pytest.param(
-        lambda m: m.KerasModelImport.importKerasModelAndWeights("m.h5"),
+        lambda m: m.KerasModelImport.importKerasModelAndWeights(
+            "no_such_model.h5", device="cpu"),
         "A12d", id="call2-A12d"),
     pytest.param(
         lambda m: m.KerasModelImport.importKerasSequentialModelAndWeights(
-            "m.h5"), "A12d", id="call3-A12d")])
+            "no_such_model.h5", device="cpu"), "A12d", id="call3-A12d")])
 def test_unported_importers_name_their_roadmap_item(call, item):
     import deeplearning4j_tpu_torch.imports as imports
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+    from deeplearning4j_tpu_torch.imports.keras_import import \
+        KerasModelImport
+    assert imports.KerasModelImport is KerasModelImport
+    with pytest.raises(FileNotFoundError, match="no_such_model"):
         call(imports)

@@ -1,7 +1,8 @@
 """The port stands alone: ``deeplearning4j_tpu_torch`` and ``chip_smoke.py``
 import neither ``jax`` nor anything of ``deeplearning4j_tpu``; importing
-the port loads no other framework (tensorflow, onnx, transformers, keras:
-the TF and ONNX importers read their protobufs with their own readers); the port's entry
+the port loads no other framework (tensorflow, onnx, transformers, keras,
+h5py: the TF and ONNX importers read their protobufs with their own
+readers, the Keras importer its HDF5 files); the port's entry
 points default to CUDA with no silent CPU fallback; and the reference's
 public import paths resolve in the port too (ROADMAP C7)."""
 import ast
@@ -41,7 +42,7 @@ sys.exit(1 if bad else 0)
 
 
 OTHER_FRAMEWORKS = ("tensorflow", "onnx", "transformers", "keras",
-                    "tf_keras")
+                    "tf_keras", "h5py")
 
 
 def _top(name):
@@ -426,11 +427,94 @@ def test_zoo_slice_public_names_import_from_both_packages(module, name):
         f"deeplearning4j_tpu_torch.{module}"), name)
     assert callable(port)
     unported = {"SameDiffLambdaLayer": "A12b", "SameDiffLayer": "A12b",
-                "SDLayerParams": "A12b", "AutoEncoder": "A4",
-                "VariationalAutoencoder": "A4", "SRGAN": "A12b",
+                "SDLayerParams": "A12b", "SRGAN": "A12b",
                 "PixelShuffleLayer": "A12b", "TwoTowerRecommender": "A11",
                 "DLRM": "A11"}
     if name in unported:
         with pytest.raises(NotImplementedError,
                            match=f"ROADMAP {unported[name]}"):
             port()
+
+
+KERAS_SLICE_MODULES = ["nn.conf.attention", "nn.conf.autoencoder",
+                       "nn.conf.variational", "imports.keras_import",
+                       "imports.hdf5"]
+
+
+@pytest.mark.parametrize("mod", KERAS_SLICE_MODULES)
+def test_keras_slice_modules_import_nothing_they_must_not_alone(mod):
+    """Each module the Keras slice added or grew, imported on its own,
+    loads neither ``jax``, the JAX package, nor h5py, keras or
+    tensorflow."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run(
+        [sys.executable, "-c", _IMPORT_ONE.format(
+            name=f"deeplearning4j_tpu_torch.{mod}",
+            forbidden=set(FORBIDDEN) | set(OTHER_FRAMEWORKS))],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+KERAS_SLICE_NAMES = [(m, n) for m in ("nn.conf.attention",
+                                      "nn.conf.autoencoder",
+                                      "nn.conf.variational",
+                                      "imports.keras_import", "imports")
+                     for n in _reference_names(m)]
+
+
+@pytest.mark.parametrize("module,name", KERAS_SLICE_NAMES)
+def test_keras_slice_public_names_import_from_both_packages(module, name):
+    """Every public name of the reference's ``nn.conf.attention``,
+    ``nn.conf.autoencoder``, ``nn.conf.variational``,
+    ``imports.keras_import`` and ``imports`` imports from the port under
+    the same path, and none is a stand-in (ROADMAP C19)."""
+    import importlib
+    port = getattr(importlib.import_module(
+        f"deeplearning4j_tpu_torch.{module}"), name)
+    assert callable(port)
+    assert "is not ported yet" not in (port.__doc__ or "")
+
+
+def _new_layers():
+    import importlib
+    out = []
+    for mod in ("nn.conf.attention", "nn.conf.autoencoder",
+                "nn.conf.variational"):
+        ref = importlib.import_module(f"deeplearning4j_tpu.{mod}")
+        out += [n for n, v in vars(ref).items() if isinstance(v, type)
+                and v.__module__ == ref.__name__
+                and hasattr(v, "toJson") and not n.startswith("_")]
+    return out
+
+
+@pytest.mark.parametrize("name", _new_layers())
+def test_layer_from_json_loads_every_layer_the_slice_defines(name):
+    """The reference's JSON of each layer class of the new modules loads
+    in the port and writes back the same JSON."""
+    import importlib
+    import json
+    ref_mod = next(importlib.import_module(f"deeplearning4j_tpu.{m}")
+                   for m in ("nn.conf.attention", "nn.conf.autoencoder",
+                             "nn.conf.variational")
+                   if hasattr(importlib.import_module(
+                       f"deeplearning4j_tpu.{m}"), name))
+    layer = getattr(ref_mod, name)(nIn=4, nOut=4)
+    from deeplearning4j_tpu_torch.nn.conf.layers import layer_from_json
+    js = json.loads(json.dumps(layer.toJson(), default=str))
+    port = layer_from_json(js)
+    assert type(port).__name__ == name
+    assert json.dumps(port.toJson(), default=str) == \
+        json.dumps(layer.toJson(), default=str)
+
+
+def test_keras_importer_entry_points_default_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is usable")
+    from deeplearning4j_tpu_torch.imports import KerasModelImport
+    path = str(REPO / "tests" / "fixtures" / "keras_narrow_v3.keras")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        KerasModelImport.importKerasModelAndWeights(path)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        KerasModelImport.importKerasSequentialModelAndWeights(path)
+    net = KerasModelImport.importKerasModelAndWeights(path, device="cpu")
+    assert net.device == torch.device("cpu")

@@ -134,10 +134,14 @@ def test_dense_config_json_matches_reference():
 
 def test_unported_pieces_raise_naming_their_roadmap_item():
     """What is still unported raises naming its ROADMAP item; A3's
-    updaters and schedules, A4's embedding layer and A6's vertices, which
-    this test once refused, now build from the reference's JSON."""
-    with pytest.raises(NotImplementedError, match="A4"):
-        tlayers.layer_from_json({"@class": "AutoEncoder"})
+    updaters and schedules, A4's embedding and autoencoder layers and A6's
+    vertices, which this test once refused, now build from the
+    reference's JSON."""
+    with pytest.raises(NotImplementedError, match="A12b"):
+        tlayers.layer_from_json({"@class": "SameDiffLayer"})
+    assert type(tlayers.layer_from_json(
+        {"@class": "AutoEncoder", "nIn": 3, "nOut": 2})).__name__ == \
+        "AutoEncoder"
     assert type(tlayers.layer_from_json(
         {"@class": "EmbeddingLayer", "nIn": 3, "nOut": 2})).__name__ == \
         "EmbeddingLayer"

@@ -12,7 +12,10 @@
   directory, as the reference's; ``path=`` wins over the repository;
 - ``transplant`` pairs layers as the reference's (positional and
   scanning), copying parameters and BatchNormalization state;
-- an ``.h5`` checkpoint needs the Keras importer: it raises naming A12d;
+- an ``.h5`` checkpoint goes through the Keras importer (ROADMAP A12d,
+  ported): an empty file is refused by its HDF5 reader, and a VGG16 saved
+  by keras transplants into the zoo's VGG16 as in the reference's
+  ``tests/test_pretrained.py``;
 - C16: a YOLO zip restored by the reference holds ``boundingBoxes`` as a
   string, so the reference's restored net cannot score
   (``ValueError``); the port's restored net parses it and scores as the
@@ -120,7 +123,7 @@ def test_path_wins_and_zip_comes_before_h5(repo_dir, tmp_path):
 
 def test_h5_checkpoint_needs_the_keras_importer(repo_dir):
     (repo_dir / "YOLO2_IMAGENET.h5").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="ROADMAP A12d"):
+    with pytest.raises(ValueError, match="not an HDF5 file"):
         tz.YOLO2().initPretrained(device="cpu")
     with pytest.raises(ValueError, match="Unsupported pretrained"):
         tz.YOLO2().initPretrained(path=str(repo_dir / "x.bin"),
@@ -197,3 +200,39 @@ def test_c16_reference_cannot_score_a_restored_yolo_the_port_can(tmp_path):
     np.testing.assert_allclose(port.score(tds.DataSet(x, y)), before,
                                rtol=1e-5)
     assert port.conf.toJson() == restored.conf.toJson()
+
+
+def _keras_vgg16_32(numClasses=10):
+    """The reference test's Keras model: VGG16's topology at 32x32."""
+    keras = pytest.importorskip("keras")
+    L = keras.layers
+    m = keras.Sequential([L.Input(shape=(32, 32, 3))])
+    for n, reps in [(64, 2), (128, 2), (256, 3), (512, 3), (512, 3)]:
+        for _ in range(reps):
+            m.add(L.Conv2D(n, 3, padding="same", activation="relu"))
+        m.add(L.MaxPooling2D(2, 2))
+    m.add(L.Flatten())
+    m.add(L.Dense(4096, activation="relu"))
+    m.add(L.Dense(4096, activation="relu"))
+    m.add(L.Dense(numClasses, activation="softmax"))
+    return m
+
+
+def test_vgg16_h5_transplant_classifies_as_the_reference(repo_dir):
+    """``tests/test_pretrained.py``'s h5 route: ``VGG16().initPretrained()``
+    finds ``VGG16_IMAGENET.h5`` in the repository, the Keras importer reads
+    it and ``transplant`` moves its weights into the zoo's VGG16; the zoo
+    net classifies as keras and as the reference's does."""
+    keras_model = _keras_vgg16_32()
+    keras_model.save(str(repo_dir / "VGG16_IMAGENET.h5"))
+    net = tz.VGG16(inputShape=(3, 32, 32), numClasses=10).initPretrained(
+        device="cpu")
+    x = np.random.RandomState(0).rand(2, 32, 32, 3).astype(np.float32)
+    want = np.asarray(keras_model(x))
+    xin = np.transpose(x, (0, 3, 1, 2))
+    ours = net.output(xin).numpy()
+    np.testing.assert_allclose(ours, want, atol=1e-3, rtol=1e-3)
+    assert (ours.argmax(1) == want.argmax(1)).all()
+    ref = jz.VGG16(inputShape=(3, 32, 32), numClasses=10).initPretrained()
+    np.testing.assert_allclose(ours, np.asarray(ref.output(xin).numpy()),
+                               atol=1e-5, rtol=1e-4)
