@@ -362,6 +362,47 @@ which must pass or the script exits non-zero without a result line:
    causal forward, ``LearnedSelfAttentionLayer``,
    ``RecurrentAttentionLayer``; at t 1024 the recurrent layer's ``_mha``
    launches B1 once (counted).
+53. ``nd4j``: the tensor layer (``NDArray``, ``Nd4j``, ROADMAP A2) on the
+   card and on the CPU from the same numpy inputs: creation defaults to
+   cuda; additions, products by one operand, max/min, comparisons and the
+   shape ops give the same bits, ``mmul``, reductions and transcendental
+   ops hold to ``ND4J_TOL``; writes through ``getRow`` /
+   ``get(NDArrayIndex...)`` / ``getColumn`` views reach the parent; DOUBLE
+   stays float64 through ``mmul`` and the reductions, FLOAT is the
+   default; a card array's ``.npy`` bytes are the CPU array's;
+   ``Nd4j.getRandom().setSeed`` repeats the card's draws; no launch;
+54. ``etl_csv``: dl4j-examples' CSV route (``ETL_CSV``): a seeded
+   150,000-row file parsed by ``CSVRecordReader`` (the native ``loadAll``
+   and the record parse), a ``TransformProcess`` through
+   ``LocalTransformExecutor`` and ``SparkTransformExecutor`` on the native
+   thread pool (they must agree), the result streamed by a
+   ``CSVRecordReader`` through ``RecordReaderDataSetIterator`` and
+   ``NormalizerStandardize`` into ``MultiLayerNetwork.fit`` of a small
+   MLP for one epoch: the native library must be loaded, ``fit`` must
+   engage the producer pool (a pool batch a step, bytes staged) and the
+   loss be finite; rows/s of each stage; no launch;
+55. ``etl_images_resnet50``: the slice's main path (``ETL_IMAGES``): 640
+   seeded 224 x 224 PNGs in label folders, ``ImageRecordReader`` (random
+   flip, crop) -> ``RecordReaderDataSetIterator(64, 1000 classes)`` ->
+   ``ImagePreProcessingScaler`` -> ``PrefetchingDataSetIterator`` (4
+   workers, the pinned H2D ring onto cuda) -> ``ComputationGraph.fit`` of
+   ResNet-50 (BFLOAT16, ``Nesterovs(0.1, 0.9)``) for one epoch.  Counters
+   zeroed before and read after: no launch.  Every file is delivered once
+   (count and label histogram), each batch reaches ``fit`` on cuda, the
+   H2D counter grows by the epoch's bytes, the first pooled batch equals
+   the first batch of one worker's shard drained inline on the CPU bit
+   for bit, the loss is finite, and a step from the staged batch equals
+   the step from the same batch in memory from the same parameters
+   (``ETL_STEP_TOL``); decode images/s a worker, streamed and in-memory
+   images/s, the ring's MB/s, a batch's pinned and pageable copy, a
+   profiled streamed step's idle share, peak memory;
+56. ``etl_sequences``: the long-context net (``LONG_CONTEXT``, nOut 1)
+   fed 16 seeded sequence CSVs through ``CSVSequenceRecordReader`` ->
+   ``SequenceRecordReaderDataSetIterator(4, regression)`` ->
+   ``MultiLayerNetwork.fit`` (the pool it engages).  Counters zeroed
+   before and read after must read zero: the iterator attaches a features
+   mask and masked attention is dense, in both packages (ROADMAP C23);
+   ms a step.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``.  With ``--record PATH`` it also
@@ -712,6 +753,40 @@ VAE = dict(nIn=784, nOut=32, hidden=(256, 256), lr=1e-3, l2=1e-4,
 ATTENTION_LAYERS = dict(nIn=32, nHeads=4, headSize=8, nOut=32, t=64,
                         batch=3, nQueries=5, long_t=1024, seed=9)
 ATTENTION_TOL = dict(atol=1e-4, rtol=1e-4)
+# The tensor layer on the card (ROADMAP A2): NDArray / Nd4j on seeded numpy
+# inputs, card against CPU.  Additions, products by one operand, max/min,
+# comparisons and the shape ops give the same bits; a transcendental
+# function, a float32 product (TF32 off: cuBLAS against the CPU's BLAS)
+# and a reduction hold to ND4J_TOL, rtol relative to the result's largest
+# magnitude (another rounding or summation order).
+ND4J = dict(m=256, k=384, n=192, seed=17)
+ND4J_TOL = dict(atol=1e-5, rtol=1e-5)
+# dl4j-examples' CSV route at 150,000 rows: four doubles, an integer-coded
+# category of three states and a label of three classes, through a
+# TransformProcess (the category one-hot, a filter, a math op), written
+# out and read back by a streaming CSVRecordReader into a small MLP.
+ETL_CSV = dict(rows=150_000, batch=500, hidden=32, lr=1e-2, seed=21)
+# The image pipeline at ResNet-50's width: 640 seeded 224 x 224 RGB PNGs in
+# 10 label folders (written by the port's own PNG writer), decoded by 4
+# producer workers with a random flip and a crop of up to 16 pixels an
+# edge, scaled to [0, 1], staged onto the card through the pinned ring,
+# into bench.py's ResNet-50 (BFLOAT16, its zoo updater Nesterovs(0.1, 0.9))
+# for one epoch.  Record sharding gives each worker 160 files, batched
+# 64 + 64 + 32: 12 steps.
+ETL_IMAGES = dict(n=640, classes=10, hw=224, batch=64, workers=4, crop=16,
+                  seed=23, shm_mb=64)
+# A step from a staged batch against the same step from the same batch as
+# an in-memory DataSet, from the same copied parameters (BFLOAT16 compute):
+# the inputs are the same bits, so only cuDNN's choice among kernels
+# (benchmark mode off) can part them; the loss holds to 1e-2 relative and
+# every parameter to 1e-2 (a bf16 step at lr 0.1).
+ETL_STEP_TOL = dict(loss_rtol=1e-2, param_atol=1e-2)
+# The long-context attention net (LONG_CONTEXT, BFLOAT16) fed by DataVec:
+# 16 seeded sequence CSV files of 2048 steps x (128 features + 1 label),
+# CSVSequenceRecordReader -> SequenceRecordReaderDataSetIterator(batch 4,
+# regression) -> MultiLayerNetwork.fit (the pool that fit engages, C22);
+# the regression head has nOut 1 (the iterator's one label column).
+ETL_SEQ = dict(files=16, batch=4, seed=29)
 
 
 def _keras_refill(name, shape, rng):
@@ -1455,9 +1530,9 @@ def phase_profile(torch, rec, lm, prompts):
             print(f"  {ms:9.3f} ms  {kname}")
 
 
-def _long_context_conf(data_type):
+def _long_context_conf(data_type, n_out=None):
     """bench.py bench_long_context's configuration, built with the port's
-    config DSL."""
+    config DSL (``n_out`` replaces the head's width)."""
     from deeplearning4j_tpu_torch.learning import Adam
     from deeplearning4j_tpu_torch.nn.conf import (InputType,
                                                   NeuralNetConfiguration)
@@ -1470,7 +1545,7 @@ def _long_context_conf(data_type):
                                       headSize=c["headSize"], nOut=c["nIn"]))
             .layer(SelfAttentionLayer(nHeads=c["nHeads"],
                                       headSize=c["headSize"], nOut=c["nIn"]))
-            .layer(RnnOutputLayer.builder("mse").nOut(c["nOut"])
+            .layer(RnnOutputLayer.builder("mse").nOut(n_out or c["nOut"])
                    .activation("identity").build())
             .setInputType(InputType.recurrent(c["nIn"], c["t"])).build())
 
@@ -1521,7 +1596,7 @@ def phase_train(torch, rec, net, params0, pool):
              f"expected {want} launches of each flash kernel (B1, B2, B3 "
              f"twice per step) and no B4, got {counts}")
     _require(math.isfinite(loss), f"training loss {loss}")
-    out = net.output(pool[0].features)
+    out = net.output(pool[0].features).torch
     _require(tuple(out.shape) == (TRAIN_SHAPE[0], LONG_CONTEXT["nOut"],
                                   LONG_CONTEXT["t"])
              and bool(out.isfinite().all()),
@@ -1538,7 +1613,7 @@ def phase_train_outputs(torch, rec, params0, pool):
         net = MultiLayerNetwork(_long_context_conf("FLOAT")).init(
             params=params0)
         net.fit(pool[0])
-        return net.score(), net.params()
+        return net.score(), net.params().torch
 
     _reset_counters()
     loss_f, p_f = one_step()
@@ -1791,7 +1866,7 @@ def phase_resnet_train(torch, rec, net, params0, pool):
              f"ResNet-50 training launched a kernel: {counts} (the graph "
              f"dispatches no B4, as in the reference)")
     _require(math.isfinite(loss), f"ResNet-50 training loss {loss}")
-    out = net.output(pool[0].features[:4])
+    out = net.output(pool[0].features[:4]).torch
     _require(tuple(out.shape) == (4, RESNET["numClasses"])
              and bool(out.isfinite().all())
              and bool(((out.sum(1) - 1).abs() < 1e-2).all()),
@@ -1823,10 +1898,10 @@ def phase_resnet_step(torch, rec, params0, pool):
     loss_g, loss_c = gpu.score(), cpu.score()
     e_l, ok_l = _max_err(torch.tensor([loss_g]), torch.tensor([loss_c]),
                          **RESNET_STEP_TOL)
-    p_cpu = cpu.params()
-    update = float((p_cpu - _resnet_float(params0, "cpu").params())
+    p_cpu = cpu.params().torch
+    update = float((p_cpu - _resnet_float(params0, "cpu").params().torch)
                    .abs().max())
-    e_p = float((gpu.params().cpu() - p_cpu).abs().max())
+    e_p = float((gpu.params().torch.cpu() - p_cpu).abs().max())
     ok_p = e_p <= RESNET_STEP_PARAM_SHARE * update
     e_s, ok_s = 0.0, True
     for v, st in gpu.state_.items():
@@ -1854,7 +1929,7 @@ def phase_b4_activations(torch, rec, gnet, pool):
     against the graph's conv output and the following BN layer's batch
     moments (its formulas: f32 mean, E[x²] − mean² clamped at 0)."""
     from deeplearning4j_tpu_torch.ops.fused import conv1x1_bn_stats
-    x = pool[0].features.to("cuda")
+    x = pool[0].features.torch.to("cuda")
     with torch.no_grad():
         acts = gnet._forward(gnet.params_, gnet.state_, (x,), True,
                              None)[0]
@@ -2049,7 +2124,7 @@ def phase_rnn_train(torch, rec, net, params0, it):
              f"epochs; expected 2 and 1 (one iteration per batch)")
     _require(math.isfinite(loss), f"char-RNN loss {loss}")
     it.reset()
-    out = net.output(it.next().features[:2])
+    out = net.output(it.next().features[:2]).torch
     _require(tuple(out.shape) == (2, it.inputColumns(), c["length"])
              and bool(out.isfinite().all())
              and bool(((out.sum(1) - 1).abs() < 1e-4).all()),
@@ -2083,11 +2158,11 @@ def phase_rnn_step(torch, rec, params0, it):
     gpu, cpu = nets["cuda"], nets["cpu"]
     loss_g, loss_c = gpu.score(), cpu.score()
     e_l = abs(loss_g - loss_c)
-    p_cpu = cpu.params()
+    p_cpu = cpu.params().torch
     update = float((p_cpu - MultiLayerNetwork(
-        _char_rnn_conf(n), device="cpu").init(params=params0).params())
+        _char_rnn_conf(n), device="cpu").init(params=params0).params().torch)
         .abs().max())
-    d = (gpu.params().cpu() - p_cpu).abs()
+    d = (gpu.params().torch.cpu() - p_cpu).abs()
     e_p = float(d.max())
     share = float((d <= RNN_PARAM_ATOL).float().mean())
     rec["rnn_step_card_vs_cpu"] = dict(
@@ -2123,12 +2198,13 @@ def phase_rnn_timestep(torch, rec, net, it):
                          for ch in CHAR_TEXT[:RNN_SAMPLE]], n)
     _reset_counters()
     net.rnnClearPreviousState()
-    full = net.output(x)
-    steps = torch.stack([net.rnnTimeStep(x[:, :, k])
+    full = net.output(x).torch
+    steps = torch.stack([net.rnnTimeStep(x[:, :, k]).torch
                          for k in range(RNN_SAMPLE)], dim=2)
     err = float((steps - full).abs().max())
     net.rnnClearPreviousState()
-    err0 = float((net.rnnTimeStep(x[:, :, 0]) - full[:, :, 0]).abs().max())
+    err0 = float((net.rnnTimeStep(x[:, :, 0]).torch - full[:, :, 0])
+                 .abs().max())
     # the example's sampling loop (examples/lstm_charmodelling.py)
     rng = np.random.RandomState(7)
     net.rnnClearPreviousState()
@@ -2139,7 +2215,7 @@ def phase_rnn_timestep(torch, rec, net, it):
     for _ in range(RNN_SAMPLE):
         xs = np.zeros((1, n, 1), np.float32)
         xs[0, idx, 0] = 1.0
-        probs = net.rnnTimeStep(xs).cpu().numpy().reshape(-1)
+        probs = net.rnnTimeStep(xs).numpy().reshape(-1)
         idx = int(rng.choice(n, p=probs / probs.sum()))
         out.append(it.convertIndexToCharacter(idx))
     wall = time.perf_counter() - t0
@@ -2204,9 +2280,10 @@ def phase_rnn_graph(torch, rec, params0, it):
         g.fit(ds)
     loss = g.score()
     x = ds.features[:1, :, :20]
-    full = g.output(x)
+    full = g.output(x).torch
     g.rnnClearPreviousState()
-    steps = torch.stack([g.rnnTimeStep(x[:, :, k]) for k in range(20)], 2)
+    steps = torch.stack([g.rnnTimeStep(x[:, :, k]).torch
+                         for k in range(20)], 2)
     err_step = float((steps - full).abs().max())
     # the GravesLSTM stack as a graph against the same stack as an MLN
     mln = MultiLayerNetwork(_char_rnn_conf(n)).init(params=params0)
@@ -2219,7 +2296,7 @@ def phase_rnn_graph(torch, rec, params0, it):
     err_mln = max(float((cg.params_[v][k] - mln.params_[li][k]).abs().max())
                   for v, li in (("g0", "0"), ("g1", "1"), ("out", "2"))
                   for k in mln.params_[li])
-    err_out = float((cg.output(x) - mln.output(x)).abs().max())
+    err_out = float((cg.output(x).torch - mln.output(x).torch).abs().max())
     torch.cuda.synchronize()
     counts = _counters()
     rec["rnn_graph"] = dict(loss=loss, iterations=g.iterationCount,
@@ -2745,7 +2822,8 @@ def phase_serializer(torch, rec, net, train, test, resnet, card):
             updater=_trees_equal(torch, back.optState_, net.optState_),
             counters=(back.iterationCount, back.epochCount) ==
             (net.iterationCount, net.epochCount),
-            output=bool(torch.equal(back.output(x), net.output(x))),
+            output=bool(torch.equal(back.output(x).torch,
+                                    net.output(x).torch)),
             normalizer=bool((nback.mean == norm.mean).all()
                             and (nback.std == norm.std).all()))
         gnet, pool = resnet
@@ -2873,16 +2951,17 @@ def phase_solvers_transfer(torch, rec, net, train, resnet, card):
           .addLayer(OutputLayer.builder("negativeloglikelihood").nIn(500)
                     .nOut(TRANSFER_NOUT).activation("softmax").build())
           .build())
-    frozen0 = {k: v.clone() for k, v in t2.paramTable().items()
+    frozen0 = {k: v.torch.clone() for k, v in t2.paramTable().items()
                if int(k.split("_")[0]) <= 4}
-    head0 = t2.getParam("5_W").clone()
+    head0 = t2.getParam("5_W").torch.clone()
     train.reset()
     ds = train.next()
-    cls = ds.labels.argmax(1) % TRANSFER_NOUT
+    cls = ds.labels.torch.argmax(1) % TRANSFER_NOUT
     t2.fit(DataSet(ds.features, torch.eye(TRANSFER_NOUT)[cls]))
     table = t2.paramTable()
-    frozen_same = all(torch.equal(table[k], v) for k, v in frozen0.items())
-    head_moved = not torch.equal(t2.getParam("5_W"), head0)
+    frozen_same = all(torch.equal(table[k].torch, v)
+                      for k, v in frozen0.items())
+    head_moved = not torch.equal(t2.getParam("5_W").torch, head0)
     # ComputationGraph.evaluate on the ResNet-50 of the resnet phases
     gnet, pool = resnet
     ev = gnet.evaluate(ListDataSetIterator(pool))
@@ -3827,7 +3906,7 @@ def phase_serve_check(torch, rec, st, req, card, c=SERVE):
                              req["answers"]["lm"], refs=refs)
     cmp_grp = _near_tie_check(torch, lm, req["grp_pairs"],
                               req["answers"]["lm_group"])
-    cls_err = max(float(np.abs(a - net.output(x).cpu().numpy()).max())
+    cls_err = max(float(np.abs(a - net.output(x).numpy()).max())
                   for a, x in zip(req["answers"]["classifier"],
                                   req["cls_x"]))
     x = req["cls_x"][0][:4]
@@ -3836,7 +3915,7 @@ def phase_serve_check(torch, rec, st, req, card, c=SERVE):
         pred = JsonRemoteInference(port=srv.port).predict(x)
     finally:
         srv.stop()
-    json_err = float(np.abs(pred - net.output(x).cpu().numpy()).max())
+    json_err = float(np.abs(pred - net.output(x).numpy()).max())
     sd = _sd_graph(torch, c)
     xs = np.random.RandomState(4).randn(5, 16).astype(np.float32)
     srv = SameDiffJsonModelServer(sd, outputNames=["probs"]).start()
@@ -4347,7 +4426,7 @@ def phase_yolo2_step(torch, rec, params0, pool):
     loss_g, loss_c = gpu.score(), cpu.score()
     e_l, ok_l = _max_err(torch.tensor([loss_g]), torch.tensor([loss_c]),
                          **RESNET_STEP_TOL)
-    d = (gpu.params().cpu() - cpu.params()).abs()
+    d = (gpu.params().torch.cpu() - cpu.params().torch).abs()
     share = float((d <= 1e-5).float().mean())
     ok_p = float(d.max()) <= 2 * lr + 1e-6 and share >= YOLO2_STEP_SHARE
     e_s, ok_s = 0.0, True
@@ -4586,7 +4665,7 @@ def phase_zoo_sweep(torch, rec, card):
         init_s = time.perf_counter() - t0
         x, y = _zoo_sweep_batch(name, model, b)
         out = net.output(x)
-        out = out[0] if isinstance(out, list) else out
+        out = (out[0] if isinstance(out, list) else out).torch
         want = _expected_shape(net, b)
         shape_ok = len(want) == out.dim() and all(
             w in (-1, g) for w, g in zip(want, out.shape))
@@ -4749,7 +4828,7 @@ def phase_keras_attention(torch, rec, card):
     _require(kinds.count("KerasMultiHeadAttention") == c["blocks"],
              f"{kinds.count('KerasMultiHeadAttention')} attention layers")
     _reset_counters()
-    probs = net.output(x)
+    probs = net.output(x).torch
     torch.cuda.synchronize()
     fwd_counts = _counters()
     with torch.no_grad():
@@ -4767,7 +4846,7 @@ def phase_keras_attention(torch, rec, card):
     def one_step():
         n = _keras_transformer()
         n.fit(pool[0])
-        return n.score(), n.params()
+        return n.score(), n.params().torch
 
     _reset_counters()
     loss_f, p_f = one_step()
@@ -4873,7 +4952,7 @@ def phase_keras_resnet50(torch, rec, card):
         with torch.no_grad():
             acts, _, _ = n._forward(n.params_, n.state_,
                                     (n._on_device(xin),), False, None)
-        return acts["avg_pool"].cpu().numpy(), n.output(xin).cpu().numpy()
+        return acts["avg_pool"].cpu().numpy(), n.output(xin).numpy()
 
     feats, probs = features(net)
     scale = float(np.abs(io_ref["resnet_avg_pool"]).max())
@@ -4947,7 +5026,7 @@ def phase_keras_v3(torch, rec, card):
     x = np.random.RandomState(c["v3_input_seed"]).standard_normal(
         c["v3_shape"]).astype(np.float32)
     out = net.output(np.ascontiguousarray(x.transpose(0, 2, 1)))
-    err, ok = _tol_err(out.cpu().numpy(), np.load(_keras_path("io"))[
+    err, ok = _tol_err(out.numpy(), np.load(_keras_path("io"))[
         "v3_probs"], **KERAS_OUT_TOL)
     up = type(net.conf.globalConf["updater"]).__name__
     rec["keras_v3"] = dict(import_s=import_s, max_abs_err=err, updater=up)
@@ -5199,6 +5278,668 @@ def phase_attention_layers(torch, rec, card):
              f"{long_counts}, expected one B1")
 
 
+def _etl_metric(name):
+    """The ETL series ``name`` of the current registry (None before its
+    first use)."""
+    from deeplearning4j_tpu_torch.telemetry import get_registry
+    return get_registry().get(name)
+
+
+def _fresh_telemetry():
+    """A fresh metrics registry (the ETL counters start at 0) and the
+    previous one, to put back."""
+    from deeplearning4j_tpu_torch import telemetry
+    return telemetry.set_registry(telemetry.MetricsRegistry())
+
+
+def phase_nd4j(torch, rec, card):
+    """Item 53: the tensor layer on the card, the same calls on the card
+    and on the CPU from the same numpy inputs."""
+    import io
+
+    import numpy as np
+    from deeplearning4j_tpu_torch.ops import (DataType, Nd4j, NDArrayIndex,
+                                              serde)
+    c = ND4J
+    rng = np.random.RandomState(c["seed"])
+    a = rng.randn(c["m"], c["k"]).astype(np.float32)
+    b = rng.randn(c["k"], c["n"]).astype(np.float32)
+    v = rng.randn(c["k"]).astype(np.float32)
+    _reset_counters()
+    z = Nd4j.zeros(3, 4)
+    r = Nd4j.rand(5, 5)
+    _require(z.torch.device.type == "cuda" and r.torch.device.type == "cuda",
+             f"Nd4j creation landed on {z.torch.device} / {r.torch.device}")
+    ga, ca = Nd4j.create(a), Nd4j.create(a, device="cpu")
+    gb, cb = Nd4j.create(b), Nd4j.create(b, device="cpu")
+    gv, cv = Nd4j.create(v), Nd4j.create(v, device="cpu")
+    _require(ga.torch.device.type == "cuda" and
+             ca.torch.device.type == "cpu", "create placed arrays wrongly")
+    exact = {
+        "add": lambda x, y, w: x.add(2.5), "sub_row": lambda x, y, w:
+        x.subRowVector(w), "mul": lambda x, y, w: x.mul(x),
+        "neg": lambda x, y, w: x.neg(), "abs": lambda x, y, w: abs(x),
+        "relu": lambda x, y, w: Nd4j.relu(x),
+        "max": lambda x, y, w: x.max(1), "argMax": lambda x, y, w:
+        x.argMax(0), "gt": lambda x, y, w: x.gt(0.1),
+        "clip": lambda x, y, w: Nd4j.clip(x, -0.5, 0.5),
+        "transpose": lambda x, y, w: x.transpose(),
+        "concat": lambda x, y, w: Nd4j.concat(0, x, x),
+        "gather": lambda x, y, w: Nd4j.gather(x, Nd4j.create(
+            np.array([3, 1, 4], np.int64), device=str(x.torch.device))),
+    }
+    approx = {
+        "mmul": lambda x, y, w: x.mmul(y), "exp": lambda x, y, w:
+        Nd4j.exp(x), "tanh": lambda x, y, w: Nd4j.tanh(x),
+        "sigmoid": lambda x, y, w: Nd4j.sigmoid(x),
+        "softmax": lambda x, y, w: Nd4j.softmax(x), "log": lambda x, y, w:
+        Nd4j.log(abs(x).add(1.0)), "sum": lambda x, y, w: x.sum(0),
+        "mean": lambda x, y, w: x.mean(1), "std": lambda x, y, w: x.std(0),
+        "norm2": lambda x, y, w: x.norm2(1),
+        "gemm": lambda x, y, w: Nd4j.gemm(x, x, transposeB=True),
+    }
+    errs, bad = {}, []
+    for name, fn in {**exact, **approx}.items():
+        g, cpu = fn(ga, gb, gv), fn(ca, cb, cv)
+        _require(g.torch.device.type == "cuda", f"{name} left the card")
+        gn, cn = g.numpy(), cpu.numpy()
+        if name in exact:
+            ok = gn.shape == cn.shape and np.array_equal(gn, cn)
+            errs[name] = 0.0 if ok else float("inf")
+        else:
+            d = np.abs(gn.astype(np.float64) - cn)
+            errs[name] = float(d.max())
+            ok = errs[name] <= ND4J_TOL["atol"] + ND4J_TOL["rtol"] * \
+                float(np.abs(cn).max())
+        if not ok:
+            bad.append(name)
+    # a write through a view reaches the parent, on the card
+    views = {}
+    for dev in ("cuda", "cpu"):
+        p = Nd4j.create(a[:8, :6], device=dev)
+        p.getRow(2).assign(7.0)
+        p.get(NDArrayIndex.interval(4, 6), NDArrayIndex.all()).addi(1.0)
+        p.get(NDArrayIndex.indices(0, 7), NDArrayIndex.point(1)).assign(-3.0)
+        p.getColumn(5).muli(2.0)
+        views[dev] = p.numpy()
+    views_ok = np.array_equal(views["cuda"], views["cpu"])
+    # DOUBLE end to end; FLOAT the default
+    d64 = Nd4j.rand(64, 64, dtype=DataType.DOUBLE)
+    dbl = [d64.mmul(d64).dataType(), d64.sum(0).dataType(),
+           d64.mean().dataType()]
+    dbl_ok = d64.torch.dtype == torch.float64 and all(
+        t is DataType.DOUBLE for t in dbl) and \
+        Nd4j.ones(2).torch.dtype == torch.float32
+    # .npy of a card array: the CPU array's bytes
+    npy_ok = serde.to_npy_bytes(ga) == serde.to_npy_bytes(ca)
+    buf = io.BytesIO()
+    np.save(buf, a, allow_pickle=False)
+    npy_ok = npy_ok and serde.to_npy_bytes(ga) == buf.getvalue()
+    back = serde.from_npy_bytes(serde.to_npy_bytes(ga))
+    npy_ok = npy_ok and np.array_equal(back.numpy(), a)
+    # the seeded RNG repeats on the card
+    rng_nd = Nd4j.getRandom()
+    rng_nd.setSeed(1234)
+    d1 = Nd4j.rand(1000)
+    rng_nd.setSeed(1234)
+    d2 = Nd4j.rand(1000)
+    d3 = Nd4j.rand(1000)
+    rng_ok = bool(torch.equal(d1.torch, d2.torch)) and \
+        not bool(torch.equal(d2.torch, d3.torch)) and \
+        d1.torch.device.type == "cuda"
+    mm_ms = _time_ms(torch, lambda: ga.mmul(gb), iters=40)
+    torch.cuda.synchronize()
+    counts = _counters()
+    _no_launches(rec, "nd4j", counts)
+    rec["nd4j"] = dict(errors=errs, failed=bad, views=views_ok,
+                       double=dbl_ok, npy=npy_ok, rng=rng_ok,
+                       mmul_ms=mm_ms)
+    print(f"nd4j: {len(exact)} exact ops card == CPU, {len(approx)} within "
+          f"{ND4J_TOL} (largest |d| "
+          f"{max(errs[k] for k in approx):.3g}, mmul "
+          f"{c['m']}x{c['k']}x{c['n']} {mm_ms:.4f} ms); view writes "
+          f"{views_ok}, DOUBLE end to end {dbl_ok}, .npy bytes {npy_ok}, "
+          f"seeded draws repeat {rng_ok}")
+    print(card)
+    _require(not bad, f"card and CPU differ in {bad}: {errs}")
+    _require(views_ok, "a write through a view did not reach the parent "
+             "on the card as it does on the CPU")
+    _require(dbl_ok, f"DOUBLE did not stay float64 ({dbl}) or the default "
+             f"is not float32")
+    _require(npy_ok, ".npy of a card array is not the CPU array's bytes")
+    _require(rng_ok, "setSeed does not repeat the card's draws")
+    del ga, gb, gv, d64, d1, d2, d3, z, r
+
+
+def _etl_csv_files(d):
+    """The seeded 150,000-row CSV (header + rows) and its schema."""
+    import numpy as np
+    c = ETL_CSV
+    rng = np.random.RandomState(c["seed"])
+    n = c["rows"]
+    cols = rng.randn(n, 4)
+    cat = rng.randint(0, 3, n)
+    label = (cols[:, 0] + 0.5 * cols[:, 1] + cat > 0.8).astype(int) + \
+        (cols[:, 2] > 1.0).astype(int)
+    path = os.path.join(d, "raw.csv")
+    with open(path, "w") as f:
+        f.write("f0,f1,f2,f3,cat,label\n")
+        np.savetxt(f, np.column_stack([cols, cat, label]),
+                   fmt=["%.6f"] * 4 + ["%d", "%d"], delimiter=",")
+    return path
+
+
+def phase_etl_csv(torch, rec, card):
+    """Item 54: dl4j-examples' CSV route on the card: CSVRecordReader (the
+    native bulk parse and the record parse), a Schema and TransformProcess
+    run by LocalTransformExecutor and by SparkTransformExecutor on the
+    native pool (they must agree), the result written out and streamed by
+    a CSVRecordReader through RecordReaderDataSetIterator and
+    NormalizerStandardize into MultiLayerNetwork.fit, which engages the
+    producer pool (C22)."""
+    import math
+    import tempfile
+
+    import numpy as np
+    from deeplearning4j_tpu_torch import native
+    from deeplearning4j_tpu_torch.datasets import NormalizerStandardize
+    from deeplearning4j_tpu_torch.datavec import (
+        ColumnCondition, ConditionOp, CSVRecordReader, FileSplit,
+        LocalTransformExecutor, RecordReaderDataSetIterator, Schema,
+        SparkTransformExecutor, TransformProcess)
+    from deeplearning4j_tpu_torch.learning import Adam
+    from deeplearning4j_tpu_torch.models import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.conf import (InputType,
+                                                  NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.conf.layers import (DenseLayer,
+                                                         OutputLayer)
+    c = ETL_CSV
+    _require(native.available(), "the port's native library did not build")
+    prev = _fresh_telemetry()
+    try:
+        with tempfile.TemporaryDirectory(dir=ROOT) as d:
+            t0 = time.perf_counter()
+            raw = _etl_csv_files(d)
+            write_s = time.perf_counter() - t0
+            rr = CSVRecordReader(skipNumLines=1)
+            rr.initialize(FileSplit(raw))
+            t0 = time.perf_counter()
+            mat = rr.loadAll()
+            native_s = time.perf_counter() - t0
+            _require(mat.shape == (c["rows"], 6), f"loadAll {mat.shape}")
+            t0 = time.perf_counter()
+            records = [rr.next() for _ in range(c["rows"])]
+            parse_s = time.perf_counter() - t0
+            schema = (Schema.Builder().addColumnDouble("f0", "f1", "f2", "f3")
+                      .addColumnInteger("cat", "label").build())
+            tp = (TransformProcess.Builder(schema)
+                  .integerToCategorical("cat", ["a", "b", "c"])
+                  .categoricalToOneHot("cat")
+                  .filter(ColumnCondition("f3", ConditionOp.LessThan, -2.5))
+                  .doubleMathOp("f1", "Multiply", 2.0)
+                  .build())
+            t0 = time.perf_counter()
+            local = LocalTransformExecutor.execute(records, tp)
+            local_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            spark = SparkTransformExecutor.execute(records, tp,
+                                                   numPartitions=16)
+            spark_s = time.perf_counter() - t0
+            same = len(local) == len(spark) and all(
+                [w.value for w in x] == [w.value for w in y]
+                for x, y in zip(local, spark))
+            final = tp.getFinalSchema()
+            n_out = len(final.getColumnNames())
+            proc = os.path.join(d, "processed.csv")
+            with open(proc, "w") as f:
+                for r in local:
+                    f.write(",".join(str(w.value) for w in r) + "\n")
+            rr2 = CSVRecordReader()
+            rr2.initialize(FileSplit(proc))
+            it = RecordReaderDataSetIterator(
+                rr2, c["batch"], labelIndex=final.getIndexOfColumn("label"),
+                numPossibleLabels=3)
+            norm = NormalizerStandardize()
+            norm.fit(it)
+            it.setPreProcessor(norm)
+            conf = (NeuralNetConfiguration.builder().seed(c["seed"])
+                    .updater(Adam(c["lr"])).list()
+                    .layer(DenseLayer.builder().nOut(c["hidden"])
+                           .activation("relu").build())
+                    .layer(OutputLayer.builder("mcxent").nOut(3)
+                           .activation("softmax").build())
+                    .setInputType(InputType.feedForward(n_out - 1)).build())
+            net = MultiLayerNetwork(conf).init()
+            _require(net.device.type == "cuda", f"net on {net.device}")
+            _reset_counters()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            net.fit(it, epochs=1)
+            loss = net.score()
+            fit_s = time.perf_counter() - t0
+            counts = _counters()
+            steps = net.getIterationCount()
+            pool_batches = _etl_metric("dl4j_tpu_etl_pool_batches_total")
+            h2d = _etl_metric("dl4j_tpu_etl_h2d_bytes_total")
+            pooled = pool_batches.value() if pool_batches else 0
+            h2d_bytes = h2d.value() if h2d else 0
+    finally:
+        from deeplearning4j_tpu_torch import telemetry
+        telemetry.set_registry(prev)
+    _no_launches(rec, "etl_csv", counts)
+    n = c["rows"]
+    rec["etl_csv"] = dict(
+        rows=n, kept=len(local), write_s=write_s,
+        native_parse_rows_per_s=n / native_s, parse_rows_per_s=n / parse_s,
+        local_transform_rows_per_s=n / local_s,
+        spark_transform_rows_per_s=n / spark_s, executors_agree=same,
+        steps=steps, pool_batches=pooled, h2d_bytes=h2d_bytes, loss=loss,
+        fit_s=fit_s, rows_per_s_fit=len(local) / fit_s,
+        native_threads=native.num_threads())
+    print(f"etl_csv: {n} rows (write {write_s:.2f} s); native loadAll "
+          f"{n / native_s:,.0f} rows/s, record parse {n / parse_s:,.0f} "
+          f"rows/s; transform local {n / local_s:,.0f} rows/s, Spark on the "
+          f"native pool ({native.num_threads()} threads) "
+          f"{n / spark_s:,.0f} rows/s, agree {same}, {len(local)} rows "
+          f"kept; fit {steps} steps through the pool ({pooled:.0f} pool "
+          f"batches, {h2d_bytes / 1e6:.2f} MB staged) in {fit_s:.2f} s "
+          f"({len(local) / fit_s:,.0f} rows/s), loss {loss:.5g}")
+    print(card)
+    _require(same, "LocalTransformExecutor and SparkTransformExecutor "
+             "disagree")
+    _require(0 < len(local) < n, f"the filter kept {len(local)} of {n}")
+    workers = int(os.environ.get("DL4J_TPU_ETL_WORKERS", "2"))
+    want_steps = sum(math.ceil(len(range(w, len(local), workers))
+                               / c["batch"]) for w in range(workers))
+    _require(steps == want_steps, f"{steps} steps, expected {want_steps} "
+             f"({workers} workers' record shards in batches of "
+             f"{c['batch']})")
+    _require(pooled == steps and h2d_bytes > 0,
+             f"fit did not engage the pool: {pooled} pool batches for "
+             f"{steps} steps, {h2d_bytes} bytes staged")
+    _require(math.isfinite(loss), f"loss {loss}")
+
+
+def _write_png_folders(root, c):
+    """``c["n"]`` seeded RGB PNGs in ``c["classes"]`` label folders: a
+    gradient of the image's own slope and colour offset with noise (so the
+    files compress as photographs do, ~120 KB each), written on a thread
+    pool (zlib releases the GIL)."""
+    import concurrent.futures
+
+    import numpy as np
+    from deeplearning4j_tpu_torch.datavec.png import write_png
+    hw = c["hw"]
+    yy, xx = np.mgrid[0:hw, 0:hw]
+    labels = []
+
+    def one(i):
+        rng = np.random.RandomState(c["seed"] * 1000 + i)
+        lab = rng.randint(c["classes"])
+        base = (yy * rng.randint(1, 4) + xx * rng.randint(1, 4))[:, :, None] \
+            + rng.randint(0, 256, 3)
+        img = ((base + rng.randint(0, 40, (hw, hw, 3))) % 256).astype(
+            np.uint8)
+        folder = os.path.join(root, f"class{lab:02d}")
+        os.makedirs(folder, exist_ok=True)
+        write_png(os.path.join(folder, f"img{i:04d}.png"), img, level=1)
+        return lab
+
+    with concurrent.futures.ThreadPoolExecutor(8) as ex:
+        labels = list(ex.map(one, range(c["n"])))
+    return labels
+
+
+def _tap(inner):
+    """``inner`` (the pool) wrapped for ``ComputationGraph.fit``: records
+    each batch's size, device and labels, the first batch (cloned), and
+    the host time the loop spent in the pool's calls (``wait_s``; the
+    first ``hasNext``, which starts the pool and waits for its first
+    batch, apart as ``first_s``)."""
+    from deeplearning4j_tpu_torch.datasets import DataSetIterator
+
+    class Tap(DataSetIterator):
+        def __init__(self):
+            self.sizes, self.devices, self.labels = [], [], []
+            self.first, self.first_s, self.wait_s = None, None, 0.0
+
+        def reset(self):
+            inner.reset()
+
+        def hasNext(self):
+            t0 = time.perf_counter()
+            out = inner.hasNext()
+            dt = time.perf_counter() - t0
+            if self.first_s is None:
+                self.first_s = dt
+            else:
+                self.wait_s += dt
+            return out
+
+        def next(self, num=0):
+            t0 = time.perf_counter()
+            ds = inner.next()
+            self.wait_s += time.perf_counter() - t0
+            f = ds.features.torch
+            self.sizes.append(int(f.shape[0]))
+            self.devices.append(f.device.type)
+            self.labels.append(ds.labels.torch.argmax(1))
+            if self.first is None:
+                self.first = (f.clone(), ds.labels.torch.clone())
+            return ds
+
+    return Tap()
+
+
+def phase_etl_images_resnet50(torch, rec, card):
+    """Item 55: the slice's main path.  640 PNGs at 224 x 224 through
+    ImageRecordReader (flip + crop) -> RecordReaderDataSetIterator(64,
+    1000 classes) -> ImagePreProcessingScaler -> PrefetchingDataSetIterator
+    (4 workers, the pinned ring onto cuda) -> ComputationGraph.fit of
+    ResNet-50 (BFLOAT16) for one epoch.  Checks exactly-once delivery, the
+    first pooled batch against the same worker's shard drained inline,
+    batches on the card, the H2D bytes, a staged step against an
+    in-memory step, no kernel launch; times decode, the streamed and the
+    in-memory fit, the H2D rate, a profiled streamed step."""
+    import math
+    import pickle
+    import tempfile
+    import threading
+
+    import numpy as np
+    from deeplearning4j_tpu_torch.datasets import (DataSet,
+                                                   ImagePreProcessingScaler,
+                                                   ListDataSetIterator)
+    from deeplearning4j_tpu_torch.datavec import (
+        CropImageTransform, FileSplit, FlipImageTransform, ImageRecordReader,
+        ParentPathLabelGenerator, PipelineImageTransform,
+        PrefetchingDataSetIterator, RecordReaderDataSetIterator)
+    from deeplearning4j_tpu_torch.models import ComputationGraph
+    from deeplearning4j_tpu_torch.telemetry import tracer
+    from deeplearning4j_tpu_torch.zoo import ResNet50
+    c = ETL_IMAGES
+    prev = _fresh_telemetry()
+    res = {}
+    try:
+        with tempfile.TemporaryDirectory(dir=ROOT) as d:
+            t0 = time.perf_counter()
+            labels = _write_png_folders(d, c)
+            res["write_s"] = time.perf_counter() - t0
+            rr = ImageRecordReader(c["hw"], c["hw"], 3,
+                                   ParentPathLabelGenerator(),
+                                   PipelineImageTransform(
+                                       FlipImageTransform(None),
+                                       CropImageTransform(c["crop"])),
+                                   seed=c["seed"])
+            rr.initialize(FileSplit(d))
+            it = RecordReaderDataSetIterator(rr, c["batch"], labelIndex=1,
+                                             numPossibleLabels=RESNET[
+                                                 "numClasses"])
+            it.setPreProcessor(ImagePreProcessingScaler())
+            names = rr.getLabels()
+            want_hist = np.bincount([names.index(f"class{lab:02d}")
+                                     for lab in labels],
+                                    minlength=RESNET["numClasses"])
+            # each worker's shard drained inline on the CPU, as a worker
+            # of the pool's first generation (epoch 0) makes it: the
+            # in-memory pool, the first-batch candidates, the decode rate
+            src = pickle.loads(pickle.dumps(it))
+            src.setEpoch(0)
+            inline = []
+            t0 = time.perf_counter()
+            for w in range(c["workers"]):
+                sh = src.shard(w, c["workers"])
+                while sh.hasNext():
+                    inline.append(sh.next())
+            decode_s = time.perf_counter() - t0
+            res["decode_images_per_s_per_worker"] = c["n"] / decode_s
+            net = ResNet50(numClasses=RESNET["numClasses"],
+                           inputShape=RESNET["inputShape"],
+                           dataType="BFLOAT16").init()
+            params0 = {v: {k: t.clone() for k, t in lp.items()}
+                       for v, lp in net.params_.items()}
+            pit = PrefetchingDataSetIterator(
+                it, numWorkers=c["workers"], device="cuda",
+                shmBytes=c["shm_mb"] << 20)
+            tap = _tap(pit)
+            h2d = _etl_metric("dl4j_tpu_etl_h2d_bytes_total")
+            h2d0 = h2d.value() if h2d else 0.0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _reset_counters()
+            t0 = time.perf_counter()
+            net.fit(tap, epochs=1)
+            loss = net.score()
+            fit_s = time.perf_counter() - t0
+            counts = _counters()
+            ev = [e for e in tracer().events()
+                  if e["ts"] >= (t0 - tracer()._t0) * 1e6]
+            res["pool_start_s"] = sum(e["dur"] for e in ev
+                                      if e["name"] == "etl_pool_start") / 1e6
+            res["staging_s"] = sum(e["dur"] for e in ev
+                                   if e["name"] == "etl_assemble") / 1e6
+            res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            h2d_bytes = _etl_metric("dl4j_tpu_etl_h2d_bytes_total").value() \
+                - h2d0
+            # a profiled streamed step: a second epoch's pool, two batches
+            # warm, then one fetch + step under the profiler
+            pit.reset()
+            for _ in range(2):
+                net.fit(pit.next())
+            prof = _device_breakdown(torch, lambda: (net.fit(pit.next()),
+                                                     net.score()), top=6)
+            pit.close()                 # every staged copy now timed
+            hist = _etl_metric("dl4j_tpu_etl_h2d_seconds")
+            h2d_s, h2d_n = hist.sum(), hist.count()
+            h2d_all = _etl_metric(
+                "dl4j_tpu_etl_h2d_bytes_total").value() - h2d0
+            # the copy engine alone, one full batch: pinned against
+            # pageable host memory (what a ListDataSetIterator's batch
+            # crosses from)
+            nb = c["batch"] * 3 * c["hw"] * c["hw"]
+            pinned = torch.empty(nb, dtype=torch.float32, pin_memory=True)
+            pageable = torch.empty(nb, dtype=torch.float32)
+            dst = torch.empty(nb, dtype=torch.float32, device="cuda")
+            copy_ms = {
+                "pinned": _time_ms(torch, lambda: dst.copy_(
+                    pinned, non_blocking=True), iters=20),
+                "pageable": _time_ms(torch, lambda: dst.copy_(pageable),
+                                     iters=20)}
+            del pinned, pageable, dst
+            # the same fit from the in-memory pool of decoded batches
+            mem = ListDataSetIterator(inline)
+            net.fit(mem.next())                 # warm
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            net.fit(mem, epochs=1)
+            net.score()
+            mem_s = time.perf_counter() - t0
+            # and again while 4 workers decode (a host-target pool drained
+            # by a thread): what the decoding costs the step's host side
+            bg = PrefetchingDataSetIterator(it, numWorkers=c["workers"],
+                                            shmBytes=c["shm_mb"] << 20)
+            busy = threading.Event()
+
+            def drain():
+                while not busy.is_set():
+                    bg.reset()
+                    while bg.hasNext() and not busy.is_set():
+                        bg.next()
+
+            th = threading.Thread(target=drain, daemon=True)
+            th.start()
+            time.sleep(1.0)                     # the workers are decoding
+            t0 = time.perf_counter()
+            net.fit(mem, epochs=1)
+            net.score()
+            mem_busy_s = time.perf_counter() - t0
+            busy.set()
+            th.join()
+            bg.close()
+    finally:
+        from deeplearning4j_tpu_torch import telemetry
+        telemetry.set_registry(prev)
+    got_hist = np.bincount(torch.cat(tap.labels).cpu().numpy(),
+                           minlength=RESNET["numClasses"])
+    n_seen = sum(tap.sizes)
+    # the first pooled batch against the first batch of each worker's
+    # inline shard: exactly one must match, bit for bit
+    f0, l0 = (t.cpu() for t in tap.first)
+    firsts = [inline[i] for i in range(len(inline)) if i == 0 or
+              inline[i - 1].features.shape[0] < c["batch"]]
+    matches = [k for k, ds in enumerate(firsts)
+               if torch.equal(ds.features.torch, f0)
+               and torch.equal(ds.labels.torch, l0)]
+    # a step from the staged batch against the same batch in memory
+    staged = DataSet(tap.first[0], tap.first[1])
+    mem_ds = firsts[matches[0]] if matches else firsts[0]
+    steps = {}
+    conf = ResNet50(numClasses=RESNET["numClasses"],
+                    inputShape=RESNET["inputShape"],
+                    dataType="BFLOAT16").graphBuilder().build()
+    for name, ds in (("staged", staged), ("in_memory", mem_ds)):
+        g = ComputationGraph(conf).init(params=params0)
+        g.fit(ds)
+        steps[name] = (g.score(), g.params().torch)
+        del g
+    loss_d = abs(steps["staged"][0] - steps["in_memory"][0])
+    param_d = float((steps["staged"][1] - steps["in_memory"][1]).abs().max())
+    epoch_bytes = c["n"] * (3 * c["hw"] * c["hw"] + RESNET["numClasses"]) * 4
+    _no_launches(rec, "etl_images_resnet50", counts)
+    res.update(
+        images=n_seen, steps=len(tap.sizes), batch_sizes=tap.sizes,
+        on_card=all(dv == "cuda" for dv in tap.devices),
+        labels_exact=bool((got_hist == want_hist).all()),
+        first_batch_matches=matches, loss=loss, fit_s=fit_s,
+        streamed_images_per_s=c["n"] / fit_s,
+        first_batch_s=tap.first_s, data_wait_s=tap.wait_s,
+        after_first_images_per_s=(c["n"] - tap.sizes[0])
+        / (fit_s - tap.first_s),
+        in_memory_images_per_s=c["n"] / mem_s, in_memory_fit_s=mem_s,
+        in_memory_while_decoding_images_per_s=c["n"] / mem_busy_s,
+        h2d_bytes=h2d_bytes, epoch_bytes=epoch_bytes,
+        h2d_mb_per_s=h2d_all / 1e6 / h2d_s if h2d_s else None,
+        h2d_batches_timed=h2d_n, h2d_seconds=h2d_s, h2d_bytes_timed=h2d_all,
+        batch_copy_ms=copy_ms,
+        batch_copy_gb_per_s={k: nb * 4 / v / 1e6 for k, v in copy_ms.items()},
+        staged_vs_memory=dict(loss_diff=loss_d, param_diff=param_d,
+                              loss=steps["staged"][0]),
+        profile=prof)
+    rec["etl_images_resnet50"] = res
+    print(f"etl_images_resnet50: {c['n']} PNGs written in "
+          f"{res['write_s']:.2f} s; decode+augment inline "
+          f"{res['decode_images_per_s_per_worker']:.1f} images/s a worker; "
+          f"streamed fit {len(tap.sizes)} steps {tap.sizes} in {fit_s:.2f} s "
+          f"= {res['streamed_images_per_s']:.1f} images/s (4 workers, "
+          f"pinned ring); in-memory fit {mem_s:.2f} s = "
+          f"{res['in_memory_images_per_s']:.1f} images/s, "
+          f"{res['in_memory_while_decoding_images_per_s']:.1f} images/s "
+          f"while 4 workers decode; streamed: pool "
+          f"start (4 forks) {res['pool_start_s']:.3f} s, first batch after "
+          f"{tap.first_s:.3f} s, then {res['after_first_images_per_s']:.1f} "
+          f"images/s with {tap.wait_s:.3f} s in the pool's calls "
+          f"({res['staging_s']:.3f} s copying slots to pinned memory and "
+          f"issuing the copies); H2D "
+          f"{h2d_bytes / 1e6:.1f} MB (epoch {epoch_bytes / 1e6:.1f} MB), "
+          f"{h2d_n} batches timed, "
+          + (f"{res['h2d_mb_per_s']:.0f} MB/s (slot to pinned memcpy + "
+             f"copy)" if res["h2d_mb_per_s"] else "rate not measured")
+          + f"; one batch's copy pinned {copy_ms['pinned']:.3f} ms, "
+          f"pageable {copy_ms['pageable']:.3f} ms"
+          + f"; loss {loss:.5g}; peak {res['peak_gb']:.2f} GB; first "
+          f"batch matches worker shard {matches}; staged vs in-memory step "
+          f"loss |d| {loss_d:.3g}, params |d|max {param_d:.3g} "
+          f"({ETL_STEP_TOL}); launches {counts}")
+    if prof["device_busy_ms"] is not None:
+        print(f"  profiled streamed step: wall {prof['wall_ms']:.2f} ms, "
+              f"device busy {prof['device_busy_ms']:.2f} ms, idle share "
+              f"{prof['idle_share']:.3f}, {prof['device_ops']} device ops")
+        for kname, ms in prof["top"]:
+            print(f"    {ms:9.3f} ms  {kname}")
+    else:
+        print("  profiled streamed step: no device time in the trace "
+              "(not measured)")
+    print(card)
+    _require(n_seen == c["n"] and res["labels_exact"],
+             f"{n_seen} images delivered, label histogram exact "
+             f"{res['labels_exact']}")
+    _require(res["on_card"], f"batches arrived on {set(tap.devices)}")
+    _require(h2d_bytes == epoch_bytes,
+             f"the staging ring moved {h2d_bytes} bytes, the epoch is "
+             f"{epoch_bytes}")
+    _require(len(matches) == 1, f"the first pooled batch matches inline "
+             f"shards {matches}")
+    _require(math.isfinite(loss), f"loss {loss}")
+    _require(loss_d <= ETL_STEP_TOL["loss_rtol"] * abs(steps["staged"][0])
+             and param_d <= ETL_STEP_TOL["param_atol"],
+             f"a staged step differs from the in-memory step: loss "
+             f"{loss_d}, params {param_d}")
+
+
+def phase_etl_sequences(torch, rec, card):
+    """Item 56: the long-context attention net (LONG_CONTEXT, BFLOAT16,
+    nOut 1) fed by DataVec: 16 sequence CSV files through
+    CSVSequenceRecordReader -> SequenceRecordReaderDataSetIterator(4,
+    regression) -> MultiLayerNetwork.fit, which engages the pool (C22).
+    The iterator attaches a features mask and masked attention runs dense
+    in both packages, so the counters, zeroed before and read after, must
+    read zero."""
+    import math
+    import tempfile
+
+    import numpy as np
+    from deeplearning4j_tpu_torch.datavec import (
+        CSVSequenceRecordReader, FileSplit,
+        SequenceRecordReaderDataSetIterator)
+    from deeplearning4j_tpu_torch.models import MultiLayerNetwork
+    c, lc = ETL_SEQ, LONG_CONTEXT
+    prev = _fresh_telemetry()
+    try:
+        with tempfile.TemporaryDirectory(dir=ROOT) as d:
+            rng = np.random.RandomState(c["seed"])
+            t0 = time.perf_counter()
+            for i in range(c["files"]):
+                x = rng.randn(lc["t"], lc["nIn"] + 1)
+                np.savetxt(os.path.join(d, f"seq_{i:02d}.csv"), x,
+                           fmt="%.4f", delimiter=",")
+            write_s = time.perf_counter() - t0
+            rr = CSVSequenceRecordReader()
+            rr.initialize(FileSplit(d))
+            it = SequenceRecordReaderDataSetIterator(
+                rr, c["batch"], numPossibleLabels=-1, labelIndex=lc["nIn"],
+                regression=True)
+            net = MultiLayerNetwork(_long_context_conf("BFLOAT16",
+                                                       n_out=1)).init()
+            _require(net.device.type == "cuda", f"net on {net.device}")
+            torch.cuda.synchronize()
+            _reset_counters()
+            t0 = time.perf_counter()
+            net.fit(it, epochs=1)
+            loss = net.score()
+            fit_s = time.perf_counter() - t0
+            counts = _counters()
+            steps = net.getIterationCount()
+            pooled = _etl_metric("dl4j_tpu_etl_pool_batches_total")
+            pooled = pooled.value() if pooled else 0
+    finally:
+        from deeplearning4j_tpu_torch import telemetry
+        telemetry.set_registry(prev)
+    _no_launches(rec, "etl_sequences", counts)
+    rec["etl_sequences"] = dict(files=c["files"], steps=steps, loss=loss,
+                                fit_s=fit_s, ms_per_step=fit_s / steps * 1e3
+                                if steps else None, write_s=write_s,
+                                pool_batches=pooled, launches=counts)
+    print(f"etl_sequences: {c['files']} files of {lc['t']} x "
+          f"{lc['nIn'] + 1} (written in {write_s:.2f} s); fit {steps} steps "
+          f"through the pool ({pooled:.0f} pool batches) in {fit_s:.2f} s, "
+          f"{fit_s / max(steps, 1) * 1e3:.1f} ms a step with the parse, "
+          f"loss {loss:.5g}; launches {counts} (masked: dense attention)")
+    print(card)
+    _require(steps == c["files"] // c["batch"] and pooled == steps,
+             f"{steps} steps, {pooled} pool batches")
+    _require(math.isfinite(loss), f"loss {loss}")
+
+
 def _kernel_entry(name, replaces, launches, t):
     return {"name": name, "route": "cuda",
             "source": f"deeplearning4j_tpu_torch/csrc/{name}.cu",
@@ -5389,6 +6130,14 @@ def main(argv) -> int:
         run("keras_v3", phase_keras_v3, torch, rec, card)
         run("vae_pretrain", phase_vae_pretrain, torch, rec, card)
         run("attention_layers", phase_attention_layers, torch, rec, card)
+        # DataVec: the tensor layer, the CSV route, the image pipeline into
+        # ResNet-50 through the pool and the pinned ring, sequences into
+        # the long-context net
+        run("nd4j", phase_nd4j, torch, rec, card)
+        run("etl_csv", phase_etl_csv, torch, rec, card)
+        run("etl_images_resnet50", phase_etl_images_resnet50, torch, rec,
+            card)
+        run("etl_sequences", phase_etl_sequences, torch, rec, card)
 
     rec["card"] = card
     rec["failed"] = failed

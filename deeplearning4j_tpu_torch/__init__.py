@@ -15,7 +15,8 @@ tests) — a CUDA tensor reaches the kernel or raises.
 Ported so far (the serving slice, the long-context training slice, the
 ResNet-50 slice, the recurrent slice, BERT on SameDiff, the training
 user's loop around ``fit`` with LeNet-MNIST, BERT-base through TF import,
-the serving tier, then BERT-base through ONNX import):
+the serving tier, BERT-base through ONNX import, the zoo, Keras import,
+then DataVec with the tensor layer):
 
 - ``parallel.ring``      — dense / blockwise / flash attention (forward and
                            backward kernels, ``FlashAttention``) and the
@@ -79,6 +80,14 @@ the serving tier, then BERT-base through ONNX import):
                            (``Bert``, ``BertBase``);
 - ``ops.fused``          — ``matmul_bn_stats`` / ``conv1x1_bn_stats`` (the
                            B4 kernel; no model dispatches it).
+- ``ops``                — the tensor layer: ``NDArray`` over a tensor,
+                           ``NDArrayIndex``, ``DataType``, ``Nd4j``, the
+                           seeded RNG, ``.npy`` serde; ``config`` and
+                           ``native`` (the C++ host runtime's loader);
+- ``datavec``            — readers, ``Schema`` / ``TransformProcess``,
+                           joins, reductions, the image pipeline on the
+                           port's own PNG codec, the iterators and the
+                           producer pool with its pinned H2D ring.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

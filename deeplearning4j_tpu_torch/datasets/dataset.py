@@ -3,9 +3,13 @@ dataset.py`` (the reference's ``org/nd4j/linalg/dataset/DataSet.java``
 and ``MultiDataSet.java``): the (features, labels, featuresMask,
 labelsMask) quadruple, and its multi-input form of lists.
 
-Arrays are held as ``torch.Tensor`` (numpy arrays and nested lists are
-converted, on the CPU); a model moves a batch to its own device when it
-fits on it.  The ``NDArray`` facade waits for ROADMAP A2.
+A ``DataSet`` holds each field as the port's ``NDArray``, as the
+reference's wraps each in its ``NDArray`` (``_nd``).  Wrapping never moves
+data: a numpy array or a nested list becomes a CPU array, and a tensor or
+an ``NDArray`` keeps its device, so a batch already on the card stays
+there; a model moves a batch to its own device when it fits on it.
+Assigning a field (a normalizer does) wraps the value the same way.
+``MultiDataSet`` still holds bare tensors.
 
 ``shuffle`` and ``sample`` draw from ``np.random.RandomState(seed)`` as
 the reference does, so one seed gives the same order in both packages;
@@ -19,35 +23,65 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch.ops.ndarray import NDArray
+
 __all__ = ["DataSet", "SplitTestAndTrain", "MultiDataSet"]
 
 
 def _tensor(x) -> Optional[torch.Tensor]:
     if x is None or isinstance(x, torch.Tensor):
         return x
+    if isinstance(x, NDArray):
+        return x.torch
     return torch.as_tensor(np.asarray(x))
 
 
+def _nd(x) -> Optional[NDArray]:
+    if x is None or isinstance(x, NDArray):
+        return x
+    return NDArray(x)
+
+
 def _cat(parts):
-    return None if any(p is None for p in parts) else torch.cat(parts)
+    return None if any(p is None for p in parts) \
+        else torch.cat([p.torch for p in parts])
+
+
+def _field(name):
+    """A field that holds an ``NDArray`` whatever it is assigned."""
+    key = "_" + name
+
+    def get(self) -> Optional[NDArray]:
+        return getattr(self, key)
+
+    def put(self, value) -> None:
+        setattr(self, key, _nd(value))
+
+    return property(get, put)
 
 
 class DataSet:
+    features = _field("features")
+    labels = _field("labels")
+    featuresMask = _field("featuresMask")
+    labelsMask = _field("labelsMask")
+    # the reference's ragged-batch sidecar (CSR row offsets of the
+    # pre-padding ragged features); carried, never read here
+    offsets = _field("offsets")
+
     def __init__(self, features=None, labels=None, featuresMask=None,
                  labelsMask=None, offsets=None):
-        self.features = _tensor(features)
-        self.labels = _tensor(labels)
-        self.featuresMask = _tensor(featuresMask)
-        self.labelsMask = _tensor(labelsMask)
-        # the reference's ragged-batch sidecar (CSR row offsets of the
-        # pre-padding ragged features); carried, never read here
-        self.offsets = _tensor(offsets)
+        self.features = features
+        self.labels = labels
+        self.featuresMask = featuresMask
+        self.labelsMask = labelsMask
+        self.offsets = offsets
 
     # DL4J accessors
-    def getFeatures(self) -> torch.Tensor:
+    def getFeatures(self) -> NDArray:
         return self.features
 
-    def getLabels(self) -> torch.Tensor:
+    def getLabels(self) -> NDArray:
         return self.labels
 
     def getFeaturesMaskArray(self):
@@ -68,7 +102,7 @@ class DataSet:
                 self.labelsMask)
 
     def _rows(self, idx) -> "DataSet":
-        return DataSet(*(None if a is None else a[idx]
+        return DataSet(*(None if a is None else a.torch[idx]
                          for a in self._parts()))
 
     def batchBy(self, batchSize: int) -> List["DataSet"]:
@@ -83,7 +117,7 @@ class DataSet:
         n = self.numExamples()
         k = int(fractionOrCount * n) if isinstance(fractionOrCount, float) \
             else int(fractionOrCount)
-        f, l = self.features, self.labels
+        f, l = self.features.torch, self.labels.torch
         return SplitTestAndTrain(DataSet(f[:k], l[:k]),
                                  DataSet(f[k:], l[k:]))
 
@@ -93,14 +127,16 @@ class DataSet:
         perm = torch.from_numpy(
             np.random.RandomState(seed).permutation(self.numExamples()))
         self.features, self.labels, self.featuresMask, self.labelsMask = (
-            None if a is None else a[perm] for a in self._parts())
+            None if a is None else a.torch[perm.to(a.torch.device)]
+            for a in self._parts())
 
     def sample(self, n: int, seed: Optional[int] = None) -> "DataSet":
         """``n`` examples drawn without replacement by
         ``RandomState(seed).choice``."""
         idx = np.random.RandomState(seed).choice(self.numExamples(), size=n,
                                                  replace=False)
-        return self._rows(torch.from_numpy(idx))
+        return self._rows(torch.from_numpy(idx).to(
+            self.features.torch.device))
 
     @staticmethod
     def merge(datasets: Sequence["DataSet"]) -> "DataSet":
@@ -115,7 +151,7 @@ class DataSet:
     def save(self, path) -> None:
         """``np.savez`` with the reference's keys (``features``,
         ``labels``, ``featuresMask``, ``labelsMask``, each when present)."""
-        arrs = {k: a.cpu().numpy() for k, a in zip(
+        arrs = {k: a.numpy() for k, a in zip(
             ("features", "labels", "featuresMask", "labelsMask"),
             self._parts()) if a is not None}
         np.savez(path, **arrs)

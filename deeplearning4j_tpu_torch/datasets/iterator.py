@@ -40,6 +40,13 @@ class DataSetIterator:
     def resetSupported(self) -> bool:
         return True
 
+    def streaming(self) -> bool:
+        """True when ``next()`` does real per-record host work (file
+        decode, CSV parse, augmentation) rather than handing out arrays
+        already in memory: ``MultiLayerNetwork.fit`` then engages the
+        producer pool (``datavec.pipeline.maybe_prefetch``)."""
+        return False
+
     def asyncSupported(self) -> bool:
         return True
 

@@ -3,11 +3,11 @@
 ``NormalizerStandardize``, ``NormalizerMinMaxScaler`` and
 ``ImagePreProcessingScaler``).
 
-They work on the DataSet's tensors on whatever device those lie; the
-fitted statistics are kept as numpy arrays (float64 for the standardizer,
-the features' dtype for the min-max scaler, as in the reference), so
-``save``/``load`` and a model zip's ``normalizer.npz`` are the
-reference's bytes.
+They work on the tensors of the DataSet's arrays (``.torch``), on whatever
+device those lie; the fitted statistics are kept as numpy arrays (float64
+for the standardizer, the features' dtype for the min-max scaler, as in
+the reference), so ``save``/``load`` and a model zip's ``normalizer.npz``
+are the reference's bytes.
 """
 from __future__ import annotations
 
@@ -67,7 +67,7 @@ class NormalizerStandardize(DataNormalization):
     def fit(self, data) -> None:
         count, s, s2 = 0, None, None
         for ds in self._iterate(data):
-            f = _rows(ds.features.detach().to(torch.float64))
+            f = _rows(ds.features.torch.detach().to(torch.float64))
             s = f.sum(0) if s is None else s + f.sum(0)
             s2 = (f * f).sum(0) if s2 is None else s2 + (f * f).sum(0)
             count += f.shape[0]
@@ -77,13 +77,13 @@ class NormalizerStandardize(DataNormalization):
         self.std = torch.sqrt(torch.clamp(var, min=1e-12)).cpu().numpy()
 
     def transform(self, ds: DataSet) -> None:
-        f = ds.features
+        f = ds.features.torch
         f2 = (_rows(f).to(torch.float64) - _on(self.mean, f)) \
             / _on(self.std, f)
         ds.features = f2.reshape(f.shape).to(f.dtype)
 
     def revert(self, ds: DataSet) -> None:
-        f = ds.features
+        f = ds.features.torch
         f2 = _rows(f).to(torch.float64) * _on(self.std, f) \
             + _on(self.mean, f)
         ds.features = f2.reshape(f.shape).to(f.dtype)
@@ -111,14 +111,14 @@ class NormalizerMinMaxScaler(DataNormalization):
     def fit(self, data) -> None:
         lo, hi = None, None
         for ds in self._iterate(data):
-            f = _rows(ds.features.detach())
+            f = _rows(ds.features.torch.detach())
             mn, mx = f.min(0).values, f.max(0).values
             lo = mn if lo is None else torch.minimum(lo, mn)
             hi = mx if hi is None else torch.maximum(hi, mx)
         self.dataMin, self.dataMax = lo.cpu().numpy(), hi.cpu().numpy()
 
     def transform(self, ds: DataSet) -> None:
-        f = ds.features
+        f = ds.features.torch
         lo = _on(self.dataMin, f)
         rng = torch.clamp(_on(self.dataMax, f) - lo, min=1e-12)
         f2 = (_rows(f) - lo) / rng
@@ -126,7 +126,7 @@ class NormalizerMinMaxScaler(DataNormalization):
         ds.features = f2.reshape(f.shape).to(f.dtype)
 
     def revert(self, ds: DataSet) -> None:
-        f = ds.features
+        f = ds.features.torch
         lo = _on(self.dataMin, f)
         rng = _on(self.dataMax, f) - lo
         f2 = (_rows(f) - self.minRange) / (self.maxRange - self.minRange)
@@ -146,11 +146,11 @@ class ImagePreProcessingScaler(DataNormalization):
         pass
 
     def transform(self, ds: DataSet) -> None:
-        f = ds.features.to(torch.float32)
+        f = ds.features.torch.to(torch.float32)
         ds.features = f / self.maxPixelVal * (self.maxRange - self.minRange) \
             + self.minRange
 
     def revert(self, ds: DataSet) -> None:
-        f = ds.features
+        f = ds.features.torch
         ds.features = (f - self.minRange) / (self.maxRange - self.minRange) \
             * self.maxPixelVal

@@ -1,0 +1,11 @@
+"""A stand-in for ``deeplearning4j_tpu/datavec/codec.py``, the video/GIF frame
+reader (it needs PIL, which the H100 machine lacks): it waits for ROADMAP
+"A12 datavec formats". Its public names keep the reference's import paths
+and raise naming that item when built or called."""
+from deeplearning4j_tpu_torch import unported
+
+_ITEM = "A12 datavec formats"
+
+__all__ = ["CodecRecordReader"]
+
+CodecRecordReader = unported("CodecRecordReader", _ITEM)

@@ -39,6 +39,7 @@ from deeplearning4j_tpu_torch.models.multilayer import (
     _updater_for)
 from deeplearning4j_tpu_torch.nn.conf import BackpropType
 from deeplearning4j_tpu_torch.nn.conf.layers import Layer
+from deeplearning4j_tpu_torch.ops.ndarray import NDArray
 from deeplearning4j_tpu_torch.optimize.listeners import notifyListeners
 
 __all__ = ["ComputationGraph"]
@@ -317,8 +318,13 @@ class ComputationGraph:
 
     # ------------------------------------------------------------------
     def output(self, *inputs, featuresMask=None):
-        """Inference-mode forward; each output float32 on the graph's
-        device, one tensor for one output, else a list."""
+        """Inference-mode forward; each output an ``NDArray`` of float32 on
+        the graph's device, one for one output, else a list."""
+        res = self._output(*inputs, featuresMask=featuresMask)
+        return NDArray(res) if isinstance(res, torch.Tensor) \
+            else [NDArray(o) for o in res]
+
+    def _output(self, *inputs, featuresMask=None):
         with torch.no_grad():
             xs = tuple(self._on_device(x, self._dtype) for x in inputs)
             fm = None
@@ -333,7 +339,7 @@ class ComputationGraph:
         res = [acts[n].float() for n in self.conf.outputs]
         return res[0] if len(res) == 1 else res
 
-    def outputSingle(self, *inputs) -> torch.Tensor:
+    def outputSingle(self, *inputs) -> NDArray:
         out = self.output(*inputs)
         return out[0] if isinstance(out, list) else out
 
@@ -378,7 +384,8 @@ class ComputationGraph:
                 _cast_tree(xs, cd), False, None, None,
                 _cast_tree(self._rnnCarries, cd))
         res = [acts[n].float() for n in self.conf.outputs]
-        res = [o[:, :, -1] if single and o.dim() == 3 else o for o in res]
+        res = [NDArray(o[:, :, -1] if single and o.dim() == 3 else o)
+               for o in res]
         return res[0] if len(res) == 1 else res
 
     def rnnClearPreviousState(self) -> None:
@@ -401,7 +408,7 @@ class ComputationGraph:
         it.reset()
         while it.hasNext():
             ds = it.next()
-            out = self.output(ds.features, featuresMask=ds.featuresMask)
+            out = self._output(ds.features, featuresMask=ds.featuresMask)
             if isinstance(out, list):
                 out = out[0]
             ev.eval(ds.labels, out.cpu(), ds.labelsMask)
@@ -431,16 +438,16 @@ class ComputationGraph:
                 for path, _pname, v in _iter_leaf_params(self.params_[name]):
                     yield name, path, v
 
-    def params(self) -> torch.Tensor:
+    def params(self) -> NDArray:
         """Single flattened param vector: vertices in topological order,
         within a vertex ``_param_key_order``."""
         chunks = [v.reshape(-1) for _n, _p, v in self._leaf_items()]
-        return torch.cat(chunks) if chunks else \
-            torch.zeros((0,), device=self.device)
+        return NDArray(torch.cat(chunks) if chunks else
+                       torch.zeros((0,), device=self.device))
 
     def setParams(self, flat) -> None:
         """Write a flat vector back into the param tree."""
-        vec = torch.as_tensor(flat).reshape(-1).to(self.device)
+        vec = _to_device(flat, self.device).reshape(-1)
         pos = 0
         for name, path, cur in list(self._leaf_items()):
             n = cur.numel()
@@ -454,8 +461,9 @@ class ComputationGraph:
     def numParams(self) -> int:
         return sum(v.numel() for v in _leaves(self.params_ or {}))
 
-    def paramTable(self) -> Dict[str, torch.Tensor]:
-        return {f"{name}_{k}": v
+    def paramTable(self) -> Dict[str, NDArray]:
+        return {f"{name}_{k}": NDArray(v) if isinstance(v, torch.Tensor)
+                else v
                 for name, lp in self.params_.items() for k, v in lp.items()}
 
     def getEpochCount(self) -> int:

@@ -56,6 +56,7 @@ from deeplearning4j_tpu_torch.learning.regularization import (
 from deeplearning4j_tpu_torch.nn.conf import (BackpropType,
                                               GradientNormalization,
                                               MultiLayerConfiguration)
+from deeplearning4j_tpu_torch.ops.ndarray import NDArray
 from deeplearning4j_tpu_torch.optimize.listeners import notifyListeners
 
 __all__ = ["MultiLayerNetwork"]
@@ -217,15 +218,21 @@ def _solver_step(model, algo: str, seed: int, loss_of, *batch) -> None:
 
 
 def _to_tensor(v, device) -> torch.Tensor:
+    if isinstance(v, NDArray):
+        v = v.torch
     if isinstance(v, torch.Tensor):
         return v.detach().to(device).clone()
     return torch.from_numpy(np.array(v)).to(device)
 
 
 def _to_device(a, device, dtype=None):
-    """A tensor, numpy array or nested list on ``device`` (None passes)."""
+    """An ``NDArray``, tensor, numpy array or nested list on ``device``
+    (None passes).  An ``NDArray`` gives its tensor, so a batch already on
+    the card never goes through the host."""
     if a is None:
         return None
+    if isinstance(a, NDArray):
+        a = a.torch
     t = a if isinstance(a, torch.Tensor) else torch.as_tensor(np.asarray(a))
     return t.to(device, dtype)
 
@@ -462,13 +469,26 @@ class MultiLayerNetwork:
         if isinstance(data, DataSet):
             self._fitBatch(data)
         elif isinstance(data, DataSetIterator):
-            for _ in range(epochs):
-                notifyListeners(self._listeners, "onEpochStart", self)
-                data.reset()
-                while data.hasNext():
-                    self._fitBatch(data.next())
-                self.epochCount += 1
-                notifyListeners(self._listeners, "onEpochEnd", self)
+            # a streaming source (file decode, CSV parse per record)
+            # engages the producer pool and its staging ring onto the
+            # net's device, as the reference's fit does; an in-memory
+            # iterator passes through.  hostShard stays off: a bare fit
+            # has no cross-process all-reduce, so every process sees the
+            # whole stream
+            from deeplearning4j_tpu_torch.datavec.pipeline import \
+                maybe_prefetch
+            it = maybe_prefetch(data, hostShard=False, device=self.device)
+            try:
+                for _ in range(epochs):
+                    notifyListeners(self._listeners, "onEpochStart", self)
+                    it.reset()
+                    while it.hasNext():
+                        self._fitBatch(it.next())
+                    self.epochCount += 1
+                    notifyListeners(self._listeners, "onEpochEnd", self)
+            finally:
+                if it is not data:
+                    it.close()      # stops the pool, frees its slots
         elif labels is not None:
             self._fitBatch(DataSet(data, labels))
         else:
@@ -547,10 +567,13 @@ class MultiLayerNetwork:
                if getattr(layer, "isRNN", False)}
         return out or None
 
-    def output(self, x, train: bool = False,
-               featuresMask=None) -> torch.Tensor:
+    def output(self, x, train: bool = False, featuresMask=None) -> NDArray:
         """Inference-mode forward (as in the reference, ``train`` does not
-        turn on dropout here); returns float32 on the net's device."""
+        turn on dropout here): an ``NDArray`` of float32 on the net's
+        device."""
+        return NDArray(self._output(x, featuresMask))
+
+    def _output(self, x, featuresMask=None) -> torch.Tensor:
         with torch.no_grad():
             xv = self._on_device(x, self._dtype)
             fm = None if featuresMask is None else \
@@ -560,9 +583,9 @@ class MultiLayerNetwork:
                                       False, None, fm)
         return out.float()
 
-    def feedForward(self, x) -> List[torch.Tensor]:
-        """Every layer's activation (inference mode, float32), the input
-        first."""
+    def feedForward(self, x) -> List[NDArray]:
+        """Every layer's activation (inference mode), the input first, each
+        an ``NDArray``."""
         with torch.no_grad():
             cur = self._on_device(x, self._dtype)
             acts = [cur]
@@ -574,19 +597,19 @@ class MultiLayerNetwork:
                                        False, None,
                                        self.state_.get(str(i), {}))
                 acts.append(cur)
-        return acts
+        return [NDArray(a) for a in acts]
 
     def predict(self, x) -> np.ndarray:
         """Class indices: the argmax over the class axis, which is axis 1
         of an RNN output (b, nOut, t), not the trailing time axis."""
-        out = self.output(x)
+        out = self._output(x)
         return out.argmax(dim=1 if out.dim() == 3 else -1).cpu().numpy()
 
     # ------------------------------------------------------------------
     # stateful RNN inference (reference: MultiLayerNetwork.rnnTimeStep /
     # rnnClearPreviousState / rnnGetPreviousState — the ``stateMap``)
     # ------------------------------------------------------------------
-    def rnnTimeStep(self, x) -> torch.Tensor:
+    def rnnTimeStep(self, x) -> NDArray:
         """Feed one or more timesteps, carrying hidden state across calls:
         a 2-D input (b, nIn) is one step and gives (b, nOut); a 3-D input
         (b, nIn, t) gives (b, nOut, t).  The state persists until
@@ -609,7 +632,7 @@ class MultiLayerNetwork:
                 self._cast_compute(xv), False, None, None,
                 self._cast_compute(self._rnnCarries))
         out = out.float()
-        return out[:, :, -1] if single and out.dim() == 3 else out
+        return NDArray(out[:, :, -1] if single and out.dim() == 3 else out)
 
     def rnnClearPreviousState(self) -> None:
         self._rnnCarries = None
@@ -706,7 +729,7 @@ class MultiLayerNetwork:
         it.reset()
         while it.hasNext():
             ds = it.next()
-            out = self.output(ds.features, featuresMask=ds.featuresMask)
+            out = self._output(ds.features, featuresMask=ds.featuresMask)
             ev.eval(ds.labels, out.cpu(), ds.labelsMask)
         it.reset()
         return ev
@@ -741,16 +764,16 @@ class MultiLayerNetwork:
                 for path, _pname, v in _iter_leaf_params(self.params_[li]):
                     yield li, path, v
 
-    def params(self) -> torch.Tensor:
+    def params(self) -> NDArray:
         """Single flattened param vector in the reference's order (layers
         in order; within a layer ``_param_key_order``)."""
         chunks = [v.reshape(-1) for _li, _path, v in self._leaf_items()]
-        return torch.cat(chunks) if chunks else \
-            torch.zeros((0,), device=self.device)
+        return NDArray(torch.cat(chunks) if chunks else
+                       torch.zeros((0,), device=self.device))
 
     def setParams(self, flat) -> None:
         """Write a flat vector back into the param tree."""
-        vec = torch.as_tensor(flat).reshape(-1).to(self.device)
+        vec = _to_device(flat, self.device).reshape(-1)
         pos = 0
         for li, path, cur in list(self._leaf_items()):
             n = cur.numel()
@@ -766,13 +789,16 @@ class MultiLayerNetwork:
             return 0
         return sum(v.numel() for v in _leaves(self.params_))
 
-    def paramTable(self) -> Dict[str, torch.Tensor]:
-        return {f"{li}_{path}": v for li, path, v in self._leaf_items()}
+    def paramTable(self) -> Dict[str, NDArray]:
+        """Each parameter as an ``NDArray`` over the net's own tensor (an
+        in-place write through it reaches the net, as in ND4J)."""
+        return {f"{li}_{path}": NDArray(v)
+                for li, path, v in self._leaf_items()}
 
-    def getParam(self, key: str) -> torch.Tensor:
+    def getParam(self, key: str) -> NDArray:
         """The parameter ``"<layer>_<path>"`` (``paramTable``'s keys)."""
         li, path = key.split("_", 1)
-        return _get_leaf(self.params_[li], path)
+        return NDArray(_get_leaf(self.params_[li], path))
 
     def setParam(self, key: str, value) -> None:
         li, path = key.split("_", 1)

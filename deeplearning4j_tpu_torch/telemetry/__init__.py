@@ -11,11 +11,12 @@ Python (no device code), so each is a copy or a cut of the reference's:
 - :mod:`.health` — ``ThresholdRule``, ``HealthMonitor`` (alert → action
   remediations), ``/healthz``;
 - :mod:`.timeseries` — the retention ring behind ``/metrics/query``;
-- :mod:`.instrument` — ``ServingMetrics`` and latency exemplars;
+- :mod:`.instrument` — ``ServingMetrics``, latency exemplars and the ETL
+  namespace (``EtlMetrics``, ``note_etl_wait``) DataVec reports through;
 - :mod:`.http` — the shared observability GET routing.
 
-Federation, export, OTLP, the run log and the training/ETL instruments
-wait for ROADMAP A12.  Metric names are the reference's letter for letter:
+Federation, export, OTLP, the run log and the training instruments wait
+for ROADMAP A12.  Metric names are the reference's letter for letter:
 ``dl4j_tpu_<subsystem>_<name>``, counters ending ``_total``.
 """
 from deeplearning4j_tpu_torch.telemetry.context import (  # noqa: F401
@@ -26,7 +27,7 @@ from deeplearning4j_tpu_torch.telemetry.flight import (  # noqa: F401
 from deeplearning4j_tpu_torch.telemetry.health import (  # noqa: F401
     AlertRule, HealthMonitor, ThresholdRule, health_summary)
 from deeplearning4j_tpu_torch.telemetry.instrument import (  # noqa: F401
-    ServingMetrics, clear_exemplars, exemplar_for, latency_exemplars,
+    EtlMetrics, etl_metrics, note_etl_wait, ServingMetrics, clear_exemplars, exemplar_for, latency_exemplars,
     observe_exemplar, serving_metrics)
 from deeplearning4j_tpu_torch.telemetry.registry import (  # noqa: F401
     DEFAULT_BUCKETS, Counter, Gauge, Histogram, MetricsRegistry,

@@ -5,7 +5,9 @@ buckets letter for letter the reference's, so dashboards and alert rules
 work against either package) and the histogram exemplars
 (:func:`observe_exemplar`, :func:`exemplar_for`,
 :func:`latency_exemplars`).  The training, ETL, mesh, elastic,
-coordination and AOT-cache instruments wait for ROADMAP A12.
+coordination and AOT-cache instruments wait for ROADMAP A12; the ETL
+namespace (:class:`EtlMetrics`, :func:`etl_metrics`, :func:`note_etl_wait`)
+is here, names and help text the reference's, for DataVec's pipelines.
 
 In the port ``dl4j_tpu_serving_compile_cache_{hits,misses}_total`` and
 ``dl4j_tpu_serving_warmup_compiles_total`` are never incremented: eager
@@ -17,9 +19,11 @@ from __future__ import annotations
 import bisect
 import threading
 
-from deeplearning4j_tpu_torch.telemetry.registry import get_registry
+from deeplearning4j_tpu_torch.telemetry.registry import (DEFAULT_BUCKETS,
+                                                         get_registry)
 
-__all__ = ["ServingMetrics", "serving_metrics", "SERVING_LATENCY_BUCKETS",
+__all__ = ["EtlMetrics", "etl_metrics", "note_etl_wait",
+           "ServingMetrics", "serving_metrics", "SERVING_LATENCY_BUCKETS",
            "SERVING_WARMUP_BUCKETS", "observe_exemplar", "exemplar_for",
            "latency_exemplars", "clear_exemplars"]
 
@@ -334,3 +338,100 @@ def latency_exemplars():
 def clear_exemplars():
     with _EXEMPLAR_LOCK:
         _EXEMPLARS.clear()
+
+
+class EtlMetrics:
+    """The ``dl4j_tpu_etl_*`` metric namespace, registered from ONE site.
+
+    Both input pipelines report here — the thread-prefetch
+    ``AsyncDataSetIterator`` and the process-pool
+    ``datavec.pipeline.PrefetchingDataSetIterator`` — so the watchdog's
+    ``etl_starvation`` rule and the federated dashboards see one coherent
+    series no matter which pipeline feeds the loop (and the telemetry
+    lint's one-registering-module rule stays satisfiable).  Accessors
+    re-resolve through :func:`get_registry` on every call: tests swap the
+    registry, and a cached metric would silently write into the old one.
+    """
+
+    def queue_depth(self):
+        return get_registry().gauge(
+            "dl4j_tpu_etl_queue_depth",
+            "Prefetch-queue depth observed by the consumer")
+
+    def consumers_waiting(self):
+        return get_registry().gauge(
+            "dl4j_tpu_etl_consumers_waiting",
+            "Consumers currently blocked on an empty prefetch queue")
+
+    def empty_polls(self):
+        return get_registry().counter(
+            "dl4j_tpu_etl_queue_empty_polls_total",
+            "Consumer polls that found the prefetch queue empty")
+
+    def producer_active(self):
+        return get_registry().gauge(
+            "dl4j_tpu_etl_producer_active",
+            "Prefetch producers (threads or pool processes) currently "
+            "running")
+
+    def prefetch_wait(self):
+        return get_registry().gauge(
+            "dl4j_tpu_etl_prefetch_wait_seconds",
+            "Consumer block time on the last prefetch-queue get")
+
+    def h2d_bytes(self):
+        return get_registry().counter(
+            "dl4j_tpu_etl_h2d_bytes_total",
+            "Bytes moved host->device by the ETL staging ring")
+
+    def h2d_seconds(self):
+        return get_registry().histogram(
+            "dl4j_tpu_etl_h2d_seconds",
+            "Per-batch host->device transfer wall time (issue + "
+            "completion wait) in the ETL staging ring",
+            buckets=DEFAULT_BUCKETS)
+
+    def pool_workers(self):
+        return get_registry().gauge(
+            "dl4j_tpu_etl_pool_workers",
+            "Producer processes alive in the sharded ETL pool")
+
+    def pool_batches(self):
+        return get_registry().counter(
+            "dl4j_tpu_etl_pool_batches_total",
+            "Batches delivered by the sharded ETL producer pool")
+
+    def pool_inline_batches(self):
+        return get_registry().counter(
+            "dl4j_tpu_etl_pool_inline_batches_total",
+            "Pool batches that bypassed shared memory (oversized or "
+            "partial: pickled through the queue instead)")
+
+    def pool_restarts(self):
+        return get_registry().counter(
+            "dl4j_tpu_etl_pool_restarts_total",
+            "Producer-pool restarts (etl_starvation remediation or an "
+            "explicit requestRestart) — the stream position is "
+            "preserved by the consumer's skip fast-forward")
+
+
+_ETL_METRICS = EtlMetrics()
+
+
+def etl_metrics() -> EtlMetrics:
+    """Accessor for the shared ETL metric namespace (see
+    :class:`EtlMetrics`)."""
+    return _ETL_METRICS
+
+
+def note_etl_wait(seconds: float, owner) -> None:
+    """Record blocking ETL wait incurred outside ``next()``
+    (AsyncDataSetIterator blocks in ``hasNext()`` to populate its peek),
+    charged to ``owner`` — the iterator that blocked — and folded into the
+    next ``etl_fetch`` ON THAT ITERATOR (``etl_fetch`` comes with ROADMAP
+    A12's training instruments).  Keying by iterator (not a
+    bare thread-local) keeps a drain that never calls ``etl_fetch`` (a
+    normalizer ``fit`` pass) from leaking its waits into an unrelated
+    fetch; the iterator zeroes its pending on reset."""
+    owner._telemetry_pending_wait = getattr(
+        owner, "_telemetry_pending_wait", 0.0) + float(seconds)

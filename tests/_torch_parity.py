@@ -438,3 +438,65 @@ def _narrow_yolo2(pkg, numClasses=3, size=32):
                     (9.77052, 9.16828)))).build(), "pred")
     gb.setOutputs("yolo")
     return gb.build()
+
+
+# ---------------------------------------------------------------------------
+# the reference's own test bodies against the port (the DataVec slice)
+# ---------------------------------------------------------------------------
+
+def _reference_tests(filename, exclude=()):
+    """The test functions and methods of the reference's ``tests/<filename>``
+    with every ``deeplearning4j_tpu`` import swapped for the port's: a
+    module built from the reference's source (registered in
+    ``sys.modules``, so the factories its pool tests pickle can be found
+    by a worker) and a list of ``(id, callable)``, one a test, for
+    ``pytest.mark.parametrize``.  ``exclude`` names tests (``Class`` or
+    ``Class.method`` or ``function``) left out, each for a reason its
+    caller states."""
+    import inspect
+    import sys
+    import types
+    from pathlib import Path
+    src = (Path(__file__).resolve().parent / filename).read_text()
+    src = src.replace("deeplearning4j_tpu.", "deeplearning4j_tpu_torch.") \
+        .replace("from deeplearning4j_tpu import",
+                 "from deeplearning4j_tpu_torch import")
+    name = "_port_" + filename[:-3]
+    mod = sys.modules.get(name)
+    if mod is None:
+        mod = types.ModuleType(name)
+        mod.__file__ = str(Path(__file__).resolve().parent / filename)
+        sys.modules[name] = mod
+        exec(compile(src, f"<port {filename}>", "exec"), mod.__dict__)
+    cases = []
+    for key, obj in vars(mod).items():
+        if key.startswith("test_") and inspect.isfunction(obj) \
+                and key not in exclude:
+            cases.append((key, obj))
+        elif key.startswith("Test") and inspect.isclass(obj) \
+                and key not in exclude:
+            for m in sorted(vars(obj)):
+                if m.startswith("test_") and f"{key}.{m}" not in exclude:
+                    cases.append((f"{key}.{m}", (obj, m)))
+    return mod, cases
+
+
+def _run_reference_test(case, tmp_path, monkeypatch):
+    """Run one case of :func:`_reference_tests`, giving it the fixtures it
+    names (``tmp_path``, ``monkeypatch``), in host-only mode: ``Nd4j``
+    creation without ``device=`` lands on the CPU, as in an ETL worker."""
+    import inspect
+    from deeplearning4j_tpu_torch.ops.ndarray import (host_only_arrays,
+                                                      set_host_only_arrays)
+    fn = case
+    if isinstance(case, tuple):
+        cls, meth = case
+        fn = getattr(cls(), meth)
+    fixtures = {"tmp_path": tmp_path, "monkeypatch": monkeypatch}
+    kwargs = {p: fixtures[p] for p in inspect.signature(fn).parameters}
+    prev = host_only_arrays()
+    set_host_only_arrays(True)
+    try:
+        fn(**kwargs)
+    finally:
+        set_host_only_arrays(prev)

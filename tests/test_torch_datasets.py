@@ -200,7 +200,7 @@ def test_normalizers_match_the_reference(kind):
     jd, td = jds.DataSet(f, l), tds.DataSet(f, l)
     jn.transform(jd)
     tn.transform(td)
-    assert td.features.dtype == torch.float32
+    assert td.features.torch.dtype == torch.float32
     np.testing.assert_allclose(_np(td.features), jd.features.numpy(),
                                **NORM_TOL)
     jn.revert(jd)

@@ -398,7 +398,7 @@ def test_resnet50_small_forward_matches_reference(resnet_small):
         np.testing.assert_allclose(a, r, atol=F32["act"] * np.abs(r).max(),
                                    rtol=0, err_msg=name)
     out = net.output(x)
-    assert out.shape == (2, 4) and out.dtype == torch.float32
+    assert out.shape == (2, 4) and out.torch.dtype == torch.float32
     np.testing.assert_allclose(out.numpy(), np.asarray(jnet.output(x).jax),
                                atol=F32["act"])
 
@@ -511,7 +511,7 @@ def test_multi_output_graph_fit_and_output_match_reference():
                                                                   (5, 2)]
     for o, r in zip(outs, jnet.output(b, a)):
         np.testing.assert_allclose(o.numpy(), np.asarray(r.jax), atol=1e-6)
-    torch.testing.assert_close(net.outputSingle(b, a), outs[0])
+    torch.testing.assert_close(net.outputSingle(b, a).torch, outs[0].torch)
     # a two-input, two-output graph fits on a MultiDataSet (ROADMAP A6)
     y0 = np.eye(3, dtype=np.float32)[rng.randint(0, 3, 5)]
     y1 = rng.randn(5, 2).astype(np.float32)
@@ -528,13 +528,13 @@ def test_fit_iterator_two_epochs_equals_batches_in_turn():
         .init()
     net2 = tmodels.ComputationGraph(_narrow(PORT, "FLOAT"), device="cpu") \
         .init()
-    assert torch.equal(net.params(), net2.params())     # seeded draw
+    assert torch.equal(net.params().torch, net2.params().torch)  # seeded
     net.fit(tds.ListDataSetIterator([tds.DataSet(f, l)
                                      for f, l in batches]), epochs=2)
     for _ in range(2):
         for f, l in batches:
             net2.fit(f, l)
-    assert torch.equal(net.params(), net2.params())
+    assert torch.equal(net.params().torch, net2.params().torch)
     assert net.score() == net2.score()
     assert (net.iterationCount, net.getEpochCount()) == (4, 2)
     f, l = batches[0]
@@ -552,13 +552,14 @@ def test_score_of_a_dataset_matches_reference(narrow_runs):
 def test_set_params_round_trips():
     net = tmodels.ComputationGraph(_narrow(PORT, "FLOAT"), device="cpu") \
         .init()
-    flat = net.params()
+    flat = net.params().torch
     net.setParams(torch.arange(flat.numel(), dtype=torch.float32))
     first = net.conf.topoOrder[0]
     assert first == "stem_conv"
-    assert net.paramTable()["stem_conv_W"].flatten()[:2].tolist() == [0., 1.]
+    assert net.paramTable()["stem_conv_W"].torch.flatten()[:2].tolist() == \
+        [0., 1.]
     net.setParams(flat)
-    assert torch.equal(net.params(), flat)
+    assert torch.equal(net.params().torch, flat)
     with pytest.raises(ValueError, match="length"):
         net.setParams(torch.zeros(flat.numel() + 1))
 
@@ -583,7 +584,8 @@ def test_unported_pieces_raise_naming_their_roadmap_item():
     net = tmodels.ComputationGraph(_narrow(PORT, "FLOAT"), device="cpu") \
         .init()
     f, l = _narrow_batches(1)[0]
-    torch.testing.assert_close(net.rnnTimeStep(f[:1]), net.output(f[:1]))
+    torch.testing.assert_close(net.rnnTimeStep(f[:1]).torch,
+                               net.output(f[:1]).torch)
     assert net.evaluate(tds.ListDataSetIterator(
         [tds.DataSet(f, l)])).getNumRowCounter() == f.shape[0]
     net.setListeners(object())
@@ -610,4 +612,4 @@ def test_unported_pieces_raise_naming_their_roadmap_item():
     net._fitBatch(tds.DataSet(f, l))
     net2._fitBatch(tds.DataSet(f, l))
     assert net.iterationCount == 1
-    assert torch.equal(net.params(), net2.params())
+    assert torch.equal(net.params().torch, net2.params().torch)

@@ -152,8 +152,8 @@ def test_graph_tbptt_matches_the_mln_path():
     _params_close(jmln, mln)
     xp = np.random.default_rng(3).standard_normal((2, 4, 12)).astype(
         np.float32)
-    torch.testing.assert_close(cg.output(xp), mln.output(xp), atol=1e-6,
-                               rtol=0)
+    torch.testing.assert_close(cg.output(xp).torch, mln.output(xp).torch,
+                               atol=1e-6, rtol=0)
 
 
 def _two_input_graph(pkg, rnn_out=True):
@@ -201,15 +201,16 @@ def test_per_input_masks_route_independently():
     move it while b's tail does."""
     jnet, net = _graphs(_two_input_graph, rnn_out=False)
     xa, xb, ma, mb = _two_inputs()
-    out = net.output(xa, xb, featuresMask=(ma, mb))
+    out = net.output(xa, xb, featuresMask=(ma, mb)).torch
     _close(out, jnet.output(xa, xb, featuresMask=(ma, mb)).jax, TOL["out"])
     xa2, xb2 = xa.copy(), xb.copy()
     xa2[:, :, 4:] = 9.9
     xb2[:, :, 5:] = 9.9
-    torch.testing.assert_close(net.output(xa2, xb, featuresMask=(ma, mb)),
-                               out, atol=1e-6, rtol=0)
-    assert not torch.allclose(net.output(xa, xb2, featuresMask=(ma, mb)),
-                              out)
+    torch.testing.assert_close(
+        net.output(xa2, xb, featuresMask=(ma, mb)).torch, out, atol=1e-6,
+        rtol=0)
+    assert not torch.allclose(
+        net.output(xa, xb2, featuresMask=(ma, mb)).torch, out)
 
 
 def test_two_input_tbptt_with_per_input_masks_matches_reference():
@@ -237,11 +238,11 @@ def test_graph_rnn_time_step_matches_full_forward_and_reference():
     jnet, net = _graphs(_char_graph, t=10)
     x = np.random.default_rng(4).standard_normal((3, 5, 10)).astype(
         np.float32)
-    full = net.output(x)
+    full = net.output(x).torch
     _close(full, jnet.output(x).jax, TOL["out"])
     steps = []
     for i in range(10):
-        s = net.rnnTimeStep(x[:, :, i])
+        s = net.rnnTimeStep(x[:, :, i]).torch
         _close(s, jnet.rnnTimeStep(x[:, :, i]).jax, TOL["out"])
         steps.append(s)
     torch.testing.assert_close(torch.stack(steps, 2), full, atol=1e-6,
@@ -252,24 +253,24 @@ def test_graph_chunked_generation_and_state_api():
     jnet, net = _graphs(_char_graph, t=8)
     x = np.random.default_rng(5).standard_normal((2, 5, 8)).astype(
         np.float32)
-    full = net.output(x)
-    o1 = net.rnnTimeStep(x[:, :, :5])
+    full = net.output(x).torch
+    o1 = net.rnnTimeStep(x[:, :, :5]).torch
     st = net.rnnGetPreviousState("lstm")
     assert isinstance(st, tuple) and tuple(st[0].shape) == (2, 8)
     jnet.rnnTimeStep(x[:, :, :5])
     for a, b in zip(st, jnet.rnnGetPreviousState("lstm")):
         _close(a, b, TOL["out"])
-    o2 = net.rnnTimeStep(x[:, :, 5:])
+    o2 = net.rnnTimeStep(x[:, :, 5:]).torch
     torch.testing.assert_close(torch.cat([o1, o2], 2), full, atol=1e-6,
                                rtol=0)
     net.rnnClearPreviousState()
     assert net.rnnGetPreviousState("lstm") is None
     net.rnnSetPreviousState("lstm", st)
-    torch.testing.assert_close(net.rnnTimeStep(x[:, :, 5:]), o2, atol=1e-6,
-                               rtol=0)
-    a = net.rnnTimeStep(x[:, :, 0])
+    torch.testing.assert_close(net.rnnTimeStep(x[:, :, 5:]).torch, o2,
+                               atol=1e-6, rtol=0)
+    a = net.rnnTimeStep(x[:, :, 0]).torch
     net.rnnClearPreviousState()
-    b = net.rnnTimeStep(x[:, :, 0])
+    b = net.rnnTimeStep(x[:, :, 0]).torch
     assert not torch.allclose(a, b)         # the state was carried
     torch.testing.assert_close(b, full[:, :, 0], atol=1e-6, rtol=0)
 

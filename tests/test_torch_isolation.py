@@ -518,3 +518,106 @@ def test_keras_importer_entry_points_default_to_cuda():
         KerasModelImport.importKerasSequentialModelAndWeights(path)
     net = KerasModelImport.importKerasModelAndWeights(path, device="cpu")
     assert net.device == torch.device("cpu")
+
+
+# a package imports every module in it, so ``ops`` and ``datavec`` stand
+# for their modules
+DATAVEC_SLICE_MODULES = ["config", "native", "ops", "datavec",
+                         "datasets.dataset", "telemetry.instrument"]
+
+
+@pytest.mark.parametrize("mod", DATAVEC_SLICE_MODULES)
+def test_datavec_slice_modules_import_no_jax_alone(mod):
+    """Each module the DataVec slice added or grew (each package with all
+    its modules), imported on its own, loads neither ``jax`` nor the JAX
+    package (nor PIL: the port decodes PNG itself and imports PIL only
+    inside the call that needs it)."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run(
+        [sys.executable, "-c", _IMPORT_ONE.format(
+            name=f"deeplearning4j_tpu_torch.{mod}",
+            forbidden=set(FORBIDDEN) | {"PIL"})],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+_FORMAT_NAMES = {"AudioFeatureRecordReader", "WavFileRecordReader",
+                 "mel_filterbank", "mfcc",
+                 "read_wav", "spectrogram", "CodecRecordReader",
+                 "ArrowConverter", "ArrowRecordReader", "ExcelRecordReader",
+                 "writeXlsx", "ColumnarConverter", "JDBCRecordReader"}
+
+def _own_names(module):
+    """The public callables a reference module defines itself."""
+    import importlib
+    ref = importlib.import_module(f"deeplearning4j_tpu.{module}")
+    return [n for n in _reference_names(module)
+            if getattr(vars(ref)[n], "__module__", "") == ref.__name__]
+
+
+DATAVEC_SLICE_NAMES = [(m, n) for m in (
+    "config", "native", "ops", "ops.dtype", "ops.ndarray", "ops.factory",
+    "ops.random", "ops.serde", "datavec", "datavec.writable",
+    "datavec.records", "datavec.schema", "datavec.transform",
+    "datavec.join", "datavec.reduce", "datavec.image", "datavec.iterators",
+    "datavec.pipeline") for n in _reference_names(m)] + \
+    [(f"datavec.{m}", n) for m in ("audio", "codec", "excel", "columnar")
+     for n in _own_names(f"datavec.{m}")] + \
+    [("datavec.arrow", n) for n in ("ArrowConverter", "ArrowRecordReader")] \
+    + [("telemetry", n) for n in ("EtlMetrics", "etl_metrics",
+                                  "note_etl_wait")]
+
+
+@pytest.mark.parametrize("module,name", DATAVEC_SLICE_NAMES)
+def test_datavec_slice_public_names_import_from_both_packages(module, name):
+    """Every public name of the reference's ``ops``, ``config``, ``native``
+    and ``datavec`` (and the ETL names of ``telemetry``) imports from the
+    port under the same path; the format readers raise naming ROADMAP
+    "A12 datavec formats" and the recommender's ragged reader A11."""
+    import importlib
+    port = getattr(importlib.import_module(
+        f"deeplearning4j_tpu_torch.{module}"), name)
+    assert callable(port)
+    if name in _FORMAT_NAMES:
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP A12 datavec formats"):
+            port()
+    elif name == "RaggedFeatureReader":
+        with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+            port()
+    else:
+        assert "is not ported yet" not in (port.__doc__ or "")
+
+
+def test_nd4j_creation_defaults_to_cuda_and_never_falls_back():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is usable")
+    from deeplearning4j_tpu_torch.ops import Nd4j
+    from deeplearning4j_tpu_torch.ops.ndarray import (host_only_arrays,
+                                                      set_host_only_arrays)
+    assert not host_only_arrays()
+    for make in (lambda: Nd4j.zeros(2), lambda: Nd4j.ones(2, 2),
+                 lambda: Nd4j.create([1.0, 2.0]), lambda: Nd4j.rand(3),
+                 lambda: Nd4j.randn(3), lambda: Nd4j.arange(4),
+                 lambda: Nd4j.linspace(0, 1, 3), lambda: Nd4j.eye(2),
+                 lambda: Nd4j.scalar(1.0), lambda: Nd4j.valueArrayOf(2, 3.0),
+                 lambda: Nd4j.empty(), lambda: Nd4j.randomBernoulli(0.5, 2)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    assert Nd4j.zeros(2, device="cpu").torch.device.type == "cpu"
+    set_host_only_arrays(True)
+    try:
+        assert Nd4j.zeros(2).torch.device.type == "cpu"
+    finally:
+        set_host_only_arrays(False)
+
+
+def test_native_never_builds_xla_ffi():
+    from deeplearning4j_tpu_torch import native
+    src = (PKG / "native" / "__init__.py").read_text()
+    assert "xla_ffi.cpp" not in native.SOURCES
+    assert "*.cpp" not in src               # no glob over native/src
+    assert native.available()
+    built = native.BUILD_DIR
+    assert not [p for p in built.glob("*") if "xla" in p.name]
+    assert native.library_path().startswith(str(PKG / "_build"))

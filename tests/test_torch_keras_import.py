@@ -697,7 +697,7 @@ def test_imported_net_survives_the_serializer(saved, tmp_path):
     zp = str(tmp_path / "net.zip")
     ModelSerializer.writeModel(net, zp, saveUpdater=False)
     back = ModelSerializer.restoreMultiLayerNetwork(zp, device="cpu")
-    assert torch.equal(back.output(xs[0]), net.output(xs[0]))
+    assert torch.equal(back.output(xs[0]).torch, net.output(xs[0]).torch)
 
 
 def test_c8_keras2_hard_sigmoid_imports_with_keras3_semantics(tmp_path):

@@ -166,7 +166,7 @@ def test_output_and_score_match_reference(params0, dataType):
     jnet, net = _nets(params0, dataType)
     f, l = _batches(1)[0]
     out = net.output(f)
-    assert tuple(out.shape) == (B, NOUT, T) and out.dtype == torch.float32
+    assert tuple(out.shape) == (B, NOUT, T) and out.torch.dtype == torch.float32
     assert np.asarray(jnet.output(f).jax).dtype == np.float32
     assert {np.asarray(v).dtype for lp in jnet.params_.values()
             for v in lp.values()} == {np.dtype(np.float32)}
@@ -190,14 +190,14 @@ def test_params_match_reference_in_flat_order(params0):
 
 def test_set_params_round_trips(params0):
     net = _port_net(params0)
-    flat = net.params()
+    flat = net.params().torch
     net.setParams(torch.arange(flat.numel(), dtype=torch.float32))
     table = net.paramTable()
-    assert table["0_Wk"].flatten()[:3].tolist() == [0.0, 1.0, 2.0]
+    assert table["0_Wk"].torch.flatten()[:3].tolist() == [0.0, 1.0, 2.0]
     assert float(table["2_b"][-1]) == flat.numel() - 1
     assert table["0_Wo"].shape == (HEADS * HEAD, NIN)
     net.setParams(flat)
-    assert torch.equal(net.params(), flat)
+    assert torch.equal(net.params().torch, flat)
     with pytest.raises(ValueError, match="length"):
         net.setParams(torch.zeros(flat.numel() + 1))
 
@@ -209,7 +209,7 @@ def test_seeded_init_draws_the_reference_distributions():
     conf = _conf(PORT)
     a = tmodels.MultiLayerNetwork(conf, device="cpu").init()
     b = tmodels.MultiLayerNetwork(_conf(PORT), device="cpu").init()
-    assert torch.equal(a.params(), b.params())
+    assert torch.equal(a.params().torch, b.params().torch)
     assert a.params_["0"]["Wq"].shape == (NIN, HEADS * HEAD)
     assert torch.equal(a.params_["2"]["b"], torch.zeros(NOUT))
     assert a.numParams() == tmodels.MultiLayerNetwork(
@@ -278,7 +278,7 @@ def test_fit_iterator_two_epochs_equals_batches_in_turn(params0):
     for _ in range(2):
         for f, l in batches:
             net2.fit(f, l)
-    assert torch.equal(net.params(), net2.params())
+    assert torch.equal(net.params().torch, net2.params().torch)
     assert net.score() == net2.score()
     assert (net.getIterationCount(), net.getEpochCount()) == (4, 2)
     assert (net2.getIterationCount(), net2.getEpochCount()) == (4, 0)
@@ -646,7 +646,8 @@ def test_dataset_and_list_iterator():
     assert [p.numExamples() for p in parts] == [4, 4, 2]
     assert parts[2].featuresMask.shape == (2, 3)
     assert parts[0].labelsMask is None
-    assert torch.equal(torch.cat([p.labels for p in parts]), ds.labels)
+    assert torch.equal(torch.cat([p.labels.torch for p in parts]),
+                       ds.labels.torch)
     it = tds.ListDataSetIterator([ds], batch=4)
     assert it.batch() == 4 and it.totalOutcomes() == 2 and \
         it.inputColumns() == 3
@@ -660,8 +661,9 @@ def test_dataset_and_list_iterator():
     it.setPreProcessor(Scale())
     it.reset()
     first = it.next()
-    assert torch.equal(first.features, ds.features[:4] * 2)
-    assert torch.equal(parts[0].features, ds.features[:4])   # cached copy
+    assert torch.equal(first.features.torch, ds.features.torch[:4] * 2)
+    assert torch.equal(parts[0].features.torch,
+                       ds.features.torch[:4])                 # cached copy
 
 
 # ---------------------------------------------------------------------------

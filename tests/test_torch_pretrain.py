@@ -367,7 +367,7 @@ def test_autoencoder_pretrain_reduces_reconstruction_error(tmp_path):
     p = str(tmp_path / "ae.zip")
     ModelSerializer.writeModel(net, p, saveUpdater=False)
     back = ModelSerializer.restoreMultiLayerNetwork(p, device="cpu")
-    assert torch.equal(back.output(X[:8]), net.output(X[:8]))
+    assert torch.equal(back.output(X[:8]).torch, net.output(X[:8]).torch)
 
 
 def test_vae_bernoulli_distribution_pretrains():

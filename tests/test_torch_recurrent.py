@@ -406,7 +406,7 @@ def test_character_iterator_gives_the_reference_batches():
         ti.reset()
     assert ti.convertIndexToCharacter(ti.convertCharacterToIndex("q")) == "q"
     other = CharacterIterator(CHAR_TEXT, 16, 50, seed=7).next()
-    assert not torch.equal(other.features, ti.next().features)
+    assert not torch.equal(other.features.torch, ti.next().features.torch)
 
 
 # ---------------------------------------------------------------------------
@@ -477,8 +477,8 @@ def test_char_rnn_time_step_probabilities_match_reference(char_runs):
         p = net.rnnTimeStep(x[:, :, k])
         _close(p, jnet.rnnTimeStep(x[:, :, k]).jax, CHAR["probs_atol"])
         assert tuple(p.shape) == (1, n)
-        steps.append(p)
-    torch.testing.assert_close(torch.stack(steps, dim=2), net.output(x),
+        steps.append(p.torch)
+    torch.testing.assert_close(torch.stack(steps, dim=2), net.output(x).torch,
                                atol=1e-6, rtol=0)
     torch.testing.assert_close(steps[-1].sum(), torch.tensor(1.0))
 
@@ -622,14 +622,15 @@ def test_rnn_time_step_state_api_and_predict():
     net = PORT.models.MultiLayerNetwork(_tiny_char(PORT), device="cpu") \
         .init()
     x, _ = _onehot_batch(7)
-    full = net.output(x)
-    steps = torch.stack([net.rnnTimeStep(x[:, :, k]) for k in range(7)], 2)
+    full = net.output(x).torch
+    steps = torch.stack([net.rnnTimeStep(x[:, :, k]).torch
+                         for k in range(7)], 2)
     torch.testing.assert_close(steps, full, atol=1e-6, rtol=0)
     net.rnnClearPreviousState()
     assert net.rnnGetPreviousState(0) is None
-    a = net.rnnTimeStep(x[:, :, :4])
+    a = net.rnnTimeStep(x[:, :, :4]).torch
     st = net.rnnGetPreviousState(1)
-    b = net.rnnTimeStep(x[:, :, 4:])
+    b = net.rnnTimeStep(x[:, :, 4:]).torch
     torch.testing.assert_close(torch.cat([a, b], 2), full, atol=1e-6,
                                rtol=0)
     net.rnnClearPreviousState()

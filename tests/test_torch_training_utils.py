@@ -448,7 +448,7 @@ def test_feed_forward_params_clone_summary():
     np.testing.assert_array_equal(_np(net.getParam("1_W")),
                                   np.asarray(jnet.getParam("1_W").jax))
     net.setParam("2_b", np.array([0.5, -0.5], np.float32))
-    assert net.getParam("2_b").tolist() == [0.5, -0.5]
+    assert net.getParam("2_b").torch.tolist() == [0.5, -0.5]
     net.fit(_toy_data(PORT))
     c = net.clone()
     assert c.device == net.device and c.iterationCount == 0

@@ -173,13 +173,13 @@ def test_facenet_without_a_loss_layer_steps_like_the_reference():
     only BatchNormalization's running statistics move, in both packages."""
     kw = dict(inputShape=(3, 64, 64))   # 2x2 at inception 5b, so its BN
     net, jnet = _carried("FaceNetNN4Small2", kw)   # sees 16 values
-    p0 = net.params().clone()
+    p0 = net.params().torch.clone()
     x = np.random.RandomState(6).randn(4, 3, 64, 64).astype(np.float32)
     y = np.zeros((4, 128), np.float32)
     net.fit(tds.DataSet(x, y))
     jnet.fit(jds.DataSet(x, y))
     assert net.score() == jnet.score() == 0.0
-    assert torch.equal(net.params(), p0)
+    assert torch.equal(net.params().torch, p0)
     np.testing.assert_array_equal(np.asarray(jnet.params().jax), p0.numpy())
     for k, st in net.state_.items():
         np.testing.assert_allclose(st["mean"].numpy(),
