@@ -402,7 +402,42 @@ which must pass or the script exits non-zero without a result line:
    ``MultiLayerNetwork.fit`` (the pool it engages).  Counters zeroed
    before and read after must read zero: the iterator attaches a features
    mask and masked attention is dense, in both packages (ROADMAP C23);
-   ms a step.
+   ms a step;
+57. ``datavec_formats``: the five format readers with neither PIL nor
+   pyarrow loaded: an xlsx, a sqlite table, a columnar ``.npz``, Feather
+   and IPC-stream files the port wrote, and 8-, 16- and 32-bit WAVs (one
+   stereo) read back; the committed fixtures (``tests/fixtures/
+   arrow_lz4.feather``, pyarrow's LZ4_FRAME Feather, against its JSON
+   records; ``gif_composited.gif`` against PIL's frames); then
+   ``DATAVEC_FORMATS``' Speech-Commands-shaped stream (512 seeded
+   one-second 16 kHz clips in 12 folders, ``AudioFeatureRecordReader
+   ("mfcc", 40, frameLength 480, hop 160)`` with the folder as label,
+   ``RecordReaderDataSetIterator``, the producer pool onto cuda, an MLP's
+   ``fit`` for one epoch) and its clip stream (64 seeded 16-frame 64 x 64
+   GIFs the port's writer wrote, ``CodecRecordReader(outputHW=(32, 32),
+   ravel=True)``, ``SequenceRecordReaderDataSetIterator``, the pool, a
+   ``GravesLSTM`` fit): every clip delivered on cuda, losses finite,
+   clips/s decoded a worker; no launch;
+58. ``dlrm_train``: ``DLRM(numFields=26, embeddingDim=128, denseUnits=
+   (1024, 1024, 512, 256), numClasses=2, numEmbeddings=10_000_000)``
+   (``DLRM_RUN``: MLPerf Training's DLRM widths that the zoo model
+   expresses, rows cut to 10M) trained for 8 batches of 2048 seeded
+   ragged records (26 bags of 1-16 Zipf ids over 1e9 values) through
+   ``RaggedFeatureReader(bagBuckets=(16,))`` -> the producer pool onto
+   cuda -> ``fit``: every batch on cuda, the loss finite, the collision
+   counter grown (one batch read inline: the workers report nothing, as
+   the reference's do); one step at 65,536 rows on the card against the
+   CPU's from the same params (``DLRM_STEP_TOL``); ms a step from the
+   card, examples/s, peak memory, a profiled step; no launch;
+59. ``retrieval_serve``: ``TwoTowerRecommender(numEmbeddings=1_048_576,
+   embeddingDim=64, bagSize=16)`` trained 4 batches from a two-field
+   ragged stream, served by ``RetrievalLM.from_two_tower`` under a
+   ``ContinuousBatcher``: ``topk_retrieve`` for 256 users (k 10, one
+   client thread each) equals the float64 flat ranking of u · itemsᵀ
+   up to near ties (``RETRIEVAL_NEAR_TIE``); k = 1 requests run no
+   decode step and pass a page-deficit admission rule that sheds k = 10;
+   ``recsys_hash_collision_rule`` fires on a colliding stream;
+   requests/s and latency p50/p99; no launch.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``.  With ``--record PATH`` it also
@@ -787,6 +822,46 @@ ETL_STEP_TOL = dict(loss_rtol=1e-2, param_atol=1e-2)
 # regression) -> MultiLayerNetwork.fit (the pool that fit engages, C22);
 # the regression head has nOut 1 (the iterator's one label column).
 ETL_SEQ = dict(files=16, batch=4, seed=29)
+
+# Item 57: DataVec's format readers on the card's machine (no PIL, no
+# pyarrow).  The audio stream has Speech Commands' shape (one-second 16 kHz
+# 16-bit clips in 12 label folders; 40 MFCCs over 30 ms windows every
+# 10 ms: 98 x 40 features a clip); the clip stream 64 GIFs of 16 frames at
+# 64 x 64, resized to 32 x 32 and raveled.  Neither dataset is in the
+# repository: the clips are seeded synthetic ones at those shapes.
+DATAVEC_FORMATS = dict(
+    seed=31,
+    speech=dict(n=512, classes=12, rate=16000, seed=37, mfcc=40, frame=480,
+                hop=160, batch=32, hidden=256, workers=4),
+    clips=dict(n=64, classes=8, frames=16, hw=64, seed=41,
+               outputHW=(32, 32), batch=8, hidden=64, workers=4))
+# Item 58: DLRM at the widths of MLPerf Training's DLRM (Criteo 1TB) that
+# the zoo model expresses: 26 categorical fields, embedding 128, top MLP
+# 1024-1024-512-256, 2 classes (the zoo model has no bottom MLP and no
+# dense features).  Rows cut from MLPerf's 40M to 10M: ids ride as float32
+# features, exact only to 2**24, and the table with its dense gradient and
+# Adam moments is ~20.5 GB.  Records: 1-16 raw ids a bag, Zipf(1.2) over
+# 1e9 values (Criteo's skew; the data is seeded, not Criteo's).
+DLRM_RUN = dict(fields=26, dim=128, dense=(1024, 1024, 512, 256),
+                rows=10_000_000, batch=2048, batches=8, max_bag=16,
+                zipf=1.2, raw_values=10 ** 9, seed=43, workers=4, shm_mb=64,
+                check_rows=65_536, lr=1e-3)
+# A DLRM step on the card against the CPU's from the same params, one
+# ragged batch at 65,536 rows: the loss to 1e-4 relative.  Adam's first
+# step moves a parameter by lr g / (|g| + 1e-8), about lr times the sign
+# of g, which flips or shrinks where the float32 gradient is noise near
+# eps (on the H100, 3.6 % of the parameters land past 1e-6 with the loss
+# equal): every parameter within 2 lr, 98 % within 1e-5, as YOLO2's
+# step.  The gradient's difference is printed beside them.
+DLRM_STEP_TOL = dict(loss_rtol=1e-4, share=0.98)
+# Item 59: two-tower retrieval served through the batcher.
+RETRIEVAL = dict(rows=1_048_576, dim=64, bag=16, batch=1024, batches=4,
+                 seed=47, maxLen=64, page=16, slots=32, users=256, k=10,
+                 single=32)
+# Ranks whose float64 score gap to the next is under this share of the top
+# score are near ties (the card's float32 sums may order them either way):
+# the comparison of a user stops there.
+RETRIEVAL_NEAR_TIE = 1e-6
 
 
 def _keras_refill(name, shape, rng):
@@ -5940,6 +6015,690 @@ def phase_etl_sequences(torch, rec, card):
     _require(math.isfinite(loss), f"loss {loss}")
 
 
+# ----------------------------------------------------------------------
+# DataVec's format readers and the recommender tier (phases 57-59)
+# ----------------------------------------------------------------------
+
+class _FolderLabelled:
+    """A file record reader of the port (``AudioFeatureRecordReader`` or
+    ``CodecRecordReader``) over ``files``, each record (or each step of a
+    sequence) followed by its parent folder's index in ``names`` — the
+    label DL4J's ``ParentPathLabelGenerator`` gives images — and sharded
+    by file for the producer pool's workers.  Built by ``make`` (a
+    picklable factory), in this file so a forked worker finds it."""
+
+    def __init__(self, make, files, names, sequence=False):
+        self.make, self.files, self.names = make, list(files), names
+        self.sequence = sequence
+        self.inner = make()
+        self.inner.initialize(_FileList(self.files))
+        self._i = 0
+
+    def _label(self):
+        from deeplearning4j_tpu_torch.datavec import IntWritable
+        path = self.files[self._i]
+        self._i += 1
+        return IntWritable(self.names.index(
+            os.path.basename(os.path.dirname(path))))
+
+    def hasNext(self):
+        return self.inner.hasNext()
+
+    def next(self):
+        rec = self.inner.next()
+        lab = self._label()
+        if self.sequence:
+            return [step + [lab] for step in rec]
+        return rec + [lab]
+
+    nextSequence = next
+
+    def reset(self):
+        self.inner.reset()
+        self._i = 0
+
+    def streaming(self):
+        return True
+
+    def shard(self, index, count):
+        return _FolderLabelled(self.make, self.files[index::count],
+                               self.names, self.sequence)
+
+
+class _FileList:
+    """An input split over a list of paths, in order."""
+
+    def __init__(self, files):
+        self.files = list(files)
+
+    def locations(self):
+        return list(self.files)
+
+
+def _write_wav(path, x, rate, width=2, channels=1):
+    """int samples ``x`` (frames x channels, or frames) as PCM."""
+    import wave
+
+    import numpy as np
+    dt = {1: np.uint8, 2: np.int16, 4: np.int32}[width]
+    with wave.open(path, "wb") as w:
+        w.setnchannels(channels)
+        w.setsampwidth(width)
+        w.setframerate(rate)
+        w.writeframes(np.asarray(x, dt).tobytes())
+
+
+def _speech_folders(root, c):
+    """``c["n"]`` seeded one-second 16 kHz 16-bit mono clips in
+    ``c["classes"]`` label folders (Speech Commands' layout and clip
+    shape): a tone whose pitch band is the label's, noise, a fade."""
+    import numpy as np
+    t = np.arange(c["rate"]) / c["rate"]
+    names = [f"word{k:02d}" for k in range(c["classes"])]
+    for n in names:
+        os.makedirs(os.path.join(root, n), exist_ok=True)
+    files = []
+    for i in range(c["n"]):
+        rng = np.random.RandomState(c["seed"] * 1000 + i)
+        k = i % c["classes"]
+        f0 = 200.0 + 150.0 * k + rng.rand() * 40
+        x = np.sin(2 * np.pi * f0 * t) * np.hanning(len(t)) * 0.5 \
+            + rng.randn(len(t)) * 0.05
+        path = os.path.join(root, names[k], f"clip{i:04d}.wav")
+        _write_wav(path, np.clip(x * 32767, -32768, 32767), c["rate"])
+        files.append(path)
+    return sorted(files), names
+
+
+def _clip_folders(root, c):
+    """``c["n"]`` seeded animated GIFs (``c["frames"]`` frames of
+    ``c["hw"]`` square, one 64-colour global palette) in label folders,
+    written with the port's GIF writer: a square moving across a noisy
+    field, its direction the label."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.datavec.gif import write_gif
+    hw, T = c["hw"], c["frames"]
+    names = [f"motion{k}" for k in range(c["classes"])]
+    for n in names:
+        os.makedirs(os.path.join(root, n), exist_ok=True)
+    pal = np.random.RandomState(c["seed"]).randint(0, 256, (64, 3))
+    files = []
+    dirs = [(1, 0), (-1, 0), (0, 1), (0, -1), (1, 1), (-1, -1), (1, -1),
+            (-1, 1)]
+    for i in range(c["n"]):
+        rng = np.random.RandomState(c["seed"] * 1000 + i)
+        k = i % c["classes"]
+        dy, dx = dirs[k % len(dirs)]
+        idx = rng.randint(0, 32, (T, hw, hw)).astype(np.uint8)
+        y, x = rng.randint(16, hw - 16, 2)
+        for f in range(T):
+            yy, xx = (y + dy * 2 * f) % (hw - 8), (x + dx * 2 * f) % (hw - 8)
+            idx[f, yy:yy + 8, xx:xx + 8] = 32 + k
+        path = os.path.join(root, names[k], f"clip{i:03d}.gif")
+        write_gif(path, idx, pal, disposal=1)
+        files.append(path)
+    return sorted(files), names
+
+
+def phase_datavec_formats(torch, rec, card):
+    """Item 57: the five format readers on the card's machine (no PIL, no
+    pyarrow): each reads a seeded file the port wrote and the committed
+    fixtures; then a Speech-Commands-shaped stream (MFCC 40 x 98 a clip)
+    through the producer pool into an MLP's fit, and a clip stream (GIFs
+    resized to 32 x 32, raveled) into a GravesLSTM's fit.  No launch."""
+    import functools
+    import json as _json
+    import math
+    import sqlite3
+    import tempfile
+
+    import numpy as np
+    from deeplearning4j_tpu_torch.datavec import (
+        ArrowConverter, ArrowRecordReader, AudioFeatureRecordReader,
+        CodecRecordReader, ColumnarConverter, DoubleWritable,
+        ExcelRecordReader,
+        FileSplit, IntWritable, JDBCRecordReader, PrefetchingDataSetIterator,
+        RecordReaderDataSetIterator, Schema,
+        SequenceRecordReaderDataSetIterator, Text, WavFileRecordReader,
+        read_wav, writeXlsx)
+    from deeplearning4j_tpu_torch.datavec.arrowipc import read_ipc_file
+    from deeplearning4j_tpu_torch.datavec.gif import read_gif
+    from deeplearning4j_tpu_torch.learning import Adam
+    from deeplearning4j_tpu_torch.models import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.conf import (InputType,
+                                                  NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.conf.layers import (DenseLayer,
+                                                         OutputLayer)
+    from deeplearning4j_tpu_torch.nn.conf.recurrent import (GravesLSTM,
+                                                            RnnOutputLayer)
+    c, res = DATAVEC_FORMATS, {}
+    fx = os.path.join(ROOT, "tests", "fixtures")
+    prev = _fresh_telemetry()
+    try:
+        with tempfile.TemporaryDirectory(dir=ROOT) as d:
+            # -- each reader on a seeded file the port wrote ------------
+            t0 = time.perf_counter()
+            rng = np.random.RandomState(c["seed"])
+            rows = [["name", "count", "score"]] + [
+                [f"r{i}", int(rng.randint(-99, 99)),
+                 float(np.round(rng.rand(), 3))] for i in range(50)]
+            writeXlsx(os.path.join(d, "t.xlsx"), rows)
+            xr = ExcelRecordReader(skipNumLines=1).initialize(
+                os.path.join(d, "t.xlsx"))
+            got = [[w.value for w in r] for r in xr]
+            _require(got == [r for r in rows[1:]], "xlsx records")
+            db = os.path.join(d, "t.db")
+            with sqlite3.connect(db) as conn:
+                conn.execute("CREATE TABLE t (a INTEGER, b REAL, s TEXT)")
+                conn.executemany("INSERT INTO t VALUES (?, ?, ?)",
+                                 [(r[1], r[2], r[0]) for r in rows[1:]])
+            jr = JDBCRecordReader("SELECT a, b, s FROM t ORDER BY rowid")
+            jr.initialize(FileSplit(db))
+            jrec = [[w.value for w in r] for r in jr]
+            _require(jrec == [[r[1], r[2], r[0]] for r in rows[1:]],
+                     "sqlite records")
+            schema = (Schema.Builder().addColumnInteger("a")
+                      .addColumnDouble("b").addColumnString("s").build())
+            recs = [[IntWritable(r[1]), DoubleWritable(r[2]), Text(r[0])]
+                    for r in rows[1:]]
+            cols = ColumnarConverter.toColumnar(recs, schema)
+            ColumnarConverter.save(os.path.join(d, "t.npz"), cols, schema)
+            cols2, schema2 = ColumnarConverter.load(os.path.join(d, "t.npz"))
+            back = ColumnarConverter.fromColumnar(cols2, schema2)
+            _require([[w.value for w in r] for r in back]
+                     == [[w.value for w in r] for r in recs], "columnar")
+            for kind, path in (("feather", "t.feather"), ("ipc", "t.arrows")):
+                p = os.path.join(d, path)
+                if kind == "feather":
+                    ArrowConverter.writeFeather(recs, schema, p)
+                else:
+                    ArrowConverter.writeIpcStream(recs, schema, p)
+                ar = ArrowRecordReader().initialize(p)
+                _require([[w.value for w in r] for r in ar]
+                         == [[w.value for w in r] for r in recs],
+                         f"arrow {kind} records")
+            want = _json.load(open(os.path.join(fx, "arrow_lz4_records.json")))
+            tab = read_ipc_file(os.path.join(fx, "arrow_lz4.feather"))
+            _require(all(tab.column(col["name"]).to_pylist() == col["values"]
+                         and str(tab.column(col["name"]).type) == col["type"]
+                         for col in want), "the LZ4 feather fixture")
+            frames = read_gif(os.path.join(fx, "gif_composited.gif"))
+            _require(np.array_equal(frames, np.load(os.path.join(
+                fx, "gif_composited_frames.npz"))["frames"]),
+                "the composited GIF fixture against PIL's frames")
+            x = (np.sin(np.arange(800) / 7.0) * 30000).astype(np.int64)
+            for width, ch in ((1, 1), (2, 2), (4, 1)):
+                scale = {1: 127, 2: 1, 4: 65536}[width]
+                samples = x // (30000 // 127) + 128 if width == 1 \
+                    else x * scale
+                if ch == 2:
+                    samples = np.repeat(samples, 2)
+                _write_wav(os.path.join(d, f"w{width}{ch}.wav"), samples,
+                           8000, width, ch)
+                y, rate = read_wav(os.path.join(d, f"w{width}{ch}.wav"))
+                _require(rate == 8000 and y.shape == (800,)
+                         and np.abs(y).max() <= 1.0, f"wav {width} B")
+            wr = WavFileRecordReader()
+            wr.initialize(FileSplit(d))
+            _require(sum(1 for _ in wr) == 3, "wav records")
+            res["readers_s"] = time.perf_counter() - t0
+            loaded = [m for m in ("PIL", "pyarrow") if m in sys.modules]
+            _require(not loaded, f"the readers loaded {loaded}")
+
+            # -- the Speech-Commands-shaped stream into an MLP ---------
+            sc = c["speech"]
+            t0 = time.perf_counter()
+            files, names = _speech_folders(os.path.join(d, "speech"), sc)
+            res["speech_write_s"] = time.perf_counter() - t0
+            make = functools.partial(AudioFeatureRecordReader, "mfcc",
+                                     numCoefficients=sc["mfcc"],
+                                     frameLength=sc["frame"], hop=sc["hop"])
+            rr = _FolderLabelled(make, files, names)
+            t0 = time.perf_counter()
+            probe = rr.shard(0, sc["workers"])
+            n0 = 0
+            while probe.hasNext():
+                probe.next()
+                n0 += 1
+            res["speech_decode_clips_per_s_per_worker"] = \
+                n0 / (time.perf_counter() - t0)
+            feat = int(np.prod(probe.inner.featureShape))
+            it = RecordReaderDataSetIterator(rr, sc["batch"], labelIndex=feat,
+                                             numPossibleLabels=sc["classes"])
+            conf = (NeuralNetConfiguration.builder().seed(c["seed"])
+                    .updater(Adam(1e-3)).list()
+                    .layer(DenseLayer.builder().nOut(sc["hidden"])
+                           .activation("relu").build())
+                    .layer(OutputLayer.builder("mcxent")
+                           .nOut(sc["classes"]).activation("softmax")
+                           .build())
+                    .setInputType(InputType.feedForward(feat)).build())
+            net = MultiLayerNetwork(conf).init()
+            pit = PrefetchingDataSetIterator(it, numWorkers=sc["workers"],
+                                             device="cuda")
+            tap = _tap(pit)
+            torch.cuda.synchronize()
+            _reset_counters()
+            t0 = time.perf_counter()
+            net.fit(tap, epochs=1)
+            loss = net.score()
+            fit_s = time.perf_counter() - t0
+            counts = _counters()
+            pit.close()
+            _no_launches(rec, "datavec_formats_speech", counts)
+            res["speech"] = dict(clips=len(files), feature=list(
+                probe.inner.featureShape), steps=net.getIterationCount(),
+                loss=loss, fit_s=fit_s, clips_per_s=len(files) / fit_s,
+                devices=sorted(set(tap.devices)), launches=counts)
+            _require(sum(tap.sizes) == sc["n"] and set(tap.devices)
+                     == {"cuda"}, f"speech batches {tap.sizes} "
+                     f"{set(tap.devices)}")
+            _require(math.isfinite(loss), f"speech loss {loss}")
+
+            # -- the clip stream into a GravesLSTM ----------------------
+            cc = c["clips"]
+            t0 = time.perf_counter()
+            files, names = _clip_folders(os.path.join(d, "clips"), cc)
+            res["clips_write_s"] = time.perf_counter() - t0
+            make = functools.partial(CodecRecordReader, ravel=True,
+                                     outputHW=cc["outputHW"])
+            rr = _FolderLabelled(make, files, names, sequence=True)
+            t0 = time.perf_counter()
+            probe = rr.shard(0, cc["workers"])
+            n0 = 0
+            while probe.hasNext():
+                seq = probe.next()
+                n0 += 1
+            res["clips_decoded_per_s_per_worker"] = \
+                n0 / (time.perf_counter() - t0)
+            h, w = cc["outputHW"]
+            _require(len(seq) == cc["frames"] and len(seq[0]) == h * w * 3
+                     + 1, f"clip record {len(seq)} x {len(seq[0])}")
+            it = SequenceRecordReaderDataSetIterator(
+                rr, cc["batch"], numPossibleLabels=cc["classes"],
+                labelIndex=h * w * 3)
+            conf = (NeuralNetConfiguration.builder().seed(c["seed"])
+                    .updater(Adam(1e-3)).list()
+                    .layer(GravesLSTM.builder().nOut(cc["hidden"])
+                           .activation("tanh").build())
+                    .layer(RnnOutputLayer.builder("mcxent")
+                           .nOut(cc["classes"]).activation("softmax")
+                           .build())
+                    .setInputType(InputType.recurrent(h * w * 3,
+                                                      cc["frames"]))
+                    .build())
+            net = MultiLayerNetwork(conf).init()
+            pit = PrefetchingDataSetIterator(it, numWorkers=cc["workers"],
+                                             device="cuda")
+            tap = _tap(pit)
+            torch.cuda.synchronize()
+            _reset_counters()
+            t0 = time.perf_counter()
+            net.fit(tap, epochs=1)
+            loss = net.score()
+            fit_s = time.perf_counter() - t0
+            counts = _counters()
+            pit.close()
+            _no_launches(rec, "datavec_formats_clips", counts)
+            res["clips"] = dict(clips=len(files), steps=net.getIterationCount(),
+                                loss=loss, fit_s=fit_s,
+                                clips_per_s=len(files) / fit_s,
+                                launches=counts)
+            _require(sum(tap.sizes) == cc["n"] and set(tap.devices)
+                     == {"cuda"}, f"clip batches {tap.sizes}")
+            _require(math.isfinite(loss), f"clip loss {loss}")
+    finally:
+        from deeplearning4j_tpu_torch import telemetry
+        telemetry.set_registry(prev)
+    rec["datavec_formats"] = res
+    sp, cl = res["speech"], res["clips"]
+    print(f"datavec_formats: xlsx, sqlite, columnar, feather/IPC (port "
+          f"written + the LZ4 fixture), GIF fixture, 8/16/32-bit WAVs read "
+          f"in {res['readers_s']:.2f} s with no PIL / pyarrow; speech "
+          f"{sp['clips']} clips MFCC {sp['feature']}: decode "
+          f"{res['speech_decode_clips_per_s_per_worker']:.1f} clips/s a "
+          f"worker, fit {sp['steps']} steps in {sp['fit_s']:.2f} s "
+          f"({sp['clips_per_s']:.1f} clips/s), loss {sp['loss']:.4g}; GIF "
+          f"clips {cl['clips']} x {c['clips']['frames']} frames: decode "
+          f"{res['clips_decoded_per_s_per_worker']:.1f} clips/s a worker, "
+          f"fit {cl['steps']} steps in {cl['fit_s']:.2f} s, loss "
+          f"{cl['loss']:.4g}; launches {sp['launches']} {cl['launches']}")
+    print(card)
+
+
+def _dlrm_records(c, n, seed):
+    """``n`` seeded ragged records of ``c["fields"]`` bags, 1-16 raw ids a
+    bag, Zipf-skewed over ``c["raw_values"]``, and a click label."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    F = c["fields"]
+    lens = rng.randint(1, c["max_bag"] + 1, n * F)
+    raw = rng.zipf(c["zipf"], int(lens.sum())) % c["raw_values"]
+    raw = ((raw * 7919) % c["raw_values"]).tolist()   # spread the heavy ids
+    ends = np.cumsum(lens).tolist()
+    starts = [0] + ends[:-1]
+    bags = [raw[a:b] for a, b in zip(starts, ends)]
+    labels = rng.randint(0, 2, n).tolist()
+    return [(tuple(bags[i * F:(i + 1) * F]), labels[i]) for i in range(n)]
+
+
+def _dlrm_reader(c, records, rows):
+    from deeplearning4j_tpu_torch.datavec.pipeline import RaggedFeatureReader
+    return RaggedFeatureReader(records, c["batch"], rows, 2,
+                               bagBuckets=(c["max_bag"],),
+                               numFields=c["fields"])
+
+
+def phase_dlrm_train(torch, rec, card):
+    """Item 58: DLRM at MLPerf Training's DLRM widths that the zoo model
+    expresses (26 fields x 128, head 1024-1024-512-256, 2 classes, Adam
+    1e-3), 10M rows, trained for 8 batches of 2048 from seeded ragged
+    records through RaggedFeatureReader -> the producer pool -> fit on
+    cuda; the collision counter from an inline pass; one step at 65,536
+    rows on the card against the CPU from the same params; ms a step,
+    examples/s, peak memory and a profiled step.  No launch."""
+    import math
+
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.datavec import PrefetchingDataSetIterator
+    from deeplearning4j_tpu_torch.models import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.zoo import DLRM
+    c, res = DLRM_RUN, {}
+    prev = _fresh_telemetry()
+    try:
+        t0 = time.perf_counter()
+        records = _dlrm_records(c, c["batch"] * c["batches"], c["seed"])
+        res["records_s"] = time.perf_counter() - t0
+        # the collision estimator counts in the process that runs the
+        # reader; the pool's workers run host-only and report nothing (as
+        # the reference's do), so one batch is read inline here: the
+        # ingest rate and the counter
+        inline = _dlrm_reader(c, records[:c["batch"]], c["rows"])
+        coll = _etl_metric("dl4j_tpu_recsys_hash_collisions_total")
+        t0 = time.perf_counter()
+        first = inline.next()
+        res["ingest_ms_per_batch_inline"] = (time.perf_counter() - t0) * 1e3
+        coll = _etl_metric("dl4j_tpu_recsys_hash_collisions_total")
+        res["hash_collisions"] = coll.value() if coll else 0.0
+        raw = _etl_metric("dl4j_tpu_recsys_lookup_rows_total")
+        res["ids_raw"] = raw.value(phase="raw") if raw else 0.0
+        res["ids_stored"] = raw.value(phase="stored") if raw else 0.0
+        _require(res["hash_collisions"] > 0,
+                 "the collision counter did not grow on Zipf ids over 1e9 "
+                 "values into 10M rows")
+        # the full-width net
+        t0 = time.perf_counter()
+        net = DLRM(numFields=c["fields"], embeddingDim=c["dim"],
+                   denseUnits=c["dense"], numClasses=2,
+                   numEmbeddings=c["rows"]).init()
+        torch.cuda.synchronize()
+        res["init_s"] = time.perf_counter() - t0
+        res["params"] = sum(p.numel() for lp in net.params_.values()
+                            for p in lp.values())
+        _require(net.device.type == "cuda", f"net on {net.device}")
+        pit = PrefetchingDataSetIterator(
+            _dlrm_reader(c, records, c["rows"]), numWorkers=c["workers"],
+            device="cuda", shmBytes=c["shm_mb"] << 20)
+        tap = _tap(pit)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counters()
+        t0 = time.perf_counter()
+        net.fit(tap, epochs=1)
+        loss = net.score()
+        fit_s = time.perf_counter() - t0
+        counts = _counters()
+        pit.close()
+        res.update(steps=net.getIterationCount(), loss=loss, fit_s=fit_s,
+                   streamed_examples_per_s=sum(tap.sizes) / fit_s,
+                   pool_wait_s=tap.wait_s, pool_first_s=tap.first_s,
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   launches=counts)
+        _no_launches(rec, "dlrm_train", counts)
+        _require(net.getIterationCount() == c["batches"]
+                 and sum(tap.sizes) == c["batch"] * c["batches"]
+                 and set(tap.devices) == {"cuda"},
+                 f"{net.getIterationCount()} steps, batches {tap.sizes} on "
+                 f"{set(tap.devices)}")
+        _require(math.isfinite(loss), f"loss {loss}")
+        # the step alone, from a batch already on the card
+        ds = DataSet(first.features.torch.cuda(), first.labels.torch.cuda(),
+                     featuresMask=first.featuresMask.torch.cuda())
+        step_ms = _time_ms(torch, lambda: net.fit(ds), iters=8, warmup=1)
+        res["ms_per_step"] = step_ms
+        res["examples_per_s"] = c["batch"] / step_ms * 1e3
+        res["profile"] = _device_breakdown(torch, lambda: net.fit(ds),
+                                           top=8)
+        del net, tap, pit
+        torch.cuda.empty_cache()
+        # one step at the same widths, 65,536 rows: card against CPU
+        small = _dlrm_reader(c, records[:c["batch"]], c["check_rows"]).next()
+        cpu = DLRM(numFields=c["fields"], embeddingDim=c["dim"],
+                   denseUnits=c["dense"], numClasses=2,
+                   numEmbeddings=c["check_rows"]).init(device="cpu")
+        gpu = MultiLayerNetwork(cpu.conf).init(params={
+            k: {n: t.clone() for n, t in lp.items()}
+            for k, lp in cpu.params_.items()})
+        cpu.fit(small)
+        gpu.fit(DataSet(small.features.torch.cuda(),
+                        small.labels.torch.cuda(),
+                        featuresMask=small.featuresMask.torch.cuda()))
+        lc, lg = cpu.score(), gpu.score()
+        diffs = [(gp.cpu() - cpu.params_[k][n]).abs().reshape(-1)
+                 for k, lp in gpu.params_.items() for n, gp in lp.items()]
+        d = torch.cat(diffs)
+        # the gradient itself, through Adam's first moment (0.1 g after
+        # one step): each tensor's largest difference over its largest
+        # entry (reported, not gated: a ReLU whose pre-activation lies
+        # within float32 rounding of 0 passes one example's gradient on
+        # one device and not on the other)
+        grad_rel = {f"{k}/{n}": float((gs["m"].cpu() - cpu.optState_[k][n][
+            "m"]).abs().max() / cpu.optState_[k][n]["m"].abs().max())
+            for k, lp in gpu.optState_.items() for n, gs in lp.items()}
+        res["card_vs_cpu"] = dict(
+            loss_rel=abs(lc - lg) / abs(lc), param_max=float(d.max()),
+            share_1e6=float((d <= 1e-6).float().mean()),
+            share_1e5=float((d <= 1e-5).float().mean()),
+            grad_rel=max(grad_rel.values()), grad_rel_by_param=grad_rel)
+        del cpu, gpu, d, diffs
+    finally:
+        from deeplearning4j_tpu_torch import telemetry
+        telemetry.set_registry(prev)
+    rec["dlrm_train"] = res
+    cv = res["card_vs_cpu"]
+    print(f"dlrm_train: DLRM {c['fields']} x {c['dim']}, head {c['dense']}, "
+          f"{c['rows']:,} rows ({res['params']:,} params, init "
+          f"{res['init_s']:.1f} s); {res['steps']} batches of {c['batch']} "
+          f"from {len(records)} ragged records through the pool in "
+          f"{res['fit_s']:.2f} s ({res['streamed_examples_per_s']:.0f} "
+          f"examples/s streamed), loss {res['loss']:.5g}; {res['ms_per_step']:.1f} "
+          f"ms a step from the card ({res['examples_per_s']:.0f} examples/s), "
+          f"peak {res['peak_gb']:.1f} GB; inline ingest "
+          f"{res['ingest_ms_per_batch_inline']:.0f} ms a batch, "
+          f"{res['ids_raw']:.0f} ids -> {res['ids_stored']:.0f} stored, "
+          f"{res['hash_collisions']:.0f} collisions witnessed; profiled step "
+          f"idle {res['profile']['idle_share']}; card vs CPU at "
+          f"{c['check_rows']} rows: loss {cv['loss_rel']:.2e} rel, gradient "
+          f"{cv['grad_rel']:.2e} of its largest ("
+          + ", ".join(f"{k} {v:.1e}" for k, v in
+                      cv["grad_rel_by_param"].items()) + "), params max "
+          f"{cv['param_max']:.2e} ({cv['share_1e5']:.4f} within 1e-5, "
+          f"{cv['share_1e6']:.4f} within 1e-6); "
+          f"launches {res['launches']}")
+    for name, ms in res["profile"]["top"]:
+        print(f"    {ms:9.3f} ms  {name[:90]}")
+    print(card)
+    _require(cv["loss_rel"] <= DLRM_STEP_TOL["loss_rtol"]
+             and cv["param_max"] <= 2 * DLRM_RUN["lr"] + 1e-6
+             and cv["share_1e5"] >= DLRM_STEP_TOL["share"],
+             f"the card's step departs from the CPU's: {cv}")
+
+
+def phase_retrieval_serve(torch, rec, card):
+    """Item 59: a two-tower net (1,048,576 rows x 64, bags of 16) trained
+    for a few batches from a two-field ragged stream, served as
+    ``RetrievalLM.from_two_tower`` under ``ContinuousBatcher``:
+    ``topk_retrieve`` for 256 users against the flat ranking, k = 1
+    requests retire at admission (no decode step; no shed under a
+    page-deficit admission rule), the collision rule fires on a colliding
+    stream; requests/s and top-k latency p50/p99.  No launch."""
+    import math
+
+    import numpy as np
+    from deeplearning4j_tpu_torch.datavec import PrefetchingDataSetIterator
+    from deeplearning4j_tpu_torch.datavec.pipeline import (RaggedFeatureReader,
+                                                          hash_feature)
+    from deeplearning4j_tpu_torch.models.recsys import (RetrievalLM,
+                                                        topk_retrieve)
+    from deeplearning4j_tpu_torch.remote import (AdmissionControl,
+                                                 BucketLadder,
+                                                 ContinuousBatcher,
+                                                 ServiceOverloaded)
+    from deeplearning4j_tpu_torch.telemetry import (HealthMonitor,
+                                                    recsys_hash_collision_rule)
+    from deeplearning4j_tpu_torch.zoo import TwoTowerRecommender
+    c, res = RETRIEVAL, {}
+    prev = _fresh_telemetry()
+    cbs = []
+    try:
+        rng = np.random.RandomState(c["seed"])
+        n = c["batch"] * c["batches"]
+        recs = []
+        for i in range(n):
+            u = rng.randint(0, 10 ** 9, rng.randint(1, c["bag"] + 1))
+            v = rng.randint(0, 10 ** 9, rng.randint(1, c["bag"] + 1))
+            recs.append(((u.tolist(), v.tolist()), 0))     # clicks
+        net = TwoTowerRecommender(numEmbeddings=c["rows"],
+                                  embeddingDim=c["dim"],
+                                  bagSize=c["bag"]).init()
+        pit = PrefetchingDataSetIterator(
+            RaggedFeatureReader(recs, c["batch"], c["rows"], 1,
+                                bagBuckets=(c["bag"],), numFields=2),
+            numWorkers=2, device="cuda")
+        _reset_counters()
+        t0 = time.perf_counter()
+        net.fit(pit, epochs=1)
+        pit.close()
+        res["train_s"] = time.perf_counter() - t0
+        res["train_loss"] = net.score()
+        _require(math.isfinite(res["train_loss"]) and
+                 net.getIterationCount() == c["batches"],
+                 f"two-tower fit: {net.getIterationCount()} steps, loss "
+                 f"{res['train_loss']}")
+        lm = RetrievalLM.from_two_tower(net, maxLen=c["maxLen"])
+        cb = ContinuousBatcher(lm, name="recsys", pageSize=c["page"],
+                               maxSlots=c["slots"],
+                               ladder=BucketLadder(batchSizes=(c["slots"],),
+                                                   seqLens=(c["bag"],)))
+        cbs.append(cb)
+        res["warm_s"] = cb.warm()
+        cb.start()
+        users = [hash_feature(rng.randint(0, 10 ** 9, rng.randint(
+            1, c["bag"] + 1)), c["rows"]).astype(np.int32)
+            for _ in range(c["users"])]
+        lat = [None] * len(users)
+        outs = [None] * len(users)
+
+        def one(i):
+            t1 = time.perf_counter()
+            outs[i] = topk_retrieve(cb, users[i][None, :], c["k"],
+                                    timeout=600)[0]
+            lat[i] = time.perf_counter() - t1
+
+        t0 = time.perf_counter()
+        _parallel(one, list(range(len(users))))
+        wall = time.perf_counter() - t0
+        counts = _counters()
+        res.update(requests=len(users), wall_s=wall,
+                   requests_per_s=len(users) / wall,
+                   p50_ms=float(np.percentile(lat, 50)) * 1e3,
+                   p99_ms=float(np.percentile(lat, 99)) * 1e3)
+        # the flat ranking in float64 on the host, from the served table
+        W = lm.params["items"].double().cpu().numpy()
+        compared = mismatched = 0
+        for u, got in zip(users, outs):
+            q = W[u].mean(0)
+            s = W @ q
+            top = np.argpartition(-s, c["k"] + 1)[:c["k"] + 1]
+            order = top[np.lexsort((top, -s[top]))]
+            for r in range(c["k"]):
+                if s[order[r]] - s[order[r + 1]] < \
+                        RETRIEVAL_NEAR_TIE * abs(s[order[0]]):
+                    break                   # a near tie: order is noise
+                compared += 1
+                if int(got[r]) != int(order[r]):
+                    mismatched += 1
+                    break
+        res.update(ranks_compared=compared, mismatched=mismatched)
+        # k = 1: emitted at admission, no decode step
+        steps0 = cb._steps
+        one_out = [topk_retrieve(cb, u[None, :], 1, timeout=600)[0, 0]
+                   for u in users[:c["single"]]]
+        res["k1_decode_steps"] = cb._steps - steps0
+        res["k1_equal_rank1"] = all(int(a) == int(o[0]) for a, o in
+                                    zip(one_out, outs))
+        shed = ContinuousBatcher(
+            lm, name="recsys_shed", pageSize=c["page"], maxSlots=2,
+            ladder=BucketLadder(batchSizes=(2,), seqLens=(c["bag"],)),
+            admission=AdmissionControl(minFreePages=10 ** 9,
+                                       retryAfter=0.1))
+        cbs.append(shed)
+        shed.start()
+        try:
+            shed.submit({"tokens": users[0].tolist(),
+                         "maxNewTokens": c["k"]}, timeout=600)
+            res["k_shed"] = False
+        except ServiceOverloaded:
+            res["k_shed"] = True
+        res["k1_admitted_under_deficit"] = int(shed.submit(
+            {"tokens": users[0].tolist(), "maxNewTokens": 1},
+            timeout=600)[0, 0]) == int(outs[0][0])
+        counts2 = _counters()
+        _no_launches(rec, "retrieval_serve", {k: counts[k] + counts2[k]
+                                               for k in counts})
+        # the hash-collision alert on a colliding stream
+        r = RaggedFeatureReader([([i], 0) for i in range(64)], 16, 3, 1,
+                                collisionSampleEvery=1)
+        while r.hasNext():
+            r.next()
+        mon = HealthMonitor(rules=[recsys_hash_collision_rule()],
+                            interval=3600)
+        res["collision_rule_fired"] = \
+            "recsys_hash_collision" in mon.evaluate_once(now=0.0)
+        hist = _etl_metric("dl4j_tpu_recsys_topk_latency_seconds")
+        res["latency_observed"] = hist.count() if hist else 0
+    finally:
+        for b in cbs:
+            b.shutdown()
+        from deeplearning4j_tpu_torch import telemetry
+        telemetry.set_registry(prev)
+    rec["retrieval_serve"] = res
+    print(f"retrieval_serve: two-tower {c['rows']:,} x {c['dim']} trained "
+          f"{c['batches']} batches in {res['train_s']:.2f} s (loss "
+          f"{res['train_loss']:.4g}); {res['requests']} top-{c['k']} "
+          f"requests through the batcher ({c['slots']} slots) in "
+          f"{res['wall_s']:.2f} s: {res['requests_per_s']:.1f} requests/s, "
+          f"p50 {res['p50_ms']:.1f} ms, p99 {res['p99_ms']:.1f} ms; "
+          f"{res['ranks_compared']} ranks against the flat ranking, "
+          f"{res['mismatched']} apart; k=1: {res['k1_decode_steps']} decode "
+          f"steps, admitted under a page deficit "
+          f"{res['k1_admitted_under_deficit']} (k={c['k']} shed "
+          f"{res['k_shed']}); collision rule fired "
+          f"{res['collision_rule_fired']}")
+    print(card)
+    _require(res["mismatched"] == 0 and res["ranks_compared"] >=
+             0.99 * c["users"] * c["k"],
+             f"top-k against the flat ranking: {res['ranks_compared']} "
+             f"compared, {res['mismatched']} apart")
+    _require(res["k1_decode_steps"] == 0 and res["k1_equal_rank1"],
+             f"k=1 requests ran {res['k1_decode_steps']} decode steps")
+    _require(res["k_shed"] and res["k1_admitted_under_deficit"],
+             "single-step retrieval under a page deficit")
+    _require(res["collision_rule_fired"], "the collision rule did not fire")
+    _require(res["latency_observed"] >= c["users"] + c["single"],
+             f"top-k latency observed {res['latency_observed']} times")
+
+
 def _kernel_entry(name, replaces, launches, t):
     return {"name": name, "route": "cuda",
             "source": f"deeplearning4j_tpu_torch/csrc/{name}.cu",
@@ -6138,6 +6897,11 @@ def main(argv) -> int:
         run("etl_images_resnet50", phase_etl_images_resnet50, torch, rec,
             card)
         run("etl_sequences", phase_etl_sequences, torch, rec, card)
+        # DataVec's format readers, then the recommender tier: DLRM trains
+        # from a ragged stream, two-tower top-k is served by the batcher
+        run("datavec_formats", phase_datavec_formats, torch, rec, card)
+        run("dlrm_train", phase_dlrm_train, torch, rec, card)
+        run("retrieval_serve", phase_retrieval_serve, torch, rec, card)
 
     rec["card"] = card
     rec["failed"] = failed
@@ -6158,8 +6922,8 @@ def main(argv) -> int:
     # ResNet-50's activations (the model dispatches none); the phases
     # without a hand kernel on their path (recurrent, BERT, the loop around
     # fit, TF import, serving tier, ONNX import, the zoo, the HDF5 reader,
-    # the imported ResNet-50 and .keras archive, pretrain) add none (each
-    # checked zero).
+    # the imported ResNet-50 and .keras archive, pretrain, DataVec, the
+    # recommender tier) add none (each checked zero).
     # B1's times are at the serving shape (f32, causal), B2's and B3's at
     # the training shape in its dtype (bf16, not causal), B4's at ResNet-50's
     # stage-0 shape in bf16; the record holds the other shapes too.

@@ -5,9 +5,10 @@ PNG codec), the iterator glue, and the sharded producer pool with its
 pinned H2D staging ring onto the card.  Host work is numpy and the port's
 build of the C++ runtime (:mod:`deeplearning4j_tpu_torch.native`).
 
-The format readers ``audio``, ``codec``, ``arrow``, ``excel`` and
-``columnar`` wait for ROADMAP "A12 datavec formats": their names import
-from their modules and raise naming it.
+The format readers are here too: ``excel``, ``columnar`` and ``audio``
+as the reference has them, ``codec`` on the port's own GIF decoder
+(``gif.py``) and ``arrow`` on its own Arrow IPC / Feather v2 codec
+(``arrowipc.py``) — the H100 machine has neither PIL nor pyarrow.
 """
 from deeplearning4j_tpu_torch.datavec.writable import (  # noqa: F401
     BooleanWritable, DoubleWritable, FloatWritable, IntWritable, LongWritable,

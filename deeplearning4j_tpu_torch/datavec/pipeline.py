@@ -70,12 +70,11 @@ import threading
 import time
 import weakref
 from multiprocessing import shared_memory as _shm
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
-from deeplearning4j_tpu_torch import unported
 from deeplearning4j_tpu_torch.datasets.dataset import DataSet
 from deeplearning4j_tpu_torch.datasets.iterator import DataSetIterator
 
@@ -1002,8 +1001,207 @@ def hash_feature(values, numEmbeddings: int) -> np.ndarray:
     return (h % np.uint64(numEmbeddings)).astype(np.int64)
 
 
-#: the recommender tier's ragged reader (it feeds ``ShardedEmbeddingBag``)
-RaggedFeatureReader = unported("RaggedFeatureReader", "A11")
+class RaggedFeatureReader(DataSetIterator):
+    """Streaming ragged/hashed-feature ingestion for the recommender
+    tier (feeds ``ShardedEmbeddingBag``).
+
+    Records are ``(values, label)`` pairs where ``values`` is one
+    ragged list of raw categorical ids (``numFields == 1``) or a tuple
+    of ``numFields`` such lists.  Each batch:
+
+    - hashes raw ids into ``[0, numEmbeddings)`` (:func:`hash_feature`),
+    - dedups ids PER ROW host-side (phase 1 of the two-phase sparse
+      lookup: ``np.unique`` with counts — the duplicate multiplicity
+      moves into the ``featuresMask`` weights, so sum-pooling is
+      unchanged and only unique ids cross the interconnect),
+    - pads every bag to the smallest bucket in ``bagBuckets`` that fits
+      the batch's longest bag (id 0 / weight 0).  Raggedness therefore
+      maps to a FINITE set of batch shapes — the fused train step
+      compiles one executable per bucket and never re-traces on
+      per-batch raggedness.
+
+    The emitted DataSet carries features ``(b, numFields*bucket)``
+    (float-encoded ids), featuresMask weights of the same shape,
+    one-hot labels, and an ``offsets`` sidecar — the CSR row offsets of
+    the PRE-dedup ragged values (``numFields*b + 1`` int64) used for
+    exactly-once accounting across pool restarts.  Deterministic:
+    record order fully determines every batch, which is what the pool's
+    replay fast-forward needs.
+    """
+
+    def __init__(self, records, batchSize: int, numEmbeddings: int,
+                 numClasses: int, bagBuckets=(4, 8, 16, 32, 64, 128),
+                 numFields: int = 1, hashInputs: bool = True,
+                 collisionSampleEvery: int = 8,
+                 collisionSampleSize: int = 4096):
+        self.records = list(records)
+        self.batchSize = int(batchSize)
+        self.numEmbeddings = int(numEmbeddings)
+        self.numClasses = int(numClasses)
+        self.bagBuckets = tuple(sorted(int(b) for b in bagBuckets))
+        self.numFields = int(numFields)
+        self.hashInputs = bool(hashInputs)
+        # sampled collision estimator: hashed rows whose id falls on
+        # the sample stride remember the FIRST raw value seen; a later
+        # DIFFERENT raw value on the same row is a witnessed collision
+        # (counted once per distinct pair).  Both dicts are bounded —
+        # the estimator must never grow with stream length.
+        # 0 disables sampling entirely.
+        self.collisionSampleEvery = int(collisionSampleEvery)
+        self.collisionSampleSize = int(collisionSampleSize)
+        self._collisionSeen: Dict[int, int] = {}
+        self._collisionHits: set = set()
+        self._i = 0
+
+    # -- SPI ------------------------------------------------------------
+    def hasNext(self) -> bool:
+        return self._i < len(self.records)
+
+    def next(self, num: int = 0) -> DataSet:
+        n = num or self.batchSize
+        rows = self.records[self._i:self._i + n]
+        if not rows:
+            raise StopIteration("reader exhausted: call reset() first")
+        self._i += len(rows)
+        bags, labels = [], []
+        for values, label in rows:
+            fields = values if self.numFields > 1 else (values,)
+            if len(fields) != self.numFields:
+                raise ValueError(
+                    f"record has {len(fields)} fields, expected "
+                    f"{self.numFields}")
+            bags.extend(fields)
+            labels.append(label)
+        # the batch in one array: hashing is elementwise, the collision
+        # sampler walks the ids in the reference's order (bag by bag), and
+        # the unique runs per bag through one sort keyed (bag, id), so
+        # every bag comes out as the reference's per-bag np.unique gives
+        # it — without a numpy call per bag
+        dtype = np.uint64 if self.hashInputs else np.int64
+        parts = [np.asarray(v, dtype=dtype).reshape(-1) for v in bags]
+        lens = np.fromiter((len(p) for p in parts), np.int64, len(parts))
+        flat = np.concatenate(parts)
+        collisions = 0
+        if self.hashInputs:
+            ids = hash_feature(flat, self.numEmbeddings)
+            if self.collisionSampleEvery > 0:
+                raw = np.concatenate([np.asarray(v, dtype=np.int64)
+                                      .reshape(-1) for v in bags])
+                collisions = self._sampleCollisions(ids, raw)
+        else:
+            ids = flat
+        seg = np.repeat(np.arange(len(bags)), lens)
+        order = np.lexsort((ids, seg))
+        sid, sseg = ids[order], seg[order]
+        new = np.ones(len(sid), bool)
+        new[1:] = (sid[1:] != sid[:-1]) | (sseg[1:] != sseg[:-1])
+        starts = np.flatnonzero(new)
+        uniq, useg = sid[starts], sseg[starts]
+        counts = np.diff(np.append(starts, len(sid)))
+        per_bag = np.bincount(useg, minlength=len(bags))
+        first = np.cumsum(per_bag) - per_bag
+        pos = np.arange(len(uniq)) - first[useg]
+        bucket = self._bucket_for(int(per_bag.max()))
+        b = len(rows)
+        f = np.zeros((b, self.numFields * bucket), dtype=np.float32)
+        w = np.zeros((b, self.numFields * bucket), dtype=np.float32)
+        row, field = np.divmod(useg, self.numFields)
+        col = field * bucket + pos
+        f[row, col] = uniq
+        w[row, col] = counts.astype(np.float32)
+        l = np.zeros((b, self.numClasses), dtype=np.float32)
+        l[np.arange(b), np.asarray(labels, dtype=np.int64)] = 1.0
+        offsets = np.zeros(len(bags) + 1, dtype=np.int64)
+        np.cumsum(lens, out=offsets[1:])
+        self._note_batch(int(offsets[-1]), len(uniq), collisions)
+        return self._applyPre(
+            DataSet(f, l, featuresMask=w, offsets=offsets))
+
+    def _sampleCollisions(self, hashed: np.ndarray,
+                          raw: np.ndarray) -> int:
+        """Count NEWLY witnessed hash collisions among the sampled
+        stride of this bag.  A collision is two distinct raw ids on one
+        hashed row — silent by construction (the lookup math is
+        perfectly happy serving both users one embedding), so witnessing
+        is the only detection there is.  Sampling ``1/sampleEvery`` of
+        rows keeps the memory and per-batch cost bounded; scale the
+        counter by ``sampleEvery`` for a population estimate."""
+        sel = hashed % self.collisionSampleEvery == 0
+        if not sel.any():
+            return 0
+        count = 0
+        seen = self._collisionSeen
+        for h, r in zip(hashed[sel].tolist(), raw[sel].tolist()):
+            first = seen.get(h)
+            if first is None:
+                if len(seen) < self.collisionSampleSize:
+                    seen[h] = r
+            elif first != r:
+                key = (h, r)
+                if key not in self._collisionHits and \
+                        len(self._collisionHits) < \
+                        self.collisionSampleSize:
+                    self._collisionHits.add(key)
+                    count += 1
+        return count
+
+    def _bucket_for(self, longest: int) -> int:
+        for bkt in self.bagBuckets:
+            if longest <= bkt:
+                return bkt
+        raise ValueError(
+            f"bag of {longest} unique ids exceeds the largest bucket "
+            f"{self.bagBuckets[-1]} — raise bagBuckets (silent "
+            "truncation would violate exactly-once ingestion)")
+
+    def _note_batch(self, raw: int, stored: int,
+                    collisions: int = 0) -> None:
+        # ingestion telemetry — but ONLY in the parent process: a pool
+        # worker runs in host-only mode and its registry is discarded
+        # with it, so what a worker ingests is not counted (as in the
+        # reference)
+        from deeplearning4j_tpu_torch.ops.ndarray import host_only_arrays
+        if host_only_arrays():
+            return
+        from deeplearning4j_tpu_torch.telemetry import recsys_metrics
+        rm = recsys_metrics()
+        rm.lookup_rows().inc(raw, phase="raw")
+        rm.lookup_rows().inc(stored, phase="stored")
+        rm.dedup_ratio().set(stored / max(raw, 1))
+        if collisions:
+            rm.hash_collisions().inc(collisions)
+
+    def reset(self) -> None:
+        self._i = 0
+
+    def batch(self) -> int:
+        return self.batchSize
+
+    def totalOutcomes(self) -> int:
+        return self.numClasses
+
+    def inputColumns(self) -> int:
+        return self.numFields
+
+    def streaming(self) -> bool:
+        return True         # per-record hash+dedup is real host work
+
+    def setEpoch(self, epoch: int) -> None:
+        pass                # deterministic: no per-epoch randomness
+
+    def shard(self, index: int, count: int) -> "RaggedFeatureReader":
+        """Deterministic 1-of-``count`` record shard (producer-pool
+        worker contract)."""
+        out = RaggedFeatureReader(
+            self.records[index::count], self.batchSize,
+            self.numEmbeddings, self.numClasses,
+            bagBuckets=self.bagBuckets, numFields=self.numFields,
+            hashInputs=self.hashInputs,
+            collisionSampleEvery=self.collisionSampleEvery,
+            collisionSampleSize=self.collisionSampleSize)
+        if self.getPreProcessor() is not None:
+            out.setPreProcessor(self.getPreProcessor())
+        return out
 
 
 # ------------------------------------------------------- auto-selection ----

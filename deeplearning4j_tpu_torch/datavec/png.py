@@ -1,5 +1,5 @@
 """The port's own image codec, built on ``zlib``: a PNG reader and writer,
-a binary PGM/PPM reader, and PIL's ``convert``, ``resize(BILINEAR)`` and
+a binary PGM/PPM reader, and PIL's ``convert``, ``resize`` (BILINEAR and BICUBIC) and
 float ``rotate(BILINEAR)`` in numpy — what ``datavec/image.py`` needs on a
 machine without PIL (the H100 machine has none; the reference decodes
 with PIL, ``deeplearning4j_tpu/datavec/image.py:25-53``).
@@ -29,7 +29,7 @@ from typing import Optional, Tuple
 import numpy as np
 
 __all__ = ["read_image", "read_png", "read_pnm", "write_png", "convert",
-           "resize_bilinear", "rotate_bilinear_f", "is_native_format"]
+           "resize_bilinear", "resize_bicubic", "rotate_bilinear_f", "is_native_format"]
 
 _PNG_SIG = b"\x89PNG\r\n\x1a\n"
 # colour type -> (mode, samples a pixel)
@@ -229,13 +229,34 @@ def convert(pixels: np.ndarray, mode: str, palette: Optional[np.ndarray],
 _PRECISION_BITS = 32 - 8 - 2
 
 
-def _coeffs(in_size: int, out_size: int):
-    """PIL's ``precompute_coeffs`` for the triangle filter (support 1),
-    then ``normalize_coeffs_8bpc``: per output index the first input index,
+def _triangle(x: float) -> float:
+    x = abs(x)
+    return 1.0 - x if x < 1.0 else 0.0
+
+
+def _bicubic(x: float) -> float:
+    """PIL's ``bicubic_filter`` (a = -0.5)."""
+    a = -0.5
+    x = abs(x)
+    if x < 1.0:
+        return ((a + 2.0) * x - (a + 3.0)) * x * x + 1
+    if x < 2.0:
+        return (((x - 5) * x + 8) * x - 4) * a
+    return 0.0
+
+
+# filter -> (function, support): Resample.c's BILINEAR and BICUBIC
+_FILTERS = {"bilinear": (_triangle, 1.0), "bicubic": (_bicubic, 2.0)}
+
+
+def _coeffs(in_size: int, out_size: int, kind: str = "bilinear"):
+    """PIL's ``precompute_coeffs`` for a filter of ``_FILTERS``, then
+    ``normalize_coeffs_8bpc``: per output index the first input index,
     and fixed-point weights (out, ksize) with zeros past each window."""
+    filt, fsupport = _FILTERS[kind]
     scale = in_size / out_size
     filterscale = max(scale, 1.0)
-    support = 1.0 * filterscale
+    support = fsupport * filterscale
     ksize = int(math.ceil(support)) * 2 + 1
     bounds = np.zeros((out_size, 2), np.int64)
     kk = np.zeros((out_size, ksize), np.float64)
@@ -244,10 +265,7 @@ def _coeffs(in_size: int, out_size: int):
         ss = 1.0 / filterscale
         xmin = max(int(center - support + 0.5), 0)
         xmax = min(int(center + support + 0.5), in_size) - xmin
-        ws = []
-        for x in range(xmax):
-            t = abs((x + xmin - center + 0.5) * ss)
-            ws.append(1.0 - t if t < 1.0 else 0.0)
+        ws = [filt((x + xmin - center + 0.5) * ss) for x in range(xmax)]
         total = sum(ws)
         for x, wv in enumerate(ws):
             kk[xx, x] = wv / total if total != 0.0 else wv
@@ -273,26 +291,39 @@ def _pass(img: np.ndarray, axis: int, bounds, k, ksize: int) -> np.ndarray:
     return np.clip(out, 0, 255).astype(np.uint8)
 
 
-def resize_bilinear(img: np.ndarray, height: int, width: int) -> np.ndarray:
-    """PIL's ``Image.resize((width, height), BILINEAR)`` of a uint8
-    (h, w) or (h, w, c) image."""
+def _resize(img: np.ndarray, height: int, width: int,
+            kind: str) -> np.ndarray:
     squeeze = img.ndim == 2
     a = img[:, :, None] if squeeze else img
     h, w = a.shape[:2]
     if (h, w) == (height, width):
         return img.copy()
-    bv, kv, ksv = _coeffs(h, height)
+    bv, kv, ksv = _coeffs(h, height, kind)
     if w != width:
         # the horizontal pass runs over the rows the vertical one reads
         first = int(bv[0, 0])
         last = int(bv[-1, 0] + bv[-1, 1])
-        bh, kh, ksh = _coeffs(w, width)
+        bh, kh, ksh = _coeffs(w, width, kind)
         a = _pass(a[first:last], 1, bh, kh, ksh)
         bv = bv.copy()
         bv[:, 0] -= first
     if h != height:
         a = _pass(a, 0, bv, kv, ksv)
     return a[:, :, 0] if squeeze else a
+
+
+def resize_bilinear(img: np.ndarray, height: int, width: int) -> np.ndarray:
+    """PIL's ``Image.resize((width, height), BILINEAR)`` of a uint8
+    (h, w) or (h, w, c) image."""
+    return _resize(img, height, width, "bilinear")
+
+
+def resize_bicubic(img: np.ndarray, height: int, width: int) -> np.ndarray:
+    """PIL's ``Image.resize((width, height))`` of a uint8 (h, w) L or
+    (h, w, 3) RGB image: Pillow's default filter for those modes is
+    BICUBIC (support 2, a = -0.5), in the same fixed point as the
+    bilinear pass."""
+    return _resize(img, height, width, "bicubic")
 
 
 # ------------------------------------------------------------ rotate ----

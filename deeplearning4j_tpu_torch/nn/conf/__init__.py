@@ -8,9 +8,8 @@ package, so one JSON builds both nets.
 
 ``graphBuilder()`` returns the ComputationGraph builder of
 ``models/graph_conf.py``.  Every layer module of the reference is here but
-the SameDiff layers (ROADMAP A12b) and the recommender tier's embedding
-bag (A11): their names import, and building one (or reading one in
-``layer_from_json``) raises naming its item.
+the SameDiff layers (ROADMAP A12b): their names import, and building one
+(or reading one in ``layer_from_json``) raises naming A12b.
 """
 from __future__ import annotations
 
@@ -274,6 +273,7 @@ from deeplearning4j_tpu_torch.nn.conf import attention  # noqa: E402,F401
 from deeplearning4j_tpu_torch.nn.conf.autoencoder import AutoEncoder  # noqa: E402,F401,E501
 from deeplearning4j_tpu_torch.nn.conf import convolutional  # noqa: E402,F401
 from deeplearning4j_tpu_torch.nn.conf import convolutional3d  # noqa: E402,F401,E501
+from deeplearning4j_tpu_torch.nn.conf import embedding  # noqa: E402,F401
 from deeplearning4j_tpu_torch.nn.conf import misc  # noqa: E402,F401
 from deeplearning4j_tpu_torch.nn.conf import recurrent  # noqa: E402,F401
 from deeplearning4j_tpu_torch.nn.conf.variational import (  # noqa: E402,F401

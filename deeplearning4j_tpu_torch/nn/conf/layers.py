@@ -728,11 +728,14 @@ for _cls in (DenseLayer, ConvolutionLayer, SubsamplingLayer,
 def layer_from_json(d: dict) -> Layer:
     d = dict(d)
     name = d.pop("@class")
+    if name in ("FeatureInteractionLayer", "DotProductScorer"):
+        # the recommender layers register when their module loads
+        import deeplearning4j_tpu_torch.models.recsys  # noqa: F401
     if name not in _LAYER_REGISTRY:
         raise NotImplementedError(
-            f"layer {name} is not ported yet (ROADMAP A11: the recommender "
-            f"tier's ShardedEmbeddingBag; A12b: the SameDiff layers, "
-            f"SameDiffLayer, SameDiffLambdaLayer and PixelShuffleLayer)")
+            f"layer {name} is not ported yet (ROADMAP A12b: the SameDiff "
+            f"layers, SameDiffLayer, SameDiffLambdaLayer and "
+            f"PixelShuffleLayer)")
     for k in ("updater", "biasUpdater"):
         if d.get(k):
             d[k] = IUpdater.fromJson(d[k])

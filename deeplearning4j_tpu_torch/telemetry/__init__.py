@@ -9,10 +9,11 @@ Python (no device code), so each is a copy or a cut of the reference's:
 - :mod:`.context` — W3C trace context and the per-request timeline store
   behind ``/v1/requests/<traceId>``;
 - :mod:`.health` — ``ThresholdRule``, ``HealthMonitor`` (alert → action
-  remediations), ``/healthz``;
+  remediations), ``/healthz``, ``recsys_hash_collision_rule``;
 - :mod:`.timeseries` — the retention ring behind ``/metrics/query``;
-- :mod:`.instrument` — ``ServingMetrics``, latency exemplars and the ETL
-  namespace (``EtlMetrics``, ``note_etl_wait``) DataVec reports through;
+- :mod:`.instrument` — ``ServingMetrics``, latency exemplars, the ETL
+  namespace (``EtlMetrics``, ``note_etl_wait``) DataVec reports through
+  and the recommender tier's (``RecsysMetrics``);
 - :mod:`.http` — the shared observability GET routing.
 
 Federation, export, OTLP, the run log and the training instruments wait
@@ -25,9 +26,11 @@ from deeplearning4j_tpu_torch.telemetry.context import (  # noqa: F401
 from deeplearning4j_tpu_torch.telemetry.flight import (  # noqa: F401
     FlightRecorder, flight_recorder, set_flight_recorder)
 from deeplearning4j_tpu_torch.telemetry.health import (  # noqa: F401
-    AlertRule, HealthMonitor, ThresholdRule, health_summary)
+    AlertRule, HealthMonitor, ThresholdRule, health_summary,
+    recsys_hash_collision_rule)
 from deeplearning4j_tpu_torch.telemetry.instrument import (  # noqa: F401
-    EtlMetrics, etl_metrics, note_etl_wait, ServingMetrics, clear_exemplars, exemplar_for, latency_exemplars,
+    EtlMetrics, etl_metrics, note_etl_wait, RecsysMetrics, recsys_metrics,
+    ServingMetrics, clear_exemplars, exemplar_for, latency_exemplars,
     observe_exemplar, serving_metrics)
 from deeplearning4j_tpu_torch.telemetry.registry import (  # noqa: F401
     DEFAULT_BUCKETS, Counter, Gauge, Histogram, MetricsRegistry,

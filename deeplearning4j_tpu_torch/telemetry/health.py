@@ -10,7 +10,9 @@ serving tier needs.
   ``dl4j_tpu_health_alerts_firing`` / ``dl4j_tpu_health_alert_state`` and
   dispatches the actions registered on each edge (:meth:`HealthMonitor.
   registerAction`, how ``ReplicaSet.armAutoscale`` scales);
-- :func:`health_summary` — the ``/healthz`` liveness JSON.
+- :func:`health_summary` — the ``/healthz`` liveness JSON;
+- :func:`recsys_hash_collision_rule` — the recommender tier's hashed-id
+  collision alert.
 
 Wait for ROADMAP A12: the training rules (``TrainingStallRule``,
 ``ReplicaStragglerRule``, ``EtlStarvationRule``,
@@ -34,7 +36,8 @@ from typing import Dict, List, Optional, Sequence
 from deeplearning4j_tpu_torch.telemetry.registry import (MetricsRegistry,
                                                          get_registry)
 
-__all__ = ["AlertRule", "ThresholdRule", "HealthMonitor", "health_summary"]
+__all__ = ["AlertRule", "ThresholdRule", "HealthMonitor", "health_summary",
+           "recsys_hash_collision_rule"]
 
 _process_start = time.time()
 
@@ -98,6 +101,19 @@ def _total_value(metric) -> float:
         return sum(float(v) for _k, v in metric.data().get("cells", []))
     except (TypeError, ValueError):
         return 0.0
+
+
+def recsys_hash_collision_rule(threshold: float = 1.0) -> ThresholdRule:
+    """Fire when the :class:`~deeplearning4j_tpu_torch.datavec.pipeline.
+    RaggedFeatureReader` sampled estimator has observed ``threshold``
+    or more distinct raw ids sharing a hashed embedding row.  Hash
+    collisions never error — two users silently share an embedding and
+    ranking quality degrades — so the counter (and this rule) is the
+    only way the condition pages anyone before an offline metric
+    drifts."""
+    return ThresholdRule("recsys_hash_collision",
+                         "dl4j_tpu_recsys_hash_collisions_total", ">=",
+                         threshold)
 
 
 class HealthMonitor:

@@ -22,7 +22,8 @@ import threading
 from deeplearning4j_tpu_torch.telemetry.registry import (DEFAULT_BUCKETS,
                                                          get_registry)
 
-__all__ = ["EtlMetrics", "etl_metrics", "note_etl_wait",
+__all__ = ["EtlMetrics", "etl_metrics", "note_etl_wait", "RecsysMetrics",
+           "recsys_metrics", "RECSYS_TOPK_BUCKETS",
            "ServingMetrics", "serving_metrics", "SERVING_LATENCY_BUCKETS",
            "SERVING_WARMUP_BUCKETS", "observe_exemplar", "exemplar_for",
            "latency_exemplars", "clear_exemplars"]
@@ -422,6 +423,71 @@ def etl_metrics() -> EtlMetrics:
     """Accessor for the shared ETL metric namespace (see
     :class:`EtlMetrics`)."""
     return _ETL_METRICS
+
+
+#: a top-k retrieval request is one prefill (+ k-1 fixed-shape decode
+#: steps): sub-ms warm on the CPU proxy to tens of ms under queueing —
+#: resolution concentrated under 100 ms where the serving SLO lives
+RECSYS_TOPK_BUCKETS = (
+    0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
+    1.0, 2.5)
+
+
+class RecsysMetrics:
+    """The ``dl4j_tpu_recsys_*`` namespace, registered from ONE site.
+
+    The recommender tier reports here: ingestion volume and dedup
+    effectiveness from ``RaggedFeatureReader`` (host-side per-row
+    unique of hashed ids), the interconnect bytes a table-parallel
+    lookup moves (computed statically from the exchange shapes — no
+    device sync), and end-to-end top-k retrieval latency through
+    ``ContinuousBatcher``.  Accessors re-resolve through
+    :func:`get_registry` on every call (tests swap the registry).
+    """
+
+    def lookup_rows(self):
+        return get_registry().counter(
+            "dl4j_tpu_recsys_lookup_rows_total",
+            "Embedding ids ingested for lookup, by pipeline phase "
+            "(raw = before host-side dedup, stored = after)",
+            labelnames=("phase",))
+
+    def alltoall_bytes(self):
+        return get_registry().counter(
+            "dl4j_tpu_recsys_alltoall_bytes_total",
+            "Interconnect bytes moved by table-parallel sparse "
+            "lookups (id requests + resolved rows + row all-gather), "
+            "computed from static exchange shapes")
+
+    def dedup_ratio(self):
+        return get_registry().gauge(
+            "dl4j_tpu_recsys_dedup_ratio",
+            "stored/raw id ratio of the last ingested ragged batch "
+            "(1.0 = no duplicates; lower is better)")
+
+    def topk_latency(self):
+        return get_registry().histogram(
+            "dl4j_tpu_recsys_topk_latency_seconds",
+            "End-to-end top-k retrieval latency through the "
+            "continuous batcher (submit to ranked ids)",
+            buckets=RECSYS_TOPK_BUCKETS)
+
+    def hash_collisions(self):
+        return get_registry().counter(
+            "dl4j_tpu_recsys_hash_collisions_total",
+            "Distinct raw feature values observed mapping to the same "
+            "hashed embedding row (sampled estimator in "
+            "RaggedFeatureReader; silent collisions degrade ranking "
+            "quality without ever erroring)")
+
+
+_RECSYS_METRICS = RecsysMetrics()
+
+
+def recsys_metrics() -> RecsysMetrics:
+    """Accessor for the shared recommender-tier metric namespace (see
+    :class:`RecsysMetrics`)."""
+    return _RECSYS_METRICS
 
 
 def note_etl_wait(seconds: float, owner) -> None:

@@ -1,9 +1,8 @@
 """Model zoo (the port of ``deeplearning4j_tpu/zoo``): every architecture
 of the reference's zoo, BERT on SameDiff, and the local-file pretrained
-loader.  ``TwoTowerRecommender`` and ``DLRM`` wait for the recommender
-tier (ROADMAP A11), ``SRGAN`` and ``PixelShuffleLayer`` for
-``SameDiffLambdaLayer`` (A12b): their names import, and building one
-raises naming its item."""
+loader.  ``SRGAN`` and ``PixelShuffleLayer`` wait for
+``SameDiffLambdaLayer`` (ROADMAP A12b): their names import, and building
+one raises naming that item."""
 from deeplearning4j_tpu_torch.zoo.models import (  # noqa: F401
     DLRM, AlexNet, LeNet, ResNet50, SimpleCNN, TwoTowerRecommender, VGG16,
     ZooModel)

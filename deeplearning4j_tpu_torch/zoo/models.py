@@ -2,15 +2,13 @@
 (the reference's ``zoo/model/{LeNet,SimpleCNN,AlexNet,VGG16,ResNet50}.java``:
 architectures built with the config DSL).  ``init`` and ``initPretrained``
 build the model on ``cuda`` unless the caller passes another device.
-``TwoTowerRecommender`` and ``DLRM`` wait for the recommender tier
-(ROADMAP A11).
+``TwoTowerRecommender`` and ``DLRM`` are the recommender tier's models.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Tuple
 
-from deeplearning4j_tpu_torch import unported
 from deeplearning4j_tpu_torch.learning.config import Adam, Nesterovs
 from deeplearning4j_tpu_torch.models.graph import ComputationGraph
 from deeplearning4j_tpu_torch.models.graph_conf import ElementWiseVertex
@@ -249,5 +247,71 @@ class ResNet50(_GraphZooModel):
         return gb
 
 
-TwoTowerRecommender = unported("TwoTowerRecommender", "A11")
-DLRM = unported("DLRM", "A11")
+@dataclasses.dataclass
+class TwoTowerRecommender(ZooModel):
+    """Two-tower retrieval model over a shared hashed-id embedding table
+    (the recommender tier): the user-feature bag and the item-feature bag
+    pool through ONE ``ShardedEmbeddingBag``, scored by the dot-product
+    affinity head with binary cross-entropy.  Input: (b, 2*bagSize)
+    float-encoded hashed ids — user bag | item bag; labels (b, 1)
+    click/no-click.  Serve with ``RetrievalLM.from_two_tower(net)``."""
+    numClasses: int = 1
+    numEmbeddings: int = 8192
+    embeddingDim: int = 16
+    bagSize: int = 16
+
+    def init(self, device=None) -> MultiLayerNetwork:
+        from deeplearning4j_tpu_torch.models.recsys import DotProductScorer
+        from deeplearning4j_tpu_torch.nn.conf.embedding import \
+            ShardedEmbeddingBag
+        conf = (NeuralNetConfiguration.builder().seed(self.seed)
+                .updater(Adam(1e-3)).weightInit("XAVIER")
+                .list()
+                .layer(ShardedEmbeddingBag.builder()
+                       .numEmbeddings(self.numEmbeddings)
+                       .embeddingDim(self.embeddingDim)
+                       .numFields(2).build())
+                .layer(DotProductScorer.builder()
+                       .embeddingDim(self.embeddingDim).build())
+                .setInputType(InputType.feedForward(2 * self.bagSize))
+                .build())
+        return MultiLayerNetwork(conf, device=device).init()
+
+
+@dataclasses.dataclass
+class DLRM(ZooModel):
+    """DLRM-style ranking model (the recommender tier): embedding bags per
+    categorical field, pairwise-dot feature interaction, dense MLP head
+    (no bottom MLP: the reference's zoo model has none).  Input:
+    (b, numFields*bagSize) hashed ids; labels (b, numClasses) one-hot."""
+    numClasses: int = 2
+    numEmbeddings: int = 8192
+    embeddingDim: int = 16
+    numFields: int = 4
+    bagSize: int = 8
+    denseUnits: Tuple[int, ...] = (64, 32)
+
+    def init(self, device=None) -> MultiLayerNetwork:
+        from deeplearning4j_tpu_torch.models.recsys import \
+            FeatureInteractionLayer
+        from deeplearning4j_tpu_torch.nn.conf.embedding import \
+            ShardedEmbeddingBag
+        b = (NeuralNetConfiguration.builder().seed(self.seed)
+             .updater(Adam(1e-3)).weightInit("XAVIER")
+             .list()
+             .layer(ShardedEmbeddingBag.builder()
+                    .numEmbeddings(self.numEmbeddings)
+                    .embeddingDim(self.embeddingDim)
+                    .numFields(self.numFields).build())
+             .layer(FeatureInteractionLayer.builder()
+                    .numFields(self.numFields).build()))
+        for nOut in self.denseUnits:
+            b.layer(DenseLayer.builder().nOut(nOut)
+                    .activation("relu").build())
+        conf = (b.layer(OutputLayer.builder("mcxent")
+                        .nOut(self.numClasses).activation("softmax")
+                        .build())
+                .setInputType(InputType.feedForward(
+                    self.numFields * self.bagSize))
+                .build())
+        return MultiLayerNetwork(conf, device=device).init()

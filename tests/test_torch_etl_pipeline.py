@@ -180,8 +180,10 @@ def test_stage_batch_on_the_host_hands_out_cpu_arrays():
 
 
 def test_ragged_reader_names_a11_and_hash_feature_is_the_references():
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        T.pipeline.RaggedFeatureReader([], 1, 8, 2)
+    """A11's ragged reader, once a stand-in here, is ported (its batches
+    are held to the reference's in ``tests/test_torch_recsys.py``)."""
+    r = T.pipeline.RaggedFeatureReader([], 1, 8, 2)
+    assert not r.hasNext() and r.streaming() and r.inputColumns() == 1
     v = np.random.RandomState(0).randint(0, 2 ** 40, 1000)
     np.testing.assert_array_equal(pipeline.hash_feature(v, 4099),
                                   J.pipeline.hash_feature(v, 4099))

@@ -575,9 +575,10 @@ def test_unported_pieces_raise_naming_their_roadmap_item():
     # A6's vertices, which this test once refused, now build
     assert tgc.vertex_from_json({"@class": "SubsetVertex", "fromIndex": 1,
                                  "toIndex": 2}).toIndex == 2
-    # A4's VAE, which this test once refused, loads; A11's layer does not
-    with pytest.raises(NotImplementedError, match="A11"):
-        tlayers.layer_from_json({"@class": "ShardedEmbeddingBag"})
+    # A4's VAE and A11's embedding bag, which this test once refused, load
+    assert type(tlayers.layer_from_json(
+        {"@class": "ShardedEmbeddingBag", "numEmbeddings": 8,
+         "embeddingDim": 2})).__name__ == "ShardedEmbeddingBag"
     assert type(tlayers.layer_from_json(
         {"@class": "VariationalAutoencoder", "nIn": 4, "nOut": 2})) \
         .__name__ == "VariationalAutoencoder"

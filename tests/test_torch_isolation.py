@@ -421,19 +421,23 @@ def test_zoo_slice_public_names_import_from_both_packages(module, name):
     """Every public name of the reference's ``nn.conf``,
     ``nn.conf.convolutional``, ``models`` and ``zoo`` imports from the port
     under the same path; the ones still unported raise naming their
-    ROADMAP item when built."""
+    ROADMAP item when built; the recommender tier's models (A11, ported)
+    build."""
     import importlib
     port = getattr(importlib.import_module(
         f"deeplearning4j_tpu_torch.{module}"), name)
     assert callable(port)
     unported = {"SameDiffLambdaLayer": "A12b", "SameDiffLayer": "A12b",
                 "SDLayerParams": "A12b", "SRGAN": "A12b",
-                "PixelShuffleLayer": "A12b", "TwoTowerRecommender": "A11",
-                "DLRM": "A11"}
+                "PixelShuffleLayer": "A12b"}
     if name in unported:
         with pytest.raises(NotImplementedError,
                            match=f"ROADMAP {unported[name]}"):
             port()
+    elif name in ("TwoTowerRecommender", "DLRM"):
+        ref = getattr(importlib.import_module(f"deeplearning4j_tpu.{module}"),
+                      name)
+        assert port().numEmbeddings == ref().numEmbeddings
 
 
 KERAS_SLICE_MODULES = ["nn.conf.attention", "nn.conf.autoencoder",
@@ -572,21 +576,88 @@ DATAVEC_SLICE_NAMES = [(m, n) for m in (
 def test_datavec_slice_public_names_import_from_both_packages(module, name):
     """Every public name of the reference's ``ops``, ``config``, ``native``
     and ``datavec`` (and the ETL names of ``telemetry``) imports from the
-    port under the same path; the format readers raise naming ROADMAP
-    "A12 datavec formats" and the recommender's ragged reader A11."""
+    port under the same path and is the port's own: the format readers
+    ("A12 datavec formats") and the recommender's ragged reader (A11) are
+    ported, defined in the port's module of the same name."""
     import importlib
     port = getattr(importlib.import_module(
         f"deeplearning4j_tpu_torch.{module}"), name)
     assert callable(port)
-    if name in _FORMAT_NAMES:
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP A12 datavec formats"):
-            port()
-    elif name == "RaggedFeatureReader":
-        with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-            port()
-    else:
-        assert "is not ported yet" not in (port.__doc__ or "")
+    assert "is not ported yet" not in (port.__doc__ or "")
+    if name in _FORMAT_NAMES or name == "RaggedFeatureReader":
+        ref = getattr(importlib.import_module(
+            f"deeplearning4j_tpu.{module}"), name)
+        assert port.__module__ == ref.__module__.replace(
+            "deeplearning4j_tpu.", "deeplearning4j_tpu_torch.")
+
+
+RECSYS_SLICE_NAMES = [(m, n) for m in ("nn.conf.embedding", "models.recsys")
+                      for n in _own_names(m)] + \
+    [("zoo", "TwoTowerRecommender"), ("zoo", "DLRM"),
+     ("datavec.pipeline", "RaggedFeatureReader"),
+     ("datavec.pipeline", "hash_feature"),
+     ("telemetry", "RecsysMetrics"), ("telemetry", "recsys_metrics"),
+     ("telemetry", "recsys_hash_collision_rule"),
+     ("telemetry.health", "recsys_hash_collision_rule")]
+
+
+@pytest.mark.parametrize("module,name", RECSYS_SLICE_NAMES)
+def test_recsys_slice_public_names_import_from_both_packages(module, name):
+    """Every public name of the reference's recommender tier imports from
+    the port under the same path and is ported; the one exception,
+    ``embedding_lookup_table_parallel`` (a ``shard_map`` over a mesh),
+    raises naming ROADMAP A10."""
+    import importlib
+    port = getattr(importlib.import_module(
+        f"deeplearning4j_tpu_torch.{module}"), name)
+    ref = getattr(importlib.import_module(f"deeplearning4j_tpu.{module}"),
+                  name)
+    assert callable(port) and callable(ref)
+    assert "is not ported yet" not in (port.__doc__ or "")
+    if name == "embedding_lookup_table_parallel":
+        with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+            port(None, None, None)
+    if name == "recsys_metrics":
+        assert sorted(n for n in vars(type(port())) if not n.startswith(
+            "_")) == sorted(n for n in vars(type(ref()))
+                            if not n.startswith("_"))
+
+
+_NO_PIL_NO_ARROW = """
+import importlib, json, sys
+for name in {names!r}:
+    importlib.import_module(name)
+from deeplearning4j_tpu_torch.datavec import ArrowRecordReader
+from deeplearning4j_tpu_torch.datavec.gif import read_gif
+rr = ArrowRecordReader().initialize({feather!r})
+n = sum(1 for _ in rr)
+frames = read_gif({gif!r})
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("PIL", "pyarrow", "jax",
+                                    "deeplearning4j_tpu"))
+print(n, frames.shape, "leaked:", bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_format_and_recsys_modules_load_neither_pil_nor_pyarrow():
+    """The new modules, imported together, then an LZ4 Feather file and
+    a composited GIF read through them (the committed fixtures), load
+    neither PIL nor pyarrow (the card's machine has neither) nor JAX."""
+    names = [f"deeplearning4j_tpu_torch.{m}" for m in (
+        "datavec.excel", "datavec.columnar", "datavec.audio",
+        "datavec.gif", "datavec.codec", "datavec.arrowipc", "datavec.arrow",
+        "datavec.pipeline", "nn.conf.embedding", "models.recsys", "zoo",
+        "telemetry")]
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    fx = REPO / "tests" / "fixtures"
+    proc = subprocess.run(
+        [sys.executable, "-c", _NO_PIL_NO_ARROW.format(
+            names=names, feather=str(fx / "arrow_lz4.feather"),
+            gif=str(fx / "gif_composited.gif"))],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "160 (5, 32, 32, 3) leaked: []" in proc.stdout
 
 
 def test_nd4j_creation_defaults_to_cuda_and_never_falls_back():

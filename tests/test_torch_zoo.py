@@ -160,7 +160,14 @@ def test_narrow_yolo2_fit_step_matches_the_reference():
                                        ("DLRM", "A11"), ("SRGAN", "A12b"),
                                        ("PixelShuffleLayer", "A12b")])
 def test_unported_zoo_names_raise_naming_their_item(name, item):
+    """A12b's names still raise naming it; A11's recommender models,
+    ported, build as the reference's (``tests/test_torch_recsys.py``)."""
     cls = getattr(tz, name)
+    if item == "A11":
+        net = cls(numEmbeddings=64).init(device="cpu")
+        assert net.params_["0"]["W"].shape[0] == 64
+        assert cls.builder().numEmbeddings(32).build().numEmbeddings == 32
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         cls()
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
