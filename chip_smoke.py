@@ -437,7 +437,33 @@ which must pass or the script exits non-zero without a result line:
    up to near ties (``RETRIEVAL_NEAR_TIE``); k = 1 requests run no
    decode step and pass a page-deficit admission rule that sheds k = 10;
    ``recsys_hash_collision_rule`` fires on a colliding stream;
-   requests/s and latency p50/p99; no launch.
+   requests/s and latency p50/p99; no launch;
+60. ``samediff_ops``: every case of ``autodiff/op_cases.py`` (the 240 ops
+   SameDiff gained with its control flow, at the CPU tests' shapes) on the
+   card against the same graph on the CPU, held as the case says (the
+   random ops by moments, and to the same draw on two card runs); the
+   count that holds and the slowest five; no launch;
+61. ``samediff_control_flow`` (``SD_CHAR``): BASELINE config 4's char
+   model as a SameDiff graph (two ``rnn().lstmLayer(200)``, a dense
+   softmax, batch 32 x 50, Adam 5e-3) trained 8 iterations by
+   ``SameDiff.fit``; one step on the card against the CPU (the loss
+   within 1e-4 relative, every variable within rtol 1e-4 + atol 1e-5);
+   ``forLoop``
+   over ``lstmCell`` against ``lstmLayer`` and a step through it;
+   ``RNN_SAMPLE`` characters sampled by ``whileLoop`` (an ``ifCond`` in
+   its body) equal to the CPU's up to a near tie; the sampler's zip
+   restored bit for bit; ms an iteration, characters/s; no launch;
+62. ``srgan_train`` (``SRGAN_RUN``): ``SRGAN`` at SRResNet's widths (16
+   blocks, 24 -> 96, batch 16, Adam 1e-4) trained 8 steps by
+   ``ComputationGraph.fit`` and its discriminator 8 steps by
+   ``MultiLayerNetwork.fit``; ms a step, images/s, peak memory, two
+   profiled steps; one generator step on the card against the CPU (the
+   same limits); the
+   ``ModelSerializer`` zip bit for bit; no launch;
+63. ``samediff_debug``: ``execDebug`` fires its listener once per op in
+   the staged order; ``stepCostAnalysis`` of the char model's step against
+   its products' count; ``check_gradients`` in float64 on the card through
+   ``forLoop`` and ``ifCond``; no launch.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``.  With ``--record PATH`` it also
@@ -862,6 +888,42 @@ RETRIEVAL = dict(rows=1_048_576, dim=64, bag=16, batch=1024, batches=4,
 # score are near ties (the card's float32 sums may order them either way):
 # the comparison of a user stops there.
 RETRIEVAL_NEAR_TIE = 1e-6
+
+# SameDiff finished (phases 60-63).  ``samediff_ops``: every case of
+# autodiff/op_cases.py (the 240 ops of the control-flow slice at the CPU
+# tests' small shapes) on the card against the same graph on the CPU, held
+# as each case says (float32 with TF32 off at rtol 1e-4 / atol 1e-5, the
+# linear algebra at rtol 1e-3 or by its identities, integers exactly; the
+# random ops draw on the card's generator: held by shape, dtype and moments
+# against the CPU's draw, and to the same draw on each of their two runs).
+# ``samediff_control_flow``: BASELINE config 4's character model written as
+# a SameDiff graph at CHAR_RNN's widths (two rnn().lstmLayer of 200,
+# time-major as the reference's op takes it, a dense softmax over the
+# vocabulary), batch 32 x 50 characters (config 4's TBPTT length: SameDiff
+# has no TBPTT), Adam 5e-3, FLOAT, trained for 8 iterations by
+# SameDiff.fit; the same forward by forLoop over lstmCell (one step trained
+# through it); RNN_SAMPLE characters sampled greedily by whileLoop for
+# SD_CHAR["rows"] primers (its body: two lstmCells, the softmax, the
+# argmax, an ifCond that feeds the primer or the sample); the zip of the
+# sampler, regions and all, restored.
+SD_CHAR = dict(hidden=200, batch=32, length=50, lr=5e-3, seed=12345,
+               iters=8, rows=4, primer=6)
+SD_STEP_RTOL = 1e-4         # every variable after a step, card vs CPU,
+SD_STEP_ATOL = 1e-5         # within atol + rtol·|CPU's|
+SD_FORLOOP_ATOL = 1e-5
+SD_SAMPLE_NEAR_TIE = 1e-4
+# ``srgan_train``: SRGAN at SRResNet's published widths (Ledig et al. 2017:
+# 16 residual blocks of 64 channels, 256 before each of the two x2 pixel
+# shuffles, 24 x 24 LR patches to 96 x 96 HR), batch 16, Adam(1e-4), FLOAT;
+# the reference zoo's default depth is 4.  No DIV2K or ImageNet in the
+# repo: seeded smooth HR images, LR their 4 x 4 average pool, both in
+# [-1, 1].  The generator trains 8 steps by ComputationGraph.fit, the
+# discriminator 8 by MultiLayerNetwork.fit on HR (1) and the generator's
+# outputs (0); one generator step on the card against the CPU.
+SRGAN_RUN = dict(inputShape=(3, 24, 24), blocks=16, upscale=4, batch=16,
+                 steps=8, seed=7, profiled=2)
+SRGAN_STEP_RTOL = 1e-4      # the loss, and every parameter after a step
+SRGAN_STEP_ATOL = 1e-5      # within atol + rtol·|CPU's|
 
 
 def _keras_refill(name, shape, rng):
@@ -6699,6 +6761,620 @@ def phase_retrieval_serve(torch, rec, card):
              f"top-k latency observed {res['latency_observed']} times")
 
 
+def _sd_char_vars(n_chars, hidden, seed):
+    """The SameDiff char model's variables as seeded numpy: XAVIER-scaled
+    weights, zero biases (lstmLayer packs the gates i, f, g, o)."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+
+    def w(a, b):
+        return (rng.randn(a, b) * np.sqrt(2.0 / (a + b))).astype(np.float32)
+    h = hidden
+    return {"W1": w(n_chars + h, 4 * h), "b1": np.zeros(4 * h, np.float32),
+            "W2": w(2 * h, 4 * h), "b2": np.zeros(4 * h, np.float32),
+            "Wo": w(h, n_chars), "bo": np.zeros(n_chars, np.float32)}
+
+
+def _sd_char_start(sd, v, n_chars, hidden):
+    """Placeholders ``x`` / ``y`` (t, b, nChars, time-major), the
+    variables, and zero initial states shaped from x's batch."""
+    import numpy as np
+    x, y = sd.placeholder("x"), sd.placeholder("y")
+    w = {k: sd.var(k, a) for k, a in v.items()}
+    z = sd.constant(np.zeros((n_chars, hidden), np.float32), name="z")
+    h0 = sd._op("readList", [x], {"index": 0}) @ z
+    return x, y, w, h0
+
+
+def _sd_char_head(sd, y, w, hs):
+    logits = sd._op("add", [hs @ w["Wo"], w["bo"]], name="logits")
+    sd.loss().softmaxCrossEntropy(y, logits, name="loss")
+    return logits
+
+
+def _sd_char_graph(sd, v, n_chars, hidden):
+    """The char model on ``sd`` (either package's SameDiff): two
+    ``rnn().lstmLayer`` and a dense softmax, the loss marked.  Returns the
+    output names (loss, logits, second layer's states)."""
+    x, y, w, h0 = _sd_char_start(sd, v, n_chars, hidden)
+    hs1 = sd.rnn().lstmLayer(x, h0, h0, w["W1"], w["b1"], name="hs1")
+    hs2 = sd.rnn().lstmLayer(hs1, h0, h0, w["W2"], w["b2"], name="hs2")
+    _sd_char_head(sd, y, w, hs2)
+    return ["loss", "logits", "hs2"]
+
+
+def _sd_char_forloop(sd, v, n_chars, hidden, t):
+    """The same forward by ``forLoop`` over two ``lstmCell``s: each step
+    reads x[i] by ``gather`` and writes h2 into row i of a (t, b, hidden)
+    buffer through a one-hot; the weights ride along as loop variables
+    (a region sees only its inputs)."""
+    import numpy as np
+    x, y, w, h0 = _sd_char_start(sd, v, n_chars, hidden)
+    buf0 = sd._op("zerosLike", [sd._op("stack", [h0] * t, {"axis": 0})])
+    i0 = sd.constant(np.float32(0.0), name="i0")
+
+    def body(s, lv):
+        i, h1, c1, h2, c2, buf, xs, W1, b1, W2, b2 = lv
+        ii = i.castTo("int32")
+        xt = s.gather(xs, ii, axis=0)
+        h1n, c1n = s.rnn().lstmCell(xt, h1, c1, W1, b1)
+        h2n, c2n = s.rnn().lstmCell(h1n, h2, c2, W2, b2)
+        # the reference's one-hot is float64 (x64): cast, or the loop's
+        # carry would change dtype
+        row = s._op("reshape", [s.oneHot(ii, t).castTo("float32")],
+                    {"shape": (t, 1, 1)})
+        buf = buf + row * s._op("expandDims", [h2n], {"axis": 0})
+        return [i + 1.0, h1n, c1n, h2n, c2n, buf, xs, W1, b1, W2, b2]
+    out = sd.forLoop(t, [i0, h0, h0, h0, h0, buf0, x, w["W1"], w["b1"],
+                         w["W2"], w["b2"]], body, name="steps")
+    hs = sd._op("identity", [out[5]], name="hs2")
+    _sd_char_head(sd, y, w, hs)
+    return ["loss", "logits", "hs2"]
+
+
+def _sd_char_sampler(sd, v, n_chars, hidden, n, primer):
+    """Greedy sampling of ``n`` characters for each row of ``primer`` (a
+    (P, rows, nChars) one-hot) by ``whileLoop``: the body runs the two
+    ``lstmCell``s, the softmax and the argmax, records each step's
+    character and its top-two logit gap, and an ``ifCond`` feeds the next
+    primer character while the primer lasts, else the sample.  Returns the
+    names of the (n, rows) characters and gaps."""
+    import numpy as np
+    w = {k: sd.var(k, a) for k, a in v.items()}
+    pr = sd.constant(primer, name="primer")
+    rows, p_len = primer.shape[1], primer.shape[0]
+    zero = sd.constant(np.zeros((rows, hidden), np.float32), name="zero")
+    chars0 = sd.constant(np.zeros((n, rows), np.float32), name="chars0")
+    x0 = sd._op("readList", [pr], {"index": 0})
+    i0 = sd.constant(np.float32(0.0), name="i0")
+
+    def cond(s, lv):
+        return lv[0].lt(float(n))
+
+    def body(s, lv):
+        (i, h1, c1, h2, c2, xc, chars, gaps, prm, W1, b1, W2, b2, Wo,
+         bo) = lv
+        h1n, c1n = s.rnn().lstmCell(xc, h1, c1, W1, b1)
+        h2n, c2n = s.rnn().lstmCell(h1n, h2, c2, W2, b2)
+        logits = s._op("add", [h2n @ Wo, bo])
+        prob = s.nn().softmax(logits)
+        nxt = prob.argmax(1)
+        top = s._op("topK", [logits], {"k": 2}, n_out=2)[0]
+        gap = s._op("sub", [s._op("readList", [s._op("permute", [top],
+                                                      {"dims": (1, 0)})],
+                                  {"index": 0}),
+                            s._op("readList", [s._op("permute", [top],
+                                                      {"dims": (1, 0)})],
+                                  {"index": 1})])
+        ii = i.castTo("int32")
+        row = s._op("reshape", [s.oneHot(ii, n).castTo("float32")],
+                    {"shape": (n, 1)})
+        chars = chars + row * s._op("reshape", [nxt.castTo("float32")],
+                                    {"shape": (1, rows)})
+        gaps = gaps + row * s._op("reshape", [gap], {"shape": (1, rows)})
+        sample = s.oneHot(nxt, n_chars).castTo("float32")
+        xn = s.ifCond(
+            [i, sample, prm], lambda t, u: u[0].lt(float(p_len - 1)),
+            lambda t, u: [t.gather(u[2], (u[0] + 1.0).castTo("int32"),
+                                   axis=0)],
+            lambda t, u: [u[1]])[0]
+        return [i + 1.0, h1n, c1n, h2n, c2n, xn, chars, gaps, prm, W1, b1,
+                W2, b2, Wo, bo]
+    out = sd.whileLoop([i0, zero, zero, zero, zero, x0, chars0, chars0, pr,
+                        w["W1"], w["b1"], w["W2"], w["b2"], w["Wo"],
+                        w["bo"]], cond, body, name="sample")
+    sd._op("identity", [out[6]], name="chars")
+    sd._op("identity", [out[7]], name="gaps")
+    return ["chars", "gaps"]
+
+
+def _sd_char_data(n_chars_text, c, seed):
+    """One-hot (t, b, nChars) input and next-character labels from
+    CHAR_TEXT at seeded offsets, the vocabulary, and the primers'
+    one-hot (P, rows, nChars)."""
+    import numpy as np
+    text = n_chars_text
+    vocab = sorted(set(text))
+    idx = {ch: i for i, ch in enumerate(vocab)}
+    codes = np.array([idx[ch] for ch in text], np.int64)
+    rng = np.random.RandomState(seed)
+    starts = rng.randint(0, len(codes) - c["length"] - 1, c["batch"])
+    seq = np.stack([codes[s:s + c["length"] + 1] for s in starts], 1)
+    eye = np.eye(len(vocab), dtype=np.float32)
+    x, y = eye[seq[:-1]], eye[seq[1:]]
+    prim = np.stack([codes[s:s + c["primer"]] for s in starts[:c["rows"]]],
+                    1)
+    return x, y, vocab, eye[prim]
+
+
+def _share_close(torch, a, b, rtol, atol):
+    """(share of elements of tensor dicts ``a`` / ``b`` within
+    atol + rtol·|b|, their largest absolute difference)."""
+    d = torch.cat([(a[k].float().cpu() - b[k].float().cpu()).abs()
+                   .reshape(-1) for k in a])
+    ref = torch.cat([b[k].float().cpu().abs().reshape(-1) for k in a])
+    return float((d <= atol + rtol * ref).float().mean()), float(d.max())
+
+
+def phase_samediff_ops(torch, rec, card):
+    """Item 60: every case of autodiff/op_cases.py (the 240 ops of the
+    control-flow slice) on the card against the same one-op graph on the
+    CPU, held as each case says.  No launch."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.autodiff import SameDiff
+    from deeplearning4j_tpu_torch.autodiff.op_cases import (CASES,
+                                                            build_case,
+                                                            compare)
+
+    def run(case, device):
+        sd = SameDiff.create(device)
+        names = build_case(sd, case)
+        out = sd.output(case.feeds(), *names)
+        return [o.detach().cpu().numpy() for o in (out[n] for n in names)]
+    _reset_counters()
+    times, bad, ops = {}, [], set()
+    for case in CASES:
+        want = run(case, "cpu")
+        first = run(case, "cuda")   # warm (a first launch loads its module)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = run(case, "cuda")
+        torch.cuda.synchronize()
+        times[case.id] = (time.perf_counter() - t0) * 1e3
+        err = compare(case, got, want)
+        if err is None and case.check in ("random", "shuffle", "crop"):
+            # seeded per node on the card's generator: each run draws the
+            # same values (its moments were held against the CPU's draw)
+            err = None if all(np.array_equal(g, w) for g, w in
+                              zip(got, first)) else "draw not repeated"
+        if err:
+            bad.append((case.id, err))
+        ops.add(case.op)
+    counts = _counters()
+    slow = sorted(times.items(), key=lambda kv: -kv[1])[:5]
+    rec["samediff_ops"] = dict(cases=len(CASES), ops=len(ops),
+                               passed=len(CASES) - len(bad), failed=bad,
+                               slowest_ms=slow, launches=counts)
+    print(f"samediff_ops: {len(CASES) - len(bad)} of {len(CASES)} cases "
+          f"({len(ops)} ops) on the card hold to the CPU; slowest graphs "
+          f"(build + run, ms): " + ", ".join(f"{k} {v:.1f}"
+                                             for k, v in slow)
+          + f"; {card}")
+    _no_launches(rec, "samediff_ops", counts)
+    _require(len(ops) == 240 and not bad, f"the card departs: {bad}")
+
+
+def _sd_char_sets(c, n):
+    """``n`` seeded (x, y) batches of the char model and the vocabulary,
+    primers from the first."""
+    sets = [_sd_char_data(CHAR_TEXT, c, c["seed"] + i) for i in range(n)]
+    return [(x, y) for x, y, _, _ in sets], sets[0][2], sets[0][3]
+
+
+def phase_samediff_control_flow(torch, rec, card):
+    """Item 61 (Path 2): the char model as a SameDiff graph at CHAR_RNN's
+    widths, 8 iterations of SameDiff.fit; one step on the card against the
+    CPU; forLoop's states against lstmLayer's and a step through it;
+    RNN_SAMPLE characters sampled by whileLoop (card = CPU, or a near tie
+    where they part); the sampler's zip restored bit for bit.  No
+    launch."""
+    import math
+    import shutil
+    import tempfile
+
+    from deeplearning4j_tpu_torch.autodiff import SameDiff, TrainingConfig
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.learning import Adam
+    c = SD_CHAR
+    h = c["hidden"]
+    batches, vocab, primer = _sd_char_sets(c, c["iters"])
+    nc = len(vocab)
+    v = _sd_char_vars(nc, h, c["seed"])
+    cfg = lambda: TrainingConfig(updater=Adam(c["lr"]),  # noqa: E731
+                                 dataSetFeatureMapping=["x"],
+                                 dataSetLabelMapping=["y"])
+    res = {}
+    _reset_counters()
+    sd = SameDiff.create()
+    _sd_char_graph(sd, v, nc, h)
+    _require(sd.device.type == "cuda", f"graph on {sd.device}")
+    sd.setTrainingConfig(cfg())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    hist = sd.fit([DataSet(x, y) for x, y in batches], epochs=1)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    curve = hist.lossCurve()
+    _require(sd.iterationCount == c["iters"] and
+             all(math.isfinite(l) for l in curve),
+             f"{sd.iterationCount} iterations, losses {curve}")
+    res["iterations"] = sd.iterationCount
+    x0, y0 = batches[0]
+    ds = DataSet(torch.tensor(x0).cuda(), torch.tensor(y0).cuda())
+    ms = _time_ms(torch, lambda: sd.fit(ds), iters=5, warmup=1)
+    res.update(loss_first=curve[0], loss_last=curve[-1], fit_s=fit_s,
+               ms_per_iteration=ms,
+               chars_per_s=c["batch"] * c["length"] / ms * 1e3,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    cost = sd.stepCostAnalysis(ds)
+    res["step_cost"] = cost
+    del sd
+    # one step on the card against the CPU from the same variables
+    steps = {}
+    for dev in ("cuda", "cpu"):
+        g = SameDiff.create(dev)
+        _sd_char_graph(g, v, nc, h)
+        g.setTrainingConfig(cfg())
+        loss = g.fit(DataSet(x0, y0)).lossCurve()[0]
+        steps[dev] = (loss, {k: g._arrays[k] for k in v})
+    (lg, vg), (lc, vc) = steps["cuda"], steps["cpu"]
+    share, dmax = _share_close(torch, vg, vc, SD_STEP_RTOL, SD_STEP_ATOL)
+    res["card_vs_cpu"] = dict(loss_rel=abs(lg - lc) / abs(lc), share=share,
+                              max_abs=dmax)
+    # forLoop over lstmCell: the same states; one step through it
+    fl = SameDiff.create()
+    _sd_char_forloop(fl, v, nc, h, c["length"])
+    ly = SameDiff.create()
+    _sd_char_graph(ly, v, nc, h)
+    hs_for = fl.output({"x": x0, "y": y0}, "hs2")["hs2"]
+    hs_layer = ly.output({"x": x0, "y": y0}, "hs2")["hs2"]
+    res["forloop_max_abs"] = float((hs_for - hs_layer).abs().max())
+    fl.setTrainingConfig(cfg())
+    ly.setTrainingConfig(cfg())
+    lf = fl.fit(DataSet(x0, y0)).lossCurve()[0]
+    ll = ly.fit(DataSet(x0, y0)).lossCurve()[0]
+    fshare, fmax = _share_close(torch, {k: fl._arrays[k] for k in v},
+                                {k: ly._arrays[k] for k in v}, SD_STEP_RTOL,
+                                SD_STEP_ATOL)
+    res["forloop_step"] = dict(loss_rel=abs(lf - ll) / abs(ll),
+                               share=fshare, max_abs=fmax)
+    del fl, ly
+    # greedy sampling by whileLoop: the card against the CPU
+    samples = {}
+    for dev in ("cuda", "cpu"):
+        s = SameDiff.create(dev)
+        names = _sd_char_sampler(s, v, nc, h, RNN_SAMPLE, primer)
+        if dev == "cuda":
+            s.output({}, *names)            # warm
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        out = s.output({}, *names)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            res["sample_s"] = time.perf_counter() - t0
+            sampler = s
+        samples[dev] = {k: out[k].cpu() for k in names}
+    cg, cc = samples["cuda"]["chars"], samples["cpu"]["chars"]
+    parted = (cg != cc).nonzero()
+    if len(parted):
+        step = int(parted[:, 0].min())
+        rows = parted[parted[:, 0] == step][:, 1]
+        gap = float(samples["cpu"]["gaps"][step, rows].max())
+        res["sample_parting"] = dict(step=step, top_two_gap=gap)
+    res["sample_chars_per_s"] = RNN_SAMPLE * c["rows"] / res["sample_s"]
+    res["sample_text"] = ["".join(vocab[int(i)] for i in cg[:, r])
+                          for r in range(c["rows"])]
+    # the sampler's zip (two levels of regions) restored on the card
+    tmp = tempfile.mkdtemp(dir=ROOT, prefix=".chip_sd_")
+    try:
+        path = os.path.join(tmp, "sampler.sdz")
+        sampler.save(path)
+        back = SameDiff.load(path)
+        out = back.output({}, "chars", "gaps")
+        res["zip_bit_identical"] = bool(
+            torch.equal(out["chars"].cpu(), cg)
+            and torch.equal(out["gaps"].cpu(), samples["cuda"]["gaps"]))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    counts = _counters()
+    res["launches"] = counts
+    rec["samediff_control_flow"] = res
+    cv, fs = res["card_vs_cpu"], res["forloop_step"]
+    print(f"samediff_control_flow: char model as a SameDiff graph "
+          f"(2 x lstmLayer({h}), {nc} characters, batch {c['batch']} x "
+          f"{c['length']}, Adam {c['lr']}), {res['iterations']} "
+          f"iterations in {fit_s:.2f} s, loss {curve[0]:.4f} -> "
+          f"{curve[-1]:.4f}; {ms:.1f} ms an iteration "
+          f"({res['chars_per_s']:.0f} characters/s), peak "
+          f"{res['peak_gb']:.3f} GB; step cost {cost['flops']:.4g} FLOPs, "
+          f"{cost['bytes']:.4g} bytes unfused; card vs CPU: loss "
+          f"{cv['loss_rel']:.2e} rel, {cv['share']:.5f} of variables within "
+          f"rtol {SD_STEP_RTOL} + atol {SD_STEP_ATOL} (max "
+          f"{cv['max_abs']:.2e}); forLoop states "
+          f"{res['forloop_max_abs']:.2e} from lstmLayer's, its step loss "
+          f"{fs['loss_rel']:.2e} rel, {fs['share']:.5f} within rtol; "
+          f"whileLoop sampling {RNN_SAMPLE} x {c['rows']} characters in "
+          f"{res['sample_s']:.3f} s ({res['sample_chars_per_s']:.0f} "
+          f"characters/s), parting {res.get('sample_parting')}; zip "
+          f"bit-identical {res['zip_bit_identical']}; {card}")
+    for t in res["sample_text"]:
+        print(f"    sample: {t!r}")
+    _no_launches(rec, "samediff_control_flow", counts)
+    _require(cv["loss_rel"] <= SD_STEP_RTOL and cv["share"] == 1.0,
+             f"the card's step departs from the CPU's: {cv}")
+    _require(res["forloop_max_abs"] <= SD_FORLOOP_ATOL
+             and fs["loss_rel"] <= SD_STEP_RTOL and fs["share"] == 1.0,
+             f"forLoop departs from lstmLayer: {res['forloop_max_abs']}, "
+             f"{fs}")
+    _require(res["zip_bit_identical"], "the restored sampler differs")
+    if "sample_parting" in res:
+        _require(res["sample_parting"]["top_two_gap"] <= SD_SAMPLE_NEAR_TIE,
+                 f"the card's sample parts from the CPU's without a near "
+                 f"tie: {res['sample_parting']}")
+
+
+def _srgan_images(c, n, seed):
+    """``n`` seeded smooth HR images (a few low-frequency sinusoids a
+    channel) and their 4 x 4 average-pooled LR, both in [-1, 1]."""
+    import numpy as np
+    _, lh, lw = c["inputShape"]
+    r = c["upscale"]
+    hh, ww = lh * r, lw * r
+    rng = np.random.RandomState(seed)
+    yy, xx = np.meshgrid(np.linspace(0, 1, hh), np.linspace(0, 1, ww),
+                         indexing="ij")
+    hr = np.zeros((n, 3, hh, ww), np.float32)
+    for i in range(n):
+        for ch in range(3):
+            f = rng.uniform(0.5, 4.0, (4, 2))
+            ph = rng.uniform(0, 2 * np.pi, 4)
+            hr[i, ch] = sum(np.sin(2 * np.pi * (a * xx + b * yy) + p)
+                            for (a, b), p in zip(f, ph))
+    hr /= np.abs(hr).max(axis=(2, 3), keepdims=True)
+    lr = hr.reshape(n, 3, lh, r, lw, r).mean(axis=(3, 5))
+    return lr.astype(np.float32), hr
+
+
+def phase_srgan_train(torch, rec, card):
+    """Item 62 (Path 1): SRGAN at SRResNet's widths (16 blocks, 24 -> 96,
+    batch 16, Adam 1e-4) trained 8 steps by ComputationGraph.fit, its
+    discriminator 8 steps by MultiLayerNetwork.fit on HR (1) and the
+    generator's outputs (0); ms a step, images/s, peak, 2 profiled steps;
+    one generator step on the card against the CPU; the generator's
+    ModelSerializer zip restored bit for bit.  No launch."""
+    import json
+    import math
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.datasets import (DataSet,
+                                                   ListDataSetIterator)
+    from deeplearning4j_tpu_torch.models import ComputationGraph
+    from deeplearning4j_tpu_torch.utils import ModelSerializer
+    from deeplearning4j_tpu_torch.zoo import SRGAN
+    c = SRGAN_RUN
+    b, res = c["batch"], {}
+    lr_img, hr_img = _srgan_images(c, b * c["steps"], c["seed"])
+    zoo = SRGAN(inputShape=c["inputShape"],
+                numResidualBlocks=c["blocks"], upscaleFactor=c["upscale"])
+    _reset_counters()
+    g = zoo.init()
+    _require(g.device.type == "cuda", f"generator on {g.device}")
+    res["params"] = g.numParams()
+    it = ListDataSetIterator([DataSet(lr_img[i * b:(i + 1) * b],
+                                      hr_img[i * b:(i + 1) * b])
+                              for i in range(c["steps"])], batch=b)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    g.fit(it, epochs=1)
+    loss = g.score()
+    torch.cuda.synchronize()
+    res["fit_s"] = time.perf_counter() - t0
+    _require(g.iterationCount == c["steps"] and math.isfinite(loss),
+             f"{g.iterationCount} steps, loss {loss}")
+    res["loss"] = loss
+    ds = DataSet(torch.tensor(lr_img[:b]).cuda(),
+                 torch.tensor(hr_img[:b]).cuda())
+    ms = _time_ms(torch, lambda: (g.fit(ds), g.score()), iters=5, warmup=1)
+    res.update(ms_per_step=ms, images_per_s=b / ms * 1e3,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    prof = _device_breakdown(torch, lambda: [(g.fit(ds), g.score())
+                                             for _ in range(c["profiled"])],
+                             top=10)
+    res["profile"] = prof
+    # the discriminator: HR labelled 1, the generator's outputs 0
+    d = zoo.initDiscriminator()
+    ones = np.ones((b, 1), np.float32)
+    t0 = time.perf_counter()
+    for i in range(c["steps"]):
+        sr = g.output(lr_img[i * b:(i + 1) * b]).torch
+        x = torch.cat([torch.tensor(hr_img[i * b:(i + 1) * b]).cuda(), sr])
+        y = torch.tensor(np.concatenate([ones, 0 * ones])).cuda()
+        d.fit(DataSet(x, y))
+    dloss = d.score()
+    torch.cuda.synchronize()
+    res.update(disc_s=time.perf_counter() - t0, disc_loss=dloss,
+               disc_steps=d.iterationCount)
+    _require(d.iterationCount == c["steps"] and math.isfinite(dloss),
+             f"discriminator: {d.iterationCount} steps, loss {dloss}")
+    # the generator's zip, PixelShuffleLayer in its JSON, bit for bit
+    tmp = tempfile.mkdtemp(dir=ROOT, prefix=".chip_srgan_")
+    try:
+        path = os.path.join(tmp, "srgan.zip")
+        ModelSerializer.writeModel(g, path, saveUpdater=True)
+        back = ModelSerializer.restoreComputationGraph(path)
+        res["zip_bit_identical"] = bool(torch.equal(
+            back.output(lr_img[:2]).torch, g.output(lr_img[:2]).torch))
+        res["json_has_pixel_shuffle"] = "PixelShuffleLayer" in \
+            json.dumps(json.loads(back.conf.toJson()))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    counts = _counters()
+    del g, d, back
+    torch.cuda.empty_cache()
+    # one generator step, card against CPU, at full width and batch 2
+    cpu = zoo.init(device="cpu")
+    gpu = ComputationGraph(cpu.conf).init(params={
+        k: {n: t.clone() for n, t in lp.items()}
+        for k, lp in cpu.params_.items()})
+    small = DataSet(lr_img[:2], hr_img[:2])
+    cpu.fit(small)
+    gpu.fit(small)
+    lc, lg = cpu.score(), gpu.score()
+    share, dmax = _share_close(
+        torch, {f"{k}/{n}": gp for k, lp in gpu.params_.items()
+                for n, gp in lp.items()},
+        {f"{k}/{n}": cpu.params_[k][n] for k, lp in gpu.params_.items()
+         for n in lp}, SRGAN_STEP_RTOL, SRGAN_STEP_ATOL)
+    res["card_vs_cpu"] = dict(loss_rel=abs(lg - lc) / abs(lc),
+                              max_abs=dmax, share=share)
+    del cpu, gpu
+    res["launches"] = counts
+    rec["srgan_train"] = res
+    cv = res["card_vs_cpu"]
+    print(f"srgan_train: SRGAN {c['blocks']} blocks, {c['inputShape'][1]} "
+          f"-> {c['inputShape'][1] * c['upscale']} ({res['params']:,} "
+          f"params), {c['steps']} steps of batch {b} in {res['fit_s']:.2f} "
+          f"s, loss {loss:.5f}; {ms:.1f} ms a step ({res['images_per_s']:.1f}"
+          f" images/s), peak {res['peak_gb']:.2f} GB; discriminator "
+          f"{res['disc_steps']} steps in {res['disc_s']:.2f} s, loss "
+          f"{dloss:.3g}; zip bit-identical {res['zip_bit_identical']}, "
+          f"PixelShuffleLayer in its JSON {res['json_has_pixel_shuffle']}; "
+          f"card vs CPU at batch 2: loss {cv['loss_rel']:.2e} rel, params "
+          f"max {cv['max_abs']:.2e} ({cv['share']:.4f} within rtol "
+          f"{SRGAN_STEP_RTOL} + atol {SRGAN_STEP_ATOL}); "
+          f"{card}")
+    if prof["device_busy_ms"] is None:
+        print(f"profile srgan_steps: no device time in the trace (not "
+              f"measured); {card}")
+    else:
+        res["idle_share_unprofiled"] = 1 - prof["device_busy_ms"] / (
+            c["profiled"] * ms)
+        print(f"profile srgan_steps ({c['profiled']} steps): wall "
+              f"{prof['wall_ms']:.2f} ms, device busy "
+              f"{prof['device_busy_ms']:.2f} ms, idle share "
+              f"{prof['idle_share']:.3f} "
+              f"({res['idle_share_unprofiled']:.3f} unprofiled), "
+              f"{prof['device_ops']} device kernels and copies; {card}")
+        for kname, kms in prof["top"]:
+            print(f"  {kms:9.3f} ms  {kname[:100]}")
+    _no_launches(rec, "srgan_train", counts)
+    _require(res["zip_bit_identical"] and res["json_has_pixel_shuffle"],
+             "the generator's zip does not restore bit for bit")
+    _require(cv["loss_rel"] <= SRGAN_STEP_RTOL and cv["share"] == 1.0,
+             f"the card's step departs from the CPU's: {cv}")
+
+
+class _OpRecorder:
+    """A listener recording execDebug's per-op hooks."""
+
+    def __init__(self):
+        self.pre, self.post, self.passes = [], [], 0
+
+    def preOpExecution(self, sd, at, op):
+        self.pre.append(op.name)
+
+    def opExecution(self, sd, at, op, outputs):
+        self.post.append(op.name)
+
+    def execDebugPassDone(self, sd, at):
+        self.passes += 1
+
+
+def phase_samediff_debug(torch, rec, card):
+    """Item 63: execDebug on the card fires its listener once per op, in
+    the staged (the reference's) order, and gives output()'s values;
+    stepCostAnalysis of the char model's step; gradient checking in
+    float64 on the card through forLoop and ifCond.  No launch."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.autodiff import SameDiff, TrainingConfig
+    from deeplearning4j_tpu_torch.autodiff.gradcheck import check_gradients
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.learning import Adam
+    c = SD_CHAR
+    h = c["hidden"]
+    sets, vocab, _ = _sd_char_sets(c, 1)
+    x0, y0 = sets[0]
+    nc = len(vocab)
+    v = _sd_char_vars(nc, h, c["seed"])
+    res = {}
+    _reset_counters()
+    sd = SameDiff.create()
+    _sd_char_graph(sd, v, nc, h)
+    recd = _OpRecorder()
+    sd.setListeners(recd)
+    feeds = {"x": x0, "y": y0}
+    dbg = sd.execDebug(feeds, "loss")["loss"]
+    order = [n.name for n in sd._needed_nodes(("loss",))]
+    out = sd.output(feeds, "loss")["loss"]
+    res["exec_debug"] = dict(ops=len(recd.pre), passes=recd.passes,
+                             in_order=recd.pre == order == recd.post,
+                             loss_diff=float((dbg - out).abs()))
+    sd.setTrainingConfig(TrainingConfig(updater=Adam(c["lr"]),
+                                        dataSetFeatureMapping=["x"],
+                                        dataSetLabelMapping=["y"]))
+    cost = sd.stepCostAnalysis(DataSet(x0, y0))
+    t, b = c["length"], c["batch"]
+    # three products (forward, the input's and the weight's gradients) of
+    # each matmul: the two lstmLayers' gate products at every step and
+    # the head
+    products = 3 * 2 * t * b * (4 * h * (nc + h) + 4 * h * 2 * h + h * nc)
+    res["step_cost"] = dict(cost, matmul_estimate=products)
+    # gradient check in float64 on the card: a forLoop whose body
+    # branches by ifCond
+    g = SameDiff.create()
+    xs, ws = g.placeholder("x"), g.placeholder("w")
+
+    def step(s, lv):
+        br = s.ifCond([lv[0], lv[1]], lambda q, u: u[0].mean().gt(0.0),
+                      lambda q, u: [q.math().tanh(u[0] @ u[1])],
+                      lambda q, u: [q.math().sin(u[0] @ u[1]) * 0.5])[0]
+        return [br, lv[1]]
+    name = g.forLoop(3, [xs, ws], step)[0].name()
+    fn = g._build_fn((name,), compute_dtype=torch.float64)
+    rng = np.random.RandomState(4)
+    params = {"x": torch.tensor(rng.randn(3, 4), device=g.device),
+              "w": torch.tensor(rng.randn(4, 4) * 0.5, device=g.device)}
+    gc = check_gradients(lambda p: fn(p, {}, 0)[name].sum(), params)
+    res["gradcheck"] = dict(passed=gc.passed, coords=gc.totalParams,
+                            max_rel_error=gc.maxRelError)
+    counts = _counters()
+    res["launches"] = counts
+    rec["samediff_debug"] = res
+    ed = res["exec_debug"]
+    print(f"samediff_debug: execDebug fired {ed['ops']} ops, "
+          f"{ed['passes']} pass, in the staged order {ed['in_order']}, "
+          f"loss {ed['loss_diff']:.1e} from output(); stepCostAnalysis of "
+          f"the char model's step: {cost['flops']:.6g} FLOPs (the products' "
+          f"count {products:.6g}), {cost['bytes']:.6g} bytes unfused; "
+          f"gradcheck float64 on the card through forLoop + ifCond: "
+          f"passed {gc.passed}, {gc.totalParams} coordinates, max rel "
+          f"error {gc.maxRelError:.2e}; {card}")
+    _no_launches(rec, "samediff_debug", counts)
+    _require(ed["in_order"] and ed["passes"] == 1
+             and ed["ops"] == len(order) and ed["loss_diff"] <= 1e-6,
+             f"execDebug: {ed}")
+    _require(abs(cost["flops"] - products) <= 0.05 * products,
+             f"stepCostAnalysis: {cost['flops']} against {products}")
+    _require(gc.passed, f"gradient check failed: {gc.failures[:3]}")
+
+
 def _kernel_entry(name, replaces, launches, t):
     return {"name": name, "route": "cuda",
             "source": f"deeplearning4j_tpu_torch/csrc/{name}.cu",
@@ -6902,6 +7578,14 @@ def main(argv) -> int:
         run("datavec_formats", phase_datavec_formats, torch, rec, card)
         run("dlrm_train", phase_dlrm_train, torch, rec, card)
         run("retrieval_serve", phase_retrieval_serve, torch, rec, card)
+        # SameDiff finished: the 240 ops on the card, the char model with
+        # control flow (Path 2), SRGAN at SRResNet's widths (Path 1), then
+        # execDebug, stepCostAnalysis and gradient checking
+        run("samediff_ops", phase_samediff_ops, torch, rec, card)
+        run("samediff_control_flow", phase_samediff_control_flow, torch,
+            rec, card)
+        run("srgan_train", phase_srgan_train, torch, rec, card)
+        run("samediff_debug", phase_samediff_debug, torch, rec, card)
 
     rec["card"] = card
     rec["failed"] = failed

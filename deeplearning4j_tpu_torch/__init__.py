@@ -16,7 +16,8 @@ Ported so far (the serving slice, the long-context training slice, the
 ResNet-50 slice, the recurrent slice, BERT on SameDiff, the training
 user's loop around ``fit`` with LeNet-MNIST, BERT-base through TF import,
 the serving tier, BERT-base through ONNX import, the zoo, Keras import,
-then DataVec with the tensor layer):
+DataVec with the tensor layer, the recommender tier, then SameDiff
+finished):
 
 - ``parallel.ring``      — dense / blockwise / flash attention (forward and
                            backward kernels, ``FlashAttention``) and the
@@ -41,11 +42,13 @@ then DataVec with the tensor layer):
 - ``nlp.tokenization``   — WordPiece and the vocab helpers;
 - ``nlp.bert_iterator``  — ``BertIterator`` (MLM and sequence-
                            classification batches);
-- ``autodiff``           — SameDiff: the graph, its registered ops (the
-                           core and the ``ops_ext`` ops the TF and ONNX
-                           importers emit), ``output``, gradients,
+- ``autodiff``           — SameDiff: the graph, all 522 of the
+                           reference's ops with control flow and its
+                           serialized regions, ``output``, gradients,
                            ``fit``, the zip serde, listeners,
-                           ``evaluate``;
+                           ``evaluate``, ``execDebug``,
+                           ``stepCostAnalysis``, gradient checking and
+                           the validation harness;
 - ``imports``            — ``TFGraphMapper`` (frozen GraphDef -> SameDiff,
                            read by the port's own wire decoder),
                            ``GraphRunner`` and ``OnnxImporter`` (ONNX
@@ -76,8 +79,9 @@ then DataVec with the tensor layer):
                            line-search solvers;
 - ``utils``              — ``ModelSerializer`` (zips either package
                            reads);
-- ``zoo``                — ``LeNet``, ``ResNet50`` and BERT on SameDiff
-                           (``Bert``, ``BertBase``);
+- ``zoo``                — every model of the reference's zoo (``SRGAN``
+                           with ``PixelShuffleLayer`` among them) and BERT
+                           on SameDiff (``Bert``, ``BertBase``);
 - ``ops.fused``          — ``matmul_bn_stats`` / ``conv1x1_bn_stats`` (the
                            B4 kernel; no model dispatches it).
 - ``ops``                — the tensor layer: ``NDArray`` over a tensor,
@@ -97,7 +101,7 @@ import torch
 
 __version__ = "0.1.0"
 
-__all__ = ["resolve_device", "unported"]
+__all__ = ["resolve_device"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -110,17 +114,3 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device is present; pass device='cpu' to run the "
             "plain PyTorch path on the CPU")
     return dev
-
-
-def unported(name: str, item: str, what: str = "is not ported yet"):
-    """A stand-in for a reference class the port does not have yet: it
-    keeps the reference's import path working, and building it (by its
-    constructor or ``builder()``) raises naming the ROADMAP item."""
-    msg = f"{name} {what} (ROADMAP {item})"
-
-    def refuse(*args, **kwargs):
-        raise NotImplementedError(msg)
-
-    return type(name, (), {"__init__": refuse,
-                           "builder": staticmethod(refuse),
-                           "__doc__": msg})

@@ -5,7 +5,7 @@
 
 ``iterationStart`` / ``iterationDone`` / ``epochStart`` / ``epochEnd``
 fire from ``SameDiff.fit``.  The per-op hooks fire from
-``SameDiff.execDebug``, which waits for ROADMAP A12b.
+``SameDiff.execDebug``, the graph run op by op.
 """
 from __future__ import annotations
 

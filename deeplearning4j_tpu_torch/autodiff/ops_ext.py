@@ -1,15 +1,16 @@
-"""Extended SameDiff ops, part 1: the port of the ops of
-``deeplearning4j_tpu/autodiff/ops_ext.py`` that the TF and ONNX
-importers' rules emit (math, segment, scatter/gather, shape surgery, top-k,
-linalg, image; ``hardSwish``, ``logSumExp``, ``prelu``,
-``thresholdRelu``, ``standardize``, ``takeAlongAxis``, ``putAlongAxis``
-and ``split`` for ONNX).
+"""Extended SameDiff ops, part 1: the port of
+``deeplearning4j_tpu/autodiff/ops_ext.py`` (the reference's libnd4j
+``generic/**`` breadth beyond the core set): math, summary statistics, the
+reduce3 distances, segment, scatter and gather, shape surgery, top-k and
+sorting, linalg, image, the recurrent cells and sequences, and the
+``sd.image()`` / ``sd.rnn()`` / ``sd.linalg()`` namespaces.
 
-Only those ops come over; the rest of the file (its other ops and the
-``sd.image()`` / ``sd.rnn()`` / ``sd.linalg()`` namespaces) waits for
-ROADMAP A12b.  Each op keeps the reference's name, attrs and semantics, so
-``graph.json`` stays the serde boundary between the packages.  Imported for
-its registrations at the bottom of ``samediff.py``.
+Each op keeps the reference's name, attrs and semantics, so
+``graph.json`` stays the serde boundary between the packages.  The
+sequence forms (``gru``, ``lstmLayer``, ``simpleRnnLayer``), a
+``lax.scan`` in the reference, are a Python loop over the time-major
+input under autograd.  Imported for its registrations at the bottom of
+``samediff.py``.
 """
 from __future__ import annotations
 
@@ -17,8 +18,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from deeplearning4j_tpu_torch.autodiff.samediff import (OP_IMPLS, _axis_op,
-                                                        _simple, register_op)
+from deeplearning4j_tpu_torch.autodiff.samediff import (OP_IMPLS, SDMath,
+                                                        SDNN, _abs, _axes,
+                                                        _axis_op,
+                                                        _Namespace,
+                                                        _ns_binary,
+                                                        _ns_unary, _simple,
+                                                        register_op)
 from deeplearning4j_tpu_torch.nn.conf.layers import _pad2d, _same_pads
 
 # ---------------------------------------------------------------------------
@@ -34,6 +40,99 @@ _simple("igammac", torch.special.gammaincc)
 _simple("invertPermutation",
         lambda p: torch.argsort(p.to(torch.int32), stable=True).to(
             torch.int32))
+_simple("log2", torch.log2)
+_simple("log10", torch.log10)
+_simple("cbrt", lambda x: torch.sign(x) * torch.pow(_abs(x), 1.0 / 3.0))
+_simple("cube", lambda x: x * x * x)
+_simple("oneMinus", lambda x: 1.0 - x)
+_simple("timesOneMinus", lambda x: x * (1.0 - x))
+_simple("step", lambda x: (x > 0).to(x.dtype))
+_simple("trunc", torch.trunc)
+_simple("frac", lambda x: x - torch.trunc(x))
+_simple("rationalTanh", lambda x: 1.7159 * torch.tanh(2.0 * x / 3.0))
+_simple("rectifiedTanh", lambda x: torch.clamp(torch.tanh(x), min=0.0))
+_simple("logAddExp", torch.logaddexp)
+_simple("heavyside", lambda x: torch.where(
+    x > 0, 1.0, torch.where(x < 0, 0.0, 0.5)).to(
+        x.dtype if x.is_floating_point() else torch.get_default_dtype()))
+
+
+@register_op("clipByNorm")
+def _clip_by_norm(clipValue=1.0, dims=None, **_):
+    ax = tuple(dims) if dims else None
+
+    def f(x):
+        n = torch.sqrt(torch.sum(x * x, dim=ax, keepdim=ax is not None))
+        return x * torch.clamp(clipValue / torch.clamp(n, min=1e-12),
+                               max=1.0)
+    return f
+
+
+# ---------------------------------------------------------------------------
+# summary statistics (reference: loops/summarystats + parity entropy ops);
+# each reduces over ``dims`` (all axes when None) at once
+# ---------------------------------------------------------------------------
+def _stat_op(name, fn):
+    def factory(dims=None, keepDims=False, **_):
+        return lambda x: fn(x, _axes(x, dims), bool(keepDims))
+    OP_IMPLS[name] = factory
+
+
+def _entropy(x, ax, k):
+    return -torch.sum(x * torch.log(torch.clamp(x, min=1e-30)), dim=ax,
+                      keepdim=k)
+
+
+_stat_op("amean", lambda x, ax, k: torch.mean(_abs(x), dim=ax, keepdim=k))
+_stat_op("amax", lambda x, ax, k: torch.amax(_abs(x), dim=ax, keepdim=k))
+_stat_op("amin", lambda x, ax, k: torch.amin(_abs(x), dim=ax, keepdim=k))
+_stat_op("asum", lambda x, ax, k: torch.sum(_abs(x), dim=ax, keepdim=k))
+_stat_op("entropy", _entropy)
+_stat_op("logEntropy", lambda x, ax, k: torch.log(torch.clamp(
+    _entropy(x, ax, k), min=1e-30)))
+_stat_op("shannonEntropy", lambda x, ax, k: -torch.sum(
+    x * torch.log2(torch.clamp(x, min=1e-30)), dim=ax, keepdim=k))
+_stat_op("zeroFraction", lambda x, ax, k: torch.mean(
+    (x == 0).to(torch.float32), dim=ax, keepdim=k))
+
+
+def _moment(x, ax, k, power):
+    mu = torch.mean(x, dim=ax, keepdim=True)
+    sd = torch.std(x, dim=ax, correction=0, keepdim=True)
+    z = (x - mu) / torch.clamp(sd, min=1e-12)
+    return torch.mean(z ** power, dim=ax, keepdim=k)
+
+
+_stat_op("skewness", lambda x, ax, k: _moment(x, ax, k, 3))
+_stat_op("kurtosis", lambda x, ax, k: _moment(x, ax, k, 4) - 3.0)
+
+
+# ---------------------------------------------------------------------------
+# reduce3 / distance family (reference: loops/reduce3, generic distances)
+# ---------------------------------------------------------------------------
+def _dist_op(name, fn):
+    def factory(dims=None, keepDims=False, **_):
+        return lambda x, y: fn(x, y, _axes(torch.broadcast_tensors(x, y)[0],
+                                           dims), bool(keepDims))
+    OP_IMPLS[name] = factory
+
+
+def _sum(x, ax, k):
+    return torch.sum(x, dim=ax, keepdim=k)
+
+
+_dist_op("euclideanDistance",
+         lambda x, y, ax, k: torch.sqrt(_sum((x - y) ** 2, ax, k)))
+_dist_op("manhattanDistance", lambda x, y, ax, k: _sum(_abs(x - y), ax, k))
+_dist_op("hammingDistance",
+         lambda x, y, ax, k: _sum((x != y).to(torch.float32), ax, k))
+_dist_op("cosineSimilarity", lambda x, y, ax, k: _sum(x * y, ax, k)
+         / torch.clamp(torch.sqrt(_sum(x * x, ax, k))
+                       * torch.sqrt(_sum(y * y, ax, k)), min=1e-12))
+_dist_op("jaccardDistance", lambda x, y, ax, k: 1.0 - _sum(
+    torch.minimum(x, y), ax, k) / torch.clamp(_sum(torch.maximum(x, y), ax,
+                                                   k), min=1e-12))
+_dist_op("dot_reduce", lambda x, y, ax, k: _sum(x * y, ax, k))
 
 
 # ---------------------------------------------------------------------------
@@ -86,12 +185,41 @@ _segment("segmentMean", lambda d, i, n: _seg_reduce(d, i, n, "sum")
 _segment("segmentMax", lambda d, i, n: _seg_reduce(d, i, n, "amax"))
 _segment("segmentMin", lambda d, i, n: _seg_reduce(d, i, n, "amin"))
 _segment("segmentProd", lambda d, i, n: _seg_reduce(d, i, n, "prod"))
+_segment("segmentSqrtN", lambda d, i, n: _seg_reduce(d, i, n, "sum")
+         / torch.sqrt(_seg_count(d, i, n)))
 # the unsorted forms share the lowering: nothing needs sorted ids
 for _u, _s in [("unsortedSegmentSum", "segmentSum"),
+               ("unsortedSegmentMean", "segmentMean"),
+               ("unsortedSegmentSqrtN", "segmentSqrtN"),
                ("unsortedSegmentMax", "segmentMax"),
                ("unsortedSegmentMin", "segmentMin"),
                ("unsortedSegmentProd", "segmentProd")]:
     OP_IMPLS[_u] = OP_IMPLS[_s]
+
+
+# ---------------------------------------------------------------------------
+# scatter family (reference: generic/parity_ops/scatter_*.cpp): dim-0 slices
+# of ``ref`` at ``idx`` combine with ``upd``; a repeated index applies each
+# of its updates, as ``.at[idx].op(upd)`` does
+# ---------------------------------------------------------------------------
+def _scatter(name, how, prep=lambda u: u):
+    def factory(**_):
+        def f(ref, idx, upd):
+            i = idx.long().reshape(-1)
+            i = torch.where(i < 0, i + ref.shape[0], i)
+            u = prep(upd.to(ref.dtype)).reshape((-1,) + tuple(ref.shape[1:]))
+            if how == "sum":
+                return ref.index_add(0, i, u)
+            return ref.index_reduce(0, i, u, how, include_self=True)
+        return f
+    OP_IMPLS[name] = factory
+
+
+_scatter("scatterSub", "sum", torch.neg)
+_scatter("scatterMul", "prod")
+_scatter("scatterDiv", "prod", torch.reciprocal)   # jax: x * (1/u) per hit
+_scatter("scatterMax", "amax")
+_scatter("scatterMin", "amin")
 
 
 # ---------------------------------------------------------------------------
@@ -148,6 +276,82 @@ def _reverse_sequence(seqAxis=1, batchAxis=0, **_):
         out = torch.gather(xm, 1, gi)
         return torch.movedim(out, (0, 1), (batchAxis, seqAxis))
     return f
+
+
+@register_op("repeat")
+def _repeat(repeats=1, axis=0, **_):
+    return lambda x: torch.repeat_interleave(x, int(repeats), dim=int(axis))
+
+
+@register_op("batchToSpace")
+def _batch_to_space(blocks=(2, 2), crops=((0, 0), (0, 0)), **_):
+    b0, b1 = int(blocks[0]), int(blocks[1])
+    (ct0, cb0), (ct1, cb1) = crops
+
+    def f(x):
+        n, h, w, c = x.shape
+        x = x.reshape(b0, b1, n // (b0 * b1), h, w, c)
+        x = x.permute(2, 3, 0, 4, 1, 5).reshape(
+            n // (b0 * b1), h * b0, w * b1, c)
+        return x[:, ct0:x.shape[1] - cb0, ct1:x.shape[2] - cb1, :]
+    return f
+
+
+@register_op("spaceToBatch")
+def _space_to_batch(blocks=(2, 2), pads=((0, 0), (0, 0)), **_):
+    b0, b1 = int(blocks[0]), int(blocks[1])
+    (p0a, p0b), (p1a, p1b) = pads
+
+    def f(x):
+        x = F.pad(x, (0, 0, p1a, p1b, p0a, p0b))
+        n, h, w, c = x.shape
+        x = x.reshape(n, h // b0, b0, w // b1, b1, c)
+        return x.permute(2, 4, 0, 1, 3, 5).reshape(
+            n * b0 * b1, h // b0, w // b1, c)
+    return f
+
+
+@register_op("sequenceMask")
+def _sequence_mask(maxLen=None, dtype="float32", **_):
+    from deeplearning4j_tpu_torch.autodiff.samediff import _torch_dtype
+    if maxLen is None:
+        raise ValueError("sequenceMask: maxLen attr required")
+    t, dt = int(maxLen), _torch_dtype(dtype)
+    return lambda lengths: (torch.arange(t, device=lengths.device)[None, :]
+                            < lengths.long()[:, None]).to(dt)
+
+
+@register_op("confusionMatrix")
+def _confusion_matrix(numClasses=None, **_):
+    n = int(numClasses)
+
+    def f(labels, pred):
+        idx = (labels.long() * n + pred.long()).reshape(-1)
+        idx = idx[(idx >= 0) & (idx < n * n)]   # jnp.bincount drops these
+        return torch.bincount(idx, minlength=n * n).to(torch.int32).reshape(
+            n, n)
+    return f
+
+
+@register_op("sortAlongAxis")
+def _sort_axis(axis=-1, descending=False, **_):
+    def f(x):
+        s = torch.sort(x, dim=int(axis)).values
+        return torch.flip(s, (int(axis),)) if descending else s
+    return f
+
+
+@register_op("argsortAlongAxis")
+def _argsort_axis(axis=-1, descending=False, **_):
+    def f(x):
+        s = torch.argsort(x, dim=int(axis), stable=True)
+        return torch.flip(s, (int(axis),)) if descending else s
+    return f
+
+
+@register_op("meshgrid")
+def _meshgrid(indexing="xy", **_):
+    return lambda *xs: list(torch.meshgrid(*xs, indexing=indexing))
 
 
 @register_op("spaceToDepth")
@@ -228,6 +432,9 @@ _simple("matrixDeterminant", torch.linalg.det)
 _simple("cholesky", torch.linalg.cholesky)
 _simple("solve", torch.linalg.solve)
 _simple("matrixDiagPart", lambda x: torch.diagonal(x, dim1=-2, dim2=-1))
+_simple("logdet", lambda x: torch.linalg.slogdet(x)[1])
+_simple("diag", lambda x: torch.diagflat(x).reshape(x.shape + x.shape)
+        if x.dim() > 1 else torch.diag(x))
 
 
 @register_op("triangularSolve")
@@ -422,6 +629,16 @@ def _gray(x):
                                       device=x.device), dim=-1, keepdim=True)
 
 
+_simple("imageFlipLeftRight", lambda x: torch.flip(x, (-2,)))
+_simple("imageFlipUpDown", lambda x: torch.flip(x, (-3,)))
+_simple("rgbToGrayscale", lambda x: _gray(x))
+
+
+@register_op("adjustBrightness")
+def _adjust_brightness(delta=0.0, **_):
+    return lambda x: x + torch.tensor(delta, dtype=x.dtype, device=x.device)
+
+
 @register_op("adjustContrast")
 def _adjust_contrast(factor=1.0, **_):
     def f(x):
@@ -528,3 +745,188 @@ def _split(numSplit=2, dimension=0, **_):
                              f"{n} equal parts")
         return list(torch.split(x, x.shape[d] // n, dim=d))
     return f
+
+
+# ---------------------------------------------------------------------------
+# recurrent cells and sequences (reference: generic/nn/recurrent/
+# {gruCell,lstmCell,lstmLayer}.cpp).  The sequences take a time-major x
+# (t, b, nIn) and return every step's h (t, b, nOut); the reference's
+# lax.scan is a loop over t here, under autograd.
+# ---------------------------------------------------------------------------
+def _gru_step(x, h, Wru, Wc, bru, bc):
+    ru = torch.sigmoid(torch.cat([x, h], dim=-1) @ Wru + bru)
+    r, u = torch.chunk(ru, 2, dim=-1)
+    c = torch.tanh(torch.cat([x, r * h], dim=-1) @ Wc + bc)
+    return u * h + (1.0 - u) * c
+
+
+def _lstm_step(x, h, c, W, b):
+    z = torch.cat([x, h], dim=-1) @ W + b
+    i, fg, g, o = torch.chunk(z, 4, dim=-1)
+    c = torch.sigmoid(fg) * c + torch.sigmoid(i) * torch.tanh(g)
+    return torch.sigmoid(o) * torch.tanh(c), c
+
+
+@register_op("gruCell")
+def _gru_cell(**_):
+    return _gru_step
+
+
+@register_op("lstmCell")
+def _lstm_cell(**_):
+    return lambda x, hLast, cLast, W, b: list(_lstm_step(x, hLast, cLast,
+                                                         W, b))
+
+
+@register_op("gru")
+def _gru_seq(**_):
+    def f(x, h0, Wru, Wc, bru, bc):
+        h, hs = h0, []
+        for xt in x:
+            h = _gru_step(xt, h, Wru, Wc, bru, bc)
+            hs.append(h)
+        return torch.stack(hs)
+    return f
+
+
+@register_op("lstmLayer")
+def _lstm_layer(**_):
+    def f(x, h0, c0, W, b):
+        h, c, hs = h0, c0, []
+        for xt in x:
+            h, c = _lstm_step(xt, h, c, W, b)
+            hs.append(h)
+        return torch.stack(hs)
+    return f
+
+
+@register_op("simpleRnnLayer")
+def _simple_rnn_layer(**_):
+    def f(x, h0, Wx, Wh, b):
+        h, hs = h0, []
+        for xt in x:
+            h = torch.tanh(xt @ Wx + h @ Wh + b)
+            hs.append(h)
+        return torch.stack(hs)
+    return f
+
+
+# ---------------------------------------------------------------------------
+# namespaces (reference: org/nd4j/autodiff/samediff/ops/{SDImage,SDRNN,
+# SDLinalg}.java)
+# ---------------------------------------------------------------------------
+class SDImage(_Namespace):
+    def resizeBilinear(self, x, height, width, name=None):
+        return self.sd._op("resizeBilinear", [x],
+                           {"height": height, "width": width}, name=name)
+
+    def resizeNearestNeighbor(self, x, height, width, name=None):
+        return self.sd._op("resizeNearestNeighbor", [x],
+                           {"height": height, "width": width}, name=name)
+
+    def resizeBiCubic(self, x, height, width, name=None):
+        return self.sd._op("resizeBicubic", [x],
+                           {"height": height, "width": width}, name=name)
+
+    def cropAndResize(self, img, boxes, boxIdx, cropHeight, cropWidth,
+                      method="bilinear", name=None):
+        return self.sd._op("cropAndResize", [img, boxes, boxIdx],
+                           {"cropHeight": cropHeight, "cropWidth": cropWidth,
+                            "method": method}, name=name)
+
+    def adjustBrightness(self, x, delta, name=None):
+        return self.sd._op("adjustBrightness", [x], {"delta": delta},
+                           name=name)
+
+    def adjustContrast(self, x, factor, name=None):
+        return self.sd._op("adjustContrast", [x], {"factor": factor},
+                           name=name)
+
+    def adjustSaturation(self, x, factor, name=None):
+        return self.sd._op("adjustSaturation", [x], {"factor": factor},
+                           name=name)
+
+    def flipLeftRight(self, x, name=None):
+        return self.sd._op("imageFlipLeftRight", [x], name=name)
+
+    def flipUpDown(self, x, name=None):
+        return self.sd._op("imageFlipUpDown", [x], name=name)
+
+    def rgbToGrayscale(self, x, name=None):
+        return self.sd._op("rgbToGrayscale", [x], name=name)
+
+    def extractImagePatches(self, x, kH, kW, sH=1, sW=1, sameMode=False,
+                            name=None):
+        return self.sd._op("extractImagePatches", [x],
+                           {"kH": kH, "kW": kW, "sH": sH, "sW": sW,
+                            "isSameMode": sameMode}, name=name)
+
+
+class SDRNN(_Namespace):
+    def gruCell(self, x, hLast, Wru, Wc, bru, bc, name=None):
+        return self.sd._op("gruCell", [x, hLast, Wru, Wc, bru, bc], name=name)
+
+    def lstmCell(self, x, hLast, cLast, W, b, name=None):
+        return self.sd._op("lstmCell", [x, hLast, cLast, W, b], n_out=2,
+                           name=name)
+
+    def gru(self, x, h0, Wru, Wc, bru, bc, name=None):
+        """Full sequence, time-major x (t, b, nIn) -> (t, b, nOut)."""
+        return self.sd._op("gru", [x, h0, Wru, Wc, bru, bc], name=name)
+
+    def lstmLayer(self, x, h0, c0, W, b, name=None):
+        """Full sequence, time-major x (t, b, nIn) -> (t, b, nOut)."""
+        return self.sd._op("lstmLayer", [x, h0, c0, W, b], name=name)
+
+    def simpleRnn(self, x, h0, Wx, Wh, b, name=None):
+        return self.sd._op("simpleRnnLayer", [x, h0, Wx, Wh, b], name=name)
+
+
+class SDLinalg(_Namespace):
+    def inverse(self, x, name=None):
+        return self.sd._op("matrixInverse", [x], name=name)
+
+    def det(self, x, name=None):
+        return self.sd._op("matrixDeterminant", [x], name=name)
+
+    def logdet(self, x, name=None):
+        return self.sd._op("logdet", [x], name=name)
+
+    def cholesky(self, x, name=None):
+        return self.sd._op("cholesky", [x], name=name)
+
+    def solve(self, a, b, name=None):
+        return self.sd._op("solve", [a, b], name=name)
+
+    def triangularSolve(self, a, b, lower=True, adjoint=False, name=None):
+        return self.sd._op("triangularSolve", [a, b],
+                           {"lower": lower, "adjoint": adjoint}, name=name)
+
+    def matrixBandPart(self, x, numLower, numUpper, name=None):
+        return self.sd._op("matrixBandPart", [x],
+                           {"numLower": numLower, "numUpper": numUpper},
+                           name=name)
+
+    def diagPart(self, x, name=None):
+        return self.sd._op("matrixDiagPart", [x], name=name)
+
+    def mmul(self, a, b, transposeA=False, transposeB=False, name=None):
+        return self.sd._op("mmul", [a, b], {"transposeA": transposeA,
+                                            "transposeB": transposeB},
+                           name=name)
+
+
+# sd.math() / sd.nn() gain the elementwise breadth, as the reference's
+for _n in ["expm1", "log2", "log10", "cbrt", "cube", "oneMinus",
+           "timesOneMinus", "step", "trunc", "rint", "frac", "lgamma",
+           "digamma", "logSumExp", "entropy", "shannonEntropy", "amean",
+           "amax", "amin", "asum", "skewness", "kurtosis", "standardize",
+           "invertPermutation"]:
+    setattr(SDMath, _n, _ns_unary(_n))
+for _n in ["logAddExp", "igamma", "igammac", "euclideanDistance",
+           "manhattanDistance", "hammingDistance", "cosineSimilarity",
+           "jaccardDistance"]:
+    setattr(SDMath, _n, _ns_binary(_n))
+for _n in ["rationalTanh", "rectifiedTanh", "hardSwish"]:
+    setattr(SDNN, _n, _ns_unary(_n))
+del _n

@@ -18,12 +18,26 @@ and float32 graph constants are cast to bf16 for the forward, each loss
 output is summed in float32, the L1/L2 penalties act on the float32
 masters, and the gradients arrive in float32 for the updater.
 
-The ``ops_ext`` modules register the extended ops the TF and ONNX
-importers emit.
-Not ported yet, and raising where they are called: the control-flow ops
-(``whileLoop`` / ``ifCond`` / ``forLoop``), the rest of the ``ops_ext``
-families with ``sd.image()`` / ``sd.rnn()`` / ``sd.linalg()``,
-``execDebug``, ``stepCostAnalysis`` and ``invokeGraphOn`` (ROADMAP A12b).
+The ``ops_ext`` modules register the rest of the reference's 522 ops and
+the ``sd.image()`` / ``sd.rnn()`` / ``sd.linalg()`` / ``sd.bitwise()``
+namespaces.
+
+Control flow (``whileLoop`` / ``ifCond`` / ``forLoop``) stages each region
+— a sub-graph built by the user's lambda — into a function, as the
+reference stages it into a ``lax`` region; here the regions run eagerly:
+``while_loop`` is a Python loop that reads its condition once per
+iteration, ``if_cond`` a Python branch on its predicate, ``for_loop`` a
+Python loop under autograd (differentiable, as the reference's
+``lax.scan``).  ``while_loop`` is forward-only, as the reference's: asked
+for a gradient through it, it raises (ROADMAP C28).  A region serializes as its own
+graph payload with its arrays inlined (the ``_sub_*`` attrs), so a zip
+with control flow loads in either package.
+
+``execDebug`` runs the graph op by op, firing the listeners' per-op hooks.
+``stepCostAnalysis`` counts one train step's FLOPs with
+``torch.utils.flop_counter.FlopCounterMode`` and its bytes op by op,
+unfused, where the reference reads XLA's cost analysis of the compiled
+step (ROADMAP C29).
 """
 from __future__ import annotations
 
@@ -35,6 +49,8 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_flatten
 
 from deeplearning4j_tpu_torch import resolve_device
 from deeplearning4j_tpu_torch.autodiff.listeners import At, Loss
@@ -46,11 +62,6 @@ from deeplearning4j_tpu_torch.optimize.listeners import notifyListeners
 
 __all__ = ["SameDiff", "SDVariable", "VariableType", "TrainingConfig",
            "History", "register_op", "OP_IMPLS"]
-
-_A12B = ("the control-flow ops, the ops_ext families, execDebug, "
-         "stepCostAnalysis and invokeGraphOn are not ported yet "
-         "(ROADMAP A12b)")
-
 
 class VariableType:
     VARIABLE = "VARIABLE"        # trainable parameter
@@ -791,10 +802,15 @@ def _cosdist(dimension=-1, reduction="MEAN_BY_NONZERO_WEIGHT_COUNT", **_):
     return fn
 
 
-# random (seeded per node: the same values on every call and device; not
-# the reference's bits, which come from jax.random) ----------------------
-def _gen(seed):
-    return torch.Generator().manual_seed(int(seed))
+# random (seeded per node, drawn on the graph's device: the same values on
+# every call there; a CUDA generator's bits are not the CPU's, and neither
+# are the reference's, which come from jax.random) -----------------------
+def _gen(seed, device=None):
+    """A generator seeded with ``seed`` on ``device``: the default device
+    where none is named (the executor runs factories under the graph's)."""
+    return torch.Generator(device=torch.get_default_device()
+                           if device is None else device).manual_seed(
+                               int(seed))
 
 
 @register_op("random_normal")
@@ -813,6 +829,43 @@ def _runiform(shape=(), seed=0, minVal=0.0, maxVal=1.0, **_):
 def _rbern(shape=(), seed=0, p=0.5, **_):
     return lambda: (torch.rand(tuple(shape), generator=_gen(seed)) < p).to(
         torch.float32)
+
+
+# control flow (reference: TF-style Enter/Exit/Switch/Merge interpreted in
+# AbstractSession; the JAX package's lax regions).  ``cond_fn`` /
+# ``body_fn`` / ``true_fn`` / ``false_fn`` are the staged regions.
+@register_op("while_loop")
+def _while_impl(cond_fn=None, body_fn=None, n=1, **_):
+    def fn(*args):
+        if torch.is_grad_enabled() and any(
+                a.requires_grad for a in args if isinstance(a, torch.Tensor)):
+            raise RuntimeError(
+                "while_loop is forward-only, as the reference's lax."
+                "while_loop is: use forLoop for a differentiable loop")
+        carry = tuple(args)
+        while bool(cond_fn(*carry)[0].reshape(())):  # one read an iteration
+            carry = tuple(body_fn(*carry))
+        return carry if n > 1 else carry[0]
+    return fn
+
+
+@register_op("if_cond")
+def _if_impl(cond_fn=None, true_fn=None, false_fn=None, n_out=1, **_):
+    def fn(*args):
+        branch = true_fn if bool(cond_fn(*args)[0].reshape(())) else false_fn
+        out = tuple(branch(*args))
+        return out if n_out > 1 else out[0]
+    return fn
+
+
+@register_op("for_loop")
+def _for_impl(body_fn=None, n=1, iterations=1, **_):
+    def fn(*args):
+        carry = tuple(args)
+        for _i in range(int(iterations)):
+            carry = tuple(body_fn(*carry))
+        return carry if n > 1 else carry[0]
+    return fn
 
 
 # ---------------------------------------------------------------------------
@@ -1238,6 +1291,23 @@ class _OpNode:
 _HALF_TYPES = ("BFLOAT16", "HALF", "FLOAT16")
 
 
+class _ByteCounter(TorchDispatchMode):
+    """Adds up the bytes of every non-view op's tensor inputs and outputs
+    (``stepCostAnalysis``'s unfused byte count)."""
+
+    def __init__(self):
+        super().__init__()
+        self.total = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if not getattr(func, "is_view", False):
+            for t in tree_flatten((args, kwargs, out))[0]:
+                if isinstance(t, torch.Tensor):
+                    self.total += t.numel() * t.element_size()
+        return out
+
+
 class SameDiff:
     """The graph container (reference: org/nd4j/autodiff/samediff/SameDiff).
     Its arrays live on ``device`` (``cuda`` unless the caller asks for
@@ -1276,13 +1346,16 @@ class SameDiff:
     def random(self): return self._random
 
     def image(self):
-        raise NotImplementedError(f"sd.image(): {_A12B}")
+        from deeplearning4j_tpu_torch.autodiff.ops_ext import SDImage
+        return SDImage(self)
 
     def rnn(self):
-        raise NotImplementedError(f"sd.rnn(): {_A12B}")
+        from deeplearning4j_tpu_torch.autodiff.ops_ext import SDRNN
+        return SDRNN(self)
 
     def linalg(self):
-        raise NotImplementedError(f"sd.linalg(): {_A12B}")
+        from deeplearning4j_tpu_torch.autodiff.ops_ext import SDLinalg
+        return SDLinalg(self)
 
     # ---------------- variable management ----------------
     def _unique(self, base: str) -> str:
@@ -1402,7 +1475,7 @@ class SameDiff:
             attrs: Optional[Dict] = None, n_out: int = 1,
             name: str = None) -> Union[SDVariable, List[SDVariable]]:
         if op not in OP_IMPLS:
-            raise ValueError(f"Unknown op: {op} ({_A12B})")
+            raise ValueError(f"Unknown op: {op}")
         attrs = dict(attrs or {})
         base = name or op
         out_names = [self._unique(base if (i == 0 and n_out == 1)
@@ -1416,19 +1489,136 @@ class SameDiff:
         self._invalidate()
         return outs[0] if n_out == 1 else outs
 
-    def whileLoop(self, loopVars, cond, body, name: str = None):
-        raise NotImplementedError(f"whileLoop: {_A12B}")
+    # ---------------- control flow ----------------
+    def _stage_subgraph(self, n_in: int, build):
+        """Build a sub-graph on this graph's device from a user lambda
+        ``build(sub, [placeholders])`` and stage it into a function
+        ``[args] -> [outs]``.  Returns ``(staged, n_out, payload)``: the
+        payload is the sub-graph's JSON description, its arrays inlined,
+        from which ``_restage_payload`` rebuilds the function after
+        ``load``."""
+        sub = SameDiff(self.device)
+        phs = [sub.placeholder(f"sub_in_{i}") for i in range(n_in)]
+        outs = build(sub, phs)
+        outs = list(outs) if isinstance(outs, (list, tuple)) else [outs]
+        out_names = tuple(o.name() for o in outs)
+        payload = {"n_in": n_in, "outputs": list(out_names),
+                   "graph": sub._graph_payload(include_arrays=True)}
+        return self._stage_from(sub, out_names), len(out_names), payload
 
-    def ifCond(self, inputs, cond, trueBody, falseBody, name: str = None):
-        raise NotImplementedError(f"ifCond: {_A12B}")
+    @staticmethod
+    def _stage_from(sub: "SameDiff", out_names):
+        subfn = sub._build_fn(tuple(out_names))
+        var_vals = sub._var_values()
 
-    def forLoop(self, nIterations, loopVars, body, name: str = None):
-        raise NotImplementedError(f"forLoop: {_A12B}")
+        def staged(*args):
+            res = subfn({f"sub_in_{i}": a for i, a in enumerate(args)},
+                        var_vals, 0)
+            return [res[n] for n in out_names]
+        return staged
 
-    def _graph_payload(self) -> Dict:
-        """JSON-able description of the graph (``graph.json``; the arrays
-        go to ``arrays.npz``)."""
-        return {
+    #: control-flow ops: (callable attr, its serialized region's attr)
+    _CF_SUBS = {
+        "while_loop": (("cond_fn", "_sub_cond"), ("body_fn", "_sub_body")),
+        "if_cond": (("cond_fn", "_sub_cond"), ("true_fn", "_sub_true"),
+                    ("false_fn", "_sub_false")),
+        "for_loop": (("body_fn", "_sub_body"),),
+    }
+
+    @staticmethod
+    def _restage_payload(payload: Dict, device) -> Any:
+        """Rebuild a region's function from its serialized form on
+        ``device`` (nested regions restage their own)."""
+        g = payload["graph"]
+        sub = SameDiff(device)
+        sub._apply_graph_payload(g)
+        for n, spec in g["arrays"].items():
+            sub._arrays[n] = torch.from_numpy(np.asarray(
+                spec["data"], dtype=np.dtype(spec["dtype"]))).to(sub.device)
+        sub._restage_controlflow()
+        return SameDiff._stage_from(sub, tuple(payload["outputs"]))
+
+    def _restage_controlflow(self) -> None:
+        """After a load: the functions of every control-flow op, from their
+        serialized regions."""
+        for n in self._ops:
+            for fn_key, sub_key in self._CF_SUBS.get(n.op, ()):
+                if not callable(n.attrs.get(fn_key)):
+                    n.attrs[fn_key] = self._restage_payload(n.attrs[sub_key],
+                                                            self.device)
+
+    def whileLoop(self, loopVars: Sequence[SDVariable], cond, body,
+                  name: str = None):
+        """TF-style while loop (reference: SameDiff.whileLoop).
+        ``cond(sd, vars)`` returns one scalar boolean SDVariable,
+        ``body(sd, vars)`` as many SDVariables as ``loopVars``; returns
+        the final loop variables.  Forward-only, as the reference's."""
+        n = len(loopVars)
+        cond_fn, n_c, cond_sub = self._stage_subgraph(n, cond)
+        if n_c != 1:
+            raise ValueError("cond must return exactly one scalar")
+        body_fn, n_b, body_sub = self._stage_subgraph(n, body)
+        if n_b != n:
+            raise ValueError(f"body returns {n_b} vars, expected {n}")
+        out = self._op("while_loop", list(loopVars),
+                       {"cond_fn": cond_fn, "body_fn": body_fn, "n": n,
+                        "_sub_cond": cond_sub, "_sub_body": body_sub},
+                       n_out=n, name=name or "while")
+        return out if isinstance(out, list) else [out]
+
+    def ifCond(self, inputs: Sequence[SDVariable], cond, trueBody, falseBody,
+               name: str = None):
+        """TF-style conditional (reference: SameDiff.ifCond):
+        ``cond`` / ``trueBody`` / ``falseBody`` are ``f(sd, vars)``
+        lambdas; the branches return the same number of outputs.
+        Differentiable through the branch taken."""
+        n = len(inputs)
+        cond_fn, n_c, cond_sub = self._stage_subgraph(n, cond)
+        if n_c != 1:
+            raise ValueError("cond must return exactly one scalar")
+        t_fn, n_t, t_sub = self._stage_subgraph(n, trueBody)
+        f_fn, n_f, f_sub = self._stage_subgraph(n, falseBody)
+        if n_t != n_f:
+            raise ValueError(f"branches return {n_t} vs {n_f} outputs")
+        out = self._op("if_cond", list(inputs),
+                       {"cond_fn": cond_fn, "true_fn": t_fn,
+                        "false_fn": f_fn, "n_out": n_t,
+                        "_sub_cond": cond_sub, "_sub_true": t_sub,
+                        "_sub_false": f_sub},
+                       n_out=n_t, name=name or "cond")
+        return out if isinstance(out, list) else [out]
+
+    def forLoop(self, nIterations: int, loopVars: Sequence[SDVariable], body,
+                name: str = None):
+        """A loop of a fixed trip count; differentiable (the reference's
+        ``lax.scan``): use it rather than whileLoop where gradients must
+        flow."""
+        n = len(loopVars)
+        body_fn, n_b, body_sub = self._stage_subgraph(n, body)
+        if n_b != n:
+            raise ValueError(f"body returns {n_b} vars, expected {n}")
+        out = self._op("for_loop", list(loopVars),
+                       {"body_fn": body_fn, "n": n,
+                        "iterations": int(nIterations),
+                        "_sub_body": body_sub},
+                       n_out=n, name=name or "for")
+        return out if isinstance(out, list) else [out]
+
+    def _graph_payload(self, include_arrays: bool = False) -> Dict:
+        """JSON-able description of the graph (``graph.json``; ``save``
+        writes the arrays to ``arrays.npz``, a control-flow region inlines
+        its own with ``include_arrays``).  A callable attr serializes only
+        as a control-flow function whose region is present."""
+        for n in self._ops:
+            pairs = dict(self._CF_SUBS.get(n.op, ()))
+            for k, a in n.attrs.items():
+                if callable(a) and (k not in pairs
+                                    or pairs[k] not in n.attrs):
+                    raise ValueError(
+                        f"cannot serialize op '{n.name}' ({n.op}): attr "
+                        f"{k!r} is a function with no serialized sub-graph "
+                        f"region")
+        payload = {
             "variables": [
                 {"name": v.name(), "type": v.variableType,
                  "shape": list(v.shape) if v.shape else None,
@@ -1436,17 +1626,24 @@ class SameDiff:
                            if v.dtype is not None else None)}
                 for v in self._vars.values()],
             "ops": [{"op": n.op, "name": n.name, "inputs": n.inputs,
-                     "outputs": n.outputs, "attrs": dict(n.attrs)}
+                     "outputs": n.outputs,
+                     "attrs": {k: a for k, a in n.attrs.items()
+                               if not callable(a)}}
                     for n in self._ops],
             "lossVariables": list(self._loss_vars),
         }
+        if include_arrays:
+            payload["arrays"] = {n: {"dtype": str(_np(a).dtype),
+                                     "data": _np(a).tolist()}
+                                 for n, a in self._arrays.items()}
+        return payload
 
     def _apply_graph_payload(self, g: Dict) -> None:
         """Reconstruct variables, ops and loss markers from a payload."""
         missing = sorted({o["op"] for o in g["ops"]} - set(OP_IMPLS))
         if missing:
             raise NotImplementedError(
-                f"the graph uses ops the port lacks: {missing}; {_A12B}")
+                f"the graph uses ops neither package registers: {missing}")
         for v in g["variables"]:
             self._register(v["name"], v["type"], v.get("shape"),
                            v.get("dtype") or None)
@@ -1507,7 +1704,20 @@ class SameDiff:
         return self._op("onesLike", [x], name=name)
 
     def invokeGraphOn(self, other: "SameDiff"):
-        raise NotImplementedError(f"invokeGraphOn: {_A12B}")
+        """Copy this graph's structure and arrays into ``other`` (onto its
+        device)."""
+        for n, v in self._vars.items():
+            other._vars[n] = SDVariable(other, n, v.variableType, v.shape,
+                                        v.dtype)
+        other._arrays.update({n: a.to(other.device)
+                              for n, a in self._arrays.items()})
+        for node in self._ops:
+            cp = _OpNode(node.op, node.name, list(node.inputs),
+                         list(node.outputs), dict(node.attrs))
+            other._ops.append(cp)
+            for i, o in enumerate(cp.outputs):
+                other._producer[o] = (cp, i)
+        other._invalidate()
 
     # ---------------- staging: graph -> pure function ----------------
     def _needed_nodes(self, out_names: Sequence[str]) -> List[_OpNode]:
@@ -1533,11 +1743,13 @@ class SameDiff:
         return needed
 
     def _build_fn(self, out_names: Tuple[str, ...], training: bool = False,
-                  compute_dtype=None):
+                  compute_dtype=None, pre=None, post=None):
         """Stage the graph into a pure fn(placeholders, variables, it) ->
         outs.  ``it`` is the iteration: train-time RNG ops (dropout) seed
         their mask with it; at inference they are identity (ND4J
-        DropOutInverted's train/test semantics)."""
+        DropOutInverted's train/test semantics).  ``pre(node)`` and
+        ``post(node, outputs)``, where given, run around every op
+        (``execDebug``'s listeners)."""
         nodes = self._needed_nodes(out_names)
         compiled = [(node, None if node.op in RNG_TRAIN_OPS and not training
                      else OP_IMPLS[node.op](**node.attrs)) for node in nodes]
@@ -1555,21 +1767,25 @@ class SameDiff:
             env.update(placeholders)
             env.update(variables)
             for node, impl in compiled:
-                if impl is None:
-                    env[node.outputs[0]] = env[node.inputs[0]]
-                    continue
+                if pre is not None:
+                    pre(node)
                 args = [env[i] for i in node.inputs]
-                if node.op in RNG_TRAIN_OPS:
+                if impl is None:
+                    res = args[0]
+                elif node.op in RNG_TRAIN_OPS:
                     res = impl(*args, it)
-                else:
+                elif args:
                     res = impl(*args)
-                if not node.inputs:     # factories build on the CPU
-                    res = res.to(device)
-                if isinstance(res, (tuple, list)):
-                    for nm, r in zip(node.outputs, res):
-                        env[nm] = r
                 else:
-                    env[node.outputs[0]] = res
+                    # factories build, and draw, on the graph's device
+                    # (one made from numpy is moved there)
+                    with torch.device(device):
+                        res = impl().to(device)
+                res_t = res if isinstance(res, (tuple, list)) else (res,)
+                for nm, r in zip(node.outputs, res_t):
+                    env[nm] = r
+                if post is not None:
+                    post(node, list(res_t))
             return {n: env[n] for n in out_names}
         return fn
 
@@ -1654,8 +1870,32 @@ class SameDiff:
         self._train_step = None
 
     def stepCostAnalysis(self, ds) -> Dict[str, float]:
-        raise NotImplementedError(
-            f"stepCostAnalysis is XLA's cost analysis; {_A12B}")
+        """One train step's cost for ``ds`` (a DataSet / MultiDataSet):
+        ``{"flops": ..., "bytes": ...}``.  The step runs once on copies
+        (nothing of the graph changes) under
+        ``torch.utils.flop_counter.FlopCounterMode``, which counts the
+        matrix products and convolutions, and a dispatch mode that adds
+        up every non-view op's input and output bytes, as if nothing were
+        fused.  The reference reads XLA's cost analysis of the compiled
+        step, which counts elementwise FLOPs too, fuses bytes and counts a
+        loop's body once (ROADMAP C29)."""
+        from torch.utils.flop_counter import FlopCounterMode
+        if self._training_config is None:
+            raise ValueError("setTrainingConfig first")
+        cfg = self._training_config
+        if self._train_step is None:
+            self._make_train_step()
+        variables = self._var_values()
+        opt = dict(self._opt_state or {})
+        for n, v in variables.items():
+            if n not in opt and v.is_floating_point():
+                opt[n] = cfg.updater.init(v)
+        ph = self._bind(ds, cfg)
+        nbytes = _ByteCounter()
+        with FlopCounterMode(display=False) as flops, nbytes:
+            self._train_step(variables, opt, ph, self.iterationCount)
+        return {"flops": float(flops.get_total_flops()),
+                "bytes": float(nbytes.total)}
 
     def _make_train_step(self):
         cfg = self._training_config
@@ -1812,7 +2052,29 @@ class SameDiff:
         self._listeners.extend(listeners)
 
     def execDebug(self, placeholders: Dict[str, Any], *outputs):
-        raise NotImplementedError(f"execDebug: {_A12B}")
+        """Op-by-op execution firing ``preOpExecution`` / ``opExecution`` on
+        every listener (and ``execDebugPassDone`` where a listener has it),
+        with inference semantics; returns what :meth:`output` returns."""
+        out_names = tuple(o.name() if isinstance(o, SDVariable) else o
+                          for o in outputs) or tuple(self._loss_vars)
+        ph = {k: _tensor(v).to(self.device) for k, v in placeholders.items()}
+        at = At(iteration=self.iterationCount)
+
+        def pre(node):
+            for lst in self._listeners:
+                lst.preOpExecution(self, at, node)
+
+        def post(node, outs):
+            for lst in self._listeners:
+                lst.opExecution(self, at, node, outs)
+        fn = self._build_fn(out_names, pre=pre, post=post)
+        with torch.no_grad():
+            out = fn(ph, self._var_values())
+        for lst in self._listeners:
+            hook = getattr(lst, "execDebugPassDone", None)
+            if hook is not None:
+                hook(self, at)
+        return out
 
     # ---------------- serde ----------------
     def save(self, path: str, saveUpdaterState: bool = False):
@@ -1837,14 +2099,15 @@ class SameDiff:
     def load(path: str, loadUpdaterState: bool = False,
              device=None) -> "SameDiff":
         """Read a zip written by ``save`` (of either package) onto
-        ``device``.  A graph whose ops the port lacks raises, naming
-        them."""
+        ``device``, restaging its control-flow regions.  A graph naming an
+        op neither package registers raises, naming it."""
         sd = SameDiff(device)
         with zipfile.ZipFile(path) as z:
             sd._apply_graph_payload(json.loads(z.read("graph.json")))
             arrays = np.load(io.BytesIO(z.read("arrays.npz")))
             for n in arrays.files:
                 sd._arrays[n] = torch.from_numpy(arrays[n]).to(sd.device)
+            sd._restage_controlflow()
             if loadUpdaterState and "updater.npz" in z.namelist():
                 st = np.load(io.BytesIO(z.read("updater.npz")))
                 opt: Dict[str, Dict] = {}
@@ -1867,9 +2130,8 @@ class SameDiff:
         return "\n".join(lines)
 
 
-# The ops of the reference's ops_ext families that the TF and ONNX importers
-# emit register themselves into OP_IMPLS on import (the rest is ROADMAP
-# A12b).
+# The reference's ops_ext families register themselves into OP_IMPLS on
+# import.
 from deeplearning4j_tpu_torch.autodiff import ops_ext  # noqa: E402,F401  isort:skip
 from deeplearning4j_tpu_torch.autodiff import ops_ext2  # noqa: E402,F401  isort:skip
 from deeplearning4j_tpu_torch.autodiff import ops_ext3  # noqa: E402,F401  isort:skip

@@ -7,9 +7,9 @@ For the layers the port has, ``toJson()`` writes the same JSON as the JAX
 package, so one JSON builds both nets.
 
 ``graphBuilder()`` returns the ComputationGraph builder of
-``models/graph_conf.py``.  Every layer module of the reference is here but
-the SameDiff layers (ROADMAP A12b): their names import, and building one
-(or reading one in ``layer_from_json``) raises naming A12b.
+``models/graph_conf.py``.  Every layer module of the reference is here,
+the SameDiff layers (``SameDiffLayer``, ``SameDiffLambdaLayer``,
+``SDLayerParams``) among them.
 """
 from __future__ import annotations
 
@@ -17,7 +17,6 @@ import dataclasses
 import json
 from typing import Any, Dict, List, Optional
 
-from deeplearning4j_tpu_torch import unported
 from deeplearning4j_tpu_torch.learning.config import IUpdater, Sgd
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.conf.layers import Layer, layer_from_json
@@ -278,7 +277,5 @@ from deeplearning4j_tpu_torch.nn.conf import misc  # noqa: E402,F401
 from deeplearning4j_tpu_torch.nn.conf import recurrent  # noqa: E402,F401
 from deeplearning4j_tpu_torch.nn.conf.variational import (  # noqa: E402,F401
     VariationalAutoencoder)
-
-SameDiffLambdaLayer = unported("SameDiffLambdaLayer", "A12b")
-SameDiffLayer = unported("SameDiffLayer", "A12b")
-SDLayerParams = unported("SDLayerParams", "A12b")
+from deeplearning4j_tpu_torch.nn.conf.samediff_layer import (  # noqa: E402,F401,E501
+    SameDiffLambdaLayer, SameDiffLayer, SDLayerParams)

@@ -15,7 +15,7 @@ layers (``ConvolutionLayer``/``Convolution2D``, ``SubsamplingLayer``,
 ``EmbeddingSequenceLayer``, ``OutputLayer`` and ``LossLayer``, with the
 ``_Builder``/``register_layer``/``layer_from_json`` machinery; the
 attention, recurrent, convolutional, 3-D and misc layers register from
-their own modules.  The autoencoder and VAE layers wait for ROADMAP A4.
+their own modules.
 
 Convolutions are ``torch.nn.functional.conv2d`` (NCHW input, OIHW weights),
 as the reference leaves them to XLA.  ``ConvolutionMode.Same`` pads as
@@ -731,11 +731,13 @@ def layer_from_json(d: dict) -> Layer:
     if name in ("FeatureInteractionLayer", "DotProductScorer"):
         # the recommender layers register when their module loads
         import deeplearning4j_tpu_torch.models.recsys  # noqa: F401
+    if name == "PixelShuffleLayer":     # SRGAN's, registered by the zoo
+        import deeplearning4j_tpu_torch.zoo.models3  # noqa: F401
     if name not in _LAYER_REGISTRY:
-        raise NotImplementedError(
-            f"layer {name} is not ported yet (ROADMAP A12b: the SameDiff "
-            f"layers, SameDiffLayer, SameDiffLambdaLayer and "
-            f"PixelShuffleLayer)")
+        # a user's SameDiffLayer subclass registers when it is defined, as
+        # the reference's does
+        raise KeyError(f"layer class {name} is not registered: import the "
+                       f"module that defines it first")
     for k in ("updater", "biasUpdater"):
         if d.get(k):
             d[k] = IUpdater.fromJson(d[k])

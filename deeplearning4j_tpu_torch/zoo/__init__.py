@@ -1,8 +1,6 @@
 """Model zoo (the port of ``deeplearning4j_tpu/zoo``): every architecture
-of the reference's zoo, BERT on SameDiff, and the local-file pretrained
-loader.  ``SRGAN`` and ``PixelShuffleLayer`` wait for
-``SameDiffLambdaLayer`` (ROADMAP A12b): their names import, and building
-one raises naming that item."""
+of the reference's zoo (``SRGAN`` with its ``PixelShuffleLayer`` among
+them), BERT on SameDiff, and the local-file pretrained loader."""
 from deeplearning4j_tpu_torch.zoo.models import (  # noqa: F401
     DLRM, AlexNet, LeNet, ResNet50, SimpleCNN, TwoTowerRecommender, VGG16,
     ZooModel)

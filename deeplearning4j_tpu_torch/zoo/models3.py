@@ -1,24 +1,32 @@
 """Zoo architectures, part 3 — the port of ``deeplearning4j_tpu/zoo/
 models3.py``: ``NASNet`` (the reference's ``zoo/model/NASNet.java`` with
-``helper/NASNetHelper``'s normal and reduction cells).  ``SRGAN`` and its
-``PixelShuffleLayer`` are built on ``SameDiffLambdaLayer``, which waits for
-ROADMAP A12b; their names import and building one raises.
+``helper/NASNetHelper``'s normal and reduction cells) and ``SRGAN``
+(``zoo/model/SRGAN.java``: the generator and its discriminator), whose
+sub-pixel upsampling is ``PixelShuffleLayer``, a ``SameDiffLambdaLayer``
+over the ``depthToSpace`` op (TF's DCR channel order, not
+``F.pixel_shuffle``'s CRD).
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Tuple
 
-from deeplearning4j_tpu_torch import unported
 from deeplearning4j_tpu_torch.learning.config import Adam
+from deeplearning4j_tpu_torch.models.graph import ComputationGraph
 from deeplearning4j_tpu_torch.models.graph_conf import (ElementWiseVertex,
                                                         MergeVertex)
-from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration
-from deeplearning4j_tpu_torch.nn.conf.convolutional import \
-    SeparableConvolution2D
+from deeplearning4j_tpu_torch.models.multilayer import MultiLayerNetwork
+from deeplearning4j_tpu_torch.nn.conf import (InputType,
+                                              NeuralNetConfiguration,
+                                              SameDiffLambdaLayer)
+from deeplearning4j_tpu_torch.nn.conf.convolutional import (
+    CnnLossLayer, SeparableConvolution2D)
+from deeplearning4j_tpu_torch.nn.conf.convolutional3d import PReLULayer
 from deeplearning4j_tpu_torch.nn.conf.layers import (ActivationLayer,
                                                      BatchNormalization,
                                                      ConvolutionLayer,
                                                      ConvolutionMode,
+                                                     DenseLayer,
                                                      GlobalPoolingLayer,
                                                      OutputLayer,
                                                      SubsamplingLayer)
@@ -122,6 +130,111 @@ class NASNet(_GraphZooModel):
         return gb
 
 
-_NEEDS_SDL = "needs SameDiffLambdaLayer, which is not ported yet"
-PixelShuffleLayer = unported("PixelShuffleLayer", "A12b", _NEEDS_SDL)
-SRGAN = unported("SRGAN", "A12b", _NEEDS_SDL)
+@dataclasses.dataclass
+class PixelShuffleLayer(SameDiffLambdaLayer):
+    """Sub-pixel upsampling: (b, c·r², h, w) -> (b, c, h·r, w·r) by the
+    ``depthToSpace`` op (reference SRGAN's PixelShuffle helper)."""
+    blockSize: int = 2
+
+    def preferredFormat(self):
+        return "CNN"                 # keep the NCHW map (no FF flatten)
+
+    def defineLayer(self, sd, layerInput):
+        return sd._op("depthToSpace", [layerInput],
+                      {"blockSize": self.blockSize, "dataFormat": "NCHW"})
+
+    def getOutputType(self, inputType):
+        r = self.blockSize
+        return InputType.convolutional(inputType.height * r,
+                                       inputType.width * r,
+                                       inputType.channels // (r * r))
+
+
+@dataclasses.dataclass
+class SRGAN(_GraphZooModel):
+    """Super-resolution GAN (reference: zoo/model/SRGAN.java): a residual
+    PReLU generator with sub-pixel upsampling and a LeakyReLU conv
+    discriminator.  ``init()`` returns the generator,
+    ``initDiscriminator()`` the discriminator; SRResNet (Ledig et al.
+    2017) is ``numResidualBlocks=16``."""
+    inputShape: Tuple[int, int, int] = (3, 24, 24)
+    numResidualBlocks: int = 4
+    upscaleFactor: int = 4           # two x2 pixel-shuffle stages
+
+    def graphBuilder(self):
+        gb = (NeuralNetConfiguration.builder().seed(self.seed)
+              .updater(Adam(1e-4)).weightInit("XAVIER")
+              .convolutionMode(ConvolutionMode.Same).graphBuilder())
+        gb.addInputs("input").setInputTypes(self._it())
+        gb.addLayer("stem", ConvolutionLayer.builder().nOut(64)
+                    .kernelSize(9, 9).build(), "input")
+        gb.addLayer("stem_prelu", PReLULayer.builder().build(), "stem")
+        x = "stem_prelu"
+        for i in range(self.numResidualBlocks):
+            gb.addLayer(f"res{i}_c1", ConvolutionLayer.builder().nOut(64)
+                        .kernelSize(3, 3).hasBias(False).build(), x)
+            gb.addLayer(f"res{i}_bn1", BatchNormalization.builder().build(),
+                        f"res{i}_c1")
+            gb.addLayer(f"res{i}_prelu", PReLULayer.builder().build(),
+                        f"res{i}_bn1")
+            gb.addLayer(f"res{i}_c2", ConvolutionLayer.builder().nOut(64)
+                        .kernelSize(3, 3).hasBias(False).build(),
+                        f"res{i}_prelu")
+            gb.addLayer(f"res{i}_bn2", BatchNormalization.builder().build(),
+                        f"res{i}_c2")
+            gb.addVertex(f"res{i}", ElementWiseVertex("Add"),
+                         f"res{i}_bn2", x)
+            x = f"res{i}"
+        gb.addLayer("post_conv", ConvolutionLayer.builder().nOut(64)
+                    .kernelSize(3, 3).hasBias(False).build(), x)
+        gb.addLayer("post_bn", BatchNormalization.builder().build(),
+                    "post_conv")
+        gb.addVertex("post", ElementWiseVertex("Add"), "post_bn",
+                     "stem_prelu")
+        x = "post"
+        stages = {2: 1, 4: 2}.get(int(self.upscaleFactor))
+        if stages is None:
+            raise ValueError("upscaleFactor must be 2 or 4")
+        for i in range(stages):
+            gb.addLayer(f"up{i}_conv", ConvolutionLayer.builder().nOut(256)
+                        .kernelSize(3, 3).build(), x)
+            gb.addLayer(f"up{i}_shuffle", PixelShuffleLayer(blockSize=2),
+                        f"up{i}_conv")
+            gb.addLayer(f"up{i}_prelu", PReLULayer.builder().build(),
+                        f"up{i}_shuffle")
+            x = f"up{i}_prelu"
+        gb.addLayer("sr_conv", ConvolutionLayer.builder().nOut(3)
+                    .kernelSize(9, 9).activation("tanh").build(), x)
+        gb.addLayer("sr", CnnLossLayer.builder("mse").build(), "sr_conv")
+        gb.setOutputs("sr")
+        return gb
+
+    def init(self, device=None) -> ComputationGraph:
+        return ComputationGraph(self.graphBuilder().build(),
+                                device=device).init()
+
+    def initDiscriminator(self, device=None) -> MultiLayerNetwork:
+        c, h, w = self.inputShape
+        b = (NeuralNetConfiguration.builder().seed(self.seed)
+             .updater(Adam(1e-4)).weightInit("XAVIER")
+             .convolutionMode(ConvolutionMode.Same).list())
+        spec = [(64, 1), (64, 2), (128, 1), (128, 2),
+                (256, 1), (256, 2), (512, 1), (512, 2)]
+        for i, (n, s) in enumerate(spec):
+            conv = ConvolutionLayer.builder().nOut(n).kernelSize(3, 3) \
+                .stride(s, s)
+            if i:
+                # conv (identity) -> BN -> leakyrelu, as the reference lays
+                # it out
+                b.layer(conv.activation("identity").hasBias(False).build())
+                b.layer(BatchNormalization.builder()
+                        .activation("leakyrelu").build())
+            else:
+                b.layer(conv.activation("leakyrelu").build())
+        b.layer(DenseLayer.builder().nOut(256).activation("leakyrelu")
+                .build())
+        b.layer(OutputLayer.builder("xent").nOut(1).activation("sigmoid")
+                .build())
+        conf = b.setInputType(InputType.convolutional(
+            h * self.upscaleFactor, w * self.upscaleFactor, c)).build()
+        return MultiLayerNetwork(conf, device=device).init()

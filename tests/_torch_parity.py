@@ -481,6 +481,21 @@ def _reference_tests(filename, exclude=()):
     return mod, cases
 
 
+def _cpu_default(monkeypatch):
+    """For a reference test body that names no device (the SameDiff
+    slice's): every port module's ``resolve_device`` defaults to the CPU
+    for the test."""
+    import sys
+    import deeplearning4j_tpu_torch as port
+    orig = port.resolve_device
+    for name, mod in list(sys.modules.items()):
+        if name.startswith("deeplearning4j_tpu_torch") and \
+                getattr(mod, "resolve_device", None) is orig:
+            monkeypatch.setattr(mod, "resolve_device",
+                                lambda d=None: orig("cpu" if d is None
+                                                    else d))
+
+
 def _run_reference_test(case, tmp_path, monkeypatch):
     """Run one case of :func:`_reference_tests`, giving it the fixtures it
     names (``tmp_path``, ``monkeypatch``), in host-only mode: ``Nd4j``

@@ -214,9 +214,14 @@ def test_c19_attention_layers_import_and_load():
         RecurrentAttentionLayer, SelfAttentionLayer)
     jl = jatt.LearnedSelfAttentionLayer(nIn=4, nOut=4, nHeads=1, nQueries=2)
     assert type(_json_round_trip(jl)[0]) is LearnedSelfAttentionLayer
-    with pytest.raises(NotImplementedError, match="A12b") as e:
-        tlayers.layer_from_json({"@class": "SameDiffLayer"})
+    from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration
+    with pytest.raises(NotImplementedError, match="A10") as e:
+        NeuralNetConfiguration.builder().list().pipelineStages(2)
     assert "A7" not in str(e.value) and "A4" not in str(e.value)
+    # A12b's layers, once unported here too, load
+    assert type(tlayers.layer_from_json(
+        {"@class": "PixelShuffleLayer", "blockSize": 2})).__name__ == \
+        "PixelShuffleLayer"
     # A11's layer, once unported here too, loads
     assert type(tlayers.layer_from_json(
         {"@class": "ShardedEmbeddingBag", "numEmbeddings": 4,

@@ -328,13 +328,14 @@ def test_onnx_rule_table_is_the_references():
 def test_op_registry_holds_the_onnx_rules_ops():
     """The ONNX slice took the registry from 251 ops to 282: the 14
     ``onnx_*`` helper ops and the 17 core ops the rules emit, each a name
-    of the reference's registry."""
+    of the reference's registry; the control-flow slice (A12b) took it to
+    the reference's 522."""
     import deeplearning4j_tpu.imports  # noqa: F401  (registers onnx_*)
     import deeplearning4j_tpu_torch.imports  # noqa: F401
     from deeplearning4j_tpu.autodiff.samediff import OP_IMPLS as REF
     from deeplearning4j_tpu_torch.autodiff.samediff import OP_IMPLS
-    assert len(OP_IMPLS) == 282
-    assert sorted(set(OP_IMPLS) - set(REF)) == []
+    assert len(OP_IMPLS) == 522 == len(REF)
+    assert sorted(set(OP_IMPLS) ^ set(REF)) == []
     assert len([n for n in OP_IMPLS if n.startswith("onnx_")]) == 14
 
 
@@ -420,20 +421,24 @@ ZOO_SLICE_NAMES = [(m, n) for m in ("nn.conf", "nn.conf.convolutional",
 def test_zoo_slice_public_names_import_from_both_packages(module, name):
     """Every public name of the reference's ``nn.conf``,
     ``nn.conf.convolutional``, ``models`` and ``zoo`` imports from the port
-    under the same path; the ones still unported raise naming their
-    ROADMAP item when built; the recommender tier's models (A11, ported)
-    build."""
+    under the same path; the recommender tier's models (A11) and the
+    SameDiff layers and SRGAN (A12b), once unported, build as the
+    reference's."""
     import importlib
     port = getattr(importlib.import_module(
         f"deeplearning4j_tpu_torch.{module}"), name)
     assert callable(port)
-    unported = {"SameDiffLambdaLayer": "A12b", "SameDiffLayer": "A12b",
-                "SDLayerParams": "A12b", "SRGAN": "A12b",
-                "PixelShuffleLayer": "A12b"}
-    if name in unported:
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP {unported[name]}"):
-            port()
+    if name in ("SRGAN", "PixelShuffleLayer", "SDLayerParams",
+                "SameDiffLambdaLayer", "SameDiffLayer"):
+        ref = getattr(importlib.import_module(f"deeplearning4j_tpu.{module}"),
+                      name)
+        built = port()
+        assert type(built).__name__ == ref.__name__
+        if name == "SRGAN":
+            assert (built.numResidualBlocks, built.upscaleFactor) == \
+                (ref().numResidualBlocks, ref().upscaleFactor)
+        if name == "PixelShuffleLayer":
+            assert built.blockSize == ref().blockSize
     elif name in ("TwoTowerRecommender", "DLRM"):
         ref = getattr(importlib.import_module(f"deeplearning4j_tpu.{module}"),
                       name)
@@ -692,3 +697,65 @@ def test_native_never_builds_xla_ffi():
     built = native.BUILD_DIR
     assert not [p for p in built.glob("*") if "xla" in p.name]
     assert native.library_path().startswith(str(PKG / "_build"))
+
+
+SAMEDIFF_SLICE_MODULES = ["autodiff.samediff", "autodiff.gradcheck",
+                          "autodiff.validation", "autodiff.op_cases",
+                          "nn.conf.samediff_layer"]
+
+
+_IMPORT_IN_TURN = """
+import importlib, json, sys
+leaked = {{}}
+for name in {names!r}:
+    importlib.import_module("deeplearning4j_tpu_torch." + name)
+    leaked[name] = sorted(m for m in sys.modules
+                          if m.split(".")[0] in {forbidden!r})
+print(json.dumps(leaked))
+"""
+
+
+@pytest.fixture(scope="module")
+def samediff_slice_leaks():
+    """What each of SAMEDIFF_SLICE_MODULES had loaded of FORBIDDEN once
+    it was imported, the modules imported in turn in one fresh
+    interpreter: a module that loads jax shows it first at its own
+    import."""
+    import json
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run(
+        [sys.executable, "-c", _IMPORT_IN_TURN.format(
+            names=SAMEDIFF_SLICE_MODULES, forbidden=set(FORBIDDEN))],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("mod", SAMEDIFF_SLICE_MODULES)
+def test_samediff_slice_modules_import_no_jax(mod, samediff_slice_leaks):
+    """Each module the control-flow slice added or grew (A12b), imported in
+    a fresh interpreter, loads neither ``jax`` nor the JAX package."""
+    assert samediff_slice_leaks[mod] == []
+
+
+SAMEDIFF_SLICE_NAMES = [("autodiff", n) for n in
+                        _reference_names("autodiff")] + [
+    (m, n) for m in ("autodiff.samediff", "autodiff.gradcheck",
+                     "autodiff.validation", "autodiff.listeners",
+                     "autodiff.ops_ext", "autodiff.ops_ext2",
+                     "nn.conf.samediff_layer")
+    for n in _own_names(m)]
+
+
+@pytest.mark.parametrize("module,name", SAMEDIFF_SLICE_NAMES)
+def test_samediff_slice_public_names_import_from_both_packages(module,
+                                                               name):
+    """Every public name of the reference's ``autodiff`` modules and
+    ``nn.conf.samediff_layer`` imports from the port under the same path
+    and is ported (A12b): none is a stand-in that refuses to build."""
+    import importlib
+    port = getattr(importlib.import_module(
+        f"deeplearning4j_tpu_torch.{module}"), name)
+    assert callable(port)
+    assert "is not ported yet" not in (port.__doc__ or "")
+    assert "A12b" not in (port.__doc__ or "")

@@ -133,12 +133,15 @@ def test_dense_config_json_matches_reference():
 
 
 def test_unported_pieces_raise_naming_their_roadmap_item():
-    """What is still unported raises naming its ROADMAP item; A3's
-    updaters and schedules, A4's embedding and autoencoder layers and A6's
-    vertices, which this test once refused, now build from the
-    reference's JSON."""
-    with pytest.raises(NotImplementedError, match="A12b"):
-        tlayers.layer_from_json({"@class": "SameDiffLayer"})
+    """What is still unported raises naming its ROADMAP item (GPipe stages:
+    A10); A3's updaters and schedules, A4's embedding and autoencoder
+    layers, A6's vertices and A12b's SameDiff layers, which this test once
+    refused, now build from the reference's JSON."""
+    with pytest.raises(NotImplementedError, match="A10"):
+        PORT.conf.NeuralNetConfiguration.builder().list().pipelineStages(2)
+    assert type(tlayers.layer_from_json(
+        {"@class": "PixelShuffleLayer", "blockSize": 2})).__name__ == \
+        "PixelShuffleLayer"
     assert type(tlayers.layer_from_json(
         {"@class": "AutoEncoder", "nIn": 3, "nOut": 2})).__name__ == \
         "AutoEncoder"

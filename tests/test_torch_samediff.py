@@ -583,27 +583,102 @@ def test_bert_style_graph_round_trips_in_the_port(tmp_path):
 
 
 def test_load_names_ops_the_port_lacks(tmp_path):
+    """A reference zip with an op this test once refused (``clipByNorm``)
+    loads and runs as the reference's; one naming an op neither package
+    registers still raises, naming it."""
+    import json
+    import zipfile
     js = JSameDiff.create()
-    x = js.var("x", np.ones(3, np.float32))
+    x = js.var("x", np.arange(3, dtype=np.float32))
     js._op("clipByNorm", [x], {"clipValue": 1.0}, name="c")
     path = str(tmp_path / "g.sdz")
     js.save(path)
-    with pytest.raises(NotImplementedError, match=r"clipByNorm.*A12b"):
-        SameDiff.load(path, device="cpu")
+    back = SameDiff.load(path, device="cpu")
+    np.testing.assert_allclose(_np(back.output({}, "c")["c"]),
+                               np.asarray(js.output({}, "c")["c"].numpy()),
+                               rtol=1e-6)
+    with zipfile.ZipFile(path) as z:
+        graph = json.loads(z.read("graph.json"))
+        arrays = z.read("arrays.npz")
+    graph["ops"][0]["op"] = "noSuchOp"
+    bad = str(tmp_path / "bad.sdz")
+    with zipfile.ZipFile(bad, "w") as z:
+        z.writestr("graph.json", json.dumps(graph))
+        z.writestr("arrays.npz", arrays)
+    with pytest.raises(NotImplementedError, match="noSuchOp"):
+        SameDiff.load(bad, device="cpu")
+
+
+def _calls():
+    """Each call this test once refused, as a working call: (build, check)
+    on a graph with placeholder ``x`` (2 x 3) fed A."""
+    def image(sd, x):
+        return sd.image().flipLeftRight(sd._op("reshape", [x], {
+            "shape": (1, 2, 3, 1)}), name="o")
+
+    def rnn(sd, x):
+        h = sd.constant(np.zeros((2, 2), np.float32))
+        return sd.rnn().lstmCell(x, h, h, sd.constant(np.ones(
+            (5, 8), np.float32) * 0.1), sd.constant(np.zeros(8, np.float32)),
+            name="o")[0]
+
+    def linalg(sd, x):
+        return sd.linalg().det(x @ x.transpose() + 1.0, name="o")
+
+    def while_loop(sd, x):
+        return sd.whileLoop([sd.constant(0.0), x], lambda s, v: v[0].lt(3.0),
+                            lambda s, v: [v[0] + 1.0, v[1] * 2.0])[1]
+
+    def if_cond(sd, x):
+        return sd.ifCond([x], lambda s, v: v[0].sum().gt(100.0),
+                         lambda s, v: [v[0] + 1.0],
+                         lambda s, v: [v[0] - 1.0])[0]
+
+    def for_loop(sd, x):
+        return sd.forLoop(2, [x], lambda s, v: [s.math().tanh(v[0])])[0]
+    return {"image": image, "rnn": rnn, "linalg": linalg,
+            "whileLoop": while_loop, "ifCond": if_cond, "forLoop": for_loop}
 
 
 @pytest.mark.parametrize("call", [
-    lambda sd: sd.image(), lambda sd: sd.rnn(), lambda sd: sd.linalg(),
-    lambda sd: sd.whileLoop([], None, None),
-    lambda sd: sd.ifCond([], None, None, None),
-    lambda sd: sd.forLoop(2, [], None), lambda sd: sd.execDebug({}),
-    lambda sd: sd.stepCostAnalysis(None),
-    lambda sd: sd.invokeGraphOn(sd)],
-    ids=["image", "rnn", "linalg", "whileLoop", "ifCond", "forLoop",
-         "execDebug", "stepCostAnalysis", "invokeGraphOn"])
+    "image", "rnn", "linalg", "whileLoop", "ifCond", "forLoop", "execDebug",
+    "stepCostAnalysis", "invokeGraphOn"])
 def test_unported_api_names_its_roadmap_item(call):
-    with pytest.raises(NotImplementedError, match="A12b"):
-        call(SameDiff.create("cpu"))
+    """The nine calls this test once held to raising (naming ROADMAP
+    A12b) work and match the reference's
+    (``tests/test_torch_control_flow.py`` holds them further)."""
+    a = np.arange(6, dtype=np.float32).reshape(2, 3) / 6.0
+    builds = _calls()
+    if call in builds:
+        for_both = []
+        for sd in (JSameDiff.create(), SameDiff.create("cpu")):
+            out = builds[call](sd, sd.placeholder("x"))
+            got = sd.output({"x": a}, out.name())[out.name()]
+            for_both.append(_np(got) if isinstance(got, torch.Tensor)
+                            else np.asarray(got.numpy()))
+        np.testing.assert_allclose(for_both[1], for_both[0], rtol=1e-5,
+                                   atol=1e-6)
+        return
+    sd = SameDiff.create("cpu")
+    x = sd.placeholder("x")
+    y = sd.placeholder("y")
+    w = sd.var("w", np.ones((3, 2), np.float32))
+    sd.loss().meanSquaredError(y, x @ w, name="loss")
+    if call == "execDebug":
+        assert torch.allclose(sd.execDebug({"x": a, "y": a[:, :2]}, "loss")[
+            "loss"], sd.output({"x": a, "y": a[:, :2]}, "loss")["loss"])
+    elif call == "stepCostAnalysis":
+        sd.setTrainingConfig(TrainingConfig(
+            updater=tlc.Sgd(0.1), dataSetFeatureMapping=["x"],
+            dataSetLabelMapping=["y"]))
+        cost = sd.stepCostAnalysis(DataSet(a, a[:, :2]))
+        assert cost["flops"] == 2 * 2 * 3 * 2 * 2 and cost["bytes"] > 0
+    else:
+        other = SameDiff.create("cpu")
+        sd.invokeGraphOn(other)
+        other.setLossVariables("loss")
+        assert torch.equal(other.output({"x": a, "y": a[:, :2]})["loss"],
+                           sd.output({"x": a, "y": a[:, :2]})["loss"])
 
 
 def test_evaluate_names_its_roadmap_item():

@@ -349,6 +349,10 @@ def test_every_op_the_tf_rules_emit_is_ported():
     import test_torch_onnx_ops as onnx_ops
     tested |= {c.values[0]["op"] for c in onnx_ops.CASES} | {
         "onnx_bernoulli"}
+    # and those of the control-flow slice by autodiff/op_cases.py's cases
+    # (tests/test_torch_samediff_ops.py)
+    from deeplearning4j_tpu_torch.autodiff.op_cases import CASES as SD_CASES
+    tested |= {c.op for c in SD_CASES}
     untested = ported - tested - {"random_shuffle", "random_multinomial",
                                   "multinomial", "random_truncated_normal",
                                   "unique", "uniqueWithCounts"}

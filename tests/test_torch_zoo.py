@@ -160,18 +160,27 @@ def test_narrow_yolo2_fit_step_matches_the_reference():
                                        ("DLRM", "A11"), ("SRGAN", "A12b"),
                                        ("PixelShuffleLayer", "A12b")])
 def test_unported_zoo_names_raise_naming_their_item(name, item):
-    """A12b's names still raise naming it; A11's recommender models,
-    ported, build as the reference's (``tests/test_torch_recsys.py``)."""
+    """The zoo's names this test once refused build: A11's recommender
+    models (``tests/test_torch_recsys.py``) and A12b's SRGAN and
+    PixelShuffleLayer (``tests/test_torch_samediff_layer.py``), each as the
+    reference's."""
     cls = getattr(tz, name)
     if item == "A11":
         net = cls(numEmbeddings=64).init(device="cpu")
         assert net.params_["0"]["W"].shape[0] == 64
         assert cls.builder().numEmbeddings(32).build().numEmbeddings == 32
         return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        cls()
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        cls.builder()
+    ref = getattr(jz, name)
+    if name == "SRGAN":
+        net = cls(inputShape=(3, 8, 8), numResidualBlocks=1).init(
+            device="cpu")
+        assert net.conf.toJson() == ref(inputShape=(3, 8, 8),
+                                        numResidualBlocks=1).graphBuilder() \
+            .build().toJson()
+        assert cls.builder().numResidualBlocks(16).build() \
+            .numResidualBlocks == 16
+        return
+    assert cls(blockSize=3).toJson() == ref(blockSize=3).toJson()
 
 
 def test_facenet_without_a_loss_layer_steps_like_the_reference():
