@@ -463,7 +463,39 @@ which must pass or the script exits non-zero without a result line:
 63. ``samediff_debug``: ``execDebug`` fires its listener once per op in
    the staged order; ``stepCostAnalysis`` of the char model's step against
    its products' count; ``check_gradients`` in float64 on the card through
-   ``forLoop`` and ``ifCond``; no launch.
+   ``forLoop`` and ``ifCond``; no launch;
+64. ``fault_tolerance`` (``FAULT_RUN``): the long-context net of phase 6
+   (BFLOAT16, t 2048, batch 4) under ``FaultTolerantTrainer
+   (checkpointEveryN=2)`` for 2 epochs of 4 seeded batches, four runs,
+   each with the counters at 0 before and read after: uninterrupted;
+   ``PreemptAtStep(5)``, then a fresh net and trainer on the same
+   directory resume from step 4; ``NaNAtStep(3)`` rolls back to step 2
+   (``getLrScale()`` 0.5, the loss finite after); ``CorruptCheckpointAtStep
+   (6)`` with ``PreemptAtStep(7)``, and the resume falls back to step 4.
+   Both resumed runs' params and updater state must equal the
+   uninterrupted run's bit for bit (else the gap is printed and held to
+   ``FAULT_RESUME_ATOL``); B1, B2 and B3 must launch exactly twice for
+   every step run, replays included; the checkpoint's save and restore ms
+   and its MB;
+65. ``fault_oom`` (``FAULT_OOM``): ResNet-50 (BFLOAT16) under the
+   supervisor takes a step at batch 512, which the card cannot hold: the
+   real ``torch.OutOfMemoryError`` is retried as micro-batches until a
+   half fits, ``iterationCount`` rises by one,
+   ``dl4j_tpu_fault_oom_retries_total`` equals the splits and the loss is
+   finite; then a batch-64 step runs with no OOM and the allocated memory
+   is back within 1 GB of its level before the failed step; the split
+   depth, seconds, peak memory and the checkpoint's MB, save and restore
+   ms; no launch;
+66. ``trainobs`` (``TRAINOBS``): phases 64-65 ran under one ``run_scope``
+   with a federation directory, this process's ``SnapshotWriter`` and a
+   second host's snapshot.  A ``HealthMonitor(default_rules())`` given to
+   the supervisor fires ``TrainingStallRule`` on a ``StallAtStep``; an
+   ``InferenceServer`` started with ``DL4J_TPU_OTLP_ENDPOINT`` pointing at
+   a collector the script runs on 127.0.0.1 serves ``/v1/runs/<id>/
+   timeline`` (the runs' checkpoint, preemption, resume, rollback and OOM
+   retry events, in hybrid-logical-clock order) and ``/metrics/federated``
+   (the two hosts' step counters summed), and the collector must hold
+   OTLP JSON spans on the run's trace id and the supervisor's metrics.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``.  With ``--record PATH`` it also
@@ -924,6 +956,28 @@ SRGAN_RUN = dict(inputShape=(3, 24, 24), blocks=16, upscale=4, batch=16,
                  steps=8, seed=7, profiled=2)
 SRGAN_STEP_RTOL = 1e-4      # the loss, and every parameter after a step
 SRGAN_STEP_ATOL = 1e-5      # within atol + rtol·|CPU's|
+
+# Training fault tolerance (FaultTolerantTrainer) on the long-context net
+# (LONG_CONTEXT, BFLOAT16): 2 epochs of 4 seeded batches, a sealed
+# checkpoint every 2 steps.  The runs: uninterrupted; preempted before
+# step 5 and resumed; NaN features at step 3 (rolled back); the newest
+# checkpoint (step 6) corrupted, then preempted before step 7 and resumed
+# from step 4.  A resumed run's params are held bit for bit against the
+# uninterrupted run's; should they differ, within FAULT_RESUME_ATOL.
+FAULT_RUN = dict(epochs=2, batches=4, every=2, preempt=5, nan=3,
+                 corrupt=6, corrupt_preempt=7)
+FAULT_RESUME_ATOL = 1e-6
+# A real CUDA OOM: ResNet-50 (BFLOAT16) peaks at 18.72 GB at batch 64
+# (PERF.md §6), ~0.29 GB an example, so batch 512 asks ~150 GB of the
+# 80 GB card; the supervisor halves it until a half fits (at most 3
+# times), then a batch-64 step must run with no OOM and leave the
+# allocated memory within 1 GB of its level before the failed step.
+FAULT_OOM = dict(batch=512, after=64, splits=3, mem_slack=1 << 30)
+# trainobs: the watchdog's stall rule (default_rules' TrainingStallRule
+# with a 0.5 s timeout, evaluated every 0.1 s) against StallAtStep's 1.5 s
+# freeze; a second host's snapshot adds 5 steps to the federated sum.
+TRAINOBS = dict(stall_step=2, stall_s=1.5, stall_timeout=0.5,
+                monitor_interval=0.1, peer_steps=5)
 
 
 def _keras_refill(name, shape, rng):
@@ -7375,6 +7429,444 @@ def phase_samediff_debug(torch, rec, card):
     _require(gc.passed, f"gradient check failed: {gc.failures[:3]}")
 
 
+# ---------------------------------------------------------------------------
+# training fault tolerance, its telemetry
+# ---------------------------------------------------------------------------
+
+def _fault_pool():
+    """FAULT_RUN's seeded batches for the long-context net."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    c = LONG_CONTEXT
+    rng = np.random.RandomState(1)
+    return [DataSet(rng.randn(c["batch"], c["nIn"], c["t"]).astype(
+        np.float32), rng.randn(c["batch"], c["nOut"], c["t"]).astype(
+        np.float32)) for _ in range(FAULT_RUN["batches"])]
+
+
+def _tree_gap(torch, a, b):
+    """The largest |a - b| over two nested dicts of tensors."""
+    if isinstance(a, dict):
+        return max((_tree_gap(torch, a[k], b[k]) for k in a), default=0.0)
+    return float((a.float() - b.float()).abs().max())
+
+
+def phase_trainobs_start(torch, rec):
+    """The telemetry the supervised runs report into: a federation run
+    directory inside the checkout (fleet timelines, snapshots, the health
+    event log), this process's SnapshotWriter beside a second host's, and
+    one RunContext for every supervised run that follows."""
+    import tempfile
+    from deeplearning4j_tpu_torch.telemetry import (
+        MetricsRegistry, RunContext, SnapshotWriter, set_federation_dir)
+    d = tempfile.mkdtemp(dir=ROOT, prefix=".trainobs_")
+    prev = set_federation_dir(d)
+    local = SnapshotWriter(d, interval=0.5).start()
+    peer_reg = MetricsRegistry()
+    peer_reg.counter("dl4j_tpu_train_steps_total",
+                     "Logical train steps dispatched").inc(
+                         TRAINOBS["peer_steps"])
+    peer = SnapshotWriter(d, hostId="peer-host", registry=peer_reg)
+    peer.write_now()
+    rc = RunContext.new()
+    print(f"trainobs: federation dir {os.path.basename(d)}, run "
+          f"{rc.runId}, host snapshots {local.hostId} and {peer.hostId}")
+    return {"dir": d, "prev": prev, "local": local, "peer": peer,
+            "run": rc}
+
+
+def _trainobs_stop(obs):
+    """Stop the snapshot writer, restore the federation setting and remove
+    the run directory."""
+    import shutil
+    from deeplearning4j_tpu_torch.telemetry import set_federation_dir
+    obs["local"].stop(finalWrite=False)
+    set_federation_dir(obs["prev"])
+    shutil.rmtree(obs["dir"], ignore_errors=True)
+
+
+def phase_fault_tolerance(torch, rec, obs, card):
+    """The four supervised runs of FAULT_RUN on the long-context net, each
+    with the counters at 0 before and read after: B1, B2 and B3 must
+    launch exactly twice for every step run (replays included, the step
+    counter's delta giving the steps run)."""
+    import math
+    from deeplearning4j_tpu_torch.datasets import ListDataSetIterator
+    from deeplearning4j_tpu_torch.fault import (
+        CorruptCheckpointAtStep, FaultTolerantTrainer, NaNAtStep,
+        PreemptAtStep, SimulatedPreemption, inject)
+    from deeplearning4j_tpu_torch.models import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.telemetry import get_registry, run_scope
+    f = FAULT_RUN
+    pool = _fault_pool()
+    root = os.path.join(obs["dir"], "ckpt")
+    reg = get_registry()
+
+    def steps_total():
+        c = reg.get("dl4j_tpu_train_steps_total")
+        return 0 if c is None else c.value()
+
+    def hist(name):
+        h = reg.get(name)
+        return (0.0, 0) if h is None else (h.sum(), h.count())
+
+    def trainer(net, name):
+        return FaultTolerantTrainer(net, os.path.join(root, name),
+                                    checkpointEveryN=f["every"],
+                                    keepLast=10, durableExport=False)
+
+    def run(name, want_steps, *legs):
+        """Each leg: (faults, preempted?) on a fresh net and trainer over
+        the same directory.  Returns the last net and trainer."""
+        torch.cuda.synchronize()
+        _reset_counters()
+        s0 = steps_total()
+        for faults, preempted in legs:
+            net = MultiLayerNetwork(_long_context_conf("BFLOAT16")).init()
+            _require(net.device.type == "cuda", f"net on {net.device}")
+            t = trainer(net, name)
+            with inject(*faults):
+                try:
+                    t.fit(ListDataSetIterator(pool), epochs=f["epochs"])
+                    _require(not preempted, f"{name}: no preemption")
+                except SimulatedPreemption:
+                    _require(preempted, f"{name}: preempted unexpectedly")
+        torch.cuda.synchronize()
+        counts, ran = _counters(), int(steps_total() - s0)
+        _require(ran == want_steps,
+                 f"{name}: {ran} steps run, expected {want_steps}")
+        _require(all(counts[k] == 2 * ran for k in FLASH)
+                 and counts["matmul_bn_stats"] == 0,
+                 f"{name}: expected {2 * ran} launches of B1, B2 and B3 "
+                 f"({ran} steps run) and no B4, got {counts}")
+        runs[name] = {"steps_run": ran, "launches": counts,
+                      "stats": dict(t.stats), "loss": t.lastLoss,
+                      "iteration": net.iterationCount}
+        return net, t
+
+    runs = {}
+    t0 = time.perf_counter()
+    with run_scope(obs["run"]):
+        n_steps = f["epochs"] * f["batches"]
+        base, tb = run("uninterrupted", n_steps, ((), False))
+        _require(base.iterationCount == n_steps and
+                 math.isfinite(tb.lastLoss), "uninterrupted run")
+        # preempted before step 5: steps 0-4 ran; the resume restores the
+        # step-4 checkpoint and runs 4-7
+        res, tr = run("preempt_resume", f["preempt"] + n_steps - 4,
+                      ((PreemptAtStep(f["preempt"]),), True), ((), False))
+        _require(tr.stats["resumedFromStep"] == 4, f"resumed from "
+                 f"{tr.stats['resumedFromStep']}, not 4")
+        # NaN at step 3: steps 0-3 ran, 3 again after the rollback to
+        # step 2, then epoch 1's 4
+        nan, tn = run("nan_rollback", f["nan"] + 2 + f["batches"],
+                      ((NaNAtStep(f["nan"]),), False))
+        _require(tn.stats["rollbacks"] == 1 and
+                 abs(nan.getLrScale() - 0.5) < 1e-12 and
+                 math.isfinite(tn.lastLoss),
+                 f"rollback: {tn.stats}, lrScale {nan.getLrScale()}, "
+                 f"loss {tn.lastLoss}")
+        # step 6's checkpoint corrupted, preempted before step 7: steps
+        # 0-6 ran; the resume skips step 6 and runs 4-7 from step 4
+        cor, tc = run("corrupt_fallback", f["corrupt_preempt"] + 4,
+                      ((CorruptCheckpointAtStep(f["corrupt"]),
+                        PreemptAtStep(f["corrupt_preempt"])), True),
+                      ((), False))
+        _require(tc.stats["resumedFromStep"] == 4,
+                 f"corrupt fallback resumed from "
+                 f"{tc.stats['resumedFromStep']}, not 4")
+    wall = time.perf_counter() - t0
+    equal = {}
+    for name, net in (("preempt_resume", res), ("corrupt_fallback", cor)):
+        same = _trees_equal(torch, net.params_, base.params_) and \
+            _trees_equal(torch, net.optState_, base.optState_)
+        gap = 0.0 if same else max(
+            _tree_gap(torch, net.params_, base.params_),
+            _tree_gap(torch, net.optState_, base.optState_))
+        equal[name] = {"bit_equal": same, "max_gap": gap}
+        if not same:
+            print(f"fault_tolerance: {name}'s params differ from the "
+                  f"uninterrupted run's by up to {gap:.3g}")
+        _require(same or gap <= FAULT_RESUME_ATOL,
+                 f"{name}: params {gap:.3g} from the uninterrupted run's")
+    save_s, saves = hist("dl4j_tpu_step_checkpoint_seconds")
+    rest_s, restores = hist("dl4j_tpu_fault_restore_seconds")
+    step_dir = os.path.join(root, "uninterrupted",
+                            str(f["epochs"] * f["batches"]))
+    mb = sum(os.path.getsize(os.path.join(step_dir, n))
+             for n in os.listdir(step_dir)) / 1e6
+    rec["fault_tolerance"] = out = {
+        "runs": runs, "resume_equal": equal, "wall_s": wall,
+        "save_ms": 1e3 * save_s / max(saves, 1), "saves": saves,
+        "restore_ms": 1e3 * rest_s / max(restores, 1),
+        "restores": restores, "checkpoint_mb": mb, "card": card}
+    rec["launches_fault"] = {k: sum(r["launches"][k] for r in runs.values())
+                             for k in runs["uninterrupted"]["launches"]}
+    print(f"fault_tolerance: {sum(r['steps_run'] for r in runs.values())} "
+          f"supervised steps in {wall:.2f} s; resume bit-equal "
+          f"{ {k: v['bit_equal'] for k, v in equal.items()} }; checkpoint "
+          f"{mb:.3f} MB, save {out['save_ms']:.2f} ms ({saves}), restore "
+          f"{out['restore_ms']:.2f} ms ({restores}); rollback lrScale "
+          f"{nan.getLrScale()}; launches {rec['launches_fault']}; {card}")
+
+
+def phase_fault_oom(torch, rec, obs, card):
+    """ResNet-50 under the supervisor at a batch the card cannot hold: a
+    real CUDA OOM, retried as micro-batches, then a batch-64 step."""
+    import math
+    import numpy as np
+    from deeplearning4j_tpu_torch.datasets import DataSet, ListDataSetIterator
+    from deeplearning4j_tpu_torch.fault import FaultTolerantTrainer
+    from deeplearning4j_tpu_torch.telemetry import get_registry, run_scope
+    from deeplearning4j_tpu_torch.zoo import ResNet50
+    c, o = RESNET, FAULT_OOM
+    net = ResNet50(numClasses=c["numClasses"], inputShape=c["inputShape"],
+                   dataType="BFLOAT16").init()
+    rng = np.random.RandomState(3)
+
+    def batch(n):
+        x = rng.randn(n, *c["inputShape"]).astype(np.float32)
+        y = np.eye(c["numClasses"], dtype=np.float32)[
+            rng.randint(0, c["numClasses"], n)]
+        return DataSet(x, y)
+
+    big, small = batch(o["batch"]), batch(o["after"])
+    reg = get_registry()
+
+    def retries():
+        m = reg.get("dl4j_tpu_fault_oom_retries_total")
+        return 0 if m is None else m.value()
+
+    def hist(name):
+        h = reg.get(name)
+        return (0.0, 0) if h is None else (h.sum(), h.count())
+
+    save0, rest0 = hist("dl4j_tpu_step_checkpoint_seconds"), \
+        hist("dl4j_tpu_fault_restore_seconds")
+
+    t = FaultTolerantTrainer(net, os.path.join(obs["dir"], "oom"),
+                             checkpointEveryN=1000, keepLast=2,
+                             maxMicroBatchSplits=o["splits"],
+                             durableExport=False)
+    torch.cuda.synchronize()
+    _reset_counters()
+    r0 = retries()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    with run_scope(obs["run"]):
+        t.fit(ListDataSetIterator([big]), epochs=1)
+        torch.cuda.synchronize()
+        oom_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        splits, micro = t.stats["oomSplits"], net.lastBatchSize
+        it1, loss1 = net.iterationCount, t.lastLoss
+        counted = retries() - r0
+        t.fit(ListDataSetIterator([small]), epochs=2)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    mem1 = torch.cuda.memory_allocated()
+    counts = _counters()
+    depth = int(round(math.log2(o["batch"] / micro)))
+    save1, rest1 = hist("dl4j_tpu_step_checkpoint_seconds"), \
+        hist("dl4j_tpu_fault_restore_seconds")
+    step_dir = t.ckpt.stepPath(t.ckpt.latestStep())
+    mb = sum(os.path.getsize(os.path.join(step_dir, n))
+             for n in os.listdir(step_dir)) / 1e6
+    save_ms = 1e3 * (save1[0] - save0[0]) / max(save1[1] - save0[1], 1)
+    rest_ms = 1e3 * (rest1[0] - rest0[0]) / max(rest1[1] - rest0[1], 1)
+    rec["fault_oom"] = {"batch": o["batch"], "splits": splits,
+                        "depth": depth, "micro_batch": micro,
+                        "oom_step_s": oom_s, "wall_s": wall,
+                        "peak_bytes": peak, "mem_before": mem0,
+                        "mem_after": mem1, "loss": loss1,
+                        "checkpoint_mb": mb, "save_ms": save_ms,
+                        "restore_ms": rest_ms, "card": card}
+    print(f"fault_oom: batch {o['batch']} -> {splits} OOM split(s), depth "
+          f"{depth} (micro-batches of {micro}), the step {oom_s:.2f} s, "
+          f"peak {peak / 1e9:.2f} GB, loss {loss1:.6g}; then batch "
+          f"{o['after']}: {t.stats['oomSplits'] - splits} more splits; "
+          f"allocated {mem0 / 1e9:.3f} -> {mem1 / 1e9:.3f} GB; checkpoint "
+          f"{mb:.1f} MB, save {save_ms:.1f} ms, restore {rest_ms:.1f} ms; "
+          f"phase {wall:.2f} s; {card}")
+    _no_launches(rec, "fault_oom", counts)
+    _require(splits >= 1, "batch 512 did not run out of memory")
+    _require(counted == splits, f"dl4j_tpu_fault_oom_retries_total rose "
+             f"{counted}, the supervisor split {splits} times")
+    _require(it1 == 1, f"iterationCount {it1} after the split step")
+    _require(loss1 is not None and math.isfinite(loss1), f"loss {loss1}")
+    _require(net.iterationCount == 2 and t.stats["oomSplits"] == splits,
+             f"the batch-{o['after']} step: iteration "
+             f"{net.iterationCount}, splits {t.stats['oomSplits']}")
+    _require(math.isfinite(t.lastLoss), f"batch-{o['after']} loss "
+             f"{t.lastLoss}")
+    _require(abs(mem1 - mem0) <= o["mem_slack"],
+             f"allocated memory {mem0} before the failed step, {mem1} after")
+
+
+def _otlp_collector():
+    """An OTLP/HTTP JSON collector on 127.0.0.1 (an ephemeral port) that
+    keeps every POST body by path."""
+    import threading
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+    got = {}
+
+    class Handler(BaseHTTPRequestHandler):
+        def do_POST(self):
+            body = self.rfile.read(int(self.headers["Content-Length"]))
+            got.setdefault(self.path, []).append(json.loads(body))
+            self.send_response(200)
+            self.send_header("Content-Length", "0")
+            self.end_headers()
+
+        def log_message(self, *args):
+            pass
+
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+    th = threading.Thread(target=httpd.serve_forever, daemon=True)
+    th.start()
+    return httpd, th, got
+
+
+def phase_trainobs(torch, rec, obs, card):
+    """The runs' telemetry: the watchdog's stall rule on a stalled
+    supervised run, the timeline and federated metrics served by an
+    InferenceServer, and OTLP spans and metrics at a local collector."""
+    import urllib.error
+    from deeplearning4j_tpu_torch.datasets import ListDataSetIterator
+    from deeplearning4j_tpu_torch.fault import (FaultTolerantTrainer,
+                                                StallAtStep, inject)
+    from deeplearning4j_tpu_torch.models import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.remote import (BucketLadder,
+                                                 ForwardServing,
+                                                 InferenceServer,
+                                                 ModelRegistry)
+    from deeplearning4j_tpu_torch.telemetry import (
+        HealthMonitor, default_rules, get_registry, otlp_exporter,
+        run_scope, set_otlp_exporter)
+    o, rc = TRAINOBS, obs["run"]
+    reg = get_registry()
+    # the watchdog: default_rules with a short stall timeout, through the
+    # supervisor (which starts and stops the monitor it is given)
+    mon = HealthMonitor(default_rules(stallTimeout=o["stall_timeout"]),
+                        interval=o["monitor_interval"])
+    net = MultiLayerNetwork(_long_context_conf("BFLOAT16")).init()
+    torch.cuda.synchronize()
+    _reset_counters()
+    with run_scope(rc), inject(StallAtStep(o["stall_step"], o["stall_s"])):
+        FaultTolerantTrainer(net, os.path.join(obs["dir"], "stall"),
+                             checkpointEveryN=FAULT_RUN["every"],
+                             healthMonitor=mon, durableExport=False).fit(
+            ListDataSetIterator(_fault_pool()), epochs=1)
+    torch.cuda.synchronize()
+    counts = _counters()
+    steps = FAULT_RUN["batches"]
+    _require(all(counts[k] == 2 * steps for k in FLASH),
+             f"the stalled run: {counts}, expected {2 * steps} each")
+    for k in FLASH:
+        rec["launches_fault"][k] += counts[k]
+    fired = reg.get("dl4j_tpu_health_alert_transitions_total")
+    fired = 0 if fired is None else fired.value(rule="training_stall",
+                                                state="firing")
+    with open(mon.eventLogPath) as fh:
+        lines = [json.loads(line) for line in fh]
+    stall = [e for e in lines if e["rule"] == "training_stall"
+             and e["state"] == "firing"]
+    _require(fired >= 1 and stall,
+             f"TrainingStallRule did not fire on a {o['stall_s']} s stall "
+             f"(transitions {fired}, event lines {stall})")
+    obs["local"].write_now()
+    # the collector, and a server whose start brings up the exporter
+    httpd, th, got = _otlp_collector()
+    os.environ["DL4J_TPU_OTLP_ENDPOINT"] = \
+        f"http://127.0.0.1:{httpd.server_address[1]}"
+    os.environ["DL4J_TPU_OTLP_INTERVAL"] = "0.5"
+    lenet = MultiLayerNetwork(_lenet_conf()).init()
+    registry = ModelRegistry()
+    registry.register("classifier", ForwardServing(
+        lenet, BucketLadder(batchSizes=(1,), seqLens=()),
+        inputShape=(784,)))
+    server = InferenceServer(registry, port=0).start()
+    try:
+        exp = otlp_exporter()
+        _require(exp is not None and exp.endpoint.endswith(
+            str(httpd.server_address[1])), "no OTLP exporter started")
+        exp.export_now()
+        status, body = _get(server.port, f"/v1/runs/{rc.runId}/timeline")
+        doc = json.loads(body)
+        events = doc["events"]
+        kinds = [e["kind"] for e in events]
+        hlc = [tuple(e["hlc"]) for e in events]
+        fed_status, fed = _get(server.port, "/metrics/federated")
+        fed = fed.decode()
+        try:
+            _get(server.port, "/v1/runs/no-such-run/timeline")
+            unknown = 200
+        except urllib.error.HTTPError as e:
+            unknown = e.code
+    finally:
+        server.stop()
+        exp = set_otlp_exporter(None)
+        if exp is not None:
+            exp.stop()
+        os.environ.pop("DL4J_TPU_OTLP_ENDPOINT", None)
+        os.environ.pop("DL4J_TPU_OTLP_INTERVAL", None)
+        httpd.shutdown()
+        httpd.server_close()
+        th.join(timeout=5)
+    # the timeline: every run's events in hybrid-logical-clock order
+    _require(status == 200 and doc["count"] == len(events) and
+             hlc == sorted(hlc), f"timeline {status}, HLC order "
+             f"{hlc == sorted(hlc)}")
+    want = {"checkpoint": "ckpt.seal" in kinds and "ckpt.save" in kinds,
+            "preempt": any(e["kind"] == "run.end" and
+                           e.get("reason") == "SimulatedPreemption"
+                           for e in events),
+            "resume": "ckpt.restore" in kinds,
+            "rollback": "ckpt.rollback" in kinds,
+            "oom_retry": any(e["kind"] == "train.step" and
+                             e.get("oom_split") for e in events)}
+    _require(all(want.values()), f"timeline lacks {want}")
+    _require(unknown == 404, f"an unknown run id answered {unknown}")
+    # federated: this host's live registry plus the peer's snapshot
+    local_steps = reg.get("dl4j_tpu_train_steps_total").value()
+    fed_steps = _exposed(fed, "dl4j_tpu_train_steps_total")
+    _require(fed_status == 200 and fed_steps is not None and
+             abs(fed_steps - (local_steps + o["peer_steps"])) < 1e-9,
+             f"/metrics/federated steps {fed_steps}, local {local_steps} "
+             f"+ peer {o['peer_steps']}")
+    # OTLP: spans of the run's trace, metrics with the supervisor's series
+    spans = [sp for p in got.get("/v1/traces", [])
+             for rs in p["resourceSpans"] for ss in rs["scopeSpans"]
+             for sp in ss["spans"]]
+    names = {m["name"] for p in got.get("/v1/metrics", [])
+             for rm in p["resourceMetrics"] for sm in rm["scopeMetrics"]
+             for m in sm["metrics"]}
+    run_spans = sorted({sp["name"] for sp in spans
+                        if sp["traceId"] == rc.runId})
+    _require({"step", "checkpoint", "checkpoint_restore",
+              "recovery"} <= set(run_spans),
+             f"OTLP spans of run {rc.runId}: {run_spans}")
+    _require({"dl4j_tpu_fault_checkpoints_total",
+              "dl4j_tpu_fault_nan_rollbacks_total",
+              "dl4j_tpu_fault_oom_retries_total",
+              "dl4j_tpu_train_steps_total"} <= names,
+             f"OTLP metrics lack the supervisor's series: {sorted(names)}")
+    rec["trainobs"] = {"timeline_events": len(events),
+                       "timeline_kinds": sorted(set(kinds)),
+                       "federated_steps": fed_steps,
+                       "otlp_spans": len(spans),
+                       "otlp_run_spans": run_spans,
+                       "otlp_metrics": len(names),
+                       "stall_firings": fired, "card": card}
+    print(f"trainobs: timeline of run {rc.runId}: {len(events)} events "
+          f"({', '.join(sorted(set(kinds)))}) in HLC order; federated "
+          f"steps {fed_steps:g} = {local_steps:g} + {o['peer_steps']}; "
+          f"OTLP {len(spans)} spans ({len(run_spans)} names on the run's "
+          f"trace), {len(names)} metrics; training_stall fired "
+          f"{fired:g}x on a {o['stall_s']} s stall; {card}")
+
+
 def _kernel_entry(name, replaces, launches, t):
     return {"name": name, "route": "cuda",
             "source": f"deeplearning4j_tpu_torch/csrc/{name}.cu",
@@ -7586,6 +8078,21 @@ def main(argv) -> int:
             rec, card)
         run("srgan_train", phase_srgan_train, torch, rec, card)
         run("samediff_debug", phase_samediff_debug, torch, rec, card)
+        # training fault tolerance on the long-context net (B1-B3) and a
+        # real OOM on ResNet-50, reported through the run log, federation
+        # and OTLP
+        obs = run("trainobs_start", phase_trainobs_start, torch, rec)
+        if obs is not None:
+            try:
+                run("fault_tolerance", phase_fault_tolerance, torch, rec,
+                    obs, card)
+                run("fault_oom", phase_fault_oom, torch, rec, obs, card)
+                if "launches_fault" in rec:
+                    run("trainobs", phase_trainobs, torch, rec, obs, card)
+                else:
+                    failed.append("trainobs")
+            finally:
+                _trainobs_stop(obs)
 
     rec["card"] = card
     rec["failed"] = failed
@@ -7616,6 +8123,7 @@ def main(argv) -> int:
                 + rec["launches_resnet"][k] + rec["launches_b4"][k]
                 + rec["launches_keras"][k]
                 + rec["launches_attention_layers"][k]
+                + rec["launches_fault"][k]
                 + sum(c[k] for c in rec["launches_no_kernel_phases"].values())
                 for k in serve}
     m, k, n = B4_RESNET_SHAPES[0]

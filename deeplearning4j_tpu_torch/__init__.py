@@ -17,7 +17,7 @@ ResNet-50 slice, the recurrent slice, BERT on SameDiff, the training
 user's loop around ``fit`` with LeNet-MNIST, BERT-base through TF import,
 the serving tier, BERT-base through ONNX import, the zoo, Keras import,
 DataVec with the tensor layer, the recommender tier, then SameDiff
-finished):
+finished, then training fault tolerance):
 
 - ``parallel.ring``      — dense / blockwise / flash attention (forward and
                            backward kernels, ``FlashAttention``) and the
@@ -36,9 +36,15 @@ finished):
                            ``JsonRemoteInference``;
 - ``telemetry``          — the registry and ``/metrics``, tracer, flight
                            recorder, trace context and request timelines,
-                           ``ThresholdRule`` / ``HealthMonitor``, the
-                           retention ring, ``ServingMetrics``;
-- ``fault``              — the serving tier's injected replica faults;
+                           the alert rules (``default_rules``) and
+                           ``HealthMonitor`` with webhooks, the retention
+                           ring, ``ServingMetrics``, the training
+                           instruments, the run log, federation, export
+                           and the OTLP exporter;
+- ``fault``              — ``FaultTolerantTrainer`` (checkpoints, NaN
+                           rollback, resume, OOM micro-batches), the
+                           injection harness and the serving tier's
+                           replica faults;
 - ``nlp.tokenization``   — WordPiece and the vocab helpers;
 - ``nlp.bert_iterator``  — ``BertIterator`` (MLM and sequence-
                            classification batches);
@@ -78,7 +84,8 @@ finished):
 - ``optimize``           — the stock listeners, early stopping and the
                            line-search solvers;
 - ``utils``              — ``ModelSerializer`` (zips either package
-                           reads);
+                           reads) and ``ShardedCheckpointer`` (the
+                           supervisor's sealed checkpoints);
 - ``zoo``                — every model of the reference's zoo (``SRGAN``
                            with ``PixelShuffleLayer`` among them) and BERT
                            on SameDiff (``Bert``, ``BertBase``);

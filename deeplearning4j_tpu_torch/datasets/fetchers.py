@@ -41,10 +41,13 @@ def _fetch_with_retries(what: str, loader: Callable[[], Optional[Tuple]],
     """Bounded retry around a real-data loader: ``attempts`` tries with a
     short exponential backoff; when they all fail the fetcher falls back
     to the synthetic set with a logged warning instead of raising
-    mid-iteration.  (The reference's fault-injection hook waits for the
-    port of ``fault/``, ROADMAP A12.)"""
+    mid-iteration.  The :mod:`deeplearning4j_tpu_torch.fault.injection`
+    harness hooks in here (``check_fetch_fault``) so the retry/fallback
+    path is deterministic under test."""
+    from deeplearning4j_tpu_torch.fault.injection import check_fetch_fault
     for attempt in range(attempts):
         try:
+            check_fetch_fault(what)
             return loader()
         except Exception as e:
             log.warning("%s: real-data load failed (attempt %d/%d): %s: %s",

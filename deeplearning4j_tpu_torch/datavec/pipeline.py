@@ -466,8 +466,9 @@ class _StagedBatch:
         etl_metrics().h2d_seconds().observe(dt)
         tracer().record_complete("h2d_stage", self.issuedAt, dt,
                                  args={"bytes": int(self.nbytes)})
-        # the step-phase histogram ("h2d") comes with ROADMAP A12's
-        # training instruments
+        from deeplearning4j_tpu_torch.telemetry.instrument import \
+            observe_step_phase
+        observe_step_phase("h2d", dt)
 
     def materialize(self) -> DataSet:
         if self.device is not None:
@@ -742,9 +743,9 @@ class PrefetchingDataSetIterator(DataSetIterator):
         self._epoch -= 1    # same ShardSpec epoch: identical stream order
         self._start()
         etl_metrics().pool_restarts().inc()
-        # the reference also records an "etl.restart" event on the run
-        # timeline, a no-op unless one is configured; the run log comes
-        # with ROADMAP A12
+        from deeplearning4j_tpu_torch.telemetry.runlog import record_event
+        record_event("etl.restart", delivered=self._delivered,
+                     epoch=max(self._epoch, 0))
 
     def close(self) -> None:
         """Full teardown: pool + shared-memory slots.  Idempotent; does

@@ -16,7 +16,8 @@ master parameters, state, optimizer state and losses.  Recurrent vertices
 carry their state as in ``MultiLayerNetwork``: truncated BPTT passes each
 chunk's final carries, detached, to the next, and ``rnnTimeStep`` keeps
 them between calls.  Listeners, ``evaluate``, the line-search solvers and
-frozen vertices work as in ``MultiLayerNetwork``.  ``fit`` and
+frozen vertices, the step telemetry and the fault supervisor's
+``setLrScale`` work as in ``MultiLayerNetwork``.  ``fit`` and
 ``score`` take a ``MultiDataSet`` (one array per input and per output, its
 masks aligned with them) as well as a ``DataSet``.
 """
@@ -41,6 +42,8 @@ from deeplearning4j_tpu_torch.nn.conf import BackpropType
 from deeplearning4j_tpu_torch.nn.conf.layers import Layer
 from deeplearning4j_tpu_torch.ops.ndarray import NDArray
 from deeplearning4j_tpu_torch.optimize.listeners import notifyListeners
+from deeplearning4j_tpu_torch.telemetry.instrument import (in_microbatch,
+                                                           train_step_span)
 
 __all__ = ["ComputationGraph"]
 
@@ -68,6 +71,15 @@ class ComputationGraph:
         self._rnnCarries = None  # rnnTimeStep's stored state, by vertex
         self._listeners: List = []
         self._solver = None      # the line-search solver, once bound
+        self._lrScale = 1.0      # FaultTolerantTrainer's divergence backoff
+
+    def setLrScale(self, scale: float) -> None:
+        """See ``MultiLayerNetwork.setLrScale`` — the fault supervisor's
+        rollback backoff."""
+        self._lrScale = float(scale)
+
+    def getLrScale(self) -> float:
+        return self._lrScale
 
     # ------------------------------------------------------------------
     def init(self, params: Optional[Dict] = None) -> "ComputationGraph":
@@ -252,18 +264,20 @@ class ComputationGraph:
         # TBPTT needs per-timestep (rank-3) labels on every output (the
         # reference's ComputationGraph.doTruncatedBPTT); one iteration per
         # batch, whatever its number of chunks
-        if algo != "STOCHASTIC_GRADIENT_DESCENT":
-            self._runSolverStep(inputs, labels, masks, fmask, algo)
-        elif self.conf.backpropType == BackpropType.TruncatedBPTT \
-                and all(i.dim() == 3 for i in inputs) \
-                and all(l.dim() == 3 for l in labels) \
-                and inputs[0].shape[2] > self.conf.tbpttFwdLength:
-            self._fitTbptt(inputs, labels, masks, fmask)
-        else:
-            self._runTrainStep(inputs, labels, masks, fmask)
+        with train_step_span(self, self.lastBatchSize):
+            if algo != "STOCHASTIC_GRADIENT_DESCENT":
+                self._runSolverStep(inputs, labels, masks, fmask, algo)
+            elif self.conf.backpropType == BackpropType.TruncatedBPTT \
+                    and all(i.dim() == 3 for i in inputs) \
+                    and all(l.dim() == 3 for l in labels) \
+                    and inputs[0].shape[2] > self.conf.tbpttFwdLength:
+                self._fitTbptt(inputs, labels, masks, fmask)
+            else:
+                self._runTrainStep(inputs, labels, masks, fmask)
         self.iterationCount += 1
-        notifyListeners(self._listeners, "iterationDone", self,
-                        self.iterationCount, self.epochCount)
+        if not in_microbatch():
+            notifyListeners(self._listeners, "iterationDone", self,
+                            self.iterationCount, self.epochCount)
 
     def _runSolverStep(self, inputs, labels, masks, fmask, algo: str):
         _solver_step(self, algo, self._rngSeed ^ 0x6EED,
@@ -283,7 +297,8 @@ class ComputationGraph:
         with torch.no_grad():
             self.params_, self.optState_ = _apply_updates(
                 units, self.conf.globalConf, self.params_, grads,
-                self.optState_, self.iterationCount, self.epochCount)
+                self.optState_, self.iterationCount, self.epochCount,
+                self._lrScale)
         self.state_.update(new_state)
         # left on the device: score() reads it, so a step never waits on
         # the host

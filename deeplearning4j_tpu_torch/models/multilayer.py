@@ -34,8 +34,11 @@ learning): their parameters take no gradient and no update.
 ``pretrain`` trains the ``isPretrainLayer`` layers (``AutoEncoder``,
 ``VariationalAutoencoder``) layer by layer on their own loss.
 
-Not ported yet: telemetry spans, the AOT compile cache, the fault
-supervisor's learning-rate scale and the mesh hooks (A10, A12).
+Each logical step reports through ``telemetry.train_step_span`` (the
+step counter, step-time histogram, ``step`` span and flight record); the
+fault supervisor's learning-rate scale (``setLrScale``) multiplies every
+updater's step.  Not ported yet: the AOT compile cache and the mesh hooks
+(A10, A12).
 """
 from __future__ import annotations
 
@@ -58,6 +61,8 @@ from deeplearning4j_tpu_torch.nn.conf import (BackpropType,
                                               MultiLayerConfiguration)
 from deeplearning4j_tpu_torch.ops.ndarray import NDArray
 from deeplearning4j_tpu_torch.optimize.listeners import notifyListeners
+from deeplearning4j_tpu_torch.telemetry.instrument import (in_microbatch,
+                                                           train_step_span)
 
 __all__ = ["MultiLayerNetwork"]
 
@@ -274,14 +279,16 @@ def _updater_for(globalConf, layer, pname: str):
 
 
 def _apply_updates(units, globalConf, params, grads, optState, iteration,
-                   epoch):
+                   epoch, lrScale: float = 1.0):
     """Apply the updaters over every parameter leaf.  ``units`` is an
     iterable of ``(key, layer)``; a frozen layer (transfer learning) keeps
     its parameters and updater state; a layer with gradient normalization
     gets its norms over exactly its own leaves; weight decay (the
     reference's ``WeightDecay``, applied after the updater and scaled by
-    the learning rate) touches weights only.  Returns ``(new_params,
-    new_opt)``."""
+    the learning rate) touches weights only; ``lrScale`` (the fault
+    supervisor's rollback backoff) multiplies every step; at 1 the
+    multiply is skipped (the same bits).
+    Returns ``(new_params, new_opt)``."""
     new_params: Dict = {}
     new_opt: Dict = {}
     for key, layer in units:
@@ -303,6 +310,8 @@ def _apply_updates(units, globalConf, params, grads, optState, iteration,
             wd = getattr(layer, "weightDecay", None)
             if wd and pname in layer.weightParamKeys():
                 update = WeightDecay(coeff=wd).apply(pval, update, lr)
+            if lrScale != 1.0:
+                update = update * lrScale
             _set_leaf(new_params[key], path, pval - update)
             new_opt[key][path] = ostate
     return new_params, new_opt
@@ -350,6 +359,16 @@ class MultiLayerNetwork:
             self._rngSeed ^ 0x5EED)
         self._rnnCarries = None  # rnnTimeStep's stored state, by layer
         self._solver = None      # the line-search solver, once bound
+        self._lrScale = 1.0      # FaultTolerantTrainer's divergence backoff
+
+    def setLrScale(self, scale: float) -> None:
+        """Global multiplier on every updater's step size (the fault
+        supervisor's rollback backoff knob).  No effect on the line-search
+        solvers (they pick their own step length)."""
+        self._lrScale = float(scale)
+
+    def getLrScale(self) -> float:
+        return self._lrScale
 
     def _cast_compute(self, tree):
         return _cast_tree(tree, self._computeDtype)
@@ -508,17 +527,21 @@ class MultiLayerNetwork:
         # TBPTT needs per-timestep (rank-3) labels; otherwise standard BP
         # (the reference's doTruncatedBPTT label-rank requirement).  The
         # iteration counts the batch once, whatever its number of chunks
-        if algo != "STOCHASTIC_GRADIENT_DESCENT":
-            self._runSolverStep(x, y, fmask, lmask, algo)
-        elif (self.conf.backpropType == BackpropType.TruncatedBPTT
-                and x.dim() == 3 and y.dim() == 3
-                and x.shape[2] > self.conf.tbpttFwdLength):
-            self._fitTbptt(x, y, fmask, lmask)
-        else:
-            self._runTrainStep(x, y, fmask, lmask)
+        with train_step_span(self, self.lastBatchSize):
+            if algo != "STOCHASTIC_GRADIENT_DESCENT":
+                self._runSolverStep(x, y, fmask, lmask, algo)
+            elif (self.conf.backpropType == BackpropType.TruncatedBPTT
+                    and x.dim() == 3 and y.dim() == 3
+                    and x.shape[2] > self.conf.tbpttFwdLength):
+                self._fitTbptt(x, y, fmask, lmask)
+            else:
+                self._runTrainStep(x, y, fmask, lmask)
         self.iterationCount += 1
-        notifyListeners(self._listeners, "iterationDone", self,
-                        self.iterationCount, self.epochCount)
+        if not in_microbatch():
+            # OOM-retry halves share one logical iteration — the
+            # supervisor fires iterationDone ONCE at the step boundary
+            notifyListeners(self._listeners, "iterationDone", self,
+                            self.iterationCount, self.epochCount)
 
     def _runSolverStep(self, x, y, fmask, lmask, algo: str) -> None:
         _solver_step(self, algo, self._rngSeed ^ 0x5EED,
@@ -537,7 +560,8 @@ class MultiLayerNetwork:
         with torch.no_grad():
             self.params_, self.optState_ = _apply_updates(
                 units, self.conf.globalConf, self.params_, grads,
-                self.optState_, self.iterationCount, self.epochCount)
+                self.optState_, self.iterationCount, self.epochCount,
+                self._lrScale)
         self.state_.update(new_state)
         # left on the device: score() reads it, so a step never waits on
         # the host

@@ -5,11 +5,10 @@ TrainingListener.java`` and the stock listeners under
 performance, score-collecting, time, evaluative and checkpoint listeners.
 ``StatsListener`` waits for ``ui/`` (ROADMAP A12).
 
-The reference counts a swallowed listener error and the performance
-listener's rates in its telemetry registry; telemetry waits for ROADMAP
-A12, so until then the count is kept in
-:data:`dl4j_tpu_train_listener_errors_total` here, beside the same
-warning, and the rates on the listener.
+A swallowed listener error counts in the telemetry registry's
+``dl4j_tpu_train_listener_errors_total``, as in the reference, and in the
+module's :data:`dl4j_tpu_train_listener_errors_total`; the performance
+listener's rates land in its gauges and stay on the listener.
 """
 from __future__ import annotations
 
@@ -56,6 +55,12 @@ def notifyListeners(listeners, method: str, model, *args, **kwargs) -> None:
                 # is worse than a dead one
                 raise
             dl4j_tpu_train_listener_errors_total += 1
+            from deeplearning4j_tpu_torch.telemetry.registry import \
+                get_registry
+            get_registry().counter(
+                "dl4j_tpu_train_listener_errors_total",
+                "Listener callback exceptions swallowed by the train "
+                "loop").inc()
             log.warning("listener %s.%s failed (swallowed): %s: %s",
                         type(l).__name__, method, type(e).__name__, e)
 
@@ -110,7 +115,10 @@ class PerformanceListener(TrainingListener):
     (``torch.cuda.synchronize``) and only then stamps the time: the rates
     are the card's, and the wait is paid once per ``frequency``
     iterations.  The last rates stay on the listener
-    (``iterationsPerSecond``, ``samplesPerSecond``)."""
+    (``iterationsPerSecond``, ``samplesPerSecond``) and land in
+    ``dl4j_tpu_train_iterations_per_second`` /
+    ``dl4j_tpu_train_throughput_examples_per_second`` on the default
+    registry."""
 
     def __init__(self, frequency: int = 10, reportScore: bool = False):
         self.frequency = max(int(frequency), 1)
@@ -133,6 +141,13 @@ class PerformanceListener(TrainingListener):
             its = (iteration - self._lastIter) / dt if dt > 0 else 0.0
             bs = getattr(model, "lastBatchSize", 0)
             self.iterationsPerSecond, self.samplesPerSecond = its, its * bs
+            from deeplearning4j_tpu_torch.telemetry.registry import \
+                get_registry
+            reg = get_registry()
+            reg.gauge("dl4j_tpu_train_iterations_per_second",
+                      "Blocked (device-accurate) iterations/sec").set(its)
+            reg.gauge("dl4j_tpu_train_throughput_examples_per_second",
+                      "Blocked (device-accurate) samples/sec").set(its * bs)
             msg = (f"iteration {iteration}; iterations/sec: {its:.2f}; "
                    f"samples/sec: {its * bs:.2f}")
             if self.reportScore:

@@ -26,9 +26,9 @@ Where the port departs: eager PyTorch compiles nothing, so the adapters'
 ``dl4j_tpu_serving_warmup_compiles_total`` stay unset) and ``warm()`` wraps
 no AOT cache (``compile/aotcache.py`` waits for ROADMAP A12); ``warm()``
 still runs every bucket once (cuBLAS heuristics, the caching allocator)
-and times it into ``dl4j_tpu_serving_warmup_seconds``.  An OTLP exporter
-(``DL4J_TPU_OTLP_ENDPOINT``) waits for ROADMAP A12: ``InferenceServer.
-start`` raises naming it when the variable asks for one.
+and times it into ``dl4j_tpu_serving_warmup_seconds``.  As in the
+reference, ``InferenceServer.start`` starts the OTLP exporter when
+``DL4J_TPU_OTLP_ENDPOINT`` points at a collector.
 """
 from __future__ import annotations
 
@@ -911,15 +911,13 @@ class InferenceServer:
         self._thread: Optional[threading.Thread] = None
 
     def start(self) -> "InferenceServer":
-        # the in-process retention ring backing /metrics/query always
-        # runs with a server; an OTLP exporter (DL4J_TPU_OTLP_ENDPOINT)
-        # waits for ROADMAP A12
-        from deeplearning4j_tpu_torch.telemetry import ensure_retention
-        if os.environ.get("DL4J_TPU_OTLP_ENDPOINT", "").strip():
-            raise NotImplementedError(
-                "DL4J_TPU_OTLP_ENDPOINT asks for an OTLP exporter, which "
-                "waits for ROADMAP A12 in the PyTorch port")
+        # observability side-cars: the in-process retention ring backing
+        # /metrics/query always runs with a server; the OTLP exporter
+        # only when DL4J_TPU_OTLP_ENDPOINT points at a collector
+        from deeplearning4j_tpu_torch.telemetry import (ensure_otlp_exporter,
+                                                        ensure_retention)
         ensure_retention()
+        ensure_otlp_exporter()
         self.registry.start()
         server = self
 

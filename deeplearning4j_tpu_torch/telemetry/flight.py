@@ -4,8 +4,14 @@
 Reference: deeplearning4j-core ``CrashReportingUtil``.  In the port the
 serving tier records every failed request here with its whole lifecycle
 timeline (``remote/scheduler.py``), so the post-mortem has the trace
-without racing the timeline store's eviction; the training loops' step
-records wait for ROADMAP A12.
+without racing the timeline store's eviction.  The training loops append
+one small record per logical step (iteration, epoch, step seconds, batch
+size; ``telemetry.instrument.train_step_span``), and the fault supervisor
+adds its rollback, OOM-retry and timeline-window records; a crash
+(``instrument.record_crash``: an unsupervised ``InvalidStepException``, a
+run that still diverges after its last rollback) or a SIGTERM
+(``telemetry.export``) dumps the ring, so the post-mortem has the
+trajectory that led into the failure.
 """
 from __future__ import annotations
 

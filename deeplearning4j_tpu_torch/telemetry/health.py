@@ -1,33 +1,35 @@
 """Watchdog alerting over registry values: declarative rules + monitor —
-the port of ``deeplearning4j_tpu/telemetry/health.py``, the part the
-serving tier needs.
+the port of ``deeplearning4j_tpu/telemetry/health.py`` (pure Python,
+copied, so both packages fire the same rules on the same registry states
+and write the same event lines).
 
-- :class:`AlertRule` / :class:`ThresholdRule` — conditions evaluated
-  against the process-global registry (admission control's shed rules are
-  ``ThresholdRule``s; ``ReplicaSet.armAutoscale`` registers one);
-- :class:`HealthMonitor` — evaluates rules on an interval, logs
-  firing/resolved transitions as JSON lines, mirrors them into
-  ``dl4j_tpu_health_alerts_firing`` / ``dl4j_tpu_health_alert_state`` and
-  dispatches the actions registered on each edge (:meth:`HealthMonitor.
-  registerAction`, how ``ReplicaSet.armAutoscale`` scales);
-- :func:`health_summary` — the ``/healthz`` liveness JSON;
-- :func:`recsys_hash_collision_rule` — the recommender tier's hashed-id
-  collision alert.
+Metrics nobody watches are a dashboard, not observability.  Awan et al.
+(arXiv:1810.11112) characterize distributed DNN training as dominated at
+scale by stragglers and communication stalls — conditions that are
+*silent* in per-process logs and only visible as relationships between
+registry values over time.  :class:`HealthMonitor` is the thread that
+watches those relationships:
 
-Wait for ROADMAP A12: the training rules (``TrainingStallRule``,
-``ReplicaStragglerRule``, ``EtlStarvationRule``,
-``DivergencePrecursorRule``, ``default_rules``), webhook delivery and
-federated evaluation (both raise naming A12), and the run tags the
-reference stamps on each event line (``telemetry.runlog``).  The OTLP
-block of ``/healthz`` is absent, as the reference's is when no exporter
-runs.  All rules take an explicit ``now`` so tests drive time
-deterministically.
+- **declarative rules** (:class:`AlertRule` subclasses) evaluated every
+  ``interval`` seconds against the process-global registry;
+- **firing/resolved transitions** appended as JSON lines to a structured
+  event log (one object per line — ``jq``-able, tail-able) and mirrored
+  into two metrics: ``dl4j_tpu_health_alerts_firing`` (count, the
+  pager-feed gauge) and ``dl4j_tpu_health_alert_state{rule=...}`` (0/1
+  per rule, which the federation layer tags per host);
+- a :func:`health_summary` liveness snapshot served at ``/healthz``.
+
+Built-in rules (see :func:`default_rules`): training stall (step counter
+frozen), replica straggler (per-replica step gauge vs. the median), ETL
+starvation (prefetch queue pinned empty while the producer lives), and
+divergence precursor (NaN-rollback counter rising).  All rules take an
+explicit ``now`` so tests drive time deterministically — no sleeps.
 """
 from __future__ import annotations
 
 import json
 import os
-import socket
+import queue as _queue
 import tempfile
 import threading
 import time
@@ -36,17 +38,12 @@ from typing import Dict, List, Optional, Sequence
 from deeplearning4j_tpu_torch.telemetry.registry import (MetricsRegistry,
                                                          get_registry)
 
-__all__ = ["AlertRule", "ThresholdRule", "HealthMonitor", "health_summary",
-           "recsys_hash_collision_rule"]
+__all__ = ["AlertRule", "ThresholdRule", "TrainingStallRule",
+           "ReplicaStragglerRule", "EtlStarvationRule",
+           "DivergencePrecursorRule", "HealthMonitor", "default_rules",
+           "health_summary", "recsys_hash_collision_rule"]
 
 _process_start = time.time()
-
-
-def host_id() -> str:
-    """This process's identity on event-log lines: ``DL4J_TPU_HOST_ID``, or
-    ``<hostname>-<pid>`` (the reference's ``federation.host_id``)."""
-    return os.environ.get("DL4J_TPU_HOST_ID") or \
-        f"{socket.gethostname()}-{os.getpid()}"
 
 
 class AlertRule:
@@ -95,12 +92,171 @@ class ThresholdRule(AlertRule):
         return None
 
 
+class TrainingStallRule(AlertRule):
+    """No step-counter progress for ``timeout`` seconds.
+
+    Arms only once the counter is nonzero — a job still compiling its
+    first step (or a coordinator that never trains) must not page as
+    stalled; resolves the moment the counter moves again."""
+
+    name = "training_stall"
+
+    def __init__(self, timeout: float = 120.0,
+                 counter: str = "dl4j_tpu_train_steps_total"):
+        self.timeout = float(timeout)
+        self.counter = counter
+        self._last_value: Optional[float] = None
+        self._last_change: Optional[float] = None
+
+    def evaluate(self, registry, now):
+        m = registry.get(self.counter)
+        if m is None:
+            return None
+        v = _total_value(m)
+        if self._last_value is None or v != self._last_value:
+            self._last_value, self._last_change = v, now
+            return None
+        if v <= 0:
+            return None
+        stalled = now - self._last_change
+        if stalled >= self.timeout:
+            return (f"no {self.counter} progress for {stalled:.1f}s "
+                    f"(threshold {self.timeout:g}s, stuck at {v:g})")
+        return None
+
+
+class ReplicaStragglerRule(AlertRule):
+    """Any replica's step-time gauge above ``ratio`` × the median replica.
+
+    Under lockstep GSPMD every replica of ONE process publishes the same
+    time, so within a single local registry this cannot fire — the
+    divergence it hunts lives across hosts.  Run it on a coordinator's
+    ``HealthMonitor(federated=True)``, where the evaluated registry is
+    the merged federated view and each host's gauge is a separate
+    ``host``-labeled cell."""
+
+    name = "replica_straggler"
+
+    def __init__(self, ratio: float = 2.0,
+                 gauge: str = "dl4j_tpu_parallel_replica_step_seconds"):
+        self.ratio = float(ratio)
+        self.gauge = gauge
+
+    def evaluate(self, registry, now):
+        m = registry.get(self.gauge)
+        if m is None:
+            return None
+        cells = m.data().get("cells", [])
+        vals = sorted(float(v) for _k, v in cells)
+        if len(vals) < 2:
+            return None
+        # LOWER median: with an even cell count the midpoint average
+        # would include the straggler's own value, making
+        # "worst > k*median" unsatisfiable for 2 hosts (w > w+b); the
+        # lower median compares the worst against the healthy half
+        median = vals[(len(vals) - 1) // 2]
+        if median <= 0:
+            return None
+        worst_key, worst = max(cells, key=lambda kv: float(kv[1]))
+        if float(worst) > self.ratio * median:
+            return (f"replica {'/'.join(worst_key)} step time "
+                    f"{float(worst):.4g}s > {self.ratio:g}x median "
+                    f"{median:.4g}s")
+        return None
+
+
+class EtlStarvationRule(AlertRule):
+    """A consumer BLOCKED on an empty prefetch queue for ``forSeconds``
+    while the producer thread is still alive
+    (``dl4j_tpu_etl_producer_active``) — the input pipeline can't keep up
+    with the device loop.  Keys on ``dl4j_tpu_etl_consumers_waiting``
+    (live for the duration of the block) rather than the queue-depth
+    gauge, which goes STALE between consumer polls: a loop stuck in a
+    minutes-long XLA compile would otherwise read as "pinned at 0" and
+    false-page.  A drained epoch end (producer exited) must NOT fire."""
+
+    name = "etl_starvation"
+
+    def __init__(self, forSeconds: float = 30.0,
+                 gauge: str = "dl4j_tpu_etl_consumers_waiting"):
+        self.forSeconds = float(forSeconds)
+        self.gauge = gauge
+        self._waiting_since: Optional[float] = None
+
+    def evaluate(self, registry, now):
+        waiting = registry.get(self.gauge)
+        if waiting is None or _total_value(waiting) <= 0:
+            self._waiting_since = None
+            return None
+        active = registry.get("dl4j_tpu_etl_producer_active")
+        if active is not None and _total_value(active) <= 0:
+            self._waiting_since = None     # clean drain, not starvation
+            return None
+        if self._waiting_since is None:
+            self._waiting_since = now
+            return None
+        blocked = now - self._waiting_since
+        if blocked >= self.forSeconds:
+            return (f"consumer blocked {blocked:.1f}s on an empty "
+                    f"prefetch queue with a live producer (threshold "
+                    f"{self.forSeconds:g}s)")
+        return None
+
+
+class DivergencePrecursorRule(AlertRule):
+    """NaN-rollback counter rising: fires on any increase, stays firing
+    until ``quietSeconds`` pass with no further rollback (the supervisor
+    is coping, but someone should look before maxRollbacks runs out)."""
+
+    name = "divergence_precursor"
+
+    def __init__(self, quietSeconds: float = 300.0,
+                 counter: str = "dl4j_tpu_fault_nan_rollbacks_total"):
+        self.quietSeconds = float(quietSeconds)
+        self.counter = counter
+        self._last_value: Optional[float] = None
+        self._last_rise: Optional[float] = None
+
+    def evaluate(self, registry, now):
+        m = registry.get(self.counter)
+        if m is None:
+            return None
+        v = _total_value(m)
+        if self._last_value is None:
+            self._last_value = v
+            return None
+        if v > self._last_value:
+            self._last_value, self._last_rise = v, now
+        elif v < self._last_value:
+            # counter reset (a federated worker restarted and re-zeroed
+            # its share of the sum): re-baseline so the NEXT rollback
+            # still reads as a rise instead of hiding under the old max
+            self._last_value = v
+        if self._last_rise is not None and \
+                now - self._last_rise < self.quietSeconds:
+            return (f"{self.counter} rose to {v:g} "
+                    f"{now - self._last_rise:.1f}s ago")
+        return None
+
+
 def _total_value(metric) -> float:
     """Sum over every label set (label-less metrics: the single cell)."""
     try:
         return sum(float(v) for _k, v in metric.data().get("cells", []))
     except (TypeError, ValueError):
         return 0.0
+
+
+def default_rules(stallTimeout: float = 120.0, stragglerRatio: float = 2.0,
+                  starvationSeconds: float = 30.0,
+                  divergenceQuietSeconds: float = 300.0
+                  ) -> List[AlertRule]:
+    """The four conditions every supervised run should watch: stall,
+    straggler, ETL starvation, divergence precursor."""
+    return [TrainingStallRule(timeout=stallTimeout),
+            ReplicaStragglerRule(ratio=stragglerRatio),
+            EtlStarvationRule(forSeconds=starvationSeconds),
+            DivergencePrecursorRule(quietSeconds=divergenceQuietSeconds)]
 
 
 def recsys_hash_collision_rule(threshold: float = 1.0) -> ThresholdRule:
@@ -121,52 +277,68 @@ class HealthMonitor:
 
     The event log is JSON Lines — each line
     ``{"ts", "host", "rule", "state", "detail"}`` with ``state`` one of
-    ``firing``/``resolved``/``event``/``action`` (``event`` lines come from
-    :meth:`note`).  Everything is also visible to scrapes:
-    ``dl4j_tpu_health_alerts_firing`` counts currently-firing rules,
-    ``dl4j_tpu_health_alert_state{rule=}`` holds each rule's 0/1, and
-    ``dl4j_tpu_health_alert_transitions_total`` counts edges.
-    ``evaluate_once(now=...)`` drives the same logic deterministically for
-    tests (no thread, no sleeps).
+    ``firing``/``resolved``/``event`` (``event`` lines come from
+    :meth:`note`, the supervisor's rollback/restore hook).  Everything is
+    also visible to scrapes: ``dl4j_tpu_health_alerts_firing`` counts
+    currently-firing rules, ``dl4j_tpu_health_alert_state{rule=}`` holds
+    each rule's 0/1, and ``dl4j_tpu_health_alert_transitions_total``
+    counts edges.  ``evaluate_once(now=...)`` drives the same logic
+    deterministically for tests (no thread, no sleeps).
 
-    ``rules=None`` watches nothing: the reference's default training rules
-    wait for ROADMAP A12, and so do ``federated=True`` and ``webhookUrl``,
-    which raise naming it."""
+    ``federated=True`` makes a COORDINATOR's monitor evaluate its rules
+    against the merged federated registry (every worker snapshot in the
+    configured run dir + this process's live registry) instead of the
+    local one — the only place cross-host conditions like a replica
+    straggler are visible (each host's gauge is a separate
+    ``host``-labeled cell there).  Alert-state metrics still land in the
+    LOCAL registry, so they export/federate normally."""
 
     def __init__(self, rules: Optional[Sequence[AlertRule]] = None,
                  interval: float = 5.0,
                  eventLogPath: Optional[str] = None,
                  registry: Optional[MetricsRegistry] = None,
                  federated: bool = False,
-                 webhookUrl: Optional[str] = None):
-        if federated:
-            raise NotImplementedError(
-                "federated health evaluation waits for ROADMAP A12 "
-                "(telemetry.federation)")
-        if webhookUrl is not None:
-            raise NotImplementedError(
-                "alert webhook delivery waits for ROADMAP A12")
-        self.rules = list(rules) if rules is not None else []
+                 webhookUrl: Optional[str] = None,
+                 webhookTimeout: float = 2.0, webhookRetries: int = 3,
+                 webhookBackoff: float = 0.1, webhookQueueSize: int = 256):
+        self.rules = list(rules) if rules is not None else default_rules()
         self.interval = float(interval)
         self._eventLogPath = eventLogPath
         self._registry = registry
+        self.federated = bool(federated)
         self.firing: Dict[str, str] = {}
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
         self._log_lock = threading.Lock()
-        # alert -> action remediations, dispatched on the named rule's
-        # firing or resolved edge (see registerAction)
+        # alert -> action remediations: callables dispatched on the
+        # FIRING edge of the named rule (see registerAction) — the
+        # self-healing half of the ops loop
         self._actions: Dict[str, List] = {}
         self._actions_lock = threading.Lock()
+        # webhook alert delivery: firing/resolved transitions POST to
+        # webhookUrl from a dedicated sender thread — the watchdog only
+        # ever enqueues (put_nowait), so a dead endpoint can delay
+        # deliveries, never rule evaluation
+        self.webhookUrl = webhookUrl
+        self.webhookTimeout = float(webhookTimeout)
+        self.webhookRetries = max(1, int(webhookRetries))
+        self.webhookBackoff = float(webhookBackoff)
+        self._whQ: Optional[_queue.Queue] = None
+        self._whQueueSize = int(webhookQueueSize)
+        self._whStop = threading.Event()
+        self._whThread: Optional[threading.Thread] = None
 
     @property
     def eventLogPath(self) -> str:
-        # resolved lazily: the launcher may set DL4J_TPU_TELEMETRY_DIR
-        # after this monitor is constructed
+        # resolved lazily like FlightRecorder.dumpDir: the launcher may
+        # configure the run dir (set_federation_dir or the env var) after
+        # this monitor is constructed — the alerts belong next to the
+        # metric snapshots the operator is already tailing
         if self._eventLogPath is not None:
             return self._eventLogPath
-        base = os.environ.get("DL4J_TPU_TELEMETRY_DIR") or \
-            tempfile.gettempdir()
+        from deeplearning4j_tpu_torch.telemetry.federation import \
+            get_federation_dir
+        base = get_federation_dir() or tempfile.gettempdir()
         return os.path.join(base, f"health_events_{os.getpid()}.jsonl")
 
     def _reg(self) -> MetricsRegistry:
@@ -176,7 +348,7 @@ class HealthMonitor:
     # -- event log -------------------------------------------------------
     def _append(self, record: dict) -> None:
         """Append one JSON line; never raises (an unwritable log must not
-        kill the watchdog)."""
+        kill the watchdog, let alone the training it watches)."""
         try:
             line = json.dumps(record, default=str)
             with self._log_lock:
@@ -187,10 +359,25 @@ class HealthMonitor:
         except Exception:
             pass
 
+    @staticmethod
+    def _run_tags() -> dict:
+        """The active run's (run id, mesh generation) — stamped on every
+        event-log line and webhook payload so an alert can be JOINED to
+        the remesh/generation that caused it.  Empty when no training
+        run is active (a bare serving process)."""
+        from deeplearning4j_tpu_torch.telemetry.runlog import current_run
+        rc = current_run()
+        if rc is None:
+            return {}
+        return {"run": rc.runId, "generation": int(rc.generation)}
+
     def note(self, event: str, **details) -> None:
-        """Structured non-rule event — same log, ``state: "event"``."""
+        """Structured non-rule event (the supervisor's rollback/restore/
+        divergence hooks land here) — same log, ``state: "event"``."""
+        from deeplearning4j_tpu_torch.telemetry.federation import host_id
         self._append({"ts": time.time(), "host": host_id(), "rule": event,
-                      "state": "event", "detail": details})
+                      "state": "event", "detail": details,
+                      **self._run_tags()})
 
     # -- evaluation ------------------------------------------------------
     def evaluate_once(self, now: Optional[float] = None) -> Dict[str, str]:
@@ -200,13 +387,26 @@ class HealthMonitor:
         if now is None:
             now = time.monotonic()
         reg = self._reg()
+        eval_reg = reg
+        if self.federated:
+            from deeplearning4j_tpu_torch.telemetry.federation import (
+                TelemetryAggregator, get_federation_dir)
+            run_dir = get_federation_dir()
+            if run_dir is not None:
+                try:
+                    eval_reg = TelemetryAggregator(
+                        run_dir, localRegistry=reg).merged()
+                except Exception:
+                    eval_reg = reg      # a torn run dir must not blind
+                    # the LOCAL rules too — degrade to local evaluation
+        from deeplearning4j_tpu_torch.telemetry.federation import host_id
         state_g = reg.gauge(
             "dl4j_tpu_health_alert_state",
             "1 while the named watchdog rule is firing, else 0",
             labelnames=("rule",))
         for rule in self.rules:
             try:
-                detail = rule.evaluate(reg, now)
+                detail = rule.evaluate(eval_reg, now)
             except Exception as e:
                 # a broken rule is an alert about the watchdog, not a
                 # watchdog crash
@@ -231,12 +431,21 @@ class HealthMonitor:
         return dict(self.firing)
 
     def _transition(self, rule: str, state: str, detail: str) -> None:
-        self._append({"ts": time.time(), "host": host_id(), "rule": rule,
-                      "state": state, "detail": detail})
+        from deeplearning4j_tpu_torch.telemetry.federation import host_id
+        record = {"ts": time.time(), "host": host_id(), "rule": rule,
+                  "state": state, "detail": detail, **self._run_tags()}
+        self._append(record)
+        if state == "firing":
+            from deeplearning4j_tpu_torch.telemetry.runlog import record_event
+            record_event("health.firing", rule=rule, detail=detail)
+        elif state == "resolved":
+            from deeplearning4j_tpu_torch.telemetry.runlog import record_event
+            record_event("health.resolved", rule=rule, detail=detail)
         self._reg().counter(
             "dl4j_tpu_health_alert_transitions_total",
             "Watchdog firing/resolved edges",
             labelnames=("rule", "state")).inc(rule=rule, state=state)
+        self._enqueueWebhook(record)
         if state in ("firing", "resolved"):
             self._dispatchActions(rule, detail, state)
 
@@ -278,6 +487,7 @@ class HealthMonitor:
                        if on == state]
         if not actions:
             return
+        from deeplearning4j_tpu_torch.telemetry.federation import host_id
         counter = self._reg().counter(
             "dl4j_tpu_health_actions_total",
             "Remediation actions dispatched on alert firing/resolved "
@@ -299,6 +509,81 @@ class HealthMonitor:
                           "rule": rule, "state": "action",
                           "detail": {"action": name, "outcome": outcome,
                                      "note": note}})
+
+    # -- webhook delivery ------------------------------------------------
+    def _enqueueWebhook(self, record: dict) -> None:
+        """Hand a transition to the sender thread.  NEVER blocks: a full
+        queue (endpoint down for a long time) drops the oldest-undelivered
+        semantics in favor of protecting the watchdog — drops are counted
+        in ``dl4j_tpu_health_webhook_dropped_total``."""
+        if self.webhookUrl is None:
+            return
+        self._ensureSender()
+        try:
+            self._whQ.put_nowait(record)
+        except _queue.Full:
+            self._reg().counter(
+                "dl4j_tpu_health_webhook_dropped_total",
+                "Alert webhook payloads dropped because the delivery "
+                "queue was full (endpoint down or too slow)").inc()
+
+    def _ensureSender(self) -> None:
+        if self._whThread is not None and self._whThread.is_alive():
+            return
+        if self._whQ is None:
+            self._whQ = _queue.Queue(maxsize=self._whQueueSize)
+        self._whStop.clear()
+        self._whThread = threading.Thread(
+            target=self._webhookLoop, name="telemetry-health-webhook",
+            daemon=True)
+        self._whThread.start()
+
+    def _webhookLoop(self) -> None:
+        while True:
+            try:
+                record = self._whQ.get(timeout=0.2)
+            except _queue.Empty:
+                if self._whStop.is_set():
+                    return
+                continue
+            self._deliverWebhook(record)
+
+    def _deliverWebhook(self, record: dict) -> None:
+        """One POST with bounded retry + exponential backoff.  Runs on
+        the sender thread only; a permanently failing delivery is
+        counted and logged to the event file, never raised."""
+        import urllib.request
+        data = json.dumps(record, default=str).encode("utf-8")
+        last = None
+        for attempt in range(self.webhookRetries):
+            try:
+                req = urllib.request.Request(
+                    self.webhookUrl, data=data,
+                    headers={"Content-Type": "application/json"},
+                    method="POST")
+                with urllib.request.urlopen(
+                        req, timeout=self.webhookTimeout) as resp:
+                    status = getattr(resp, "status", 200)
+                    if 200 <= status < 300:
+                        self._reg().counter(
+                            "dl4j_tpu_health_webhook_deliveries_total",
+                            "Alert webhook POSTs by outcome",
+                            labelnames=("status",)).inc(status="ok")
+                        return
+                    last = f"HTTP {status}"
+            except Exception as e:
+                last = f"{type(e).__name__}: {e}"
+            if attempt < self.webhookRetries - 1:
+                time.sleep(self.webhookBackoff * (2 ** attempt))
+        self._reg().counter(
+            "dl4j_tpu_health_webhook_deliveries_total",
+            "Alert webhook POSTs by outcome",
+            labelnames=("status",)).inc(status="failed")
+        from deeplearning4j_tpu_torch.telemetry.federation import host_id
+        self._append({"ts": time.time(), "host": host_id(),
+                      "rule": record.get("rule"), "state": "webhook_error",
+                      "detail": f"delivery failed after "
+                                f"{self.webhookRetries} attempts: {last}"})
 
     # -- lifecycle -------------------------------------------------------
     def start(self) -> "HealthMonitor":
@@ -337,6 +622,13 @@ class HealthMonitor:
         g = reg.get("dl4j_tpu_health_alerts_firing")
         if g is not None:
             g.set(0.0)
+        # drain-then-stop the webhook sender AFTER resolving, so the
+        # resolved transitions above still deliver (bounded: each pending
+        # payload retries at most webhookRetries times)
+        if self._whThread is not None:
+            self._whStop.set()
+            self._whThread.join(timeout=30.0)
+            self._whThread = None
 
     def is_running(self) -> bool:
         return self._thread is not None and self._thread.is_alive()
@@ -392,10 +684,20 @@ def health_summary(registry: Optional[MetricsRegistry] = None) -> dict:
                 cell.get("replica", "")] = int(value)
         if byModel:
             out["replica_health"] = byModel
-    # observability side-car: is /metrics/query live
+    # observability side-cars: is /metrics/query live, and is the OTLP
+    # exporter keeping up (drop count is the signal a collector outage
+    # leaves behind — the hot path never blocks on it)
+    from deeplearning4j_tpu_torch.telemetry.otlp import otlp_exporter
     from deeplearning4j_tpu_torch.telemetry.timeseries import retention
     ring = retention()
     out["retention"] = None if ring is None else {
         "window_seconds": ring.window, "interval_seconds": ring.interval,
         "samples": ring.sample_count()}
+    exp = otlp_exporter()
+    if exp is not None:
+        drops = reg.get("dl4j_tpu_otlp_dropped_total")
+        out["otlp"] = {"endpoint": exp.endpoint,
+                       "interval_seconds": exp.interval,
+                       "dropped_total": _total_value(drops)
+                       if drops is not None else 0.0}
     return out

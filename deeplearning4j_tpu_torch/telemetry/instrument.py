@@ -5,9 +5,14 @@ buckets letter for letter the reference's, so dashboards and alert rules
 work against either package) and the histogram exemplars
 (:func:`observe_exemplar`, :func:`exemplar_for`,
 :func:`latency_exemplars`).  The training, ETL, mesh, elastic,
-coordination and AOT-cache instruments wait for ROADMAP A12; the ETL
-namespace (:class:`EtlMetrics`, :func:`etl_metrics`, :func:`note_etl_wait`)
-is here, names and help text the reference's, for DataVec's pipelines.
+coordination and AOT-cache instruments wait for ROADMAP A10 and A12; the
+ETL namespace (:class:`EtlMetrics`, :func:`etl_metrics`,
+:func:`note_etl_wait`, :func:`etl_fetch`) is here, names and help text the
+reference's, for DataVec's pipelines, and so are the training instruments
+the models and the fault supervisor report through: the logical-step
+reporting (:func:`train_step_span`, :func:`record_logical_step`), the
+supervised and micro-batch scopes, :func:`record_crash` and the
+``dl4j_tpu_step_*`` step-phase histograms (:func:`observe_step_phase`).
 
 In the port ``dl4j_tpu_serving_compile_cache_{hits,misses}_total`` and
 ``dl4j_tpu_serving_warmup_compiles_total`` are never incremented: eager
@@ -17,16 +22,28 @@ PyTorch compiles no executables, so the serving tier's
 from __future__ import annotations
 
 import bisect
+import contextlib
 import threading
+import time
+from typing import Optional
 
+from deeplearning4j_tpu_torch.telemetry.flight import flight_recorder
 from deeplearning4j_tpu_torch.telemetry.registry import (DEFAULT_BUCKETS,
                                                          get_registry)
+from deeplearning4j_tpu_torch.telemetry.runlog import (current_run,
+                                                       record_event,
+                                                       run_span_attrs)
+from deeplearning4j_tpu_torch.telemetry.tracing import tracer
 
 __all__ = ["EtlMetrics", "etl_metrics", "note_etl_wait", "RecsysMetrics",
            "recsys_metrics", "RECSYS_TOPK_BUCKETS",
            "ServingMetrics", "serving_metrics", "SERVING_LATENCY_BUCKETS",
            "SERVING_WARMUP_BUCKETS", "observe_exemplar", "exemplar_for",
-           "latency_exemplars", "clear_exemplars"]
+           "latency_exemplars", "clear_exemplars", "train_step_span",
+           "record_crash", "etl_fetch", "supervised_scope",
+           "microbatch_scope", "in_microbatch", "record_logical_step",
+           "STEP_PHASES", "StepPhaseMetrics", "step_phase_metrics",
+           "observe_step_phase"]
 
 #: serving latency spans sub-ms (warm MLP on-host) to tens of seconds
 #: (long-context decode) — finer low end than DEFAULT_BUCKETS so a p99
@@ -494,10 +511,245 @@ def note_etl_wait(seconds: float, owner) -> None:
     """Record blocking ETL wait incurred outside ``next()``
     (AsyncDataSetIterator blocks in ``hasNext()`` to populate its peek),
     charged to ``owner`` — the iterator that blocked — and folded into the
-    next ``etl_fetch`` ON THAT ITERATOR (``etl_fetch`` comes with ROADMAP
-    A12's training instruments).  Keying by iterator (not a
+    next :func:`etl_fetch` ON THAT ITERATOR.  Keying by iterator (not a
     bare thread-local) keeps a drain that never calls ``etl_fetch`` (a
     normalizer ``fit`` pass) from leaking its waits into an unrelated
     fetch; the iterator zeroes its pending on reset."""
     owner._telemetry_pending_wait = getattr(
         owner, "_telemetry_pending_wait", 0.0) + float(seconds)
+
+
+def etl_fetch(iterator):
+    """One batch fetch timed as the ETL phase: an ``etl`` trace event, the
+    last-fetch stall gauge, and cumulative stall seconds.  Used by every
+    training loop that drains an iterator, so a slow input pipeline is
+    visible as ``dl4j_tpu_etl_stall_seconds`` regardless of which loop
+    drives it — including async iterators whose blocking happens in
+    ``hasNext`` (handed over via :func:`note_etl_wait`)."""
+    reg = get_registry()
+    pending = getattr(iterator, "_telemetry_pending_wait", 0.0)
+    if pending:
+        iterator._telemetry_pending_wait = 0.0
+    t0 = time.perf_counter()
+    ds = iterator.next()
+    dt = (time.perf_counter() - t0) + pending
+    # start is backdated over the hasNext wait so the trace slice spans
+    # the whole time the loop stood still for data
+    tracer().record_complete("etl", t0 - pending, dt)
+    observe_step_phase("data_wait", dt)
+    reg.gauge("dl4j_tpu_etl_stall_seconds",
+              "Host wall time the train loop spent waiting on the last "
+              "batch fetch (async prefetch waits included)").set(dt)
+    reg.counter("dl4j_tpu_etl_stall_seconds_total",
+                "Cumulative seconds the train loop waited on batch "
+                "fetches").inc(dt)
+    return ds
+
+
+# -- training steps -----------------------------------------------------
+
+# set while a fault supervisor owns the step: a step-level
+# InvalidStepException is then a RECOVERABLE divergence (the supervisor
+# rolls back), not a crash — no dump, no crash counter.  The supervisor
+# itself dumps exactly once if recovery finally fails.
+_scope = threading.local()
+
+
+@contextlib.contextmanager
+def supervised_scope():
+    prev = getattr(_scope, "supervised", False)
+    _scope.supervised = True
+    try:
+        yield
+    finally:
+        _scope.supervised = prev
+
+
+@contextlib.contextmanager
+def microbatch_scope():
+    """Active during OOM micro-batch retries: half-batch steps are not
+    logical steps, so they must not enter the step counter, the step-time
+    histogram or the listeners' ``iterationDone``."""
+    prev = getattr(_scope, "microbatch", False)
+    _scope.microbatch = True
+    try:
+        yield
+    finally:
+        _scope.microbatch = prev
+
+
+def in_microbatch() -> bool:
+    """True inside an OOM micro-batch retry (see :func:`microbatch_scope`);
+    the model train loops use this to defer per-step listener/metric
+    reporting to the supervisor's logical-step boundary."""
+    return getattr(_scope, "microbatch", False)
+
+
+def _report_step(model, seconds: float, batch_size: int,
+                 **flight_extra) -> None:
+    """The one reporting tail every logical step goes through — normal
+    steps and OOM micro-batch splits must land in the SAME series."""
+    reg = get_registry()
+    reg.counter("dl4j_tpu_train_steps_total",
+                "Logical train steps dispatched").inc()
+    reg.histogram("dl4j_tpu_train_step_seconds",
+                  "Host wall time per logical train step",
+                  buckets=DEFAULT_BUCKETS).observe(seconds)
+    if seconds > 0:
+        reg.gauge(
+            "dl4j_tpu_train_examples_per_second",
+            "Dispatch-rate examples/sec (see PerformanceListener for the "
+            "blocked, device-accurate rate)").set(batch_size / seconds)
+    observe_step_phase("compute", seconds, step=model.iterationCount)
+    # an OOM-split logical step says so on its timeline event
+    # (ROADMAP C34); every other step's event is the reference's
+    record_event("train.step", step=int(model.iterationCount),
+                 epoch=int(model.epochCount),
+                 seconds=round(seconds, 6),
+                 oom_split=flight_extra.get("oom_split"))
+    flight_recorder().record(
+        iteration=model.iterationCount, epoch=model.epochCount,
+        step_seconds=round(seconds, 6), batch_size=int(batch_size),
+        **flight_extra)
+
+
+@contextlib.contextmanager
+def train_step_span(model, batch_size: int):
+    """Wrap one logical train step (the step / TBPTT chunk loop / line
+    search iteration): step counter + step-time histogram + examples/sec
+    gauge + a ``step`` span + a FlightRecorder record.  Eager PyTorch
+    compiles no executable, so the reference's jit-cache accounting
+    (``dl4j_tpu_train_jit_cache_misses_total``) stays unset.  An
+    ``InvalidStepException`` inside an unsupervised step dumps the flight
+    ring (see :func:`record_crash`) and re-raises."""
+    if getattr(_scope, "microbatch", False):
+        # OOM-retry half-batches are not logical steps: the supervisor
+        # keeps iterationCount at ONE step for the whole split, so the
+        # step counter/histogram/throughput must not see the halves —
+        # only a trace span marking the retry work
+        with tracer().span("microbatch_step", batch=int(batch_size)):
+            yield
+        return
+    t0 = time.perf_counter()
+    try:
+        with tracer().span("step", iteration=model.iterationCount,
+                           epoch=model.epochCount, batch=int(batch_size),
+                           **run_span_attrs()):
+            yield
+    except Exception as e:
+        from deeplearning4j_tpu_torch.optimize.solvers import \
+            InvalidStepException
+        if isinstance(e, (InvalidStepException, FloatingPointError)):
+            if getattr(_scope, "supervised", False):
+                # the supervisor will roll back and retry — log the event
+                # in the ring but don't report a crash for a recoverable
+                # divergence (it dumps once itself if recovery fails)
+                flight_recorder().record(
+                    event="invalid_step", reason=f"{type(e).__name__}: {e}",
+                    iteration=model.iterationCount)
+            else:
+                record_crash(f"{type(e).__name__}: {e}", model=model)
+        raise
+    _report_step(model, time.perf_counter() - t0, batch_size)
+
+
+def record_logical_step(model, seconds: float, batch_size: int) -> None:
+    """Count one LOGICAL step completed via micro-batch OOM retry: the
+    halves themselves are skipped (``microbatch_scope``), so the
+    supervisor reports the whole split here — without this the step
+    counter would drift below ``iterationCount`` and the step-time
+    histogram would be missing exactly the slowest steps."""
+    _report_step(model, seconds, batch_size, oom_split=True)
+
+
+def record_crash(reason: str, model=None) -> str:
+    """Append a crash record, mark the trace, and dump the flight ring to
+    JSON (the ``CrashReportingUtil`` analogue).  Returns the dump path."""
+    fr = flight_recorder()
+    rec = {"event": "crash", "reason": reason}
+    if model is not None:
+        rec["iteration"] = getattr(model, "iterationCount", None)
+        rec["epoch"] = getattr(model, "epochCount", None)
+    fr.record(**rec)
+    tracer().instant("crash", reason=reason)
+    get_registry().counter("dl4j_tpu_train_crash_dumps_total",
+                           "FlightRecorder crash dumps written").inc()
+    return fr.dump(reason=reason)
+
+
+# -- step-phase decomposition -------------------------------------------
+
+#: The five seams one logical train step decomposes into — instrumented
+#: at etl_fetch (data_wait), the staging ring's materialize (h2d), the
+#: step (compute), the supervisor's sealed save (checkpoint) and the pod
+#: barrier (barrier, which comes with the parallel layer).
+STEP_PHASES = ("data_wait", "h2d", "compute", "checkpoint", "barrier")
+
+
+class StepPhaseMetrics:
+    """The ``dl4j_tpu_step_*`` step-time decomposition namespace,
+    registered from ONE site (names, help text and buckets the
+    reference's).  Every histogram takes exemplars (via
+    :func:`observe_step_phase`) pointing at the (trace id, generation,
+    step) of the slowest observation.  Accessors re-resolve through
+    :func:`get_registry` on every call (tests swap the registry)."""
+
+    def data_wait_seconds(self):
+        return get_registry().histogram(
+            "dl4j_tpu_step_data_wait_seconds",
+            "Step time waiting on the input pipeline (batch fetch, "
+            "prefetch stalls)", buckets=DEFAULT_BUCKETS)
+
+    def h2d_seconds(self):
+        return get_registry().histogram(
+            "dl4j_tpu_step_h2d_seconds",
+            "Step time staging batches host-to-device (issue + "
+            "materialize wait)", buckets=DEFAULT_BUCKETS)
+
+    def compute_seconds(self):
+        return get_registry().histogram(
+            "dl4j_tpu_step_compute_seconds",
+            "Step time in the fused-step dispatch (host wall around the "
+            "jitted call)", buckets=DEFAULT_BUCKETS)
+
+    def checkpoint_seconds(self):
+        return get_registry().histogram(
+            "dl4j_tpu_step_checkpoint_seconds",
+            "Step time blocked on a sealed checkpoint save",
+            buckets=DEFAULT_BUCKETS)
+
+    def barrier_seconds(self):
+        return get_registry().histogram(
+            "dl4j_tpu_step_barrier_seconds",
+            "Step time blocked on the pod coordination barrier",
+            buckets=DEFAULT_BUCKETS)
+
+
+_STEP_PHASE_METRICS = StepPhaseMetrics()
+
+
+def step_phase_metrics() -> StepPhaseMetrics:
+    """Accessor for the shared step-phase namespace (see
+    :class:`StepPhaseMetrics`)."""
+    return _STEP_PHASE_METRICS
+
+
+def observe_step_phase(phase: str, seconds: float,
+                       step: Optional[int] = None) -> None:
+    """Observe one step-phase duration with a run-scoped exemplar: the
+    active :class:`~deeplearning4j_tpu_torch.telemetry.runlog.RunContext`
+    supplies the trace id and generation, so the slowest-bucket exemplar
+    on each phase histogram resolves to (trace id, generation, step)."""
+    if phase not in STEP_PHASES:
+        raise ValueError(f"unknown step phase {phase!r}; "
+                         f"expected one of {STEP_PHASES}")
+    rc = current_run()
+    tid = rc.runId if rc is not None else None
+    attrs = None
+    if rc is not None:
+        attrs = {"generation": int(rc.generation)}
+        if step is not None:
+            attrs["step"] = int(step)
+    getattr(_STEP_PHASE_METRICS, f"{phase}_seconds")()
+    observe_exemplar(f"dl4j_tpu_step_{phase}_seconds", seconds, tid,
+                     attrs=attrs)

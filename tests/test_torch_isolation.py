@@ -272,6 +272,56 @@ def test_serving_tier_names_import_from_both_packages(module, name):
         assert port == ref or type(port).__name__ == type(ref).__name__
 
 
+# The reference's fault and telemetry names that wait for the parallel
+# layer (ROADMAP A10): the device-loss, partition, heartbeat, leader-crash
+# and barrier-kill faults, the elastic, coordination and chaos layers, and
+# the mesh, elastic, coordination and AOT-cache instruments.
+A10_FAULT_NAMES = {
+    "DelayedHeartbeat", "DeviceLossAtStep", "InjectedDeviceLoss",
+    "KillAtBarrier", "LeaderCrashMidBarrier", "PartitionedHost",
+    "RestoreCapacityAtStep", "StragglerReplica", "arm_barrier_kill",
+    "arm_leader_crash", "clear_barrier_kills", "clear_heartbeat_delays",
+    "clear_leader_crashes", "clear_lost_devices", "clear_partitioned_hosts",
+    "consume_barrier_kill", "consume_leader_crash", "heal_host",
+    "heartbeat_delay", "lose_devices", "lost_device_ids", "partition_host",
+    "partitioned_host_ids", "restore_devices", "set_heartbeat_delay",
+    "DeviceHealthProbe", "ElasticCapacityError", "ElasticSupervisor",
+    "is_device_loss_error", "CoordinationError", "GenerationFence",
+    "HeartbeatLease", "PodCoordinator", "PodEvictedError",
+    "ReadmissionPolicy", "StaleGenerationError", "ChaosSoak",
+    "ServingChaosSoak", "build_schedule", "build_serving_schedule"}
+A10_TELEMETRY_NAMES = {
+    "AotCacheMetrics", "CoordMetrics", "ElasticMetrics", "MeshMetrics",
+    "ReplicaTimingListener", "aot_metrics", "coord_metrics",
+    "elastic_metrics", "mesh_metrics", "replica_step_gauge"}
+FAULT_TELEMETRY_MODULES = [
+    "fault", "fault.injection", "fault.supervisor", "telemetry",
+    "telemetry.runlog", "telemetry.federation", "telemetry.export",
+    "telemetry.otlp", "telemetry.health", "telemetry.instrument",
+    "utils.sharded_checkpoint"]
+
+
+@pytest.mark.parametrize("module", FAULT_TELEMETRY_MODULES)
+def test_fault_and_telemetry_public_names_import_from_both_packages(module):
+    """Every public name of the reference's fault supervisor, its
+    injection harness and its telemetry resolves in the port under the
+    same path, but the names that wait for A10, which the port lacks."""
+    import importlib
+    import types
+    ref = importlib.import_module(f"deeplearning4j_tpu.{module}")
+    port = importlib.import_module(f"deeplearning4j_tpu_torch.{module}")
+    names = getattr(ref, "__all__", None) or [
+        n for n in dir(ref) if not n.startswith("_")
+        and not isinstance(getattr(ref, n), types.ModuleType)]
+    waiting = A10_FAULT_NAMES | A10_TELEMETRY_NAMES
+    missing = [n for n in names if n not in waiting and not hasattr(port, n)]
+    assert not missing, missing
+    assert not [n for n in names if n in waiting and hasattr(port, n)]
+    for n in names:
+        if n not in waiting and callable(getattr(ref, n)):
+            assert callable(getattr(port, n)), n
+
+
 def test_serving_entry_points_default_to_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is usable")

@@ -260,11 +260,26 @@ def test_waits_raise_naming_their_roadmap_items(mlps, monkeypatch):
     _, net = mlps
     with pytest.raises(NotImplementedError, match="A10"):
         trem.JsonModelServer(net, parallelInference=True)
-    monkeypatch.setenv("DL4J_TPU_OTLP_ENDPOINT", "http://127.0.0.1:1")
-    srv = trem.InferenceServer(trem.ModelRegistry())
-    with pytest.raises(NotImplementedError, match="A12"):
-        srv.start()
     assert trem.ForwardServing(net).compileCacheSize() is None
+    # the OTLP half no longer waits: start() brings the exporter up from
+    # DL4J_TPU_OTLP_ENDPOINT as the reference's does (its interval from
+    # DL4J_TPU_OTLP_INTERVAL)
+    monkeypatch.setenv("DL4J_TPU_OTLP_ENDPOINT", "http://127.0.0.1:1/")
+    monkeypatch.setenv("DL4J_TPU_OTLP_INTERVAL", "30")
+    prev = {m: m.set_otlp_exporter(None) for m in (jtel, ttel)}
+    srv = trem.InferenceServer(trem.ModelRegistry()).start()
+    try:
+        exp, ref = ttel.otlp_exporter(), jtel.ensure_otlp_exporter(
+            start=False)
+        assert exp is not None and exp._thread.is_alive()
+        assert (exp.endpoint, exp.interval) == (ref.endpoint, ref.interval) \
+            == ("http://127.0.0.1:1", 30.0)
+    finally:
+        srv.stop()
+        for m, p in prev.items():
+            e = m.set_otlp_exporter(p)
+            if e is not None:
+                e.stop()
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
 """Port parity of the telemetry the serving tier reports through: the
 registry's Prometheus exposition, the trace context and timeline store,
-``ThresholdRule`` / ``HealthMonitor`` with its edge actions,
+``ThresholdRule`` / ``HealthMonitor`` with its edge actions and default
+rules,
 ``health_summary``, the retention ring's queries, the exemplars and the
 observability GET routing — each driven through both packages with the
 same sequence of calls, and held equal exactly (these are pure Python in
@@ -176,12 +177,25 @@ def test_threshold_rules_and_monitor_actions(registries, tmp_path):
         ttel.HealthMonitor(rules=[]).registerAction("x", print, on="never")
 
 
+def _rule_config(rule):
+    return (type(rule).__name__, rule.name,
+            {k: v for k, v in vars(rule).items() if not k.startswith("_")})
+
+
 def test_monitor_waits_for_a12():
-    with pytest.raises(NotImplementedError, match="A12"):
-        ttel.HealthMonitor(federated=True)
-    with pytest.raises(NotImplementedError, match="A12"):
-        ttel.HealthMonitor(webhookUrl="http://127.0.0.1:1/x")
-    assert ttel.HealthMonitor().rules == []
+    """What waited for A12 is ported: both packages' default monitor
+    watches the same four rules with the same thresholds, and
+    ``federated=True`` / ``webhookUrl`` construct in both."""
+    rules = {k: [_rule_config(r) for r in m.HealthMonitor().rules]
+             for k, m in PKGS.items()}
+    assert rules["port"] == rules["reference"]
+    assert [r[1] for r in rules["port"]] == [
+        "training_stall", "replica_straggler", "etl_starvation",
+        "divergence_precursor"]
+    for m in PKGS.values():
+        mon = m.HealthMonitor(federated=True,
+                              webhookUrl="http://127.0.0.1:1/x")
+        assert mon.federated and mon.webhookUrl == "http://127.0.0.1:1/x"
 
 
 def test_health_summary_keys_identical(registries):
@@ -226,10 +240,17 @@ def test_observability_routes(registries):
         m.serving_metrics().requests().inc(model="lm", outcome="ok")
     for path in ("/metrics", "/nope"):
         assert observability_route(path) == jax_route(path)
-    for path in ("/metrics/federated", "/v1/runs/r1/timeline"):
-        status, body, ctype = observability_route(path)
-        assert status == 501 and ctype == "application/json"
-        assert "ROADMAP A12" in json.loads(body)["error"]
+    # federation unconfigured in both: the same 404 and hint
+    prev = {k: m.set_federation_dir(None) for k, m in PKGS.items()}
+    try:
+        for path in ("/metrics/federated", "/v1/runs/r1/timeline"):
+            status, body, ctype = observability_route(path)
+            assert (status, body, ctype) == jax_route(path)
+            assert status == 404 and ctype == "application/json"
+            assert "federation unconfigured" in json.loads(body)["error"]
+    finally:
+        for k, m in PKGS.items():
+            m.set_federation_dir(prev[k])
     assert observability_route("/v1/runs/r1") is None
     ttel.timeline_store().note("abc", "serving.enqueue", row=0)
     status, body, _ = observability_route("/v1/requests/abc")
