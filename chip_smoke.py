@@ -495,7 +495,47 @@ which must pass or the script exits non-zero without a result line:
    timeline`` (the runs' checkpoint, preemption, resume, rollback and OOM
    retry events, in hybrid-logical-clock order) and ``/metrics/federated``
    (the two hosts' step counters summed), and the collector must hold
-   OTLP JSON spans on the run's trace id and the supervisor's metrics.
+   OTLP JSON spans on the run's trace id and the supervisor's metrics;
+67. ``observability`` (``OBSERVABILITY``): the long-context net (BFLOAT16,
+   t 2048, batch 4) fits 2 seeded batches for 2 epochs with panic mode on
+   and four listeners: a ``StatsListener`` collecting activations into an
+   ``InMemoryStatsStorage``, one pushing through
+   ``RemoteUIStatsStorageRouter`` into a live ``UIServer(port=0)``, one
+   into a storage bounded to 2 records, and a ``ProfilingListener``.
+   Counters at 0 before and read after: B1 4 a step (2 of the step, 2 of
+   the activation forward), B2 and B3 2.  Every record has non-empty
+   param and activation stats (update stats from the second), a memory
+   section on platform ``gpu``; the last record's param stats equal the
+   same stats of the params on the CPU (``OBS_STATS_TOL``, histograms bit
+   for bit); the remote session holds every record, the overview page its
+   histograms (``<rect``) and ``/metrics`` the dropped-records counter;
+   then one step with panic off and no listener leaves its loss on the
+   device (2 of each of B1-B3), and 2 steps inside ``start_trace`` /
+   ``stop_trace`` write a device trace with kernels, and the tracer's
+   file merges the ``OpProfiler``'s phases with its spans;
+68. ``nan_panic`` (``NAN_PANIC``): the reference test's MLP with
+   ``Sgd(1e12)`` and panic on raises ``FloatingPointError``
+   (NAN_PANIC/INF_PANIC) on the same step on the card as on the CPU from
+   the same params; under ``FaultTolerantTrainer`` the panic is a
+   rollback (its reason the panic) and the run ends finite; no launch;
+69. ``word2vec`` (``W2V``): ``Word2Vec`` skip-gram at Mikolov et al.'s
+   widths over a 1M-token seeded Zipf corpus with text8's 71,290 types:
+   host prep, pairs/s, ms a step, a profiled stretch of the loop (idle
+   share), peak memory; ``wordsNearest`` on the card equal to the CPU's
+   from the same vectors (up to ``W2V_NEAR_TIE``); one step of CBOW,
+   hierarchical softmax, fastText subwords, PV-DM and GloVe on the card
+   against the CPU (``W2V_STEP_ATOL``); no launch;
+70. ``deepwalk`` (``DEEPWALK``): ``DeepWalk`` at Perozzi et al.'s widths
+   on a seeded graph of BlogCatalog's size: walks/s, pairs/s, ms a step,
+   nearest vertices on the card equal to the CPU's; no launch;
+71. ``clustering`` (``KMEANS``, ``TSNE``, ``KNN``): k-means k 1000 on
+   1,000,000 x 128 (the final view's assignments against the CPU's
+   nearest centers on 10,000 points, one Lloyd step and a 10-iteration
+   run on that subset card vs CPU); ``BarnesHutTsne`` on 10,000 x 784
+   (P on the host, 300 iterations on the card: KL finite, every cluster
+   apart by more than twice the largest spread; one iteration card vs
+   CPU); ``NearestNeighborsServer`` on 100,000 x 128 answering ``knn``
+   over HTTP equal to brute force on the card; no launch.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``.  With ``--record PATH`` it also
@@ -978,6 +1018,62 @@ FAULT_OOM = dict(batch=512, after=64, splits=3, mem_slack=1 << 30)
 # freeze; a second host's snapshot adds 5 steps to the federated sum.
 TRAINOBS = dict(stall_step=2, stall_s=1.5, stall_timeout=0.5,
                 monitor_interval=0.1, peer_steps=5)
+
+# The training UI and the profiler on the long-context net (LONG_CONTEXT,
+# BFLOAT16): fit of 2 seeded batches x 2 epochs with panic mode on, a
+# StatsListener collecting activations (its forward is one more FLOAT
+# forward a recorded step, so B1 runs 4 times a step and B2, B3 2), a
+# StatsListener pushing through RemoteUIStatsStorageRouter into a live
+# UIServer, one writing into a storage bounded to 2 records (so the
+# dropped-records counter moves) and a ProfilingListener; then one step
+# with panic off and no listener, and 2 steps inside start_trace /
+# stop_trace.  A record's param stats are held against the same stats of
+# the params on the CPU (float64 accumulation on both sides; the
+# histogram's bins bit-equal).
+OBSERVABILITY = dict(batches=2, epochs=2, seed=31, bounded=2, traced=2)
+OBS_STATS_TOL = dict(rtol=1e-6, atol=1e-9)
+# NaN/Inf panic: tests/test_observability.py's MLP (Dense 4 -> 8 relu, mse
+# 8 -> 2, Sgd(1e12)) on its 64 seeded examples, panic on: fit must raise
+# on the same step on the card as on the CPU (from the same params), and
+# FaultTolerantTrainer must roll it back instead (one checkpoint at step
+# 0; a backoff of 1e-13 brings the rate to 0.1).
+NAN_PANIC = dict(n=64, seed=0, lr=1e12, steps=20, backoff=1e-13)
+# Word2Vec at the widths of Mikolov et al. 2013 ("Distributed
+# Representations of Words and Phrases") as the word2vec tool runs them:
+# skip-gram, 300 dims, window 5, 5 negatives, subsampling 1e-5, rate
+# 0.025; the vocabulary is text8's size at min count 5 (71,290 types).
+# The corpus is a seeded Zipf(1.0) stream over that vocabulary with every
+# type five times (so min count 5 keeps all 71,290), in sentences of 1000
+# tokens.  Cut: 1M tokens, not text8's 17M; batches of 8192 pairs (the
+# port's batched SGD; the tool updates pair by pair).  One step of CBOW,
+# hierarchical softmax, fastText subwords (20,000 buckets), PV-DM (1000
+# documents) and GloVe on the card against the CPU from the same tables
+# and batch, within W2V_STEP_ATOL (float32; index_add_'s atomics on the
+# card sum duplicates in another order).
+W2V = dict(types=71_290, min_count=5, tokens=1_000_000, sentence=1000,
+           layerSize=300, window=5, negative=5, subsampling=1e-5, lr=0.025,
+           batch=8192, seed=41, bucket=20_000, docs=1000)
+W2V_STEP_ATOL = 1e-6
+W2V_NEAR_TIE = 1e-5
+# DeepWalk at the widths of Perozzi et al. 2014 on BlogCatalog: 128 dims,
+# window 10, walks of 40, on a seeded graph of BlogCatalog's 10,312
+# vertices and 333,983 edges (uniform random edges).  Cut: 1 walk per
+# vertex, not 80.
+DEEPWALK = dict(vertices=10_312, edges=333_983, vectorSize=128, window=10,
+                walkLength=40, walksPerVertex=1, batch=8192, seed=43)
+# Clustering: k-means (k 1000, the reference's 100 iterations at most,
+# seeding from k distinct points: the reference's k-means++ is quadratic
+# in k on the host) on 1,000,000 x 128 (SIFT1M's count and width) from a
+# seeded mixture of 1000 Gaussians; one Lloyd step and a 10-iteration run
+# on a 10,000-point subset held against the CPU; t-SNE (perplexity 30) on
+# 10,000 x 784 (MNIST's width) from 10 seeded Gaussians, cut to 300
+# iterations; the nearest-neighbours server on 100,000 x 128.
+KMEANS = dict(n=1_000_000, d=128, k=1000, spread=4.0, maxIter=100,
+              subset=10_000, subset_iters=10, seed=47)
+KMEANS_NEAR_TIE = 1e-4
+TSNE = dict(n=10_000, d=784, clusters=10, spread=3.0, perplexity=30.0,
+            maxIter=300, seed=53)
+KNN = dict(n=100_000, d=128, k=10, queries=16, seed=59)
 
 
 def _keras_refill(name, shape, rng):
@@ -7867,6 +7963,778 @@ def phase_trainobs(torch, rec, obs, card):
           f"{fired:g}x on a {o['stall_s']} s stall; {card}")
 
 
+# ---------------------------------------------------------------------------
+# the training UI, the profiler and the embedding tier
+# ---------------------------------------------------------------------------
+
+def _close_stats(got, want, rtol, atol):
+    """The largest gap between two ``{leaf: stats}`` dicts' summaries;
+    fails on a missing leaf or a histogram that differs."""
+    _require(set(got) == set(want), f"stats leaves {sorted(got)} against "
+             f"{sorted(want)}")
+    gap = 0.0
+    for name, w in want.items():
+        g = got[name]
+        _require(g["hist"] == w["hist"], f"{name}: histogram {g['hist']} "
+                 f"against {w['hist']}")
+        for field in ("norm", "mean", "stdev", "min", "max"):
+            d = abs(g[field] - w[field])
+            _require(d <= atol + rtol * abs(w[field]),
+                     f"{name}.{field}: {g[field]} against {w[field]}")
+            gap = max(gap, d)
+    return gap
+
+
+def phase_observability(torch, rec, card):
+    """OBSERVABILITY: the training UI and the profiler on the long-context
+    net (B1-B3 on the path), counters at 0 before each run and read
+    after."""
+    import json
+    import shutil
+    import tempfile
+    import numpy as np
+    from deeplearning4j_tpu_torch.datasets import DataSet, ListDataSetIterator
+    from deeplearning4j_tpu_torch.models import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.profiler import (OpProfiler,
+                                                   ProfilerConfig,
+                                                   ProfilingListener,
+                                                   start_trace, stop_trace)
+    from deeplearning4j_tpu_torch.telemetry import get_registry, tracer
+    from deeplearning4j_tpu_torch.ui import (InMemoryStatsStorage,
+                                             RemoteUIStatsStorageRouter,
+                                             StatsListener, UIServer)
+    from deeplearning4j_tpu_torch.ui.stats import _tree_stats
+    o, c = OBSERVABILITY, LONG_CONTEXT
+    rng = np.random.RandomState(o["seed"])
+    pool = [DataSet(rng.randn(c["batch"], c["nIn"], c["t"]).astype(
+        np.float32), rng.randn(c["batch"], c["nOut"], c["t"]).astype(
+        np.float32)) for _ in range(o["batches"])]
+    net = MultiLayerNetwork(_long_context_conf("BFLOAT16")).init()
+    _require(net.device.type == "cuda", f"the net runs on {net.device}")
+    steps = o["batches"] * o["epochs"]
+    reg = get_registry()
+
+    def dropped():
+        m = reg.get("dl4j_tpu_ui_stats_records_dropped_total")
+        return 0.0 if m is None else m.value()
+
+    d = tempfile.mkdtemp(dir=ROOT, prefix=".observability_")
+    prof = OpProfiler.getInstance()
+    server = UIServer(port=0)
+    launches = {}
+    try:
+        bounded = InMemoryStatsStorage(maxRecordsPerSession=o["bounded"])
+        server.attach(bounded)
+        base = f"http://127.0.0.1:{server.port}"
+        mem = InMemoryStatsStorage()
+        trace_path = os.path.join(d, "iterations.json")
+        net.setListeners(
+            StatsListener(mem, sessionId="observability",
+                          collectActivations=True),
+            StatsListener(RemoteUIStatsStorageRouter(base),
+                          sessionId="observability-remote"),
+            StatsListener(bounded, sessionId="observability-bounded"),
+            ProfilingListener(trace_path))
+        tracer().reset()        # this phase's spans only in the trace
+        drop0 = dropped()
+        prof.setConfig(ProfilerConfig(checkForNAN=True, checkForINF=True))
+        torch.cuda.synchronize()
+        _reset_counters()
+        t0 = time.perf_counter()
+        net.fit(ListDataSetIterator(pool), epochs=o["epochs"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches["listened"] = counts = _counters()
+        want = {"flash_attn_fwd": 4 * steps, "flash_attn_bwd_dq": 2 * steps,
+                "flash_attn_bwd_dkv": 2 * steps, "matmul_bn_stats": 0}
+        _require(counts == want, f"{steps} steps with the activation "
+                 f"forward: expected {want}, got {counts}")
+        ups = mem.getUpdates("observability")
+        _require(len(ups) == steps, f"{len(ups)} records, expected {steps}")
+        for i, u in enumerate(ups):
+            for section in ("paramStats", "activationStats") + (
+                    ("updateStats",) if i else ()):
+                _require(u[section], f"record {i}: {section} is empty")
+            _require(u["updateStats"] or i == 0, f"record {i}: no update")
+            m = u["memory"]
+            _require(m["platform"] == "gpu" and m["deviceBytesInUse"] > 0
+                     and m["deviceBytesLimit"] > m["deviceBytesInUse"],
+                     f"record {i}: memory section {m}")
+        step_ms = [1e3 * (b["timestamp"] - a["timestamp"])
+                   for a, b in zip(ups, ups[1:])]
+        host = {li: {k: v.detach().cpu() for k, v in lp.items()}
+                for li, lp in net.params_.items()}
+        gap = _close_stats(ups[-1]["paramStats"], _tree_stats(host),
+                           **OBS_STATS_TOL)
+        remote = json.loads(_get(server.port,
+                                 "/train/observability-remote/data")[1])
+        _require(len(remote) == steps and all(
+            r["paramStats"] for r in remote), f"{len(remote)} remote "
+            f"records, expected {steps}")
+        status, page = _get(server.port, "/")
+        page = page.decode()
+        _require(status == 200 and "<rect" in page and
+                 "observability-remote" in page,
+                 "the overview page lacks the histograms")
+        metrics = _get(server.port, "/metrics")[1].decode()
+        n_drop = _exposed(metrics, "dl4j_tpu_ui_stats_records_dropped_total")
+        _require(n_drop is not None and n_drop - drop0 == steps - o["bounded"],
+                 f"dropped-records counter {n_drop} (was {drop0})")
+        names = [e["name"] for e in json.load(open(trace_path))[
+            "traceEvents"]]
+        n_iter = sum(1 for n in names if n.startswith("iteration_"))
+        _require(n_iter >= steps - 1, f"{n_iter} iteration slices")
+        # what each listener adds to a record, warm: one more call each
+        listener_ms = {}
+        for name, lst in zip(("stats_activations", "remote", "bounded",
+                              "profiling"), net.getListeners()):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            lst.iterationDone(net, net.iterationCount, net.epochCount)
+            torch.cuda.synchronize()
+            listener_ms[name] = 1e3 * (time.perf_counter() - t1)
+        # panic off, no listener: the loss stays on the device
+        prof.setConfig(ProfilerConfig())
+        net.setListeners()
+        torch.cuda.synchronize()
+        _reset_counters()
+        t1 = time.perf_counter()
+        net.fit(pool[0])
+        left_on_device = net._scoreArr is not None
+        torch.cuda.synchronize()
+        bare_ms = 1e3 * (time.perf_counter() - t1)
+        launches["bare"] = counts = _counters()
+        _require(left_on_device, "panic off: the step read its loss back")
+        _require(all(counts[k] == 2 for k in FLASH),
+                 f"one bare step: expected 2 of each of B1-B3, got {counts}")
+        # a device trace around two steps, then the merged trace
+        prof.reset()
+        dev_dir = os.path.join(d, "device_trace")
+        _reset_counters()
+        start_trace(dev_dir)
+        try:
+            for i in range(o["traced"]):
+                with prof.phase("observability_step"):
+                    net.fit(pool[i % len(pool)])
+            torch.cuda.synchronize()
+        finally:
+            stop_trace()
+        launches["traced"] = counts = _counters()
+        _require(all(counts[k] == 2 * o["traced"] for k in FLASH),
+                 f"traced steps: {counts}")
+        merged = os.path.join(d, "merged.json")
+        tracer().write_chrome_trace(merged)
+        names = [e["name"] for e in json.load(open(merged))["traceEvents"]]
+        n_phase = names.count("observability_step")
+        _require(n_phase == o["traced"] and "step" in names,
+                 f"merged trace: {n_phase} profiler phases, spans "
+                 f"{'step' in names}")
+        files = [f for f in os.listdir(dev_dir)
+                 if f.endswith(".pt.trace.json")]
+        _require(len(files) == 1, f"device trace files {files}")
+        events = json.load(open(os.path.join(dev_dir, files[0])))[
+            "traceEvents"]
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        flash = [e for e in kernels if "flash" in e.get("name", "")]
+        _require(kernels, "the device trace holds no kernel")
+    finally:
+        prof.setConfig(ProfilerConfig())
+        server.stop()
+        shutil.rmtree(d, ignore_errors=True)
+    rec["launches_observability"] = {
+        k: sum(v[k] for v in launches.values()) for k in launches["bare"]}
+    rec["observability"] = out = {
+        "steps": steps, "ms_a_listened_step": 1e3 * wall / steps,
+        "ms_between_records": step_ms, "listener_ms": listener_ms,
+        "ms_bare_step": bare_ms, "param_stats_gap": gap,
+        "records_dropped": n_drop - drop0, "kernel_events": len(kernels),
+        "flash_kernel_events": len(flash), "launches": launches,
+        "card": card}
+    print(f"observability: {steps} steps with stats (params, updates, "
+          f"activations), remote push, profiling and panic on: "
+          f"{out['ms_a_listened_step']:.2f} ms a step (between records "
+          f"{', '.join(f'{t:.1f}' for t in step_ms)} ms; a record's "
+          f"listeners warm: "
+          f"{ {k: round(v, 2) for k, v in listener_ms.items()} } ms); "
+          f"a bare step "
+          f"{bare_ms:.2f} ms; param stats within {gap:.3g} of the CPU's; "
+          f"{out['records_dropped']:g} records dropped by the bounded "
+          f"storage; device trace {len(kernels)} kernels ({len(flash)} "
+          f"flash); launches {rec['launches_observability']}; {card}")
+
+
+def phase_nan_panic(torch, rec, card):
+    """NAN_PANIC: the NaN/Inf panic in fit on the card on the CPU's step,
+    and its rollback under FaultTolerantTrainer; no launch."""
+    import math
+    import shutil
+    import tempfile
+    import numpy as np
+    from deeplearning4j_tpu_torch.datasets import DataSet, ListDataSetIterator
+    from deeplearning4j_tpu_torch.fault import FaultTolerantTrainer
+    from deeplearning4j_tpu_torch.learning import Sgd
+    from deeplearning4j_tpu_torch.models import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.conf.layers import (DenseLayer,
+                                                         OutputLayer)
+    from deeplearning4j_tpu_torch.profiler import OpProfiler, ProfilerConfig
+    from deeplearning4j_tpu_torch.telemetry import flight_recorder
+    c = NAN_PANIC
+
+    def conf():
+        return (NeuralNetConfiguration.builder().seed(1)
+                .updater(Sgd(c["lr"])).list()
+                .layer(DenseLayer.builder().nIn(4).nOut(8)
+                       .activation("relu").build())
+                .layer(OutputLayer.builder("mse").nIn(8).nOut(2)
+                       .activation("identity").build())
+                .build())
+    rng = np.random.RandomState(c["seed"])
+    cls = rng.randint(0, 2, c["n"])
+    ds = DataSet((rng.randn(c["n"], 4) + 2 * cls[:, None]).astype(
+        np.float32), np.eye(2, dtype=np.float32)[cls])
+    gpu = MultiLayerNetwork(conf()).init()
+    _require(gpu.device.type == "cuda", f"the net runs on {gpu.device}")
+    cpu = MultiLayerNetwork(conf(), device="cpu").init(params={
+        li: {k: v.cpu() for k, v in lp.items()}
+        for li, lp in gpu.params_.items()})
+
+    def panic_step(net):
+        for i in range(c["steps"]):
+            try:
+                net.fit(ds)
+            except FloatingPointError as e:
+                _require("NAN_PANIC" in str(e) or "INF_PANIC" in str(e),
+                         f"panic message {e}")
+                return i, str(e)
+        return None, None
+
+    prof = OpProfiler.getInstance()
+    d = tempfile.mkdtemp(dir=ROOT, prefix=".nan_panic_")
+    torch.cuda.synchronize()
+    _reset_counters()
+    try:
+        prof.setConfig(ProfilerConfig(checkForNAN=True, checkForINF=True))
+        step_gpu, msg = panic_step(gpu)
+        step_cpu, _ = panic_step(cpu)
+        _require(step_gpu is not None and step_gpu == step_cpu,
+                 f"panic at step {step_gpu} on the card, {step_cpu} on "
+                 f"the CPU")
+        net = MultiLayerNetwork(conf()).init()
+        tr = FaultTolerantTrainer(net, d, checkpointEveryN=50,
+                                  lrBackoff=c["backoff"],
+                                  durableExport=False)
+        tr.fit(ListDataSetIterator([ds], batch=32), epochs=1)
+    finally:
+        prof.setConfig(ProfilerConfig())
+        shutil.rmtree(d, ignore_errors=True)
+    torch.cuda.synchronize()
+    _no_launches(rec, "nan_panic", _counters())
+    reasons = [r.get("reason", "") for r in flight_recorder().snapshot()
+               if r.get("event") == "rollback"]
+    _require(tr.stats["rollbacks"] >= 1 and reasons and
+             reasons[-1].startswith("NAN/INF panic") and
+             math.isfinite(net.score()),
+             f"supervised: {tr.stats}, rollback reasons {reasons[-2:]}, "
+             f"score {net.score()}")
+    rec["nan_panic"] = {"panic_step": step_gpu, "message": msg,
+                        "rollbacks": tr.stats["rollbacks"],
+                        "score_after": net.score(), "card": card}
+    print(f"nan_panic: fit raised at step {step_gpu} on the card and on "
+          f"the CPU ({msg}); supervised: {tr.stats['rollbacks']} "
+          f"rollback(s), score after {net.score():.4g}; {card}")
+
+
+class _StepTap:
+    """Counts the calls of ``cls.<name>`` (a trainer step taking its batch
+    ids first) and the ids they take, and notes the first call's time."""
+
+    def __init__(self, cls, name):
+        self.cls, self.name = cls, name
+        self.steps = self.pairs = 0
+        self.first = None
+
+    def __enter__(self):
+        self.orig = orig = getattr(self.cls, self.name)
+        tap = self
+
+        def step(trainer, ids, *a, **k):
+            if tap.first is None:
+                tap.first = time.perf_counter()
+            tap.steps += 1
+            tap.pairs += len(ids)
+            return orig(trainer, ids, *a, **k)
+        setattr(self.cls, self.name, step)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.cls, self.name, self.orig)
+
+
+def _w2v_corpus(np, c):
+    """W2V's corpus: sentences of ``w<i>`` tokens, every type min-count
+    times plus Zipf(1.0) draws, shuffled, from one seeded generator."""
+    rng = np.random.default_rng(c["seed"])
+    V = c["types"]
+    p = 1.0 / np.arange(1, V + 1)
+    ids = np.concatenate([np.repeat(np.arange(V), c["min_count"]),
+                          rng.choice(V, c["tokens"] - c["min_count"] * V,
+                                     p=p / p.sum())])
+    rng.shuffle(ids)
+    toks = np.array([f"w{i}" for i in range(V)])[ids]
+    L = c["sentence"]
+    return [" ".join(toks[i:i + L]) for i in range(0, len(toks), L)]
+
+
+def _same_nearest(gpu_wv, cpu_wv, word, n, eps):
+    """wordsNearest on the card against the CPU's: equal, or differing
+    only where the CPU's similarities of the two words lie within
+    ``eps``.  Returns the number of positions that differ."""
+    got, want = gpu_wv.wordsNearest(word, n), cpu_wv.wordsNearest(word, n)
+    _require(len(got) == len(want) == n, f"{word}: {got} against {want}")
+    q = cpu_wv._unit[cpu_wv.vocab.indexOf(word)]
+    sims = cpu_wv._unit @ q
+    diff = 0
+    for g, w in zip(got, want):
+        if g != w:
+            diff += 1
+            gap = abs(float(sims[cpu_wv.vocab.indexOf(g)]
+                            - sims[cpu_wv.vocab.indexOf(w)]))
+            _require(gap <= eps, f"{word}: {got} on the card, {want} on "
+                     f"the CPU ({g} vs {w}: {gap:.3g} apart)")
+    return diff
+
+
+def _w2v_step_checks(np, vocab, c):
+    """One step of each other trainer kind on the card against the CPU
+    from the same tables and batch: the largest table gap of each."""
+    from deeplearning4j_tpu_torch.nlp import FastText
+    from deeplearning4j_tpu_torch.nlp import word2vec as w2v
+    rng = np.random.default_rng(c["seed"] + 1)
+    V, D, B, K = vocab.numWords(), c["layerSize"], c["batch"], c["negative"]
+    sampler = w2v._NegativeSampler(vocab)
+    nrng = np.random.RandomState(c["seed"])
+
+    def tables(rows, out_rows):
+        return (rng.standard_normal((rows, D), dtype=np.float32) * 0.05,
+                rng.standard_normal((out_rows, D), dtype=np.float32) * 0.05)
+
+    def both(rows, out_rows, hs=False):
+        s0, s1 = tables(rows, out_rows)
+        return [w2v._EmbeddingTrainer(V, D, c["seed"], c["lr"], K,
+                                      extraRows=rows - V, hs=hs, device=dev,
+                                      syn0=s0, syn1=s1)
+                for dev in ("cuda", "cpu")]
+
+    def gap(g, h):
+        return max(float((g.syn0.cpu() - h.syn0).abs().max()),
+                   float((g.syn1.cpu() - h.syn1).abs().max()))
+
+    def window(extra=None):
+        w = 2 * c["window"] + (extra is not None)
+        ctx = sampler.draw(nrng, (B, w))
+        mask = (rng.random((B, w)) < 0.6).astype(np.float32)
+        mask[:, 0] = 1.0
+        if extra is not None:
+            ctx[:, -1] = extra
+            mask[:, -1] = 1.0
+        return ctx, mask
+
+    out = {}
+    centers = sampler.draw(nrng, (B,))
+    negs = sampler.draw(nrng, (B, K))
+    g, h = both(V, V)
+    ctx, mask = window()
+    lg, lc = (float(t._step_cbow(ctx, mask, centers, negs)) for t in (g, h))
+    out["cbow"] = (gap(g, h), lg, lc)
+    P, C, M = w2v._build_huffman(vocab)
+    g, h = both(V, V - 1, hs=True)
+    ctxw = sampler.draw(nrng, (B,))
+    lg, lc = (float(t._step_hs(centers, P[ctxw], C[ctxw], M[ctxw]))
+              for t in (g, h))
+    out["hs"] = (gap(g, h), lg, lc)
+    ft = FastText(bucket=c["bucket"], device="cpu")
+    SUB, SM = ft._subword_table(vocab)
+    g, h = both(V + c["bucket"], V)
+    lg, lc = (float(t._step_subword(SUB[centers], SM[centers], ctxw, negs))
+              for t in (g, h))
+    out["subword"] = (gap(g, h), lg, lc)
+    g, h = both(V + c["docs"], V)
+    ctx, mask = window(extra=V + rng.integers(0, c["docs"], B))
+    lg, lc = (float(t._step_cbow(ctx, mask, centers, negs)) for t in (g, h))
+    out["pv_dm"] = (gap(g, h), lg, lc)
+    params = [rng.standard_normal((V, D), dtype=np.float32) * 0.05
+              for _ in range(2)] + [rng.standard_normal(V, dtype=np.float32)
+                                    * 0.05 for _ in range(2)]
+    g, h = (w2v._GloveTrainer(V, D, c["seed"], 0.05, 100.0, 0.75,
+                              device=dev, params=params)
+            for dev in ("cuda", "cpu"))
+    r, col = sampler.draw(nrng, (B,)), sampler.draw(nrng, (B,))
+    x = rng.random(B, dtype=np.float32) * 20 + 0.5
+    lg, lc = (float(t.step(r, col, x)) for t in (g, h))
+    out["glove"] = (max(float((a.cpu() - b).abs().max())
+                        for a, b in zip(g.params + g.accum,
+                                        h.params + h.accum)), lg, lc)
+    for kind, (d, lg, lc) in out.items():
+        _require(d <= W2V_STEP_ATOL and abs(lg - lc) <= 1e-5 * abs(lc),
+                 f"{kind} step: tables {d:.3g} apart, loss {lg} on the "
+                 f"card, {lc} on the CPU")
+    return {k: {"table_gap": d, "loss_card": lg, "loss_cpu": lc}
+            for k, (d, lg, lc) in out.items()}
+
+
+def phase_word2vec(torch, rec, card):
+    """W2V: skip-gram negative sampling through Word2Vec.fit on the card;
+    pairs/s, ms a step, idle share and peak; wordsNearest on the card
+    against the CPU; one step of the other trainer kinds card vs CPU; no
+    launch."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.nlp import Word2Vec, WordVectors
+    from deeplearning4j_tpu_torch.nlp import word2vec as w2v
+    c = W2V
+    t0 = time.perf_counter()
+    sents = _w2v_corpus(np, c)
+    corpus_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    _reset_counters()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    model = Word2Vec(sentences=sents, minWordFrequency=c["min_count"],
+                     layerSize=c["layerSize"], windowSize=c["window"],
+                     negativeSample=c["negative"],
+                     subsampling=c["subsampling"], learningRate=c["lr"],
+                     batchSize=c["batch"], seed=c["seed"])
+    with _StepTap(w2v._EmbeddingTrainer, "_step") as tap:
+        t1 = time.perf_counter()
+        model.fit()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    peak = torch.cuda.max_memory_allocated() - mem0
+    V = model.vocab.numWords()
+    _require(V == c["types"], f"vocabulary of {V}, expected {c['types']}")
+    _require(model.device.type == "cuda" and model._vec.is_cuda and
+             bool(torch.isfinite(model._vec).all()),
+             "the vectors are not finite on the card")
+    loop_s, prep_s = t2 - tap.first, tap.first - t1
+    # the fit's loop body on its own batches, profiled: the device's idle
+    # share of a step
+    rng = np.random.RandomState(c["seed"])
+    ids = [[model.vocab.indexOf(w) for w in s.split()][:200]
+           for s in sents[:40]]
+    pairs = model._pairs(ids, rng)[:20 * c["batch"]]
+    sampler = w2v._NegativeSampler(model.vocab)
+    trainer = w2v._EmbeddingTrainer(V, c["layerSize"], c["seed"], c["lr"],
+                                    c["negative"], syn0=model._vec)
+
+    def loop():
+        for i in range(0, len(pairs), c["batch"]):
+            batch = pairs[i:i + c["batch"]]
+            trainer._step(batch[:, 0], batch[:, 1], sampler.draw_on(
+                rng, (len(batch), c["negative"]), trainer.device), c["lr"])
+    prof = _device_breakdown(torch, loop)
+    _no_launches(rec, "word2vec", _counters())
+    # nearest words on the card against the CPU's from the same vectors
+    cpu_wv = WordVectors(model.vocab, model._vec.cpu(), device="cpu")
+    probes = [model.vocab.wordAtIndex(r) for r in
+              (0, 1, 10, 100, V // 70, V // 14, V // 3, 2 * V // 3, V - 1)]
+    t3 = time.perf_counter()
+    for w in probes:
+        model.wordsNearest(w, 10)
+    near_ms = 1e3 * (time.perf_counter() - t3) / len(probes)
+    swapped = sum(_same_nearest(model, cpu_wv, w, 10, W2V_NEAR_TIE)
+                  for w in probes)
+    analogy = (model.wordsNearest(probes[1:3], [probes[3]], n=10),
+               cpu_wv.wordsNearest(probes[1:3], [probes[3]], n=10))
+    _require(len(analogy[0]) == 10 and
+             len(set(analogy[0]) & set(analogy[1])) >= 9,
+             f"analogy: {analogy[0]} against {analogy[1]}")
+    steps = _w2v_step_checks(np, model.vocab, c)
+    rec["word2vec"] = out = {
+        "tokens": c["tokens"], "vocabulary": V, "corpus_s": corpus_s,
+        "prep_s": prep_s, "steps": tap.steps, "pairs": tap.pairs,
+        "loop_s": loop_s, "pairs_per_s": tap.pairs / loop_s,
+        "ms_a_step": 1e3 * loop_s / tap.steps, "peak_gb": peak / 1e9,
+        "profile": prof, "nearest_ms": near_ms, "nearest_swaps": swapped,
+        "step_checks": steps, "card": card}
+    print(f"word2vec: {c['tokens']:,} tokens, {V:,} types, {tap.pairs:,} "
+          f"pairs in {tap.steps} steps of {c['batch']}: host prep "
+          f"{prep_s:.2f} s, loop {loop_s:.2f} s = {out['pairs_per_s']:,.0f} "
+          f"pairs/s, {out['ms_a_step']:.2f} ms a step (profiled: idle "
+          f"{prof['idle_share']}), peak {out['peak_gb']:.2f} GB; "
+          f"wordsNearest {near_ms:.2f} ms a query, {swapped} near-tie "
+          f"swaps against the CPU; one step card vs CPU "
+          f"{ {k: v['table_gap'] for k, v in steps.items()} }; {card}")
+
+
+def _er_graph(np, c):
+    """DEEPWALK's graph: ``edges`` distinct uniform random undirected
+    edges (no self-loops) over ``vertices``, from one seeded generator."""
+    from deeplearning4j_tpu_torch.graphs import Graph
+    rng = np.random.default_rng(c["seed"])
+    n, m = c["vertices"], c["edges"]
+    ab = rng.integers(0, n, (2 * m, 2))
+    ab = ab[ab[:, 0] != ab[:, 1]]
+    key = np.unique(np.minimum(ab[:, 0], ab[:, 1]) * n
+                    + np.maximum(ab[:, 0], ab[:, 1]))
+    key = rng.permutation(key)[:m]
+    _require(len(key) == m, f"{len(key)} distinct edges drawn")
+    g = Graph(n)
+    for a, b in zip((key // n).tolist(), (key % n).tolist()):
+        g.addEdge(a, b)
+    return g
+
+
+def phase_deepwalk(torch, rec, card):
+    """DEEPWALK: DeepWalk.fit on the card; walks/s, pairs/s, ms a step;
+    nearest vertices on the card against the CPU; no launch."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.graphs import DeepWalk
+    from deeplearning4j_tpu_torch.nlp import WordVectors
+    from deeplearning4j_tpu_torch.nlp import word2vec as w2v
+    c = DEEPWALK
+    t0 = time.perf_counter()
+    g = _er_graph(np, c)
+    graph_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    _reset_counters()
+    dw = DeepWalk(vectorSize=c["vectorSize"], windowSize=c["window"],
+                  walkLength=c["walkLength"],
+                  walksPerVertex=c["walksPerVertex"], batchSize=c["batch"],
+                  seed=c["seed"])
+    dw.initialize(g)
+    with _StepTap(w2v._EmbeddingTrainer, "_step") as tap:
+        t1 = time.perf_counter()
+        dw.fit()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    _no_launches(rec, "deepwalk", _counters())
+    syn0 = dw._trainer.syn0
+    _require(syn0.is_cuda and bool(torch.isfinite(syn0).all()),
+             "DeepWalk's table is not finite on the card")
+    walks = c["vertices"] * c["walksPerVertex"]
+    walk_s, loop_s = tap.first - t1, t2 - tap.first
+    wv = dw._wordvectors()
+    cpu_wv = WordVectors(wv.vocab, syn0.cpu(), device="cpu")
+    swapped = sum(_same_nearest(wv, cpu_wv, str(v), 10, W2V_NEAR_TIE)
+                  for v in (0, 1, c["vertices"] // 2, c["vertices"] - 1))
+    rec["deepwalk"] = out = {
+        "graph_s": graph_s, "walks": walks, "walks_and_pairs_s": walk_s,
+        "walks_per_s": walks / walk_s, "pairs": tap.pairs,
+        "steps": tap.steps, "loop_s": loop_s,
+        "pairs_per_s": tap.pairs / loop_s,
+        "ms_a_step": 1e3 * loop_s / tap.steps, "nearest_swaps": swapped,
+        "card": card}
+    print(f"deepwalk: {c['vertices']:,} vertices, {c['edges']:,} edges "
+          f"(built in {graph_s:.2f} s); {walks:,} walks of "
+          f"{c['walkLength']} and their pairs in {walk_s:.2f} s = "
+          f"{out['walks_per_s']:,.0f} walks/s; {tap.pairs:,} pairs in "
+          f"{tap.steps} steps: {out['pairs_per_s']:,.0f} pairs/s, "
+          f"{out['ms_a_step']:.2f} ms a step; {swapped} near-tie swaps "
+          f"against the CPU; {card}")
+
+
+def _kmeans_ties(X, centers, got, want, eps):
+    """Indices where two assignments differ; fails unless each is a near
+    tie (the two centers' float64 distances within ``eps`` relative)."""
+    import numpy as np
+    bad = np.nonzero(got != want)[0]
+    for i in bad:
+        da = float(np.sum((X[i].astype(np.float64) - centers[got[i]]) ** 2))
+        db = float(np.sum((X[i].astype(np.float64) - centers[want[i]]) ** 2))
+        _require(abs(da - db) <= eps * max(da, db),
+                 f"point {i}: center {got[i]} ({da}) against {want[i]} "
+                 f"({db})")
+    return len(bad)
+
+
+def phase_clustering(torch, rec, card):
+    """KMEANS, TSNE and KNN on the card; no launch."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.clustering import (BarnesHutTsne,
+                                                     KMeansClustering,
+                                                     NearestNeighborsClient,
+                                                     NearestNeighborsServer)
+    from deeplearning4j_tpu_torch.clustering import kmeans as tkm
+    from deeplearning4j_tpu_torch.clustering import tsne as ttsne
+    torch.cuda.synchronize()
+    _reset_counters()
+    out = rec["clustering"] = {"card": card}
+    # k-means at SIFT1M's count and width
+    c = KMEANS
+    rng = np.random.default_rng(c["seed"])
+    means = rng.standard_normal((c["k"], c["d"]), dtype=np.float32) \
+        * c["spread"]
+    X = means[rng.integers(0, c["k"], c["n"])]
+    X += rng.standard_normal(X.shape, dtype=np.float32)
+    calls = [0]
+    lloyd = tkm._lloyd
+
+    def counted(*a):
+        calls[0] += 1
+        return lloyd(*a)
+    tkm._lloyd = counted
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        cs = KMeansClustering(c["k"], maxIterations=c["maxIter"],
+                              useKMeansPlusPlus=False,
+                              seed=c["seed"]).applyTo(X)
+        km_s = time.perf_counter() - t0
+    finally:
+        tkm._lloyd = lloyd
+    km_peak = torch.cuda.max_memory_allocated() / 1e9
+    _require(cs.centers.shape == (c["k"], c["d"]) and
+             np.isfinite(cs.centers).all() and np.isfinite(cs.inertia),
+             "k-means centers or inertia not finite")
+    # the final view: assignments against the returned centers
+    sub = c["subset"]
+    Xs = X[:sub]
+    near = np.argmin(((Xs.astype(np.float64) ** 2).sum(1)[:, None]
+                      + (cs.centers.astype(np.float64) ** 2).sum(1)[None]
+                      - 2.0 * Xs.astype(np.float64)
+                      @ cs.centers.astype(np.float64).T), 1)
+    view_ties = _kmeans_ties(Xs, cs.centers.astype(np.float64),
+                             cs.assignments[:sub], near, KMEANS_NEAR_TIE)
+    # one Lloyd step and a short run on the subset, card against CPU
+    start = Xs[np.random.RandomState(c["seed"]).choice(sub, c["k"],
+                                                        replace=False)]
+    res = {}
+    for dev in ("cuda", "cpu"):
+        xd = torch.as_tensor(Xs).to(dev)
+        new, assign, inertia, _ = tkm._lloyd(
+            xd, (xd * xd).sum(1), torch.as_tensor(start).to(dev), c["k"])
+        res[dev] = (new.cpu().numpy(), assign.cpu().numpy(), float(inertia))
+    step_ties = _kmeans_ties(Xs, start.astype(np.float64), res["cuda"][1],
+                             res["cpu"][1], KMEANS_NEAR_TIE)
+    same = np.ones(c["k"], bool)
+    same[res["cuda"][1][res["cuda"][1] != res["cpu"][1]]] = False
+    same[res["cpu"][1][res["cuda"][1] != res["cpu"][1]]] = False
+    center_gap = float(np.abs(res["cuda"][0] - res["cpu"][0])[same].max())
+    _require(center_gap <= 1e-4 and abs(res["cuda"][2] - res["cpu"][2])
+             <= 1e-5 * res["cpu"][2], f"Lloyd step: centers {center_gap} "
+             f"apart, inertia {res['cuda'][2]} against {res['cpu'][2]}")
+    runs = {dev: KMeansClustering(c["k"], maxIterations=c["subset_iters"],
+                                  useKMeansPlusPlus=False, seed=c["seed"],
+                                  device=dev).applyTo(Xs)
+            for dev in ("cuda", "cpu")}
+    agree = float((runs["cuda"].assignments
+                   == runs["cpu"].assignments).mean())
+    _require(agree >= 0.999 and abs(runs["cuda"].inertia
+                                    - runs["cpu"].inertia)
+             <= 1e-4 * runs["cpu"].inertia,
+             f"subset run: {agree:.4f} of the assignments agree, inertia "
+             f"{runs['cuda'].inertia} against {runs['cpu'].inertia}")
+    out["kmeans"] = {"points": c["n"], "k": c["k"], "iterations": calls[0],
+                     "s": km_s, "ms_an_iteration": 1e3 * km_s / calls[0],
+                     "peak_gb": km_peak, "inertia": cs.inertia,
+                     "final_view_ties": view_ties, "step_ties": step_ties,
+                     "step_center_gap": center_gap,
+                     "subset_agreement": agree}
+    print(f"clustering: k-means k {c['k']} on {c['n']:,} x {c['d']}: "
+          f"{calls[0]} Lloyd steps in {km_s:.2f} s "
+          f"({out['kmeans']['ms_an_iteration']:.2f} ms each, host seeding "
+          f"and copies included), peak {km_peak:.2f} GB; subset: one step "
+          f"card vs CPU {step_ties} near ties, centers {center_gap:.3g} "
+          f"apart; {c['subset_iters']} iterations agree on {agree:.4f}; "
+          f"{card}")
+    del X, Xs
+    # t-SNE at MNIST's width
+    c = TSNE
+    rng = np.random.default_rng(c["seed"])
+    means = rng.standard_normal((c["clusters"], c["d"])) * c["spread"]
+    labels = rng.integers(0, c["clusters"], c["n"])
+    X = means[labels] + rng.standard_normal((c["n"], c["d"]))
+    joint = ttsne._joint_p
+    held = {}
+
+    def timed_p(*a):
+        t = time.perf_counter()
+        held["P"] = joint(*a)
+        held["s"] = time.perf_counter() - t
+        return held["P"]
+    ttsne._joint_p = timed_p
+    try:
+        ts = BarnesHutTsne(perplexity=c["perplexity"], maxIter=c["maxIter"],
+                           seed=c["seed"])
+        t0 = time.perf_counter()
+        Y = ts.fit(X)
+        torch.cuda.synchronize()
+        tsne_s = time.perf_counter() - t0
+    finally:
+        ttsne._joint_p = joint
+    _require(Y.shape == (c["n"], 2) and np.isfinite(Y).all() and
+             np.isfinite(ts.klDivergence) and ts.klDivergence > 0,
+             f"t-SNE: KL {ts.klDivergence}")
+    cents = np.stack([Y[labels == k].mean(0) for k in range(c["clusters"])])
+    intra = float(max(np.linalg.norm(Y[labels == k] - cents[k],
+                                     axis=1).mean()
+                      for k in range(c["clusters"])))
+    inter = float(min(np.linalg.norm(cents[i] - cents[j])
+                      for i in range(c["clusters"])
+                      for j in range(i + 1, c["clusters"])))
+    _require(inter > 2.0 * intra, f"t-SNE clusters: intra {intra}, inter "
+             f"{inter}")
+    # one iteration card vs CPU from the fitted embedding
+    steps = {}
+    for dev in ("cuda", "cpu"):
+        P = torch.as_tensor(held["P"]).to(dev, torch.float32)
+        y = torch.as_tensor(Y).to(dev)
+        ne = ~torch.eye(c["n"], dtype=torch.bool, device=dev)
+        steps[dev] = ttsne._tsne_step(y, torch.zeros_like(y),
+                                      torch.ones_like(y), P, ne, 0.8,
+                                      200.0)[0].cpu()
+        del P, ne
+    step_gap = float((steps["cuda"] - steps["cpu"]).abs().max())
+    scale = float(steps["cpu"].abs().max())
+    _require(step_gap <= 1e-4 * scale, f"t-SNE step: {step_gap} apart at "
+             f"scale {scale}")
+    out["tsne"] = {"points": c["n"], "width": c["d"], "iterations":
+                   c["maxIter"], "s": tsne_s, "p_host_s": held["s"],
+                   "ms_an_iteration": 1e3 * (tsne_s - held["s"])
+                   / c["maxIter"], "kl": ts.klDivergence, "intra": intra,
+                   "inter": inter, "step_gap": step_gap}
+    print(f"clustering: t-SNE of {c['n']:,} x {c['d']}: P on the host "
+          f"{held['s']:.2f} s, {c['maxIter']} iterations on the card "
+          f"{out['tsne']['ms_an_iteration']:.2f} ms each, KL "
+          f"{ts.klDivergence:.4f}, clusters inter {inter:.2f} > 2 x intra "
+          f"{intra:.2f}; one step card vs CPU {step_gap:.3g} apart; {card}")
+    del X, held
+    # the nearest-neighbours server against brute force on the card
+    c = KNN
+    rng = np.random.default_rng(c["seed"])
+    pts = rng.standard_normal((c["n"], c["d"]))
+    t0 = time.perf_counter()
+    srv = NearestNeighborsServer(pts, k=c["k"]).start()
+    build_s = time.perf_counter() - t0
+    try:
+        cli = NearestNeighborsClient(port=srv.port)
+        half = c["queries"] // 2
+        qs = np.concatenate([pts[rng.integers(0, c["n"], half)] + 1e-6,
+                             rng.standard_normal((half, c["d"]))])
+        pd = torch.as_tensor(pts, device="cuda")
+        t1 = time.perf_counter()
+        answers = [cli.knn(q, k=c["k"]) for q in qs]
+        query_ms = 1e3 * (time.perf_counter() - t1) / len(qs)
+        for q, a in zip(qs, answers):
+            d = ((pd - torch.as_tensor(q, device="cuda")) ** 2).sum(1)
+            want = torch.topk(d, c["k"], largest=False).indices.tolist()
+            _require([r["index"] for r in a] == want,
+                     f"knn {[r['index'] for r in a]} against brute force "
+                     f"{want}")
+        batch = cli.knnNew(pts[[3, 9]] + 1e-6, k=2)
+        _require(batch[0][0]["index"] == 3 and batch[1][0]["index"] == 9,
+                 f"knnNew {batch}")
+    finally:
+        srv.stop()
+    _no_launches(rec, "clustering", _counters())
+    out["knn"] = {"points": c["n"], "width": c["d"], "build_s": build_s,
+                  "query_ms": query_ms, "queries": len(qs)}
+    print(f"clustering: nearest-neighbours server on {c['n']:,} x "
+          f"{c['d']}: VP-tree built in {build_s:.2f} s, {len(qs)} knn "
+          f"queries over HTTP at {query_ms:.1f} ms each, equal to brute "
+          f"force on the card; {card}")
+
+
 def _kernel_entry(name, replaces, launches, t):
     return {"name": name, "route": "cuda",
             "source": f"deeplearning4j_tpu_torch/csrc/{name}.cu",
@@ -8093,6 +8961,15 @@ def main(argv) -> int:
                     failed.append("trainobs")
             finally:
                 _trainobs_stop(obs)
+        # the training UI and the profiler on the long-context net (B1-B3,
+        # with the activation forward) and the NaN/Inf panic; then the
+        # embedding tier: Word2Vec at Mikolov et al.'s widths, DeepWalk at
+        # BlogCatalog's, k-means, t-SNE and the nearest-neighbours server
+        run("observability", phase_observability, torch, rec, card)
+        run("nan_panic", phase_nan_panic, torch, rec, card)
+        run("word2vec", phase_word2vec, torch, rec, card)
+        run("deepwalk", phase_deepwalk, torch, rec, card)
+        run("clustering", phase_clustering, torch, rec, card)
 
     rec["card"] = card
     rec["failed"] = failed
@@ -8109,12 +8986,15 @@ def main(argv) -> int:
     # launches: the serving run's and the training run's counts together
     # (B1 runs on both paths; B2 and B3 on the training path only), the
     # imported Keras transformer's forward and fit (B1-B3) and the
-    # recurrent attention layer's at t 1024 (B1), and B4's from its run on
-    # ResNet-50's activations (the model dispatches none); the phases
-    # without a hand kernel on their path (recurrent, BERT, the loop around
-    # fit, TF import, serving tier, ONNX import, the zoo, the HDF5 reader,
-    # the imported ResNet-50 and .keras archive, pretrain, DataVec, the
-    # recommender tier) add none (each checked zero).
+    # recurrent attention layer's at t 1024 (B1), the supervised runs'
+    # (B1-B3), the training UI's (B1-B3, B1 twice more a recorded step for
+    # the activation forward), and B4's from its run on ResNet-50's
+    # activations (the model dispatches none); the phases without a hand
+    # kernel on their path (recurrent, BERT, the loop around fit, TF
+    # import, serving tier, ONNX import, the zoo, the HDF5 reader, the
+    # imported ResNet-50 and .keras archive, pretrain, DataVec, the
+    # recommender tier, the NaN panic, the embedding tier) add none (each
+    # checked zero).
     # B1's times are at the serving shape (f32, causal), B2's and B3's at
     # the training shape in its dtype (bf16, not causal), B4's at ResNet-50's
     # stage-0 shape in bf16; the record holds the other shapes too.
@@ -8124,6 +9004,7 @@ def main(argv) -> int:
                 + rec["launches_keras"][k]
                 + rec["launches_attention_layers"][k]
                 + rec["launches_fault"][k]
+                + rec["launches_observability"][k]
                 + sum(c[k] for c in rec["launches_no_kernel_phases"].values())
                 for k in serve}
     m, k, n = B4_RESNET_SHAPES[0]

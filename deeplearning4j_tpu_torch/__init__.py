@@ -17,7 +17,8 @@ ResNet-50 slice, the recurrent slice, BERT on SameDiff, the training
 user's loop around ``fit`` with LeNet-MNIST, BERT-base through TF import,
 the serving tier, BERT-base through ONNX import, the zoo, Keras import,
 DataVec with the tensor layer, the recommender tier, then SameDiff
-finished, then training fault tolerance):
+finished, then training fault tolerance, then the training UI and the
+embedding tier):
 
 - ``parallel.ring``      — dense / blockwise / flash attention (forward and
                            backward kernels, ``FlashAttention``) and the
@@ -98,7 +99,23 @@ finished, then training fault tolerance):
 - ``datavec``            — readers, ``Schema`` / ``TransformProcess``,
                            joins, reductions, the image pipeline on the
                            port's own PNG codec, the iterators and the
-                           producer pool with its pinned H2D ring.
+                           producer pool with its pinned H2D ring;
+- ``profiler``           — ``OpProfiler`` (phases, Chrome trace, the
+                           NaN/Inf panic both models' ``fit`` checks when
+                           asked), ``start_trace`` / ``stop_trace`` on
+                           ``torch.profiler``, ``ProfilingListener``;
+- ``ui``                 — ``StatsListener`` (param, update and activation
+                           stats on the device, one host copy a record),
+                           its storages and the ``UIServer`` dashboard;
+- ``nlp.word2vec``       — ``Word2Vec`` (skip-gram, CBOW, hierarchical
+                           softmax), ``ParagraphVectors``, ``Glove``,
+                           ``FastText``, ``WordVectors`` (nearest words on
+                           the device), ``WordVectorSerializer``;
+- ``graphs``             — ``DeepWalk`` on the same trainer;
+- ``clustering``         — ``KMeansClustering`` (Lloyd on the device),
+                           ``BarnesHutTsne`` (the exact gradient on the
+                           device), ``VPTree`` / ``KDTree`` and the
+                           nearest-neighbours server.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

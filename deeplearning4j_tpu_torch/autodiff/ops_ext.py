@@ -27,6 +27,8 @@ from deeplearning4j_tpu_torch.autodiff.samediff import (OP_IMPLS, SDMath,
                                                         register_op)
 from deeplearning4j_tpu_torch.nn.conf.layers import _pad2d, _same_pads
 
+_CORE_OPS = set(OP_IMPLS)   # what samediff.py itself registered
+
 # ---------------------------------------------------------------------------
 # math (reference: generic/transforms, parity_ops)
 # ---------------------------------------------------------------------------
@@ -930,3 +932,7 @@ for _n in ["logAddExp", "igamma", "igammac", "euclideanDistance",
 for _n in ["rationalTanh", "rectifiedTanh", "hardSwish"]:
     setattr(SDNN, _n, _ns_unary(_n))
 del _n
+
+#: names THIS module added to the registry (coverage-gate bookkeeping:
+#: distinguishes "ops_ext battery didn't run" from "op lacks a test")
+OPS_EXT_NAMES = set(OP_IMPLS) - _CORE_OPS

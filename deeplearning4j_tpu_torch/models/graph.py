@@ -35,9 +35,9 @@ from deeplearning4j_tpu_torch.models.graph_conf import \
     ComputationGraphConfiguration
 from deeplearning4j_tpu_torch.models.multilayer import (
     _HALF_TYPES, _apply_updates, _cast_tree, _detached_leaves,
-    _frozen_keys, _grads_of, _iter_leaf_params, _leaves, _reg_penalty,
-    _set_leaf, _solver_step, _to_device, _to_tensor, _tree_map,
-    _updater_for)
+    _frozen_keys, _grads_of, _iter_leaf_params, _leaves, _panic_step,
+    _reg_penalty, _set_leaf, _solver_step, _to_device, _to_tensor,
+    _tree_map, _updater_for)
 from deeplearning4j_tpu_torch.nn.conf import BackpropType
 from deeplearning4j_tpu_torch.nn.conf.layers import Layer
 from deeplearning4j_tpu_torch.ops.ndarray import NDArray
@@ -303,6 +303,7 @@ class ComputationGraph:
         # left on the device: score() reads it, so a step never waits on
         # the host
         self._scoreArr = loss.detach()
+        _panic_step(self)
         return _tree_map(lambda c: c.detach(), new_carries)
 
     def _fitTbptt(self, inputs, labels, masks, fmask) -> None:

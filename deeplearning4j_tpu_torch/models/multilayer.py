@@ -61,6 +61,7 @@ from deeplearning4j_tpu_torch.nn.conf import (BackpropType,
                                               MultiLayerConfiguration)
 from deeplearning4j_tpu_torch.ops.ndarray import NDArray
 from deeplearning4j_tpu_torch.optimize.listeners import notifyListeners
+from deeplearning4j_tpu_torch.profiler import check_panic, panic_enabled
 from deeplearning4j_tpu_torch.telemetry.instrument import (in_microbatch,
                                                            train_step_span)
 
@@ -336,6 +337,16 @@ def _reg_penalty(pairs):
     return total
 
 
+def _panic_step(model) -> None:
+    """NAN_PANIC/INF_PANIC (reference: profilingConfigurableHookOut): with
+    panic mode on, one host read of the step's loss, to fail on the exact
+    step; with it off, the loss stays on the device."""
+    if panic_enabled():
+        model._score = float(model._scoreArr)
+        model._scoreArr = None
+        check_panic(model._score)
+
+
 class MultiLayerNetwork:
     def __init__(self, conf: MultiLayerConfiguration, device=None):
         self.conf = conf
@@ -522,6 +533,7 @@ class MultiLayerNetwork:
         fmask = self._on_device(ds.featuresMask)
         lmask = self._on_device(ds.labelsMask)
         self.lastBatchSize = int(x.shape[0])
+        self._lastInput = x      # StatsListener's activations read it
         algo = str(self.conf.globalConf.get("optimizationAlgo")
                    or "STOCHASTIC_GRADIENT_DESCENT").upper()
         # TBPTT needs per-timestep (rank-3) labels; otherwise standard BP
@@ -566,6 +578,7 @@ class MultiLayerNetwork:
         # left on the device: score() reads it, so a step never waits on
         # the host
         self._scoreArr = loss.detach()
+        _panic_step(self)
         return _tree_map(lambda c: c.detach(), new_carries)
 
     def _fitTbptt(self, x, y, fmask, lmask) -> None:

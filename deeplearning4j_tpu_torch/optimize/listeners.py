@@ -3,7 +3,8 @@ listeners.py`` (the reference's ``org/deeplearning4j/optimize/api/
 TrainingListener.java`` and the stock listeners under
 ``optimize/listeners/**``): the SPI, ``notifyListeners``, and the score,
 performance, score-collecting, time, evaluative and checkpoint listeners.
-``StatsListener`` waits for ``ui/`` (ROADMAP A12).
+``StatsListener`` lives in :mod:`deeplearning4j_tpu_torch.ui.stats`, and
+``ProfilingListener`` in :mod:`deeplearning4j_tpu_torch.profiler`.
 
 A swallowed listener error counts in the telemetry registry's
 ``dl4j_tpu_train_listener_errors_total``, as in the reference, and in the

@@ -5,9 +5,9 @@
 chrome://tracing "X" events on a per-thread track (the continuous batcher
 records ``serving.prefill`` and ``serving.decode.step`` here), and
 :meth:`Tracer.write_chrome_trace` writes them to one file (load it at
-``chrome://tracing`` or Perfetto).  The reference also merges its
-``OpProfiler``'s phase events into that file; ``profiler/`` waits for
-ROADMAP A12, so the port writes the tracer's own events.
+``chrome://tracing`` or Perfetto), merged with the
+:class:`~deeplearning4j_tpu_torch.profiler.OpProfiler` singleton's phase
+events, as the reference merges them.
 
 When a device trace is marked active (:func:`set_device_trace_active`, set
 around a ``torch.profiler`` capture), each span also enters
@@ -27,7 +27,8 @@ from typing import Deque, List, Optional
 __all__ = ["Tracer", "tracer", "set_tracer", "device_trace_active",
            "set_device_trace_active"]
 
-# set by whoever runs a torch.profiler capture
+# flipped by profiler.start_trace/stop_trace (this module owns the flag so
+# the two modules don't import-cycle: profiler -> telemetry only)
 _device_trace_active = False
 
 
@@ -158,13 +159,31 @@ class Tracer:
             self._live.clear()
         self._t0 = time.perf_counter()
 
-    def write_chrome_trace(self, path: str,
+    def write_chrome_trace(self, path: str, merge_profiler: bool = True,
                            tail: Optional[int] = None) -> None:
-        """This tracer's events as one Chrome trace file; ``tail`` keeps
-        only the newest N events (cheap periodic flushes)."""
+        """ONE merged trace file: this tracer's spans plus the OpProfiler
+        singleton's phase events.  Both record ``ts`` relative to their
+        own perf_counter epoch, so profiler events are SHIFTED into this
+        tracer's epoch before merging — phases line up against the step
+        spans they overlapped, even after an ``OpProfiler.reset()`` moved
+        its zero.  ``tail`` keeps only the newest N tracer events (cheap
+        periodic flushes from the training hot loop)."""
         events = self.events()
         if tail is not None:
             events = events[-int(tail):]
+        if merge_profiler:
+            from deeplearning4j_tpu_torch.profiler import OpProfiler
+            prof = OpProfiler._instance
+            if prof is not None:
+                shift = (prof._t0 - self._t0) * 1e6
+                pev = list(prof._events)
+                if tail is not None:
+                    # the profiler list is unbounded; an unbounded merge
+                    # would defeat the point of a tail-bounded flush
+                    pev = pev[-int(tail):]
+                events = events + [
+                    dict(e, ts=e["ts"] + shift) if "ts" in e else dict(e)
+                    for e in pev]
         with open(path, "w", encoding="utf-8") as f:
             json.dump({"traceEvents": events,
                        "displayTimeUnit": "ms"}, f)

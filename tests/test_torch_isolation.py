@@ -809,3 +809,79 @@ def test_samediff_slice_public_names_import_from_both_packages(module,
     assert callable(port)
     assert "is not ported yet" not in (port.__doc__ or "")
     assert "A12b" not in (port.__doc__ or "")
+
+
+EMBEDDING_UI_MODULES = ["profiler", "ui", "ui.stats", "ui.server",
+                        "nlp.word2vec", "graphs", "graphs.deepwalk",
+                        "clustering", "clustering.kmeans",
+                        "clustering.trees", "clustering.tsne",
+                        "clustering.server"]
+
+_IMPORT_EACH = """
+import importlib, sys
+for name in {names!r}:
+    importlib.import_module(name)
+    bad = sorted(m for m in sys.modules
+                 if m.split(".")[0] in {forbidden!r})
+    if bad:
+        print(name, "leaked:", bad)
+        sys.exit(1)
+print("leaked: []")
+"""
+
+
+def test_profiler_ui_and_embedding_modules_import_no_jax():
+    """The training UI, the profiler and the embedding tier (ROADMAP A12e,
+    A12f), imported one after another in one fresh interpreter: none
+    loads ``jax`` or the JAX package (the first that did would be
+    named)."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    names = [f"deeplearning4j_tpu_torch.{m}" for m in EMBEDDING_UI_MODULES]
+    proc = subprocess.run(
+        [sys.executable, "-c", _IMPORT_EACH.format(
+            names=names, forbidden=set(FORBIDDEN))],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "leaked: []" in proc.stdout
+
+
+@pytest.mark.parametrize("module", EMBEDDING_UI_MODULES)
+def test_embedding_and_ui_public_names_import_from_both_packages(module):
+    """ROADMAP C7 for the twins of A12e and A12f: every public name the
+    reference's module defines or re-exports from its package resolves in
+    the port under the same path, callable where the reference's is."""
+    import importlib
+    import types
+    ref = importlib.import_module(f"deeplearning4j_tpu.{module}")
+    port = importlib.import_module(f"deeplearning4j_tpu_torch.{module}")
+    names = getattr(ref, "__all__", None) or [
+        n for n in dir(ref) if not n.startswith("_")
+        and not isinstance(getattr(ref, n), types.ModuleType)
+        and (getattr(getattr(ref, n), "__module__", None) or "")
+        .startswith("deeplearning4j_tpu.")]
+    assert names
+    missing = [n for n in names if not hasattr(port, n)]
+    assert not missing, missing
+    for n in names:
+        if callable(getattr(ref, n)):
+            assert callable(getattr(port, n)), n
+
+
+def test_embedding_entry_points_default_to_cuda(tmp_path):
+    """The embedding tier's entry points place their tables on ``cuda``
+    unless told otherwise, and raise without a card."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is usable")
+    from deeplearning4j_tpu_torch.clustering import (BarnesHutTsne,
+                                                     KMeansClustering)
+    from deeplearning4j_tpu_torch.graphs import DeepWalk
+    from deeplearning4j_tpu_torch.nlp import (Glove, ParagraphVectors,
+                                              Word2Vec, WordVectorSerializer)
+    path = tmp_path / "v.txt"
+    path.write_text("a 1 2\n")
+    for make in (Word2Vec, ParagraphVectors, Glove, DeepWalk,
+                 lambda: KMeansClustering(2), BarnesHutTsne,
+                 lambda: WordVectorSerializer.readWord2VecModel(str(path))):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    assert Word2Vec(device="cpu").device == torch.device("cpu")
