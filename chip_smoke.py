@@ -535,7 +535,30 @@ which must pass or the script exits non-zero without a result line:
    (P on the host, 300 iterations on the card: KL finite, every cluster
    apart by more than twice the largest spread; one iteration card vs
    CPU); ``NearestNeighborsServer`` on 100,000 x 128 answering ``knn``
-   over HTTP equal to brute force on the card; no launch.
+   over HTTP equal to brute force on the card; no launch;
+72. ``rl_dqn`` (``RL_DQN``): rl4j-examples' ``Cartpole.java`` DQN
+   (double DQN, 3 hidden layers of 16) through ``QLearningDiscreteDense``
+   for 1,500 steps: loss finite, the target refreshed every 500 steps;
+   one Bellman step card vs CPU from the same state and replay batch
+   (``RL_STEP_RTOL``); 200 more Bellman steps timed, the target unmoved;
+   env steps/s, ms a Bellman step; no launch;
+73. ``rl_a3c`` (``RL_A3C``): ``A3CCartpole.java``'s 8 environments, nstep
+   5, through ``A3CDiscreteDense`` (batched) then ``A3CDiscreteDenseAsync``
+   (8 threads), 3,000 steps each: updates/s, the async/sync ratio; one
+   update card vs CPU from the threaded run's state; no launch;
+74. ``rl_nstep_q_atari`` (``RL_NSTEP``, ``RL_HISTORY``): rl4j's ALE
+   ``HistoryProcessor`` configuration on 210 x 160 screens (crop, then the
+   antialiased linear resize: 4 x 110 x 84 inputs); frames on the card
+   against the CPU and a numpy build of the reference's route
+   (``RL_FRAME_ATOL``); 8 threads of ``AsyncNStepQLearningDiscrete``, 3,000
+   steps; q-values finite; one update card vs CPU and the TD gradient on
+   noise inputs; no launch;
+75. ``arbiter_lenet`` (``ARBITER``): Arbiter's search over LeNet (learning
+   rate, dense width), random then Bayesian, 10 candidates each (one epoch,
+   test accuracy): every candidate's net kept on the card (peak memory),
+   a ``StatsStorageCandidateListener`` into a live ``ArbiterUIServer``
+   whose JSON equals the runner's results and whose page has the score
+   chart; candidates/s; no launch.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``.  With ``--record PATH`` it also
@@ -1074,6 +1097,49 @@ KMEANS_NEAR_TIE = 1e-4
 TSNE = dict(n=10_000, d=784, clusters=10, spread=3.0, perplexity=30.0,
             maxIter=300, seed=53)
 KNN = dict(n=100_000, d=128, k=10, queries=16, seed=59)
+# rl4j-examples' Cartpole.java: CARTPOLE_QL (seed 123, maxEpochStep 200,
+# replay 150,000, batch 32, target refresh every 500 steps, updates from
+# step 10, reward factor 0.01, gamma 0.99, TD error clamp 1, epsilon to 0.1
+# over 1000 steps, double DQN) over CARTPOLE_NET (DQNFactoryStdDense: 3
+# hidden layers of 16, Adam(5e-4), l2 1e-3).  Cut: maxStep 1,500, not
+# 150,000 (the four RL and search phases share ~60 s).  Then 200 Bellman
+# steps timed on their own.
+RL_DQN = dict(seed=123, maxEpochStep=200, maxStep=1_500,
+              expRepMaxSize=150_000, batchSize=32, targetDqnUpdateFreq=500,
+              updateStart=10, rewardFactor=0.01, gamma=0.99, errorClamp=1.0,
+              minEpsilon=0.1, epsilonNbStep=1000, doubleDQN=True)
+RL_DQN_NET = dict(hidden=(16, 16, 16), lr=5e-4, l2=1e-3, timed_steps=200)
+# rl4j-examples' A3CCartpole.java: CARTPOLE_A3C (seed 123, maxEpochStep
+# 200, 8 threads, nstep 5, gamma 0.99) over CARTPOLE_NET_A3C
+# (ActorCriticFactorySeparateStdDense: 3 hidden layers of 16, Adam(1e-2)),
+# batched (A3CDiscreteDense) and threaded (A3CDiscreteDenseAsync).  Cut:
+# maxStep 3,000 each, not 500,000.
+RL_A3C = dict(seed=123, maxEpochStep=200, maxStep=3_000, numThread=8,
+              nstep=5, gamma=0.99, learningRate=1e-2)
+RL_A3C_HIDDEN = (16, 16, 16)
+# async n-step Q over rl4j's ALE pipeline: HistoryProcessor.Configuration(4,
+# 84, 110, 84, 84, 0, 0, 4) (history 4, rescaled 84 wide x 110 high, crop
+# 84 x 84 at 0, 0, skip 4) on ALE's 210 x 160 screen (PixelCartPole drawn
+# at that size; no ROMs in the repository): crop first, so the linear
+# resize's route, and 4 x 110 x 84 = 36,960 inputs to the reference's
+# dense Q-net (hidden 64); 8 threads, nstep 5.  Cut: maxStep 3,000.
+RL_NSTEP = dict(seed=123, numThread=8, nstep=5, maxStep=3_000)
+RL_HISTORY = dict(historyLength=4, rescaledWidth=84, rescaledHeight=110,
+                  croppingWidth=84, croppingHeight=84, offsetX=0, offsetY=0,
+                  skipFrame=4)
+RL_FRAME = (210, 160)
+# a step on the card against the same step on the CPU: the largest gap in
+# a parameter as a share of that parameter's largest magnitude (float32
+# sums in another order); the history frames (values in [0, 1]) absolute
+RL_STEP_RTOL = 1e-5
+RL_FRAME_ATOL = 1e-5
+# Arbiter's BasicHyperparameterOptimizationExample over LeNet (BASELINE
+# config 1): the learning rate in [1e-4, 0.1] and the dense width in
+# [16, 256] (LeNet's 500), 10 candidates or 15 minutes, each fit one epoch
+# of the LENET train iterator and scored by test-set accuracy (maximized);
+# random search, then the same search Bayesian (TPE, 8 random first).
+ARBITER = dict(lr=(1e-4, 0.1), width=(16, 256), candidates=10, minutes=15,
+               seed=123)
 
 
 def _keras_refill(name, shape, rng):
@@ -2911,10 +2977,11 @@ def phase_bert_iterator(torch, rec, card):
 # the training user's loop around fit (BASELINE config 1, LeNet-MNIST)
 # ---------------------------------------------------------------------------
 
-def _lenet_conf(n_out=10):
+def _lenet_conf(n_out=10, lr=LENET["lr"], width=500):
     """examples/lenet_mnist.py's configuration, built with the port's
     classes: conv 5x5/20, max-pool 2/2, conv 5x5/50, max-pool 2/2, dense
-    500, softmax output; Adam(1e-3), XAVIER, seed 123, flat 28x28 input."""
+    500 (``width``), softmax output; Adam(1e-3) (``lr``), XAVIER, seed
+    123, flat 28x28 input."""
     from deeplearning4j_tpu_torch.learning import Adam
     from deeplearning4j_tpu_torch.nn.conf import (InputType,
                                                   NeuralNetConfiguration)
@@ -2922,7 +2989,7 @@ def _lenet_conf(n_out=10):
         ConvolutionLayer, DenseLayer, OutputLayer, SubsamplingLayer)
     c = LENET
     return (NeuralNetConfiguration.builder().seed(c["seed"])
-            .updater(Adam(c["lr"])).weightInit("XAVIER").list()
+            .updater(Adam(lr)).weightInit("XAVIER").list()
             .layer(ConvolutionLayer.builder().nIn(1).nOut(20)
                    .kernelSize(5, 5).stride(1, 1).activation("relu").build())
             .layer(SubsamplingLayer.builder().poolingType("MAX")
@@ -2931,7 +2998,8 @@ def _lenet_conf(n_out=10):
                    .activation("relu").build())
             .layer(SubsamplingLayer.builder().poolingType("MAX")
                    .kernelSize(2, 2).stride(2, 2).build())
-            .layer(DenseLayer.builder().nOut(500).activation("relu").build())
+            .layer(DenseLayer.builder().nOut(width).activation("relu")
+                   .build())
             .layer(OutputLayer.builder("negativeloglikelihood").nOut(n_out)
                    .activation("softmax").build())
             .setInputType(InputType.convolutionalFlat(28, 28, 1)).build())
@@ -8735,6 +8803,456 @@ def phase_clustering(torch, rec, card):
           f"force on the card; {card}")
 
 
+# ---------------------------------------------------------------------------
+# reinforcement learning and hyperparameter search (ROADMAP A12g)
+# ---------------------------------------------------------------------------
+
+def _linear_resize_plain(x, size):
+    """The reference's route for a frame whose size is no integer multiple
+    of the target (``jax.image.resize(x, size, "linear")``), in numpy:
+    per axis that changes, triangle weights at the half-pixel sample
+    points, the kernel widened by the shrink factor (antialiasing), each
+    column of weights normalised; positions and weights in float32, as
+    the reference computes them."""
+    import numpy as np
+    f32 = np.float32
+
+    def weights(n_in, n_out):
+        if n_in == n_out:
+            return np.eye(n_in, dtype=f32)
+        inv = f32(1.0 / (n_out / n_in))
+        at = (np.arange(n_out, dtype=f32) + f32(0.5)) * inv - f32(0.5)
+        w = np.maximum(f32(0), f32(1) - np.abs(
+            at[None, :] - np.arange(n_in, dtype=f32)[:, None])
+            / max(inv, f32(1)))
+        return w / w.sum(0, keepdims=True)
+    x = np.asarray(x, np.float64)
+    return (weights(x.shape[0], size[0]).T.astype(np.float64) @ x
+            @ weights(x.shape[1], size[1]).astype(np.float64)
+            ).astype(np.float32)
+
+
+def _rl_leaves(tree):
+    """The tensors of a tree of dicts and lists, in order."""
+    if isinstance(tree, dict):
+        return [x for k in tree for x in _rl_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _rl_leaves(v)]
+    return [tree]
+
+
+def _rl_to(tree, device):
+    """A copy of a tree of dicts and lists of tensors on ``device``."""
+    if isinstance(tree, dict):
+        return {k: _rl_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_rl_to(v, device) for v in tree]
+    return tree.detach().to(device, copy=True)
+
+
+def _rl_rel_gap(got, want):
+    """The largest |got - want| of a leaf as a share of that leaf's largest
+    |want|, over two trees of tensors."""
+    gaps = []
+    for a, b in zip(_rl_leaves(got), _rl_leaves(want), strict=True):
+        a, b = a.detach().float().cpu(), b.detach().float().cpu()
+        gaps.append(float((a - b).abs().max())
+                    / max(float(b.abs().max()), 1e-30))
+    return max(gaps)
+
+
+def _rl_on_card(*trees):
+    return all(t.device.type == "cuda" for tr in trees
+               for t in _rl_leaves(tr))
+
+
+def _dqn_conf():
+    """CARTPOLE_NET with the port's config DSL: 3 dense layers of 16
+    (relu), an identity-MSE head over 2 actions, Adam(5e-4), l2 1e-3."""
+    from deeplearning4j_tpu_torch.learning import Adam
+    from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.conf.layers import (DenseLayer,
+                                                         OutputLayer)
+    n = RL_DQN_NET
+    b = (NeuralNetConfiguration.builder().seed(RL_DQN["seed"])
+         .updater(Adam(n["lr"])).l2(n["l2"]).weightInit("XAVIER").list())
+    prev = 4
+    for h in n["hidden"]:
+        b.layer(DenseLayer.builder().nIn(prev).nOut(h).activation("relu")
+                .build())
+        prev = h
+    b.layer(OutputLayer.builder("mse").nIn(prev).nOut(2)
+            .activation("identity").build())
+    return b.build()
+
+
+def phase_rl_dqn(torch, rec, card):
+    """rl4j's Cartpole.java: ``QLearningDiscreteDense`` trains on the card;
+    one Bellman step card vs CPU; the target frozen between refreshes; no
+    launch."""
+    import copy
+    import math
+    from deeplearning4j_tpu_torch.models import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.rl import (CartPole, QLConfiguration,
+                                             QLearningDiscreteDense)
+    c = RL_DQN
+    net = MultiLayerNetwork(_dqn_conf()).init()
+    dqn = QLearningDiscreteDense(CartPole(seed=c["seed"]),
+                                 QLConfiguration(**c), net=net)
+    _require(net.device.type == "cuda" and
+             _rl_on_card(net.params_, dqn._target),
+             f"the DQN runs on {net.device}")
+    refreshes = []
+    refresh = dqn._refresh_target
+    dqn._refresh_target = lambda: (refreshes.append(dqn.stepCount),
+                                   refresh())
+    torch.cuda.synchronize()
+    _reset_counters()
+    t0 = time.perf_counter()
+    dqn.train()
+    loss = net.score()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counters()
+    _require(dqn.stepCount == c["maxStep"] and math.isfinite(loss),
+             f"{dqn.stepCount} steps, loss {loss}")
+    want = list(range(c["targetDqnUpdateFreq"], c["maxStep"] + 1,
+                      c["targetDqnUpdateFreq"]))
+    _require(refreshes == want, f"target refreshed at {refreshes}")
+    _require(_rl_on_card(net.params_, dqn._target),
+             "a DQN tensor left the card")
+    # one Bellman step on the card and on the CPU from the same state and
+    # the same replay batch (the replay's generator copied with it)
+    cpu_net = MultiLayerNetwork(_dqn_conf(), device="cpu").init(
+        params=_rl_to(net.params_, "cpu"))
+    cpu_net.optState_ = _rl_to(net.optState_, "cpu")
+    cpu_net.iterationCount = net.iterationCount
+    cpu = QLearningDiscreteDense(CartPole(seed=c["seed"]),
+                                 QLConfiguration(**c), net=cpu_net)
+    cpu._target = _rl_to(dqn._target, "cpu")
+    cpu.replay, dqn.replay = copy.deepcopy(dqn.replay), \
+        copy.deepcopy(dqn.replay)
+    frozen = _rl_to(dqn._target, "cuda")
+    dqn._train_batch()
+    cpu._train_batch()
+    step_gap = _rl_rel_gap(net.params_, cpu_net.params_)
+    loss_gap = abs(net.score() - cpu_net.score()) / abs(cpu_net.score())
+    _require(step_gap <= RL_STEP_RTOL and loss_gap <= RL_STEP_RTOL,
+             f"Bellman step card vs CPU: parameters {step_gap}, loss "
+             f"{loss_gap} apart (relative)")
+    # Bellman steps alone; the target must not move under them
+    n = RL_DQN_NET["timed_steps"]
+    before = _rl_to(net.params_, "cuda")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(n):
+        dqn._train_batch()
+    torch.cuda.synchronize()
+    bellman_ms = 1e3 * (time.perf_counter() - t1) / n
+    _require(all(torch.equal(a, b) for a, b in
+                 zip(_rl_leaves(dqn._target), _rl_leaves(frozen))),
+             "the target moved between refreshes")
+    _require(_rl_rel_gap(net.params_, before) > 0,
+             "the online net did not move")
+    _no_launches(rec, "rl_dqn", counts)
+    rec["rl_dqn"] = {"steps": dqn.stepCount, "s": wall,
+                     "steps_per_s": dqn.stepCount / wall,
+                     "bellman_steps": net.iterationCount,
+                     "bellman_ms": bellman_ms, "loss": loss,
+                     "episodes": len(dqn.epochRewards),
+                     "last_10_mean_reward": sum(dqn.epochRewards[-10:])
+                     / len(dqn.epochRewards[-10:]),
+                     "step_gap": step_gap, "card": card}
+    print(f"rl_dqn: Cartpole.java's DQN, {dqn.stepCount} steps in "
+          f"{wall:.2f} s ({dqn.stepCount / wall:.1f} env steps/s, "
+          f"{len(dqn.epochRewards)} episodes, loss {loss:.4g}); a Bellman "
+          f"step {bellman_ms:.3f} ms; one step card vs CPU {step_gap:.3g} "
+          f"apart; target refreshed at {len(refreshes)} steps, frozen "
+          f"between; {card}")
+
+
+def phase_rl_a3c(torch, rec, card):
+    """rl4j's A3CCartpole.java, batched then threaded, on the card; one
+    update card vs CPU; no launch."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.rl import (A3CConfiguration,
+                                             A3CDiscreteDense,
+                                             A3CDiscreteDenseAsync, CartPole)
+    c = RL_A3C
+
+    def learner(cls, **kw):
+        return cls(CartPole(seed=c["seed"]), A3CConfiguration(**c),
+                   hidden=RL_A3C_HIDDEN, **kw)
+    out = rec["rl_a3c"] = {"card": card}
+    torch.cuda.synchronize()
+    _reset_counters()
+    runs = {}
+    for name, cls in (("sync", A3CDiscreteDense),
+                      ("async", A3CDiscreteDenseAsync)):
+        agent = learner(cls)
+        _require(_rl_on_card(agent.net.params, agent._optState),
+                 f"A3C runs on {agent.net.device}")
+        calls = [0]
+        update = agent._update
+
+        def counted(*a, _u=update, _n=calls):
+            _n[0] += 1
+            return _u(*a)
+        agent._update = counted
+        t0 = time.perf_counter()
+        agent.train()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        _require(agent.stepCount >= c["maxStep"] and _rl_on_card(
+            agent.net.params, agent._optState) and all(
+            bool(torch.isfinite(t).all())
+            for t in _rl_leaves(agent.net.params)),
+            f"{name}: {agent.stepCount} steps, parameters on the card and "
+            "finite")
+        runs[name] = agent
+        out[name] = {"steps": agent.stepCount, "updates": calls[0],
+                     "s": wall, "updates_per_s": calls[0] / wall,
+                     "steps_per_s": agent.stepCount / wall}
+    counts = _counters()
+    ratio = out["async"]["updates_per_s"] / out["sync"]["updates_per_s"]
+    out["async_over_sync_updates"] = ratio
+    out["async_over_sync_steps"] = out["async"]["steps_per_s"] \
+        / out["sync"]["steps_per_s"]
+    # one update on the card and on the CPU from the threaded learner's
+    # trained parameters and Adam state
+    gpu = runs["async"]
+    cpu = learner(A3CDiscreteDense, device="cpu",
+                  params=_rl_to(gpu.net.params, "cpu"))
+    rng = np.random.RandomState(c["seed"])
+    batch = (list(rng.rand(40, 4).astype(np.float32)),
+             [int(a) for a in rng.randint(0, 2, 40)],
+             [float(r) for r in rng.randn(40)])
+    g = gpu._update(gpu.net.params, gpu._optState, *gpu._batch(*batch),
+                    gpu._updates)
+    k = cpu._update(cpu.net.params, _rl_to(gpu._optState, "cpu"),
+                    *cpu._batch(*batch), gpu._updates)
+    gap = _rl_rel_gap(g[0], k[0])
+    loss_gap = abs(float(g[2]) - float(k[2])) / abs(float(k[2]))
+    _require(gap <= RL_STEP_RTOL and loss_gap <= RL_STEP_RTOL,
+             f"A3C update card vs CPU: parameters {gap}, loss {loss_gap} "
+             "apart (relative)")
+    out["update_gap"] = gap
+    _no_launches(rec, "rl_a3c", counts)
+    print(f"rl_a3c: A3CCartpole.java, {c['numThread']} environments, "
+          f"batched {out['sync']['updates']} updates in "
+          f"{out['sync']['s']:.2f} s ({out['sync']['updates_per_s']:.1f} "
+          f"updates/s, {out['sync']['steps_per_s']:.0f} steps/s), threaded "
+          f"{out['async']['updates']} in {out['async']['s']:.2f} s "
+          f"({out['async']['updates_per_s']:.1f} updates/s, "
+          f"{out['async']['steps_per_s']:.0f} steps/s): async/sync "
+          f"{ratio:.2f}x in updates/s, "
+          f"{out['async_over_sync_steps']:.2f}x in steps/s; one update card "
+          f"vs CPU {gap:.3g} apart; {card}")
+
+
+def phase_rl_nstep_q_atari(torch, rec, card):
+    """Async n-step Q over rl4j's ALE history pipeline on the card; the
+    processor's frames card vs CPU vs the reference's route; one update
+    card vs CPU; no launch."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.rl import (AsyncNStepQLearningDiscrete,
+                                             AsyncQLearningConfiguration,
+                                             HistoryMDP, HistoryProcessor,
+                                             HistoryProcessorConfiguration,
+                                             PixelCartPole)
+    c, h = RL_NSTEP, RL_HISTORY
+    hconf = HistoryProcessorConfiguration(**h)
+    out = rec["rl_nstep_q_atari"] = {"card": card}
+    # the frames: a drawn screen and a noise screen, through the processor
+    # on the card, on the CPU, and the reference's route in numpy
+    screens = [PixelCartPole(seed=c["seed"], size=RL_FRAME).reset(),
+               np.random.RandomState(c["seed"]).rand(*RL_FRAME)
+               .astype(np.float32)]
+    frame_gap = 0.0
+    for s in screens:
+        on_card = HistoryProcessor(hconf)._scale(s)
+        _require(on_card.device.type == "cuda" and tuple(on_card.shape) ==
+                 (h["rescaledHeight"], h["rescaledWidth"]),
+                 f"a frame of {tuple(on_card.shape)} on {on_card.device}")
+        on_host = HistoryProcessor(hconf, device="cpu")._scale(s).numpy()
+        plain = _linear_resize_plain(
+            s[h["offsetY"]:h["offsetY"] + h["croppingHeight"],
+              h["offsetX"]:h["offsetX"] + h["croppingWidth"]],
+            (h["rescaledHeight"], h["rescaledWidth"]))
+        got = on_card.cpu().numpy()
+        frame_gap = max(frame_gap, float(np.abs(got - on_host).max()),
+                        float(np.abs(got - plain).max()))
+    _require(frame_gap <= RL_FRAME_ATOL,
+             f"history frames card vs CPU vs the reference's route: "
+             f"{frame_gap} apart")
+    conf = AsyncQLearningConfiguration(**c)
+    ql = AsyncNStepQLearningDiscrete(
+        lambda i: HistoryMDP(PixelCartPole(seed=c["seed"] + i,
+                                           size=RL_FRAME), hconf), conf)
+    n_in = h["historyLength"] * h["rescaledHeight"] * h["rescaledWidth"]
+    _require(ql.nIn == n_in and ql.device.type == "cuda" and
+             _rl_on_card(ql.params, ql.target_params, ql._optState),
+             f"nIn {ql.nIn} on {ql.device}")
+    torch.cuda.synchronize()
+    _reset_counters()
+    t0 = time.perf_counter()
+    ql.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counters()
+    obs0 = HistoryMDP(PixelCartPole(seed=c["seed"], size=RL_FRAME),
+                      hconf).reset()
+    q = ql.qValues(obs0)
+    _require(ql.stepCount >= c["maxStep"] and q.shape == (2,) and
+             np.isfinite(q).all() and _rl_on_card(ql.params,
+                                                  ql.target_params),
+             f"{ql.stepCount} steps, q-values {q}")
+    # one update on the card and on the CPU from the trained state, on a
+    # rollout of the pipeline itself; then the TD loss's gradient on noise
+    # inputs.  The crop (rows 0-83 of the 210 x 160 screen, the reference
+    # crops before it scales) holds none of PixelCartPole's pixels, so
+    # training never moves the first layer and its Adam moments stay
+    # zero: from there an update is Adam's first for those weights
+    # (about lr * g / (|g| + 2e-7) each), which turns float noise in a
+    # near-zero g into a visible step.  The gradient is held instead.
+    from deeplearning4j_tpu_torch.rl.a3c import _value_and_grad
+    from deeplearning4j_tpu_torch.rl.async_nstep_q import _td_loss
+    w1_moment = float(ql._optState[0]["W"]["v"].abs().max())
+    cpu = AsyncNStepQLearningDiscrete(
+        lambda i: HistoryMDP(PixelCartPole(seed=i, size=RL_FRAME), hconf,
+                             device="cpu"),
+        AsyncQLearningConfiguration(**dict(c, numThread=1)), device="cpu",
+        params=_rl_to(ql.params, "cpu"),
+        target_params=_rl_to(ql.target_params, "cpu"))
+    rng = np.random.RandomState(c["seed"])
+    env = HistoryMDP(PixelCartPole(seed=c["seed"], size=RL_FRAME), hconf)
+    obs = [env.reset()] + [env.step(int(a)).getObservation()
+                           for a in rng.randint(0, 2, c["nstep"] - 1)]
+    batch = [np.stack(obs).reshape(c["nstep"], n_in).astype(np.float32),
+             rng.randint(0, 2, c["nstep"]).astype(np.int64),
+             rng.randn(c["nstep"]).astype(np.float32)]
+    g = ql._update(ql.params, ql._optState,
+                   *[torch.as_tensor(b, device="cuda") for b in batch],
+                   ql._updates)
+    k = cpu._update(cpu.params, _rl_to(ql._optState, "cpu"),
+                    *[torch.as_tensor(b) for b in batch], ql._updates)
+    gap = _rl_rel_gap(g[0], k[0])
+    loss_gap = abs(float(g[2]) - float(k[2])) / abs(float(k[2]))
+    _require(gap <= RL_STEP_RTOL and loss_gap <= RL_STEP_RTOL,
+             f"n-step Q update card vs CPU: parameters {gap}, loss "
+             f"{loss_gap} apart (relative)")
+    batch[0] = rng.rand(c["nstep"], n_in).astype(np.float32)
+    lg, gg = _value_and_grad(_td_loss, ql.params,
+                             *[torch.as_tensor(b, device="cuda")
+                               for b in batch])
+    lk, gk = _value_and_grad(_td_loss, cpu.params,
+                             *[torch.as_tensor(b) for b in batch])
+    grad_gap = _rl_rel_gap(gg, gk)
+    loss_gap = abs(float(lg) - float(lk)) / abs(float(lk))
+    _require(grad_gap <= RL_STEP_RTOL and loss_gap <= RL_STEP_RTOL,
+             f"n-step Q gradient on noise card vs CPU: {grad_gap}, loss "
+             f"{loss_gap} apart (relative)")
+    _no_launches(rec, "rl_nstep_q_atari", counts)
+    out.update(steps=ql.stepCount, updates=ql._updates, s=wall,
+               steps_per_s=ql.stepCount / wall,
+               updates_per_s=ql._updates / wall, inputs=n_in,
+               frame_gap=frame_gap, update_gap=gap, grad_gap=grad_gap,
+               first_layer_moment=w1_moment, q=q.tolist())
+    print(f"rl_nstep_q_atari: {c['numThread']} threads over "
+          f"HistoryMDP(PixelCartPole {RL_FRAME[0]} x {RL_FRAME[1]}) -> "
+          f"{n_in:,} inputs, {ql.stepCount} steps and {ql._updates} updates "
+          f"in {wall:.2f} s ({ql.stepCount / wall:.1f} steps/s); frames "
+          f"card vs CPU vs the reference's route {frame_gap:.3g} apart; one "
+          f"update card vs CPU {gap:.3g} apart, a gradient on noise "
+          f"{grad_gap:.3g}; first layer's largest Adam v {w1_moment:.3g}; "
+          f"q {q}; {card}")
+
+
+def phase_arbiter_lenet(torch, rec, card):
+    """Arbiter's search over LeNet on the card, random then Bayesian, into
+    a live ``ArbiterUIServer``; no launch."""
+    import json
+    import math
+    import urllib.request
+    from deeplearning4j_tpu_torch.arbiter import (
+        ArbiterUIServer, BayesianSearchGenerator, ContinuousParameterSpace,
+        IntegerParameterSpace, LocalOptimizationRunner,
+        MaxCandidatesCondition, MaxTimeCondition, OptimizationConfiguration,
+        RandomSearchGenerator, StatsStorageCandidateListener)
+    from deeplearning4j_tpu_torch.models import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.ui.stats import InMemoryStatsStorage
+    a = ARBITER
+    train, test = _lenet_iterators()
+
+    def score(p):
+        net = MultiLayerNetwork(_lenet_conf(lr=p["learningRate"],
+                                            width=p["denseWidth"])).init()
+        net.fit(train, epochs=1)
+        return net.evaluate(test).accuracy(), net
+
+    def spaces():
+        return {"learningRate": ContinuousParameterSpace(*a["lr"]),
+                "denseWidth": IntegerParameterSpace(*a["width"])}
+    out = rec["arbiter_lenet"] = {"card": card}
+    torch.cuda.synchronize()
+    _reset_counters()
+    for kind, gen in (("random", RandomSearchGenerator(spaces(),
+                                                       seed=a["seed"])),
+                      ("bayesian", BayesianSearchGenerator(
+                          spaces(), seed=a["seed"]))):
+        storage = InMemoryStatsStorage()
+        runner = LocalOptimizationRunner(
+            OptimizationConfiguration.builder().candidateGenerator(gen)
+            .scoreFunction(score).terminationConditions(
+                MaxCandidatesCondition(a["candidates"]),
+                MaxTimeCondition(a["minutes"], "minutes"))
+            .minimize(False).build())
+        runner.addListener(StatsStorageCandidateListener(storage))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        best = runner.execute()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+        held = (torch.cuda.memory_allocated() - base) / 1e9
+        res = runner.results
+        _require(len(res) == a["candidates"] and all(
+            r.model.device.type == "cuda" and _rl_on_card(r.model.params_)
+            and math.isfinite(r.score) for r in res),
+            f"{kind}: {len(res)} candidates, models on the card and scores "
+            "finite")
+        srv = ArbiterUIServer(storage, minimize=False).start()
+        try:
+            base_url = f"http://127.0.0.1:{srv.port}"
+            with urllib.request.urlopen(base_url + "/data", timeout=60) as r:
+                data = json.loads(r.read())
+            with urllib.request.urlopen(base_url + "/", timeout=60) as r:
+                page = r.read().decode()
+        finally:
+            srv.stop()
+        want = [{"index": r.index, "score": r.score,
+                 "parameters": r.parameters} for r in res]
+        _require(data == json.loads(json.dumps(want)),
+                 f"{kind}: the board's JSON is not the runner's results")
+        _require("polyline" in page and f"{len(res)} candidates" in page,
+                 f"{kind}: the board's page has no score chart")
+        out[kind] = {"candidates": len(res), "s": wall,
+                     "candidates_per_s": len(res) / wall,
+                     "best": best.score, "best_parameters": best.parameters,
+                     "peak_gb": peak, "models_held_gb": held}
+        print(f"arbiter_lenet: {kind} search, {len(res)} LeNet candidates "
+              f"(one epoch of {LENET['n_train']} images each, test "
+              f"accuracy) in {wall:.2f} s ({len(res) / wall:.3f} "
+              f"candidates/s), best {best.score:.4f} at {best.parameters}; "
+              f"peak {peak:.3f} GB above the {base / 1e9:.3f} GB before, "
+              f"every candidate's net kept ({held:.3f} GB); the board "
+              f"serves the runner's results; {card}")
+        del runner, res, best
+    _no_launches(rec, "arbiter_lenet", _counters())
+
+
 def _kernel_entry(name, replaces, launches, t):
     return {"name": name, "route": "cuda",
             "source": f"deeplearning4j_tpu_torch/csrc/{name}.cu",
@@ -8970,6 +9488,13 @@ def main(argv) -> int:
         run("word2vec", phase_word2vec, torch, rec, card)
         run("deepwalk", phase_deepwalk, torch, rec, card)
         run("clustering", phase_clustering, torch, rec, card)
+        # reinforcement learning and hyperparameter search: rl4j's DQN and
+        # A3C on CartPole, async n-step Q over the ALE history pipeline,
+        # Arbiter's search over LeNet with its board
+        run("rl_dqn", phase_rl_dqn, torch, rec, card)
+        run("rl_a3c", phase_rl_a3c, torch, rec, card)
+        run("rl_nstep_q_atari", phase_rl_nstep_q_atari, torch, rec, card)
+        run("arbiter_lenet", phase_arbiter_lenet, torch, rec, card)
 
     rec["card"] = card
     rec["failed"] = failed
@@ -8993,8 +9518,8 @@ def main(argv) -> int:
     # kernel on their path (recurrent, BERT, the loop around fit, TF
     # import, serving tier, ONNX import, the zoo, the HDF5 reader, the
     # imported ResNet-50 and .keras archive, pretrain, DataVec, the
-    # recommender tier, the NaN panic, the embedding tier) add none (each
-    # checked zero).
+    # recommender tier, the NaN panic, the embedding tier, reinforcement
+    # learning, the hyperparameter search) add none (each checked zero).
     # B1's times are at the serving shape (f32, causal), B2's and B3's at
     # the training shape in its dtype (bf16, not causal), B4's at ResNet-50's
     # stage-0 shape in bf16; the record holds the other shapes too.

@@ -115,7 +115,12 @@ embedding tier):
 - ``clustering``         — ``KMeansClustering`` (Lloyd on the device),
                            ``BarnesHutTsne`` (the exact gradient on the
                            device), ``VPTree`` / ``KDTree`` and the
-                           nearest-neighbours server.
+                           nearest-neighbours server;
+- ``rl``                 — rl4j's environments, DQN / double DQN, A3C
+                           (batched and threaded), async n-step Q and the
+                           Atari-style history pipeline;
+- ``arbiter``            — hyperparameter search: spaces, grid, random and
+                           Bayesian generators, the runner and its board.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

@@ -186,6 +186,19 @@ C7_NAMES = [("models", "GraphBuilder"),
             ("imports", "TFGraphMapper"), ("imports", "GraphRunner")]
 
 
+def _package_names(package):
+    """Every public name a reference package's ``__init__`` exports."""
+    import importlib
+    import types
+    ref = importlib.import_module(f"deeplearning4j_tpu.{package}")
+    return sorted(n for n, v in vars(ref).items() if not n.startswith("_")
+                  and not isinstance(v, types.ModuleType))
+
+
+# A12g: rl4j's and Arbiter's twins
+C7_NAMES += [(p, n) for p in ("rl", "arbiter") for n in _package_names(p)]
+
+
 @pytest.mark.parametrize("module,name", C7_NAMES)
 def test_reference_public_names_import_from_both_packages(module, name):
     """ROADMAP C7: ``from <package>.<module> import <name>`` works for the
@@ -885,3 +898,57 @@ def test_embedding_entry_points_default_to_cuda(tmp_path):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
     assert Word2Vec(device="cpu").device == torch.device("cpu")
+
+
+RL_ARBITER_MODULES = ["rl", "rl.mdp", "rl.policy", "rl.qlearning", "rl.a3c",
+                      "rl.async_nstep_q", "rl.envs", "rl.gym", "arbiter",
+                      "arbiter.optimize", "arbiter.ui"]
+
+
+def test_rl_and_arbiter_modules_import_no_jax():
+    """Reinforcement learning and hyperparameter search (ROADMAP A12g),
+    imported one after another in one fresh interpreter: none loads
+    ``jax`` or the JAX package, though the reference's ``rl/mdp.py``,
+    ``policy.py``, ``envs.py``, ``gym.py`` and ``arbiter/optimize.py``
+    import no JAX either (the port keeps its own copies)."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    names = [f"deeplearning4j_tpu_torch.{m}" for m in RL_ARBITER_MODULES]
+    proc = subprocess.run(
+        [sys.executable, "-c", _IMPORT_EACH.format(
+            names=names, forbidden=set(FORBIDDEN))],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "leaked: []" in proc.stdout
+
+
+def _rl_entry_points():
+    from deeplearning4j_tpu_torch import rl
+    chain = rl.ChainMDP(n=4)
+    return {
+        "QLearningDiscreteDense": lambda **kw: rl.QLearningDiscreteDense(
+            chain, **kw).net,
+        "A3CDiscreteDense": lambda **kw: rl.A3CDiscreteDense(chain,
+                                                             **kw).net,
+        "A3CDiscreteDenseAsync": lambda **kw: rl.A3CDiscreteDenseAsync(
+            chain, **kw).net,
+        "ActorCriticSeparate": lambda **kw: rl.ActorCriticSeparate(4, 2,
+                                                                   **kw),
+        "AsyncNStepQLearningDiscrete":
+            lambda **kw: rl.AsyncNStepQLearningDiscrete(
+                lambda i: rl.ChainMDP(n=4), **kw),
+        "HistoryProcessor": lambda **kw: rl.HistoryProcessor(**kw),
+        "HistoryMDP": lambda **kw: rl.HistoryMDP(rl.PixelCartPole(),
+                                                 **kw).hp,
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_rl_entry_points()))
+def test_rl_entry_points_default_to_cuda(name):
+    """Each learner, its networks and the history pipeline run on ``cuda``
+    unless given ``device=``, and raise without a card."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is usable")
+    make = _rl_entry_points()[name]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make()
+    assert make(device="cpu").device == torch.device("cpu")
