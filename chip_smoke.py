@@ -560,6 +560,52 @@ which must pass or the script exits non-zero without a result line:
    whose JSON equals the runner's results and whose page has the score
    chart; candidates/s; no launch.
 
+Then the AOT cache of the port's compiled libraries (ROADMAP A12h,
+``compile/aotcache.py``).  Each of these phases runs children: fresh
+``python3 chip_smoke.py --aot-child SPEC`` processes (importing neither JAX
+nor the JAX package) that share one empty temporary
+``DL4J_TPU_AOT_CACHE_DIR`` inside the checkout.  Each child builds GPT-2
+small (phase 3's widths and prompts) and prefills the four 1024-token
+prompts through ``wrap_serving_model`` (12 B1 launches), and runs two
+``MultiLayerNetwork.fit`` steps of phase 6's long-context net (BFLOAT16,
+t 2048) from parameters carried in from a seeded file (B1, B2, B3 4 each);
+a child's failure fails its phase:
+
+76. ``aot_boots`` (``AOT``): each child first starts an ``InferenceServer``
+   over the long-context net's forward (``ForwardServing`` at the full
+   input shape, t 2048: its warm-up runs unmasked, 2 B1 launches a batch
+   bucket) before anything in it has launched B1.  The cold child must
+   start exactly the nvcc runs of B1, B2 and B3 (not B4) and print their
+   seconds, B1's inside the server's warm-up (warm-up compiles above 0);
+   it also builds the native library with g++ through a dispatch over
+   ``dl4j::bitmap_encode``.  The warm child runs with nvcc unreachable
+   (``PATH`` without it, ``CUDA_HOME`` an empty directory): no compiler
+   run, ``_cache_size()`` 0, ``dl4j_tpu_train_compile_seconds_total`` 0,
+   at least 3 aot-cache hits, the server's warm-up loading B1 (an
+   ``output`` hit) with zero warm-up compiles, and logits, losses and
+   updated parameters bit-equal to the cold child's; it prints its load
+   ms and first step's wall beside the cold child's.  The warm child also runs ``bitmap_encode`` / ``bitmap_decode``
+   on a CUDA tensor of 25,557,032 floats (a ResNet-50 gradient): bit-equal
+   to the CPU custom op;
+77. ``aot_quarantine``: B1's entry has bytes flipped mid-file; the next
+   child quarantines exactly that entry, reruns nvcc for B1 only and gives
+   the cold child's outputs;
+78. ``aot_lru``: the cache is bounded just under the sum of its entries;
+   ``_evict`` drops the least-recently-used entries and the ladder records
+   that list them, and the next child rebuilds exactly what was evicted;
+   it also runs ``FAULT_RUN``'s uninterrupted run and a run preempted at
+   step 5 under ``FaultTolerantTrainer`` (B1-B3 2 a step);
+79. ``aot_resume``: a fresh child resumes the preempted run: the resume's
+   ``preload_model`` loads B1-B3 before the first step, no compiler runs,
+   and the resumed parameters and Adam state equal the uninterrupted
+   run's bit for bit;
+80. ``aot_bake``: ``python -m deeplearning4j_tpu_torch.compile.aotc bake``
+   (``--device cuda``, its default) into a fresh cache builds every
+   ``csrc/*.cu`` (one nvcc each, started together, B4 included) and the
+   native library; a second bake compiles nothing; a child serving the
+   long-context net from that cache (no ladder in it yet) loads B1 and
+   compiles nothing.
+
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``.  With ``--record PATH`` it also
 writes the full record (every check, timing and profile row) as JSON.
@@ -9253,6 +9299,635 @@ def phase_arbiter_lenet(torch, rec, card):
     _no_launches(rec, "arbiter_lenet", _counters())
 
 
+# ---------------------------------------------------------------------------
+# the AOT cache of the compiled libraries (ROADMAP A12h): fresh children
+# over one cache directory
+# ---------------------------------------------------------------------------
+
+# ffi_n: the bitmap codec on a ResNet-50 gradient's element count (the
+# parallel layer's gradient sharing encodes whole gradients); tau 1e-3 on
+# N(0, 1e-3) values codes about a third of them.  serve: the batch buckets
+# of the InferenceServer each child starts over the long-context net.
+AOT = dict(ffi_n=25_557_032, ffi_scale=1e-3, ffi_tau=1e-3, ffi_reps=5,
+           serve_batches=(1, 4), serve_seqs=(64, 512), child_timeout=900)
+AOT_FLASH = ("flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv")
+
+
+def _aot_encode(x):
+    """The native library's boot-path call in a child: one CPU op."""
+    from deeplearning4j_tpu_torch.native import ffi
+    return ffi.bitmap_encode(x, AOT["ffi_tau"])
+
+
+def _digest_tensors(torch, tensors):
+    import hashlib
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().reshape(-1).contiguous().cpu()
+                 .view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def _tree_tensors(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _tree_tensors(tree[k], f"{prefix}{k}/")
+    else:
+        yield tree
+
+
+def _aot_child_prefill(torch, out):
+    from deeplearning4j_tpu_torch.compile.aotcache import wrap_serving_model
+    lm, prompts = _gpt2_model(torch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wrap_serving_model(lm)
+    _reset_counters()
+    logits, _caches = lm.prefill(prompts)
+    torch.cuda.synchronize()
+    out["prefill_first_s"] = time.perf_counter() - t0
+    counts = _counters()
+    _require(counts["flash_attn_fwd"] == GPT2_SMALL["nLayers"] and
+             counts["flash_attn_bwd_dq"] == counts["flash_attn_bwd_dkv"]
+             == counts["matmul_bn_stats"] == 0,
+             f"prefill launches {counts}, expected "
+             f"{GPT2_SMALL['nLayers']} of B1 only")
+    _require(tuple(logits.shape) == (BATCH, GPT2_SMALL["vocabSize"]) and
+             bool(logits.isfinite().all()), "prefill logits")
+    out["launches"]["prefill"] = counts
+    out["logits"] = _digest_tensors(torch, [logits.float()])
+    out["prefill_cache_size"] = lm.compileCacheSize()
+    return lm
+
+
+def _aot_child_train(torch, out, params_file):
+    from deeplearning4j_tpu_torch.models import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.telemetry import get_registry
+    pool = _fault_pool()[:2]
+    params = torch.load(params_file, map_location="cuda")
+    net = MultiLayerNetwork(_long_context_conf("BFLOAT16")).init(
+        params=params)
+    torch.cuda.synchronize()
+    _reset_counters()
+    losses, walls = [], []
+    for ds in pool:
+        t0 = time.perf_counter()
+        net.fit(ds)
+        losses.append(net.score())
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    counts = _counters()
+    _require(all(counts[k] == 2 * len(pool) for k in FLASH) and
+             counts["matmul_bn_stats"] == 0,
+             f"two steps launched {counts}, expected 4 each of B1-B3")
+    out["launches"]["train"] = counts
+    out["losses"] = losses
+    out["step_walls_s"] = walls
+    out["params"] = _digest_tensors(torch, list(_tree_tensors(net.params_)))
+    step = net.__dict__.get("_trainStep")
+    out["train_cache_size"] = None if step is None else step._cache_size()
+    c = get_registry().get("dl4j_tpu_train_compile_seconds_total")
+    out["train_compile_seconds"] = 0.0 if c is None else c.value()
+
+
+def _aot_child_native(torch, out):
+    from deeplearning4j_tpu_torch.compile.aotcache import wrap_jit
+    import numpy as np
+    disp = wrap_jit(_aot_encode, kind="codec")
+    x = torch.from_numpy(np.random.RandomState(0).randn(4096).astype(
+        np.float32) * np.float32(AOT["ffi_scale"]))
+    r, w, c = disp(x)
+    out["native_cache_size"] = disp._cache_size()
+    out["native_out"] = _digest_tensors(torch, [r, w.view(torch.int32), c])
+
+
+def _aot_child_serve(torch, out, params_file):
+    """An ``InferenceServer`` over the long-context net's forward, started
+    before anything else in the child: ``ForwardServing`` at the full
+    input shape (nIn, t) warms unmasked, so each batch bucket launches B1
+    once a layer, and the warm-up must build B1 (cold) or load it from
+    the output ladder (warm)."""
+    from deeplearning4j_tpu_torch.models import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.remote import (BucketLadder,
+                                                 ForwardServing,
+                                                 InferenceServer,
+                                                 ModelRegistry)
+    from deeplearning4j_tpu_torch.telemetry import get_registry
+    c = LONG_CONTEXT
+    net = MultiLayerNetwork(_long_context_conf("BFLOAT16")).init(
+        params=torch.load(params_file, map_location="cuda"))
+    reg = ModelRegistry()
+    reg.register("long_context", ForwardServing(
+        net, BucketLadder(batchSizes=AOT["serve_batches"], seqLens=()),
+        inputShape=(c["nIn"], c["t"])))
+    metrics = get_registry()
+
+    def value(name, **labels):
+        m = metrics.get(name)
+        try:
+            return 0.0 if m is None else m.value(**labels)
+        except ValueError:
+            return 0.0
+
+    hits0 = value("dl4j_tpu_aot_cache_hits_total", kind="output")
+    torch.cuda.synchronize()
+    _reset_counters()
+    t0 = time.perf_counter()
+    server = InferenceServer(reg, port=0).start()
+    out["serve_start_s"] = time.perf_counter() - t0
+    server.stop()
+    counts = _counters()
+    want = 2 * len(AOT["serve_batches"])
+    _require(counts["flash_attn_fwd"] == want and
+             counts["flash_attn_bwd_dq"] == counts["flash_attn_bwd_dkv"]
+             == counts["matmul_bn_stats"] == 0,
+             f"server warm-up launches {counts}, expected {want} of B1 only")
+    out["launches"]["serve"] = counts
+    out["serve_warmup_compiles"] = value(
+        "dl4j_tpu_serving_warmup_compiles_total", model="long_context")
+    out["serve_hits"] = value("dl4j_tpu_aot_cache_hits_total",
+                              kind="output") - hits0
+
+
+def _aot_child_ffi_cuda(torch, out):
+    """The bitmap codec on a CUDA tensor against the CPU custom op (the
+    native kernel), bit for bit; CUDA-event times of each op."""
+    from deeplearning4j_tpu_torch.native import ffi
+    n, tau = AOT["ffi_n"], AOT["ffi_tau"]
+    g = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn(n, generator=g, device="cuda") * AOT["ffi_scale"]
+    gpu = ffi.bitmap_encode(x, tau)
+    xc = x.cpu()
+    t0 = time.perf_counter()
+    cpu = ffi.bitmap_encode(xc, tau)
+    cpu_ms = 1e3 * (time.perf_counter() - t0)
+
+    def bits(t):
+        return t.view(torch.int32).cpu()
+
+    _require(torch.equal(bits(gpu[0]), bits(cpu[0])) and
+             torch.equal(bits(gpu[1]), bits(cpu[1])) and
+             int(gpu[2]) == int(cpu[2]),
+             "bitmap_encode on the card differs from the CPU op")
+    dg = ffi.bitmap_decode(gpu[1], tau, n)
+    dc = ffi.bitmap_decode(cpu[1], tau, n)
+    _require(torch.equal(bits(dg), bits(dc)),
+             "bitmap_decode on the card differs from the CPU op")
+
+    def cuda_ms(fn):
+        fn()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(AOT["ffi_reps"]):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / AOT["ffi_reps"]
+
+    out["ffi"] = {"n": n, "coded": int(cpu[2]), "bit_equal": True,
+                  "encode_ms": cuda_ms(lambda: ffi.bitmap_encode(x, tau)),
+                  "decode_ms": cuda_ms(
+                      lambda: ffi.bitmap_decode(gpu[1], tau, n)),
+                  "cpu_encode_ms": cpu_ms}
+
+
+def _aot_child_ft(torch, out, params_file, root, legs):
+    """``FAULT_RUN``'s supervised runs of the long-context net from the
+    carried parameters: each leg ``(name, preempt step or None)`` on a
+    fresh net and trainer; the resume leg records which kernel libraries
+    were loaded when its first step began."""
+    from deeplearning4j_tpu_torch import kernels
+    from deeplearning4j_tpu_torch.datasets import ListDataSetIterator
+    from deeplearning4j_tpu_torch.fault import (FaultTolerantTrainer,
+                                                PreemptAtStep,
+                                                SimulatedPreemption, inject)
+    from deeplearning4j_tpu_torch.models import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.telemetry import get_registry
+    pool = _fault_pool()
+    first = {}
+    fit_batch = MultiLayerNetwork._fitBatch
+
+    def observed(self, ds):
+        if not first:
+            h = get_registry().get("dl4j_tpu_aot_cache_hits_total")
+            first["libs"] = sorted(kernels._libs)
+            first["hits"] = 0.0 if h is None else sum(
+                v for _k, v in h.data()["cells"])
+        return fit_batch(self, ds)
+
+    for name, preempt in legs:
+        params = torch.load(params_file, map_location="cuda")
+        net = MultiLayerNetwork(_long_context_conf("BFLOAT16")).init(
+            params=params)
+        t = FaultTolerantTrainer(net, os.path.join(root, name.split(":")[0]),
+                                 checkpointEveryN=FAULT_RUN["every"],
+                                 keepLast=10, durableExport=False)
+        _reset_counters()
+        MultiLayerNetwork._fitBatch = observed
+        try:
+            with inject(*((PreemptAtStep(preempt),) if preempt else ())):
+                try:
+                    t.fit(ListDataSetIterator(pool),
+                          epochs=FAULT_RUN["epochs"])
+                    _require(preempt is None, f"{name}: not preempted")
+                except SimulatedPreemption:
+                    _require(preempt is not None, f"{name}: preempted")
+        finally:
+            MultiLayerNetwork._fitBatch = fit_batch
+        t.close()
+        counts = _counters()
+        out["launches"][f"ft_{name}"] = counts
+        out.setdefault("ft", {})[name] = {
+            "resumedFromStep": t.stats.get("resumedFromStep"),
+            "iteration": net.iterationCount, "launches": counts,
+            "first_step": dict(first),
+            "params": _digest_tensors(torch,
+                                      list(_tree_tensors(net.params_))),
+            "optState": _digest_tensors(
+                torch, list(_tree_tensors(net.optState_)))}
+        first.clear()
+
+
+def _aot_child(spec_path) -> int:
+    """One fresh process of the AOT phases: the tasks of ``spec_path``'s
+    JSON, then its record (compiler runs, cache metrics, outputs) as JSON
+    into the spec's ``out`` file."""
+    faulthandler.enable(all_threads=True)
+    import torch
+    sys.path.insert(0, ROOT)
+    with open(spec_path) as fh:
+        spec = json.load(fh)
+    from deeplearning4j_tpu_torch import kernels, native
+    from deeplearning4j_tpu_torch.telemetry import get_registry
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"role": spec["role"], "launches": {}}
+    t0 = time.perf_counter()
+    tasks = spec["tasks"]
+    if "serve" in tasks:
+        _aot_child_serve(torch, out, spec["params"])
+    if "prefill" in tasks:
+        _aot_child_prefill(torch, out)
+    if "train" in tasks:
+        _aot_child_train(torch, out, spec["params"])
+    if "native" in tasks:
+        _aot_child_native(torch, out)
+    if "ffi_cuda" in tasks:
+        _aot_child_ffi_cuda(torch, out)
+    if spec.get("ft"):
+        _aot_child_ft(torch, out, spec["params"], spec["ckpt"], spec["ft"])
+    out["wall_s"] = time.perf_counter() - t0
+    reg = get_registry()
+
+    def cells(name):
+        m = reg.get(name)
+        return {} if m is None else {
+            ",".join(k) or "": v for k, v in m.data()["cells"]}
+
+    load = reg.get("dl4j_tpu_aot_cache_load_seconds")
+    out["metrics"] = {
+        "hits": cells("dl4j_tpu_aot_cache_hits_total"),
+        "misses": cells("dl4j_tpu_aot_cache_misses_total"),
+        "quarantined": sum(cells(
+            "dl4j_tpu_aot_cache_quarantined_total").values()),
+        "load_ms": 0.0 if load is None else 1e3 * load.sum(),
+        "loads": 0 if load is None else load.count()}
+    out["nvcc"] = {"count": kernels.compiler_runs.count,
+                   "names": sorted(kernels.compiler_runs.names),
+                   "runs": kernels.compiler_runs.runs,
+                   "seconds": kernels.compiler_runs.seconds}
+    out["gxx"] = {"count": native.compiler_runs.count,
+                  "seconds": native.compiler_runs.seconds}
+    with open(spec["out"], "w") as fh:
+        json.dump(out, fh)
+    return 0
+
+
+def _no_nvcc_env(root):
+    """The environment with nvcc unreachable: ``PATH`` without any
+    directory that holds it, ``CUDA_HOME`` an empty directory."""
+    empty = os.path.join(root, "no-cuda")
+    os.makedirs(empty, exist_ok=True)
+    path = [p for p in os.environ.get("PATH", "").split(os.pathsep)
+            if p and not os.path.exists(os.path.join(p, "nvcc"))]
+    env = dict(os.environ, PATH=os.pathsep.join(path), CUDA_HOME=empty)
+    env.pop("CUDA_PATH", None)
+    return env
+
+
+def _aot_env(env=None):
+    """The environment of an AOT phase's process: no kill switch and no
+    size bound from outside."""
+    env = dict(env or os.environ)
+    env.pop("DL4J_TPU_AOT_CACHE", None)
+    env.pop("DL4J_TPU_AOT_CACHE_MAX_BYTES", None)
+    return env
+
+
+def _aot_run(st, role, tasks, env=None, ft=None, cache=None):
+    """Run one child over ``cache`` (default: the phases' shared cache);
+    its record, or the phase fails with its stderr."""
+    spec = {"role": role, "tasks": list(tasks), "params": st["params"],
+            "ckpt": st["ckpt"], "ft": ft,
+            "out": os.path.join(st["root"], f"{role}.json")}
+    spec_path = os.path.join(st["root"], f"{role}.spec.json")
+    with open(spec_path, "w") as fh:
+        json.dump(spec, fh)
+    env = dict(_aot_env(env), DL4J_TPU_AOT_CACHE_DIR=cache or st["cache"])
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--aot-child",
+         spec_path], cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=AOT["child_timeout"])
+    wall = time.perf_counter() - t0
+    if proc.returncode:
+        sys.stderr.write(proc.stdout[-4000:] + proc.stderr[-8000:])
+        raise PhaseFailed(f"aot child {role!r} exited {proc.returncode}")
+    with open(spec["out"]) as fh:
+        rec = json.load(fh)
+    rec["process_s"] = wall
+    st["launches"].append(rec["launches"])
+    return rec
+
+
+def _aot_launches(st):
+    """Every child's launches, summed over its tasks."""
+    return {k: sum(task[k] for child in st["launches"]
+                   for task in child.values())
+            for k in FLASH + ("matmul_bn_stats",)}
+
+
+def _aot_hits(rec):
+    return sum(rec["metrics"]["hits"].values())
+
+
+def _aot_same_outputs(a, b, what):
+    for k in ("logits", "losses", "params"):
+        _require(k not in a or a[k] == b[k],
+                 f"{what}: {k} differ from the cold child's")
+
+
+def phase_aot_boots(torch, rec, card):
+    """The cold boot and the warm boot (nvcc unreachable) over one empty
+    cache; returns the shared state of the AOT phases."""
+    import tempfile
+    from deeplearning4j_tpu_torch.models import MultiLayerNetwork
+    root = tempfile.mkdtemp(prefix=".aot_", dir=ROOT)
+    st = {"root": root, "cache": os.path.join(root, "cache"),
+          "params": os.path.join(root, "params.pt"),
+          "ckpt": os.path.join(root, "ckpt"), "launches": []}
+    try:
+        net = MultiLayerNetwork(_long_context_conf("BFLOAT16")).init()
+        torch.save({li: {k: v.cpu() for k, v in lp.items()}
+                    for li, lp in net.params_.items()}, st["params"])
+        del net
+        tasks = ("serve", "prefill", "train", "native")
+        cold = _aot_run(st, "cold", tasks)
+        warm = _aot_run(st, "warm", tasks + ("ffi_cuda",),
+                        env=_no_nvcc_env(root))
+    except BaseException:
+        import shutil
+        shutil.rmtree(root, ignore_errors=True)
+        raise
+    st["cold"] = cold
+    _require(cold["nvcc"]["names"] == sorted(AOT_FLASH) and
+             cold["nvcc"]["count"] == 3,
+             f"the cold child ran nvcc for {cold['nvcc']['names']}, "
+             f"expected B1-B3 only")
+    _require(cold["gxx"]["count"] == 1, f"cold g++ runs {cold['gxx']}")
+    _require(warm["nvcc"]["count"] == 0 and warm["gxx"]["count"] == 0,
+             f"the warm child ran a compiler: {warm['nvcc']}, "
+             f"{warm['gxx']}")
+    _require(warm["train_cache_size"] == 0 and
+             warm["prefill_cache_size"] == 0 and
+             warm["native_cache_size"] == 0,
+             "the warm child's dispatches counted fresh compiles")
+    _require(warm["train_compile_seconds"] == 0,
+             f"warm train compile seconds {warm['train_compile_seconds']}")
+    _require(_aot_hits(warm) >= 3, f"warm hits {warm['metrics']['hits']}")
+    _require(cold["serve_warmup_compiles"] > 0,
+             f"the server's cold warm-up counted "
+             f"{cold['serve_warmup_compiles']} compiles, expected B1's")
+    _require(warm["serve_warmup_compiles"] == 0 and
+             warm["serve_hits"] >= 1,
+             f"the server's second boot compiled "
+             f"{warm['serve_warmup_compiles']} and loaded "
+             f"{warm['serve_hits']} (expected B1 loaded, 0 compiles)")
+    _aot_same_outputs(warm, cold, "warm child")
+    _require(warm["native_out"] == cold["native_out"], "native outputs")
+    rec["aot_boots"] = {
+        "cold_nvcc_runs": cold["nvcc"]["runs"],
+        "cold_nvcc_s": cold["nvcc"]["seconds"],
+        "cold_gxx_s": cold["gxx"]["seconds"],
+        "warm_load_ms": warm["metrics"]["load_ms"],
+        "warm_loads": warm["metrics"]["loads"],
+        "warm_hits": warm["metrics"]["hits"],
+        "first_step_s": {"cold": cold["step_walls_s"][0],
+                         "warm": warm["step_walls_s"][0]},
+        "second_step_s": {"cold": cold["step_walls_s"][1],
+                          "warm": warm["step_walls_s"][1]},
+        "first_prefill_s": {"cold": cold["prefill_first_s"],
+                            "warm": warm["prefill_first_s"]},
+        "serve_start_s": {"cold": cold["serve_start_s"],
+                          "warm": warm["serve_start_s"]},
+        "serve_warmup_compiles": {"cold": cold["serve_warmup_compiles"],
+                                  "warm": warm["serve_warmup_compiles"]},
+        "serve_hits": {"cold": cold["serve_hits"],
+                       "warm": warm["serve_hits"]},
+        "child_process_s": {"cold": cold["process_s"],
+                            "warm": warm["process_s"]},
+        "ffi": warm["ffi"], "card": card}
+    r = rec["aot_boots"]
+    print(f"aot_boots: cold child nvcc {cold['nvcc']['runs']} "
+          f"({r['cold_nvcc_s']:.2f} s), g++ {r['cold_gxx_s']:.2f} s; warm "
+          f"child (nvcc unreachable) 0 compiler runs, {r['warm_loads']} "
+          f"loads in {r['warm_load_ms']:.1f} ms, hits {r['warm_hits']}; "
+          f"first step {r['first_step_s']['cold']:.3f} s cold, "
+          f"{r['first_step_s']['warm']:.3f} s warm; first prefill "
+          f"{r['first_prefill_s']['cold']:.3f} s cold, "
+          f"{r['first_prefill_s']['warm']:.3f} s warm; server warm-up "
+          f"compiles {r['serve_warmup_compiles']}, output hits "
+          f"{r['serve_hits']}, start {r['serve_start_s']['cold']:.3f} s "
+          f"cold, {r['serve_start_s']['warm']:.3f} s warm; outputs "
+          f"bit-equal; "
+          f"children {r['child_process_s']['cold']:.1f} s / "
+          f"{r['child_process_s']['warm']:.1f} s; {card}")
+    f = warm["ffi"]
+    print(f"aot_boots: bitmap codec on the card, n {f['n']} ({f['coded']} "
+          f"coded): encode {f['encode_ms']:.3f} ms, decode "
+          f"{f['decode_ms']:.3f} ms on the card, CPU encode "
+          f"{f['cpu_encode_ms']:.1f} ms; bit-equal to the CPU op; {card}")
+    return st
+
+
+def _aot_entries_by_name(cache):
+    out = {}
+    for digest, size, mtime in cache.entries():
+        key = cache.entryKey(digest) or {}
+        out[key.get("name")] = (digest, size, mtime)
+    return out
+
+
+def phase_aot_quarantine(torch, rec, st, card):
+    from deeplearning4j_tpu_torch.compile.aotcache import AotCache
+    cache = AotCache(st["cache"])
+    digest = _aot_entries_by_name(cache)["flash_attn_fwd"][0]
+    path = cache.entryPath(digest)
+    with open(path, "rb") as fh:
+        blob = fh.read()
+    mid = len(blob) // 2
+    with open(path, "wb") as fh:
+        fh.write(blob[:mid] + bytes(b ^ 0xFF for b in blob[mid:mid + 64])
+                 + blob[mid + 64:])
+    q = _aot_run(st, "quarantine", ("prefill", "train"))
+    _require(q["metrics"]["quarantined"] == 1,
+             f"quarantined {q['metrics']['quarantined']}, expected 1")
+    _require(q["nvcc"]["names"] == ["flash_attn_fwd"] and
+             q["gxx"]["count"] == 0,
+             f"after the flip nvcc ran for {q['nvcc']['names']}, "
+             f"expected B1 only")
+    _require(len(os.listdir(os.path.join(st["cache"], "quarantine"))) == 1,
+             "one entry in quarantine/")
+    _aot_same_outputs(q, st["cold"], "quarantine child")
+    rec["aot_quarantine"] = {"nvcc_runs": q["nvcc"]["runs"],
+                             "quarantined": q["metrics"]["quarantined"],
+                             "hits": q["metrics"]["hits"], "card": card}
+    print(f"aot_quarantine: B1's entry flipped: 1 quarantined, nvcc "
+          f"{q['nvcc']['runs']}, hits {q['metrics']['hits']}, outputs "
+          f"bit-equal; {card}")
+
+
+def phase_aot_lru(torch, rec, st, card):
+    from deeplearning4j_tpu_torch.compile.aotcache import AotCache
+    cache = AotCache(st["cache"])
+    before = _aot_entries_by_name(cache)
+    total = sum(size for _d, size, _m in before.values())
+    ladders = sum(len(os.listdir(d)) for d in cache._ladderDirs())
+    cache.maxBytes = total - 1
+    cache._evict()
+    after = _aot_entries_by_name(cache)
+    evicted = sorted(n for n in before if n not in after)
+    oldest = min(before, key=lambda n: before[n][2])
+    _require(evicted and oldest in evicted and all(
+        before[n][2] <= min(before[m][2] for m in after) for n in evicted),
+        f"evicted {evicted}, not the least recently used first")
+    left = sum(len(os.listdir(d)) for d in cache._ladderDirs())
+    _require(left < ladders, f"ladder records {ladders} -> {left}")
+    lru = _aot_run(st, "lru", ("train", "native"),
+                   ft=[["uninterrupted", None],
+                       ["preempted", FAULT_RUN["preempt"]]])
+    rebuilt = sorted(lru["nvcc"]["names"] +
+                     ["libdl4j_native"] * lru["gxx"]["count"])
+    _require(rebuilt == evicted, f"evicted {evicted}, rebuilt {rebuilt}")
+    _aot_same_outputs(lru, st["cold"], "lru child")
+    n_steps = FAULT_RUN["epochs"] * FAULT_RUN["batches"]
+    ft = lru["ft"]
+    _require(ft["uninterrupted"]["iteration"] == n_steps and
+             all(v == 2 * n_steps
+                 for k, v in ft["uninterrupted"]["launches"].items()
+                 if k in FLASH), f"uninterrupted run {ft['uninterrupted']}")
+    st["ft"] = ft
+    rec["aot_lru"] = {"evicted": evicted, "rebuilt": rebuilt,
+                      "bytes_before": total,
+                      "bytes_after": sum(s for _d, s, _m in after.values()),
+                      "ladder_records": [ladders, left], "card": card}
+    print(f"aot_lru: bound {total - 1} B (sum {total} B): evicted "
+          f"{evicted}, ladder records {ladders} -> {left}; the next child "
+          f"rebuilt {rebuilt}, outputs bit-equal; supervised runs "
+          f"uninterrupted ({n_steps} steps) and preempted at "
+          f"{FAULT_RUN['preempt']}; {card}")
+
+
+def phase_aot_resume(torch, rec, st, card):
+    r = _aot_run(st, "resume", (), ft=[["preempted:resume", None]])
+    res = r["ft"]["preempted:resume"]
+    base = st["ft"]["uninterrupted"]
+    _require(res["resumedFromStep"] == 4,
+             f"resumed from {res['resumedFromStep']}, not 4")
+    _require(sorted(res["first_step"]["libs"]) == sorted(AOT_FLASH) and
+             res["first_step"]["hits"] >= 3,
+             f"at the first step after resume: libraries "
+             f"{res['first_step']['libs']}, hits {res['first_step']['hits']}"
+             f" (expected B1-B3 preloaded)")
+    _require(r["nvcc"]["count"] == 0 and r["gxx"]["count"] == 0,
+             f"the resume ran a compiler: {r['nvcc']}, {r['gxx']}")
+    _require(res["params"] == base["params"] and
+             res["optState"] == base["optState"],
+             "the resumed run differs from the uninterrupted one")
+    steps = FAULT_RUN["epochs"] * FAULT_RUN["batches"] - 4
+    _require(all(res["launches"][k] == 2 * steps for k in FLASH),
+             f"resume launches {res['launches']}")
+    rec["aot_resume"] = {"first_step": res["first_step"],
+                         "hits": r["metrics"]["hits"],
+                         "load_ms": r["metrics"]["load_ms"],
+                         "child_process_s": r["process_s"], "card": card}
+    print(f"aot_resume: resumed from step 4 with {res['first_step']['libs']}"
+          f" loaded before its first step ({r['metrics']['loads']} loads, "
+          f"{r['metrics']['load_ms']:.1f} ms), no compiler run, params and "
+          f"Adam state bit-equal to the uninterrupted run; {card}")
+
+
+def phase_aot_bake(torch, rec, st, card):
+    """``aotc bake`` for the card (``--device cuda``, its default) into a
+    fresh cache: every ``csrc/*.cu`` built (one nvcc each, started
+    together) and the native library; a second bake finds every entry
+    and compiles nothing; then a child serving the long-context net from
+    that cache, which holds no ladder yet, loads B1 and compiles
+    nothing."""
+    from deeplearning4j_tpu_torch import kernels
+    d = os.path.join(st["root"], "baked")
+
+    def bake():
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "deeplearning4j_tpu_torch.compile.aotc",
+             "bake", "--cache-dir", d], cwd=ROOT, env=_aot_env(),
+            capture_output=True, text=True, timeout=AOT["child_timeout"])
+        wall = time.perf_counter() - t0
+        if proc.returncode:
+            sys.stderr.write(proc.stdout[-4000:] + proc.stderr[-8000:])
+            raise PhaseFailed(f"aotc bake exited {proc.returncode}")
+        out = json.loads(proc.stdout.strip().splitlines()[-1])
+        out["process_s"] = wall
+        return out
+
+    names = sorted(p.stem for p in kernels.CSRC.glob("*.cu"))
+    first = bake()
+    _require(first["kernels_built"] == names and
+             first["compiler_runs"] == len(names) + 1 and
+             first["entries_baked"] == len(names) + 1,
+             f"the bake built {first['kernels_built']} with "
+             f"{first['compiler_runs']} compiler runs and "
+             f"{first['entries_baked']} entries, expected {names} and g++")
+    second = bake()
+    _require(second["kernels_built"] == [] and
+             second["compiler_runs"] == 0 and second["entries_baked"] == 0,
+             f"the second bake built {second['kernels_built']} "
+             f"({second['compiler_runs']} compiler runs)")
+    child = _aot_run(st, "baked", ("serve",), cache=d)
+    _require(child["nvcc"]["count"] == 0 and child["gxx"]["count"] == 0 and
+             child["serve_warmup_compiles"] == 0 and
+             child["serve_hits"] >= 1,
+             f"serving from the baked cache: nvcc {child['nvcc']}, "
+             f"warm-up compiles {child['serve_warmup_compiles']}, output "
+             f"hits {child['serve_hits']}")
+    rec["aot_bake"] = {"kernels_s": first["kernels_seconds"],
+                       "bake_process_s": [first["process_s"],
+                                          second["process_s"]],
+                       "entries": first["entries_total"],
+                       "cache_bytes": first["cache_bytes"],
+                       "serve_start_s": child["serve_start_s"],
+                       "serve_hits": child["serve_hits"], "card": card}
+    print(f"aot_bake: aotc bake built {names} in "
+          f"{first['kernels_seconds']:.2f} s (one nvcc each, together) and "
+          f"g++: {first['entries_total']} entries, {first['cache_bytes']} "
+          f"B, {first['process_s']:.1f} s; a second bake compiled nothing "
+          f"({second['process_s']:.1f} s); a server from the baked cache "
+          f"loaded B1 ({child['serve_hits']} output hits, 0 compiles, "
+          f"start {child['serve_start_s']:.3f} s); {card}")
+
+
 def _kernel_entry(name, replaces, launches, t):
     return {"name": name, "route": "cuda",
             "source": f"deeplearning4j_tpu_torch/csrc/{name}.cu",
@@ -9263,6 +9938,8 @@ def _kernel_entry(name, replaces, launches, t):
 
 
 def main(argv) -> int:
+    if "--aot-child" in argv:
+        return _aot_child(argv[argv.index("--aot-child") + 1])
     record = argv[argv.index("--record") + 1] if "--record" in argv \
         else None
     # a fatal signal (a fault in native code on any thread) prints every
@@ -9495,6 +10172,27 @@ def main(argv) -> int:
         run("rl_a3c", phase_rl_a3c, torch, rec, card)
         run("rl_nstep_q_atari", phase_rl_nstep_q_atari, torch, rec, card)
         run("arbiter_lenet", phase_arbiter_lenet, torch, rec, card)
+        # the AOT cache of the compiled libraries: cold and warm boots,
+        # a quarantined entry, LRU eviction and a resume, each in fresh
+        # children over one cache directory (B1-B3 on their paths)
+        st = run("aot_boots", phase_aot_boots, torch, rec, card)
+        if st is not None:
+            try:
+                run("aot_quarantine", phase_aot_quarantine, torch, rec, st,
+                    card)
+                run("aot_lru", phase_aot_lru, torch, rec, st, card)
+                if "aot_lru" in rec:
+                    run("aot_resume", phase_aot_resume, torch, rec, st,
+                        card)
+                else:
+                    failed.append("aot_resume")
+                run("aot_bake", phase_aot_bake, torch, rec, st, card)
+            finally:
+                import shutil
+                rec["launches_aot"] = _aot_launches(st)
+                shutil.rmtree(st["root"], ignore_errors=True)
+        else:
+            failed.append("aot_phases")
 
     rec["card"] = card
     rec["failed"] = failed
@@ -9519,7 +10217,10 @@ def main(argv) -> int:
     # import, serving tier, ONNX import, the zoo, the HDF5 reader, the
     # imported ResNet-50 and .keras archive, pretrain, DataVec, the
     # recommender tier, the NaN panic, the embedding tier, reinforcement
-    # learning, the hyperparameter search) add none (each checked zero).
+    # learning, the hyperparameter search) add none (each checked zero);
+    # the AOT phases' children add theirs (B1-B3: each child's prefill and
+    # two steps, the supervised runs' 2 a step, and B1 in each server's
+    # warm-up over the long-context net).
     # B1's times are at the serving shape (f32, causal), B2's and B3's at
     # the training shape in its dtype (bf16, not causal), B4's at ResNet-50's
     # stage-0 shape in bf16; the record holds the other shapes too.
@@ -9530,6 +10231,7 @@ def main(argv) -> int:
                 + rec["launches_attention_layers"][k]
                 + rec["launches_fault"][k]
                 + rec["launches_observability"][k]
+                + rec["launches_aot"][k]
                 + sum(c[k] for c in rec["launches_no_kernel_phases"].values())
                 for k in serve}
     m, k, n = B4_RESNET_SHAPES[0]

@@ -451,6 +451,13 @@ class FaultTolerantTrainer:
             step = self.ckpt.latestValidStep()
             if step is not None:
                 self._timedRestore(step)
+                # resume preload: with the AOT cache configured, load the
+                # train step's kernel libraries off disk NOW —
+                # restart-to-first-step then pays loads, not compiler runs
+                # (no-op with the cache off)
+                from deeplearning4j_tpu_torch.compile.aotcache import \
+                    preload_model
+                preload_model(net)
                 meta = self.ckpt.readMetadata(step)
                 skip = int(meta.get("stepInEpoch", 0))
                 net.setLrScale(float(meta.get("lrScale", 1.0)))

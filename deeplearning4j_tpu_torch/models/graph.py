@@ -273,7 +273,7 @@ class ComputationGraph:
                     and inputs[0].shape[2] > self.conf.tbpttFwdLength:
                 self._fitTbptt(inputs, labels, masks, fmask)
             else:
-                self._runTrainStep(inputs, labels, masks, fmask)
+                self._trainStep(inputs, labels, masks, fmask)
         self.iterationCount += 1
         if not in_microbatch():
             notifyListeners(self._listeners, "iterationDone", self,
@@ -284,6 +284,13 @@ class ComputationGraph:
                      lambda p, gen, ins, labs, mks, fm: self._lossFn(
                          p, ins, labs, mks, True, gen, fm)[0],
                      inputs, labels, masks, fmask)
+
+    @property
+    def _trainStep(self):
+        """``_runTrainStep``, or its ``AotDispatch`` with the AOT cache
+        configured (see ``MultiLayerNetwork._trainStep``)."""
+        from deeplearning4j_tpu_torch.compile.aotcache import train_step
+        return train_step(self)
 
     def _runTrainStep(self, inputs, labels, masks, fmask, carries=None):
         """One step of forward, losses, backward and updates from
@@ -321,7 +328,7 @@ class ComputationGraph:
                 if masks is not None else None
             fc = tuple(None if m is None else m[:, start:end]
                        for m in fmask) if fmask is not None else None
-            carries = self._runTrainStep(ic, lc, mc, fc, carries)
+            carries = self._trainStep(ic, lc, mc, fc, carries)
 
     def _zeroCarries(self, batch: int):
         """Fresh-sequence carries of every RNN vertex, or None when the

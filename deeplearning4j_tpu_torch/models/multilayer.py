@@ -37,8 +37,11 @@ learning): their parameters take no gradient and no update.
 Each logical step reports through ``telemetry.train_step_span`` (the
 step counter, step-time histogram, ``step`` span and flight record); the
 fault supervisor's learning-rate scale (``setLrScale``) multiplies every
-updater's step.  Not ported yet: the AOT compile cache and the mesh hooks
-(A10, A12).
+updater's step.  The step dispatches through ``_trainStep``: with the AOT
+cache configured (``compile.aotcache``; off unless configured) that is an
+``AotDispatch`` whose ladder lists the kernel libraries the step uses, so
+a warm boot loads them instead of compiling; with it off, the step itself.
+Not ported yet: the mesh hooks (A10).
 """
 from __future__ import annotations
 
@@ -547,7 +550,7 @@ class MultiLayerNetwork:
                     and x.shape[2] > self.conf.tbpttFwdLength):
                 self._fitTbptt(x, y, fmask, lmask)
             else:
-                self._runTrainStep(x, y, fmask, lmask)
+                self._trainStep(x, y, fmask, lmask)
         self.iterationCount += 1
         if not in_microbatch():
             # OOM-retry halves share one logical iteration — the
@@ -560,6 +563,13 @@ class MultiLayerNetwork:
                      lambda p, gen, xb, yb, fm, lm: self._score_of(
                          p, xb, yb, fm, lm, True, gen)[0],
                      x, y, fmask, lmask)
+
+    @property
+    def _trainStep(self):
+        """``_runTrainStep``, or its ``AotDispatch`` with the AOT cache
+        configured (``compile.aotcache.train_step``)."""
+        from deeplearning4j_tpu_torch.compile.aotcache import train_step
+        return train_step(self)
 
     def _runTrainStep(self, x, y, fmask, lmask, carries=None):
         """One step of forward, loss, backward and updates from
@@ -591,7 +601,7 @@ class MultiLayerNetwork:
         carries = self._zeroCarries(x.shape[0])
         for start in range(0, t, L):
             end = min(start + L, t)
-            carries = self._runTrainStep(
+            carries = self._trainStep(
                 x[:, :, start:end], y[:, :, start:end],
                 None if fmask is None else fmask[:, start:end],
                 None if lmask is None else lmask[:, start:end], carries)

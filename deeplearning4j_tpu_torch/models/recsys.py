@@ -39,6 +39,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -310,10 +311,13 @@ class RetrievalLM:
             return poolK, poolV
         return write
 
-    def compileCacheSize(self) -> None:
-        """None: eager PyTorch keeps no executable cache (the reference
-        counts its jit-cache entries here)."""
-        return None
+    def compileCacheSize(self) -> Optional[int]:
+        """Fresh compiler runs of this model's AOT dispatches; None with
+        the AOT cache off (eager PyTorch keeps no executable cache; the
+        reference counts its jit-cache entries here)."""
+        from deeplearning4j_tpu_torch.compile.aotcache import \
+            _dispatch_cache_size
+        return _dispatch_cache_size(self)
 
 
 def topk_retrieve(batcher, userIds, k: int, timeout=None) -> np.ndarray:

@@ -18,6 +18,16 @@ hash covers those sources, the header and the flags, so an edit rebuilds;
 the directory is listed in ``.gitignore``).  ``xla_ffi.cpp`` is never
 built: it includes XLA's headers, which no machine the port runs on has.
 
+With the AOT cache configured (``compile.aotcache``) the library comes
+from the cache directory instead, keyed by the same content hash, ``g++
+--version`` and the torch / CUDA / port versions: a verified entry is
+loaded, or the library is built into the cache and baked there
+(``_build/native`` is not read).  The library is resolved once per
+process, at its first use (or when the cache's preload installs it): a
+process that configures the cache after that keeps the library it has.
+Every compiler run this module starts is recorded in
+:data:`compiler_runs`.
+
 Where the library cannot be built or loaded (no compiler, or
 ``DL4J_TPU_DISABLE_NATIVE`` set) every function keeps the reference's
 pure-NumPy fallback, which is the reference's own behaviour; callers that
@@ -30,17 +40,22 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
+import time
 from pathlib import Path
 from typing import Optional, Tuple
 
 import numpy as np
 
+from deeplearning4j_tpu_torch.compile import aotcache
+from deeplearning4j_tpu_torch.compile.aotcache import CompilerRuns
+
 __all__ = ["available", "backend", "library_path", "num_threads",
            "set_num_threads", "parallel_for", "threshold_encode",
            "threshold_decode", "bitmap_encode", "bitmap_decode",
            "philox_uniform", "philox_gaussian", "Workspace", "csv_parse",
-           "SOURCES"]
+           "SOURCES", "content_hash", "entry_key", "compiler_runs"]
 
 _REPO_ROOT = Path(__file__).resolve().parent.parent.parent
 _NATIVE_DIR = _REPO_ROOT / "native"
@@ -51,31 +66,57 @@ SOURCES = ("csv.cpp", "threads.cpp", "random.cpp", "compression.cpp",
 CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 
 _lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
-_path: Optional[Path] = None
-_tried = False
+#: this process's one resolution of the library, made at its first use:
+#: (library or None, its file, its AOT cache entry's digest or None)
+_state: Optional[tuple] = None
+_NONE = (None, None, None)
+#: the g++ runs this process started (count, seconds, names)
+compiler_runs = CompilerRuns()
 
 
 def _sources():
     return [_NATIVE_DIR / "src" / s for s in SOURCES]
 
 
-def _target() -> Path:
+def content_hash() -> str:
+    """sha256 of the five sources, the header and the flags: what the
+    library built from them depends on."""
     h = hashlib.sha256()
     for f in [*_sources(), _NATIVE_DIR / "include" / "dl4j_native.h"]:
         h.update(f.name.encode() + b"\0" + f.read_bytes())
     h.update(" ".join(CXX_FLAGS).encode())
-    return BUILD_DIR / f"libdl4j_native-{h.hexdigest()[:12]}.so"
+    return h.hexdigest()
+
+
+def _target() -> Path:
+    return BUILD_DIR / f"libdl4j_native-{content_hash()[:12]}.so"
+
+
+def _cxx() -> Optional[str]:
+    return os.environ.get("CXX") or shutil.which("g++")
+
+
+def entry_key():
+    """``(digest, key)`` of the library's AOT cache entry: the content
+    hash, ``g++ --version`` and the torch / CUDA / port versions.  Raises
+    when the compiler cannot be found or run."""
+    cxx = _cxx()
+    if not cxx:
+        raise RuntimeError("no C++ compiler (set CXX or put g++ on PATH)")
+    key = aotcache.library_key("native", "libdl4j_native", content_hash(),
+                               aotcache.compiler_line(cxx))
+    return aotcache._digest(key), key
 
 
 def _compile(out: Path) -> Optional[Path]:
     """One ``g++`` over the five sources into a temporary file, renamed
     into place, so processes building at once never load a partial file."""
-    cxx = os.environ.get("CXX") or shutil.which("g++")
+    cxx = _cxx()
     if not cxx or not all(s.exists() for s in _sources()):
         return None
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    t0 = time.perf_counter()
     try:
         proc = subprocess.run(
             [cxx, *CXX_FLAGS, "-I", str(_NATIVE_DIR / "include"),
@@ -83,6 +124,8 @@ def _compile(out: Path) -> Optional[Path]:
             capture_output=True, text=True, timeout=300)
     except (OSError, subprocess.SubprocessError):
         return None
+    finally:
+        compiler_runs.add(["libdl4j_native"], time.perf_counter() - t0)
     out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
     if proc.returncode or not tmp.exists():
         return None
@@ -133,26 +176,98 @@ def _declare(lib: ctypes.CDLL) -> None:
                                        i32, pf32, i64, pi32]
 
 
-def _load() -> Optional[ctypes.CDLL]:
-    global _lib, _path, _tried
-    with _lock:
-        if _tried:
-            return _lib
-        _tried = True
-        if os.environ.get("DL4J_TPU_DISABLE_NATIVE"):
+def _accepts(lib: ctypes.CDLL) -> bool:
+    """Declare the library's entry points; True when it is this module's
+    (every symbol there, ABI version 1)."""
+    try:
+        _declare(lib)
+        return lib.dl4j_abi_version() == 1
+    except AttributeError:
+        return False
+
+
+def _open(path: Path) -> Optional[ctypes.CDLL]:
+    """``dlopen`` a built library; None when it cannot be loaded or is
+    not this module's."""
+    try:
+        lib = ctypes.CDLL(str(path))
+    except OSError:
+        return None
+    return lib if _accepts(lib) else None
+
+
+def _bake(cache, digest: str, key) -> Optional["aotcache.CachedLibrary"]:
+    """Build the library into a temporary directory inside ``cache``,
+    publish it as the entry ``digest`` and load the published file."""
+    tmp = Path(tempfile.mkdtemp(prefix="build-", dir=cache.directory))
+    try:
+        t0 = time.perf_counter()
+        out = _compile(tmp / "libdl4j_native.so")
+        if out is None:
             return None
+        library = out.read_bytes()
+        cache.put(digest, library, key, bakeSeconds=time.perf_counter() - t0)
+        path, lib = cache.loadBytes(digest, library)
+    except OSError:
+        return None
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return aotcache.CachedLibrary(digest, key, path, lib, cache.directory)
+
+
+def _resolve() -> tuple:
+    """Find the library: from ``_build/`` with the AOT cache off, else a
+    verified cache entry or a fresh build baked back; ``_NONE`` (the
+    fallbacks) when it cannot be had."""
+    if os.environ.get("DL4J_TPU_DISABLE_NATIVE"):
+        return _NONE
+    cache = aotcache.aot_cache()
+    if cache is None:
         path = _target()
         if not path.exists() and _compile(path) is None:
-            return None
-        try:
-            lib = ctypes.CDLL(str(path))
-            _declare(lib)
-            if lib.dl4j_abi_version() != 1:
-                return None
-            _lib, _path = lib, path
-        except OSError:
-            _lib = None
-        return _lib
+            return _NONE
+        lib = _open(path)
+        return _NONE if lib is None else (lib, str(path), None)
+    try:
+        digest, key = entry_key()
+    except RuntimeError:
+        return _NONE
+    entry = cache.get(digest, kind=aotcache.current_kind("native"))
+    if entry is None:
+        entry = _bake(cache, digest, key)
+    if entry is None or not _accepts(entry.lib):
+        return _NONE
+    aotcache.note_installed(entry)
+    return entry.lib, entry.path, digest
+
+
+def _install(entry) -> bool:
+    """Serve the library from a loaded cache entry (the AOT cache's
+    preload hands entries here).  Once the library is resolved it stays:
+    True only when it is this entry's."""
+    global _state
+    with _lock:
+        if _state is not None:
+            return _state[2] == entry.digest
+        if os.environ.get("DL4J_TPU_DISABLE_NATIVE") or \
+                not _accepts(entry.lib):
+            return False
+        _state = (entry.lib, entry.path, entry.digest)
+    aotcache.note_installed(entry)
+    return True
+
+
+def _load() -> Optional[ctypes.CDLL]:
+    """The library (resolved at the first call), or None on the
+    fallbacks; a library from the AOT cache notes its use for the
+    ladders."""
+    global _state
+    with _lock:
+        if _state is None:
+            _state = _resolve()
+        lib, _path, digest = _state
+    aotcache.note_use(digest)
+    return lib
 
 
 def available() -> bool:
@@ -166,7 +281,7 @@ def backend() -> str:
 
 def library_path() -> Optional[str]:
     """The loaded library's file, or None on the fallbacks."""
-    return str(_path) if available() else None
+    return _state[1] if available() else None
 
 
 # ---------------------------------------------------------------- threads

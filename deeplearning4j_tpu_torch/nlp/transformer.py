@@ -23,8 +23,10 @@ The paged builders (``buildPagedDecodeFn``, ``buildPagedProposeFn``,
 (``remote/scheduler.py``) over a ``KVCachePool``'s buffers, which they
 write IN PLACE (the reference donates the buffers and returns new ones;
 these return the same tensors, so the call sites keep their shape).
-``compileCacheSize`` returns None: eager PyTorch keeps no jit cache to
-probe.
+``compileCacheSize`` returns None with the AOT cache off (the default):
+eager PyTorch keeps no jit cache to probe; with it configured, the fresh
+compiler runs of the ``prefill`` / ``decodeStep`` dispatches that
+``compile.aotcache.wrap_serving_model`` installs.
 """
 from __future__ import annotations
 
@@ -530,10 +532,13 @@ class TransformerLM(nn.Module):
             return poolK, poolV
         return write
 
-    def compileCacheSize(self) -> None:
-        """None: eager PyTorch keeps no executable cache to count (the
-        reference's probe of its jit caches)."""
-        return None
+    def compileCacheSize(self) -> Optional[int]:
+        """Fresh compiler runs of this LM's AOT dispatches; None with the
+        AOT cache off (eager PyTorch keeps no executable cache to count;
+        the reference's probe of its jit caches)."""
+        from deeplearning4j_tpu_torch.compile.aotcache import \
+            _dispatch_cache_size
+        return _dispatch_cache_size(self)
 
     # ------------------------------------------------------------------
     def generate(self, prompts, maxNewTokens: int, lengths=None

@@ -30,9 +30,11 @@ synchronisation point.  The pools are tensors the stepping thread writes
 in place (the reference donates them to each jitted step and swaps in
 the returned arrays).
 
-Where the port departs: eager PyTorch compiles nothing, so there is no
-warm-up compile count and no compile hit/miss accounting
-(``compileCacheSize`` returns None); ``warm()`` still runs every step
+Where the port departs: eager PyTorch compiles no executables, and the
+batcher's step functions are not AOT dispatches, so there is no warm-up
+compile count; ``compileCacheSize`` returns None with the AOT cache off
+(the default) and, with it configured, the fresh compiler runs of the
+LMs' dispatches (``compile.aotcache``); ``warm()`` still runs every step
 function and prompt bucket once.  ``device=`` moves the models to that
 ``torch.device`` (the one-device case of the reference's
 ``meshtrainer.place_replica``).  The tensor-parallel replica path
@@ -385,10 +387,14 @@ class ContinuousBatcher:
                 self.draft.buildPagedProposeFn(self.draftK)
             self._stepFns["dwrite"] = self.draft.buildPagedPrefillWriteFn()
 
-    def compileCacheSize(self) -> None:
-        """None: eager PyTorch keeps no executable cache (the reference
-        counts its jit-cache entries here)."""
-        return None
+    def compileCacheSize(self) -> Optional[int]:
+        """Fresh compiler runs of the target's and the draft's AOT
+        dispatches; None with the AOT cache off (eager PyTorch keeps no
+        executable cache; the reference counts its jit-cache entries
+        here)."""
+        from deeplearning4j_tpu_torch.compile.aotcache import \
+            _dispatch_cache_size
+        return _dispatch_cache_size(self.lm, self.draft)
 
     def _sync(self) -> None:
         if self._device.type == "cuda":

@@ -20,13 +20,19 @@ hosting, admission control — the port of
   behind ``POST /v1/serving/<name>`` (bare ``/v1/serving`` routes to the
   default model), with the shared observability GET surface.
 
-Where the port departs: eager PyTorch compiles nothing, so the adapters'
-``compileCacheSize`` returns None, there is no compile hit/miss accounting
-(``dl4j_tpu_serving_compile_cache_{hits,misses}_total`` and
-``dl4j_tpu_serving_warmup_compiles_total`` stay unset) and ``warm()`` wraps
-no AOT cache (``compile/aotcache.py`` waits for ROADMAP A12); ``warm()``
-still runs every bucket once (cuBLAS heuristics, the caching allocator)
-and times it into ``dl4j_tpu_serving_warmup_seconds``.  As in the
+Eager PyTorch compiles no executables; the port's compiled artifacts are
+its kernel and native libraries, which the AOT cache (``compile.aotcache``)
+keeps when it is configured.  With the cache on, ``warm()`` first wraps
+the model's entry points in the cache (``wrap_serving_model``), which
+preloads their ladders, the adapters' ``compileCacheSize`` returns the
+fresh compiler runs of those dispatches, and the compile accounting
+(``dl4j_tpu_serving_compile_cache_{hits,misses}_total``,
+``dl4j_tpu_serving_warmup_compiles_total``) counts them, as the
+reference's does.  The cache is off unless configured; then
+``compileCacheSize`` returns None and that accounting stays unset
+(ROADMAP C42).  Either way ``warm()`` runs every bucket once (cuBLAS
+heuristics, the caching allocator) and times it into
+``dl4j_tpu_serving_warmup_seconds``.  As in the
 reference, ``InferenceServer.start`` starts the OTLP exporter when
 ``DL4J_TPU_OTLP_ENDPOINT`` points at a collector.
 """
@@ -413,9 +419,13 @@ class ForwardServing:
             else:
                 self._run(np.zeros((B,) + key[1:], self.dtype), None)
 
-    def compileCacheSize(self) -> None:
-        """None: eager PyTorch keeps no executable cache to probe."""
-        return None
+    def compileCacheSize(self) -> Optional[int]:
+        """Fresh compiler runs of the model's AOT dispatches; None with the
+        AOT cache off (eager PyTorch keeps no executable cache to
+        probe)."""
+        from deeplearning4j_tpu_torch.compile.aotcache import \
+            _dispatch_cache_size
+        return _dispatch_cache_size(self.model)
 
 
 class GenerativeServing:
@@ -524,9 +534,13 @@ class GenerativeServing:
             self.lm.generate(toks, 2,
                              lengths=np.full(B, max(1, Tp // 2), np.int32))
 
-    def compileCacheSize(self) -> None:
-        """None: eager PyTorch keeps no executable cache to probe."""
-        return None
+    def compileCacheSize(self) -> Optional[int]:
+        """Fresh compiler runs of the LM's AOT dispatches; None with the
+        AOT cache off (eager PyTorch keeps no executable cache to
+        probe)."""
+        from deeplearning4j_tpu_torch.compile.aotcache import \
+            _dispatch_cache_size
+        return _dispatch_cache_size(self.lm)
 
 
 # ---------------------------------------------------------------------------
@@ -623,25 +637,39 @@ class BucketedExecutor:
         self._threads: List[threading.Thread] = []
         self._running = False
         self._warmed = False
+        self._cacheSeen: Optional[int] = None
+        self._acctLock = threading.Lock()
 
     # -- lifecycle -------------------------------------------------------
     def warm(self) -> float:
         """Run every ladder bucket once BEFORE traffic arrives (cuBLAS
-        heuristics, the caching allocator's first blocks; the reference
-        compiles here, and first wraps its executables in the AOT cache,
-        which waits for ROADMAP A12).  Returns the warm-up wall seconds,
-        which also land in ``dl4j_tpu_serving_warmup_seconds`` — the
-        server-start-to-ready cost an operator watches."""
+        heuristics, the caching allocator's first blocks).  With the AOT
+        cache configured, first wrap the model's entry points in it, which
+        preloads their ladders — warm boots then LOAD the kernel libraries
+        instead of compiling them — and count the fresh compiler runs the
+        ladder took into ``dl4j_tpu_serving_warmup_compiles_total``.
+        Returns the warm-up wall seconds, which also land in
+        ``dl4j_tpu_serving_warmup_seconds`` — the server-start-to-ready
+        cost an operator watches."""
         if self._warmed:
             return 0.0
         sm = serving_metrics()
         t0 = time.perf_counter()
+        from deeplearning4j_tpu_torch.compile.aotcache import \
+            wrap_serving_model
+        wrap_serving_model(getattr(self.serving, "model", None) or
+                           getattr(self.serving, "lm", None))
+        before = self.serving.compileCacheSize()
         _model_name.name = self.name
         try:
             for key in self.serving.warmKeys():
                 self.serving.warm(key)
         finally:
             _model_name.name = None
+        after = self.serving.compileCacheSize()
+        if before is not None and after is not None:
+            sm.warmup_compiles().inc(max(0, after - before),
+                                     model=self.name)
         self._warmed = True
         dt = time.perf_counter() - t0
         sm.warmup_seconds().observe(dt, model=self.name)
@@ -653,7 +681,13 @@ class BucketedExecutor:
         sm = serving_metrics()
         self.admission.bind(self.name)
         sm.queue_depth().set(0, model=self.name)
+        if self.serving.compileCacheSize() is not None:
+            # materialize the hit/miss cells at zero: a scrape (or
+            # hit-rate probe) must see an explicit 0, not an absent series
+            sm.compile_hits().inc(0, model=self.name)
+            sm.compile_misses().inc(0, model=self.name)
         self.warm()
+        self._cacheSeen = self.serving.compileCacheSize()
         self._running = True
         self._threads = []
         for i in range(self._workers):
@@ -812,6 +846,19 @@ class BucketedExecutor:
                 _model_name.name = None
                 continue
             _model_name.name = None
+            after = self.serving.compileCacheSize()
+            if after is not None:
+                # misses count fresh compiler runs (the dispatches' count
+                # past the high-water mark), hits count clean dispatches
+                with self._acctLock:
+                    seen = self._cacheSeen if self._cacheSeen is not None \
+                        else after
+                    if after > seen:
+                        sm.compile_misses().inc(after - seen,
+                                                model=self.name)
+                        self._cacheSeen = after
+                    else:
+                        sm.compile_hits().inc(model=self.name)
             now = time.perf_counter()
             hist = sm.request_seconds()
             for r, res in zip(batch, results):
@@ -824,11 +871,19 @@ class BucketedExecutor:
                 sm.p99_seconds().set(p99, model=self.name)
 
     # -- introspection ---------------------------------------------------
-    def compileHitRate(self) -> None:
-        """None: the port keeps no compile hit/miss accounting (eager
-        PyTorch compiles nothing; the reference returns hits / (hits +
-        misses))."""
-        return None
+    def compileHitRate(self) -> Optional[float]:
+        """hits / (hits + misses) since start; None before any traffic or
+        with the AOT cache off (then eager PyTorch compiles nothing and no
+        accounting is kept)."""
+        if self.serving.compileCacheSize() is None:
+            return None
+        sm = serving_metrics()
+        try:
+            h = sm.compile_hits().value(model=self.name)
+            m = sm.compile_misses().value(model=self.name)
+        except Exception:
+            return None
+        return h / (h + m) if (h + m) > 0 else None
 
 
 # ---------------------------------------------------------------------------

@@ -28,8 +28,9 @@ code), so each module is a copy or a cut of the reference's:
   supervised and micro-batch scopes, the step-phase histograms);
 - :mod:`.http` — the shared observability GET routing.
 
-The mesh, elastic, coordination and AOT-cache instruments wait for
-ROADMAP A10 and A12.  Metric names are the reference's letter for letter:
+The AOT-cache instruments (``AotCacheMetrics``, ``aot_metrics``) are
+here for ``compile.aotcache``; the mesh, elastic and coordination
+instruments wait for ROADMAP A10.  Metric names are the reference's letter for letter:
 ``dl4j_tpu_<subsystem>_<name>``, counters ending ``_total``.
 """
 from deeplearning4j_tpu_torch.telemetry.context import (  # noqa: F401
@@ -48,8 +49,8 @@ from deeplearning4j_tpu_torch.telemetry.health import (  # noqa: F401
     ReplicaStragglerRule, ThresholdRule, TrainingStallRule, default_rules,
     health_summary, recsys_hash_collision_rule)
 from deeplearning4j_tpu_torch.telemetry.instrument import (  # noqa: F401
-    STEP_PHASES, EtlMetrics, RecsysMetrics, ServingMetrics,
-    StepPhaseMetrics, clear_exemplars, etl_fetch, etl_metrics,
+    STEP_PHASES, AotCacheMetrics, EtlMetrics, RecsysMetrics, ServingMetrics,
+    StepPhaseMetrics, aot_metrics, clear_exemplars, etl_fetch, etl_metrics,
     exemplar_for, in_microbatch, latency_exemplars, microbatch_scope,
     note_etl_wait, observe_exemplar, observe_step_phase, record_crash,
     record_logical_step, recsys_metrics, serving_metrics,

@@ -4,20 +4,26 @@
 buckets letter for letter the reference's, so dashboards and alert rules
 work against either package) and the histogram exemplars
 (:func:`observe_exemplar`, :func:`exemplar_for`,
-:func:`latency_exemplars`).  The training, ETL, mesh, elastic,
-coordination and AOT-cache instruments wait for ROADMAP A10 and A12; the
-ETL namespace (:class:`EtlMetrics`, :func:`etl_metrics`,
-:func:`note_etl_wait`, :func:`etl_fetch`) is here, names and help text the
-reference's, for DataVec's pipelines, and so are the training instruments
-the models and the fault supervisor report through: the logical-step
-reporting (:func:`train_step_span`, :func:`record_logical_step`), the
-supervised and micro-batch scopes, :func:`record_crash` and the
-``dl4j_tpu_step_*`` step-phase histograms (:func:`observe_step_phase`).
+:func:`latency_exemplars`).  The mesh, elastic and coordination
+instruments wait for ROADMAP A10; the ETL namespace
+(:class:`EtlMetrics`, :func:`etl_metrics`, :func:`note_etl_wait`,
+:func:`etl_fetch`) is here, names and help text the reference's, for
+DataVec's pipelines, and so are the AOT-cache namespace
+(:class:`AotCacheMetrics`, :func:`aot_metrics`) that ``compile.aotcache``
+reports through and the training instruments the models and the fault
+supervisor report through: the logical-step reporting
+(:func:`train_step_span`, :func:`record_logical_step`), the supervised
+and micro-batch scopes, :func:`record_crash` and the ``dl4j_tpu_step_*``
+step-phase histograms (:func:`observe_step_phase`).
 
-In the port ``dl4j_tpu_serving_compile_cache_{hits,misses}_total`` and
-``dl4j_tpu_serving_warmup_compiles_total`` are never incremented: eager
-PyTorch compiles no executables, so the serving tier's
-``compileCacheSize`` probes return None (the reference tolerates that).
+Eager PyTorch compiles no executables: the only compiled artifacts are the
+kernel and native libraries, which the AOT cache stores when it is
+configured.  With the cache off (the default) the serving tier's
+``compileCacheSize`` probes return None, so
+``dl4j_tpu_serving_compile_cache_{hits,misses}_total``,
+``dl4j_tpu_serving_warmup_compiles_total`` and the train step's compile
+accounting stay unset (the reference tolerates that); with it on they
+count fresh compiler runs.
 """
 from __future__ import annotations
 
@@ -43,7 +49,8 @@ __all__ = ["EtlMetrics", "etl_metrics", "note_etl_wait", "RecsysMetrics",
            "record_crash", "etl_fetch", "supervised_scope",
            "microbatch_scope", "in_microbatch", "record_logical_step",
            "STEP_PHASES", "StepPhaseMetrics", "step_phase_metrics",
-           "observe_step_phase"]
+           "observe_step_phase", "AotCacheMetrics", "aot_metrics",
+           "AOT_LOAD_BUCKETS", "AOT_BAKE_BUCKETS"]
 
 #: serving latency spans sub-ms (warm MLP on-host) to tens of seconds
 #: (long-context decode) — finer low end than DEFAULT_BUCKETS so a p99
@@ -613,15 +620,31 @@ def _report_step(model, seconds: float, batch_size: int,
         **flight_extra)
 
 
+def _jit_cache_size(model):
+    """(fresh compiler runs, their seconds) of the model's AOT-dispatched
+    train step, or None with the AOT cache off: eager PyTorch keeps no jit
+    cache, so the step's compile accounting then stays unset."""
+    from deeplearning4j_tpu_torch.compile.aotcache import (aot_cache,
+                                                           bound_dispatch)
+    fn = bound_dispatch(model, "_trainStep")
+    if fn is None:
+        return (0, 0.0) if aot_cache() is not None else None
+    return fn._cache_size(), fn._freshSeconds
+
+
 @contextlib.contextmanager
 def train_step_span(model, batch_size: int):
     """Wrap one logical train step (the step / TBPTT chunk loop / line
     search iteration): step counter + step-time histogram + examples/sec
-    gauge + a ``step`` span + a FlightRecorder record.  Eager PyTorch
-    compiles no executable, so the reference's jit-cache accounting
-    (``dl4j_tpu_train_jit_cache_misses_total``) stays unset.  An
-    ``InvalidStepException`` inside an unsupervised step dumps the flight
-    ring (see :func:`record_crash`) and re-raises."""
+    gauge + a ``step`` span + a FlightRecorder record.  With the AOT cache
+    configured the step also reports its compile accounting, as the
+    reference's does: the kernel and native libraries the step had to
+    compile fresh (a cache load is not a compile) land in
+    ``dl4j_tpu_train_jit_cache_misses_total`` and their compiler seconds
+    in ``dl4j_tpu_train_compile_seconds_total``; with it off (the
+    default) both stay unset.  An ``InvalidStepException`` inside an
+    unsupervised step dumps the flight ring (see :func:`record_crash`) and
+    re-raises."""
     if getattr(_scope, "microbatch", False):
         # OOM-retry half-batches are not logical steps: the supervisor
         # keeps iterationCount at ONE step for the whole split, so the
@@ -630,6 +653,7 @@ def train_step_span(model, batch_size: int):
         with tracer().span("microbatch_step", batch=int(batch_size)):
             yield
         return
+    before = _jit_cache_size(model)
     t0 = time.perf_counter()
     try:
         with tracer().span("step", iteration=model.iterationCount,
@@ -650,7 +674,24 @@ def train_step_span(model, batch_size: int):
             else:
                 record_crash(f"{type(e).__name__}: {e}", model=model)
         raise
-    _report_step(model, time.perf_counter() - t0, batch_size)
+    dt = time.perf_counter() - t0
+    after = _jit_cache_size(model)
+    if before is not None and after is not None and after[0] > before[0]:
+        reg = get_registry()
+        reg.counter(
+            "dl4j_tpu_train_jit_cache_misses_total",
+            "Fused-step executable cache misses (recompiles)").inc(
+                after[0] - before[0])
+        reg.counter(
+            "dl4j_tpu_train_compile_seconds_total",
+            "Wall seconds of the kernel and native library compiler runs "
+            "a step started").inc(after[1] - before[1])
+        tracer().record_complete("compile", t0, dt,
+                                 args={"iteration": model.iterationCount})
+    if after is not None:
+        _report_step(model, dt, batch_size, jit_cache_size=after[0])
+    else:
+        _report_step(model, dt, batch_size)
 
 
 def record_logical_step(model, seconds: float, batch_size: int) -> None:
@@ -753,3 +794,82 @@ def observe_step_phase(phase: str, seconds: float,
     getattr(_STEP_PHASE_METRICS, f"{phase}_seconds")()
     observe_exemplar(f"dl4j_tpu_step_{phase}_seconds", seconds, tid,
                      attrs=attrs)
+
+
+# -- the AOT cache -------------------------------------------------------
+
+#: a library load is a disk read + checksum + dlopen: sub-ms to tens of
+#: ms for a few-MB kernel library — DEFAULT_BUCKETS has no resolution
+#: below 5 ms where most loads land
+AOT_LOAD_BUCKETS = (
+    0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
+    1.0, 2.5, 5.0)
+
+#: a bake is a full compiler run: about a second for the native library
+#: with g++ to tens of seconds for a Hopper kernel with nvcc
+AOT_BAKE_BUCKETS = (
+    0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0,
+    60.0, 120.0, 300.0)
+
+
+class AotCacheMetrics:
+    """The ``dl4j_tpu_aot_cache_*`` namespace, registered from ONE site
+    (names, labels and buckets the reference's).
+
+    ``compile.aotcache`` reports here: library-cache hits/misses by kind
+    (the dispatch's kind — train_step / output / prefill / decode — or
+    ``kernel`` / ``native`` for a lookup outside one), load and bake
+    latency, LRU evictions and quarantined (corrupt) entries.  The
+    warm-boot bar reads as: hits > 0 while
+    ``dl4j_tpu_train_compile_seconds_total`` and the serving compile-miss
+    counters stay ~0.  Accessors re-resolve through :func:`get_registry`
+    on every call (tests swap the registry).
+    """
+
+    def hits(self):
+        return get_registry().counter(
+            "dl4j_tpu_aot_cache_hits_total",
+            "Compiled libraries loaded from the persistent AOT cache "
+            "instead of compiled, by kind",
+            labelnames=("kind",))
+
+    def misses(self):
+        return get_registry().counter(
+            "dl4j_tpu_aot_cache_misses_total",
+            "AOT cache lookups that found no loadable entry (a fresh "
+            "compiler run follows), by kind",
+            labelnames=("kind",))
+
+    def load_seconds(self):
+        return get_registry().histogram(
+            "dl4j_tpu_aot_cache_load_seconds",
+            "Wall time to read, verify and load one cached library",
+            buckets=AOT_LOAD_BUCKETS)
+
+    def bake_seconds(self):
+        return get_registry().histogram(
+            "dl4j_tpu_aot_cache_bake_seconds",
+            "Wall time of the fresh compiler run behind one cache miss "
+            "(the cost the next boot skips)",
+            buckets=AOT_BAKE_BUCKETS)
+
+    def evictions(self):
+        return get_registry().counter(
+            "dl4j_tpu_aot_cache_evictions_total",
+            "Cache entries removed by LRU eviction to hold the "
+            "configured size bound")
+
+    def quarantined(self):
+        return get_registry().counter(
+            "dl4j_tpu_aot_cache_quarantined_total",
+            "Corrupt or unloadable cache entries moved to quarantine "
+            "(checksum or load failure; the caller compiled fresh)")
+
+
+_AOT_METRICS = AotCacheMetrics()
+
+
+def aot_metrics() -> AotCacheMetrics:
+    """Accessor for the shared AOT-cache metric namespace (see
+    :class:`AotCacheMetrics`)."""
+    return _AOT_METRICS

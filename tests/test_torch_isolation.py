@@ -288,7 +288,8 @@ def test_serving_tier_names_import_from_both_packages(module, name):
 # The reference's fault and telemetry names that wait for the parallel
 # layer (ROADMAP A10): the device-loss, partition, heartbeat, leader-crash
 # and barrier-kill faults, the elastic, coordination and chaos layers, and
-# the mesh, elastic, coordination and AOT-cache instruments.
+# the mesh, elastic and coordination instruments (the AOT-cache ones came
+# with ROADMAP A12h).
 A10_FAULT_NAMES = {
     "DelayedHeartbeat", "DeviceLossAtStep", "InjectedDeviceLoss",
     "KillAtBarrier", "LeaderCrashMidBarrier", "PartitionedHost",
@@ -304,8 +305,8 @@ A10_FAULT_NAMES = {
     "ReadmissionPolicy", "StaleGenerationError", "ChaosSoak",
     "ServingChaosSoak", "build_schedule", "build_serving_schedule"}
 A10_TELEMETRY_NAMES = {
-    "AotCacheMetrics", "CoordMetrics", "ElasticMetrics", "MeshMetrics",
-    "ReplicaTimingListener", "aot_metrics", "coord_metrics",
+    "CoordMetrics", "ElasticMetrics", "MeshMetrics",
+    "ReplicaTimingListener", "coord_metrics",
     "elastic_metrics", "mesh_metrics", "replica_step_gauge"}
 FAULT_TELEMETRY_MODULES = [
     "fault", "fault.injection", "fault.supervisor", "telemetry",
@@ -952,3 +953,55 @@ def test_rl_entry_points_default_to_cuda(name):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make()
     assert make(device="cpu").device == torch.device("cpu")
+
+
+# ROADMAP A12h: the AOT cache, the resource resolver and the native ops
+# (the twin of ``native.xla_ffi`` is ``native.ffi``).
+RUNTIME_TWINS = [("compile", "compile"), ("compile.aotcache",
+                                          "compile.aotcache"),
+                 ("utils.resources", "utils.resources"),
+                 ("utils", "utils"), ("native.xla_ffi", "native.ffi")]
+
+
+def test_runtime_leftover_modules_import_no_jax():
+    """The AOT cache, its ``aotc`` tool, the resource resolver and the
+    native custom ops, imported one after another in one fresh
+    interpreter: none loads ``jax`` or the JAX package."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    names = [f"deeplearning4j_tpu_torch.{m}" for m in (
+        "compile", "compile.aotcache", "compile.aotc", "utils.resources",
+        "native.ffi")]
+    proc = subprocess.run(
+        [sys.executable, "-c", _IMPORT_EACH.format(
+            names=names, forbidden=set(FORBIDDEN))],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "leaked: []" in proc.stdout
+
+
+@pytest.mark.parametrize("ref_module,port_module", RUNTIME_TWINS)
+def test_runtime_leftover_public_names_import_from_both_packages(
+        ref_module, port_module):
+    """ROADMAP C7 for A12h's twins: every public name the reference's
+    module defines or re-exports from its package resolves in the port's
+    twin, callable where the reference's is."""
+    import importlib
+    import types
+    ref = importlib.import_module(f"deeplearning4j_tpu.{ref_module}")
+    port = importlib.import_module(f"deeplearning4j_tpu_torch.{port_module}")
+    names = getattr(ref, "__all__", None) or [
+        n for n in dir(ref) if not n.startswith("_")
+        and not isinstance(getattr(ref, n), types.ModuleType)
+        and (getattr(getattr(ref, n), "__module__", None) or "")
+        .startswith("deeplearning4j_tpu.")]
+    if ref_module == "utils":
+        # utils/trees.py has no port (ROADMAP C43); the sharded
+        # checkpointer is exported from its own module
+        names = [n for n in names
+                 if n not in ("snapshot_tree", "ShardedCheckpointer")]
+    assert names
+    missing = [n for n in names if not hasattr(port, n)]
+    assert not missing, missing
+    for n in names:
+        if callable(getattr(ref, n)):
+            assert callable(getattr(port, n)), n
