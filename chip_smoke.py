@@ -606,6 +606,43 @@ a child's failure fails its phase:
    long-context net from that cache (no ladder in it yet) loads B1 and
    compiles nothing.
 
+Then the parallel layer's data and sequence axes (ROADMAP A10a,
+``parallel/``): one process is one rank of a ``torch.distributed`` group.
+The script needs one card, so the multi-rank arithmetic runs in
+two ways: NCCL at world 1 in this process, and four fresh ranks
+(``python3 chip_smoke.py --dp-child SPEC``, started after phase 1 built the
+kernels and this process released its cached memory) sharing the card over
+a ``gloo`` group chosen explicitly, every tensor on CUDA; a rank that fails
+fails its phase:
+
+81. ``config5_world1`` (``CONFIG5_*``): BASELINE config 5 —
+   ``SharedTrainingMaster`` and ``SparkDl4jMultiLayer`` over NCCL
+   (``connect(device="cuda")`` at world 1) on phase 10's ResNet-50 (1000
+   classes, 3 x 224 x 224, BFLOAT16, batch 64), two steps, against plain
+   ``ComputationGraph.fit`` from the same start (loss, BN running
+   statistics, parameters); no launch; ms a step under the wrapper against
+   plain fit, in turns; NCCL's all-reduce, reduce-scatter
+   (``reduce_scatter_tensor``) and all-gather on a CUDA bucket of the
+   gradient's size, checked and timed;
+82. ``dp_shared_card`` (``DP``): two ranks joining NCCL on the one card
+   must be refused ("Duplicate GPU detected"); two more probe whether gloo
+   takes CUDA tensors as they are (recorded, not required).  The
+   references run in this process; then four gloo ranks: the long-context
+   net (BFLOAT16, t 2048) at data 4, global batch 8, two steps through
+   ``ParallelWrapper.fitDataSet`` (each rank B1, B2 and B3 twice a step);
+   one FLOAT step of it against one process on the global batch, and the
+   same step under ``ZeroStage1`` against it (each rank holding a quarter
+   of every sharded Adam leaf); ResNet-50 FLOAT at data 4, global batch 64,
+   one step through ``SharedTrainingMaster`` against one process
+   (parameters, BN running statistics over the global batch, loss).  Each
+   rank's ms a step, collectives (calls, bytes, ms) and peak memory;
+83. ``ring_shared_card``: the same ranks as data 2 x seq 2: the
+   long-context net's attention layers route to ring attention, each rank
+   holding 1024 of the 2048 steps; each of the two K/V blocks of a layer
+   runs B1 forward and B2/B3 backward (4 launches of each a step and
+   rank); one FLOAT step against one process's flash step on the whole
+   sequence, and two BFLOAT16 steps timed.
+
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``.  With ``--record PATH`` it also
 writes the full record (every check, timing and profile row) as JSON.
@@ -705,6 +742,23 @@ B4_ACT_CONVS = ["res0_1_c_conv", "res1_1_a_conv", "res2_1_c_conv",
 # parameters hold to RESNET_STEP_PARAM_SHARE of the step's largest update.
 RESNET_STEP_TOL = dict(atol=1e-4, rtol=1e-4)
 RESNET_STEP_PARAM_SHARE = 0.1
+# The parallel layer (ROADMAP A10a).  Config 5 at world 1 is phase 10's
+# ResNet-50 (its widths, BFLOAT16, batch 64: the cut from bench.py's 256)
+# through SharedTrainingMaster over NCCL, two steps against plain fit from
+# the same start: the same kernels on the same rows (the collectives are
+# the identity at world 1), so the loss holds to bf16's 1e-2, the BN
+# running statistics to TOL["bfloat16"] and the parameters to
+# RESNET_STEP_PARAM_SHARE of the largest update (cuDNN's backward
+# algorithms may sum in another order from call to call).
+CONFIG5_TIMED, CONFIG5_LOSS_RTOL = 5, 1e-2
+# Four ranks share the one card over gloo (NCCL refuses two ranks on one
+# device): the long-context net at data 4 (global batch 8, 2 rows a rank;
+# BFLOAT16 for the main path, FLOAT for the check against one process,
+# held to TRAIN_LOSS_ATOL / TRAIN_PARAM_ATOL), ResNet-50 FLOAT at data 4
+# (global batch 64, held as phase 11 holds the card to the CPU), and the
+# ring at data 2 x seq 2 (global batch 4, each rank t 1024 of 2048).
+DP = dict(world=4, lc_batch=8, lc_steps=3, resnet_batch=64, ring_batch=4,
+          seed=21, child_timeout=480, nccl_timeout=120, probe_timeout=60)
 
 # Recurrent path: BASELINE config 4 at the widths of dl4j-examples'
 # LSTMCharModellingExample (lstmLayerSize 200, miniBatchSize 32,
@@ -2044,15 +2098,19 @@ def phase_train_outputs(torch, rec, params0, pool):
              f"flash and dense training steps disagree: {errs}")
 
 
-def phase_train_timing(torch, rec, net, pool):
+def _flash_timing(torch, shape, dtypes):
+    """B1, B2 and B3 at ``shape`` (b, h, tq, tk, d), not causal, in each of
+    ``dtypes``: ms and device ms beside the bound, the plain version and
+    SDPA's forward or backward (the yardstick), and the largest gap to the
+    plain version; printed, and returned by kernel and dtype."""
     import torch.nn.functional as F
     from deeplearning4j_tpu_torch.parallel.ring import (
         flash_attention_reference, flash_bwd_dkv, flash_bwd_dkv_reference,
         flash_bwd_dq, flash_bwd_dq_reference, flash_forward)
-    b, h, tq, tk, d = TRAIN_SHAPE
+    b, h, tq, tk, d = shape
     gen = torch.Generator(device="cuda").manual_seed(4)
     timing = {}
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in dtypes:
         dn, elem = str(dtype).split(".")[-1], dtype.itemsize
         q, do = (torch.randn((b, h, tq, d), generator=gen, device="cuda")
                  .to(dtype) for _ in range(2))
@@ -2092,7 +2150,7 @@ def phase_train_timing(torch, rec, net, pool):
         for name, (fn, plain, lib, (bound_ms, bound_by, flops, nbytes),
                    err) in rows.items():
             ms = _time_ms(torch, fn)
-            r = dict(shape=list(TRAIN_SHAPE), dtype=dn, causal=False, ms=ms,
+            r = dict(shape=list(shape), dtype=dn, causal=False, ms=ms,
                      plain_ms=_time_ms(torch, plain, iters=5, warmup=1),
                      library_ms=_time_ms(torch, lib) if lib else sdpa_bwd,
                      bound_ms=bound_ms, bound_by=bound_by, flops=flops,
@@ -2102,7 +2160,7 @@ def phase_train_timing(torch, rec, net, pool):
                      library_device_ms=_device_ms(torch, lib) if lib
                      else sdpa_bwd_dev)
             timing.setdefault(name, {})[dn] = r
-            print(f"{name} {dn} {list(TRAIN_SHAPE)}: {ms:.4f} ms "
+            print(f"{name} {dn} {list(shape)}: {ms:.4f} ms "
                   f"({r['achieved_tflops']:.2f} TFLOP/s), bound "
                   f"{bound_ms:.4f} ms ({bound_by}), plain "
                   f"{r['plain_ms']:.4f} ms, SDPA "
@@ -2110,6 +2168,12 @@ def phase_train_timing(torch, rec, net, pool):
                   f"{r['library_ms']:.4f} ms, max |d| {err:.3g}; device "
                   f"time {r['device_ms']} ms, SDPA {r['library_device_ms']}"
                   f" ms")
+    return timing
+
+
+def phase_train_timing(torch, rec, net, pool):
+    timing = _flash_timing(torch, TRAIN_SHAPE,
+                           (torch.bfloat16, torch.float32))
     rec["train_kernel_timing"] = timing
 
     for i in range(2):          # warm, as bench.py does
@@ -9928,6 +9992,677 @@ def phase_aot_bake(torch, rec, st, card):
           f"start {child['serve_start_s']:.3f} s); {card}")
 
 
+# ---------------------------------------------------------------------------
+# the parallel layer (ROADMAP A10a): config 5 over NCCL at world 1, then
+# four ranks on the one card over gloo
+# ---------------------------------------------------------------------------
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+class _Collectives:
+    """Wraps the parallel layer's collectives (``parallel.mesh`` and the
+    names ``parallel.meshtrainer`` imported) with counters: calls, bytes
+    handed in, and wall ms between two ``synchronize`` calls."""
+
+    NAMES = ("all_reduce_", "reduce_scatter", "all_gather_cat",
+             "broadcast_", "ring_exchange")
+
+    def __init__(self, torch):
+        from deeplearning4j_tpu_torch.parallel import mesh, meshtrainer
+        self.torch = torch
+        self.stats = {n: {"calls": 0, "bytes": 0, "ms": 0.0}
+                      for n in self.NAMES}
+        self._saved = []
+        for mod in (mesh, meshtrainer):
+            for n in self.NAMES:
+                fn = getattr(mod, n, None)
+                if fn is not None:
+                    self._saved.append((mod, n, fn))
+                    setattr(mod, n, self._timed(n, fn))
+
+    def _timed(self, name, fn):
+        torch, st = self.torch, self.stats[name]
+
+        def timed(t, *args, **kwargs):
+            ts = t if isinstance(t, (list, tuple)) else [t]
+            st["calls"] += 1
+            st["bytes"] += sum(x.numel() * x.element_size() for x in ts)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(t, *args, **kwargs)
+            torch.cuda.synchronize()
+            st["ms"] += 1e3 * (time.perf_counter() - t0)
+            return out
+        return timed
+
+    def close(self):
+        for mod, n, fn in self._saved:
+            setattr(mod, n, fn)
+        return {n: s for n, s in self.stats.items() if s["calls"]}
+
+
+def _dp_lc_pool(batch, seed, steps):
+    """Global batches of the long-context net, the same in every process."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    c = LONG_CONTEXT
+    rng = np.random.RandomState(seed)
+    return [DataSet(rng.randn(batch, c["nIn"], c["t"]).astype(np.float32),
+                    rng.randn(batch, c["nOut"], c["t"]).astype(np.float32))
+            for _ in range(steps)]
+
+
+def _dp_resnet_batch(batch):
+    """Phase 10's first batch (``RandomState(0)``), at ``batch`` rows."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    c = RESNET
+    rng = np.random.RandomState(0)
+    x = rng.randn(batch, *c["inputShape"]).astype(np.float32)
+    y = np.eye(c["numClasses"], dtype=np.float32)[
+        rng.randint(0, c["numClasses"], batch)]
+    return DataSet(x, y)
+
+
+def _lc_net(torch, data_type, params):
+    from deeplearning4j_tpu_torch.models import MultiLayerNetwork
+    return MultiLayerNetwork(_long_context_conf(data_type)).init(
+        params=params)
+
+
+def _cpu_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _cpu_tree(v) for k, v in tree.items()}
+    return tree.detach().cpu()
+
+
+def _dp_steps(torch, trainer_fit, pool):
+    """Step through ``pool`` with the counters set to 0 just before and
+    read just after; returns (ms per step, launches, collectives, peak GB).
+    """
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    coll = _Collectives(torch)
+    _reset_counters()
+    ms = []
+    try:
+        for ds in pool:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer_fit(ds)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+    finally:
+        stats = coll.close()
+    return ms, _counters(), stats, torch.cuda.max_memory_allocated() / 1e9
+
+
+def _dp_task_lc(torch, spec, rank):
+    """The long-context net (BFLOAT16, bench.py's) at data 4: the main
+    path's steps, B1-B3 twice a step on every rank."""
+    from deeplearning4j_tpu_torch.parallel import (DeviceMesh,
+                                                   ParallelWrapper, mesh)
+    params = torch.load(spec["lc_params"], map_location="cuda")
+    net = _lc_net(torch, "BFLOAT16", params)
+    m = DeviceMesh(data=spec["world"])
+    w = ParallelWrapper(net, mesh=m)
+    pool = _dp_lc_pool(DP["lc_batch"], DP["seed"], DP["lc_steps"])
+    ms, counts, coll, peak = _dp_steps(torch, w.fitDataSet, pool)
+    return {"step_ms": ms, "launches": counts, "collectives": coll,
+            "peak_gb": peak, "loss": net.score(),
+            "transport": mesh.transport(m.group("data"))}
+
+
+def _dp_task_lc_float(torch, spec, rank):
+    """One FLOAT step of the long-context net at data 4 (the check against
+    the single-process step), then the same step under ZeRO-1."""
+    from deeplearning4j_tpu_torch.models.multilayer import _iter_leaf_params
+    from deeplearning4j_tpu_torch.parallel import (DeviceMesh,
+                                                   ParallelWrapper,
+                                                   ZeroStage1)
+    params = torch.load(spec["lc_params"], map_location="cuda")
+    ds = _dp_lc_pool(DP["lc_batch"], DP["seed"], 1)[0]
+    out = {}
+    for tag in ("dp", "zero"):
+        net = _lc_net(torch, "FLOAT", params)
+        m = DeviceMesh(data=spec["world"])
+        if tag == "zero":
+            ZeroStage1(m).apply(net)
+        ms, counts, coll, peak = _dp_steps(
+            torch, ParallelWrapper(net, mesh=m).fitDataSet, [ds])
+        flat = net.params().torch
+        out[tag] = {"launches": counts, "loss": net.score(),
+                    "collectives": coll, "step_ms": ms}
+        if tag == "dp":
+            dp_flat = flat
+            if rank == 0:
+                torch.save(flat.cpu(), os.path.join(spec["dir"],
+                                                    "lc_float.pt"))
+        else:
+            out["zero_vs_dp"] = float((flat - dp_flat).abs().max())
+            held = whole = 0
+            for key, lp in net.params_.items():
+                for path, _n, v in _iter_leaf_params(lp):
+                    for t in net.optState_[key][path].values():
+                        if t.dim() == v.dim() and t.numel() < v.numel():
+                            held += t.numel()
+                            whole += v.numel()
+            out["zero_held_share"] = held / max(whole, 1)
+    return out
+
+
+def _dp_task_resnet(torch, spec, rank):
+    """ResNet-50 (FLOAT) through SharedTrainingMaster at data 4: one step of
+    the global batch of 64, BN over the global batch."""
+    from deeplearning4j_tpu_torch.datasets import ListDataSetIterator
+    from deeplearning4j_tpu_torch.parallel import (DeviceMesh,
+                                                   SharedTrainingMaster,
+                                                   SparkDl4jMultiLayer,
+                                                   VoidConfiguration)
+    params = torch.load(spec["resnet_params"], map_location="cuda")
+    net = _resnet_float(params, "cuda")
+    tm = (SharedTrainingMaster.Builder(VoidConfiguration())
+          .batchSizePerWorker(DP["resnet_batch"] // spec["world"])
+          .mesh(DeviceMesh(data=spec["world"])).build())
+    spark = SparkDl4jMultiLayer(None, net, tm)
+    ds = _dp_resnet_batch(DP["resnet_batch"])
+    ms, counts, coll, peak = _dp_steps(
+        torch, lambda d: spark.fit(ListDataSetIterator([d])), [ds])
+    if rank == 0:
+        torch.save({"params": net.params().torch.cpu(),
+                    "state": _cpu_tree(net.state_)},
+                   os.path.join(spec["dir"], "resnet.pt"))
+    return {"step_ms": ms, "launches": counts, "collectives": coll,
+            "peak_gb": peak, "loss": net.score()}
+
+
+def _dp_task_ring(torch, spec, rank):
+    """data 2 x seq 2: the long-context net's attention layers route to
+    the ring, each rank holding t/2 of the sequence; one FLOAT step (the
+    check) and the BFLOAT16 main path's steps."""
+    from deeplearning4j_tpu_torch.parallel import (DeviceMesh,
+                                                   ParallelWrapper, mesh)
+    params = torch.load(spec["lc_params"], map_location="cuda")
+    m = DeviceMesh(data=2, seq=2)
+    out = {"coords": dict(m.coords),
+           "transport": mesh.transport(m.group("seq"))}
+    net = _lc_net(torch, "FLOAT", params)
+    ds = _dp_lc_pool(DP["ring_batch"], DP["seed"] + 1, 1)[0]
+    ms, counts, coll, _ = _dp_steps(
+        torch, ParallelWrapper(net, mesh=m).fitDataSet, [ds])
+    out["float"] = {"step_ms": ms, "launches": counts, "collectives": coll,
+                    "loss": net.score()}
+    if rank == 0:
+        torch.save(net.params().torch.cpu(),
+                   os.path.join(spec["dir"], "ring_float.pt"))
+    net = _lc_net(torch, "BFLOAT16", params)
+    pool = _dp_lc_pool(DP["ring_batch"], DP["seed"] + 2, DP["lc_steps"])
+    ms, counts, coll, peak = _dp_steps(
+        torch, ParallelWrapper(net, mesh=m).fitDataSet, pool)
+    out["bf16"] = {"step_ms": ms, "launches": counts, "collectives": coll,
+                   "peak_gb": peak, "loss": net.score()}
+    return out
+
+
+_DP_TASKS = {"lc": _dp_task_lc, "lc_float": _dp_task_lc_float,
+             "resnet": _dp_task_resnet, "ring": _dp_task_ring}
+
+
+def _gloo_cuda_probe(torch, spec):
+    """Whether this gloo build takes CUDA tensors as they are (an
+    observation: the port stages them through pinned host memory by
+    backend).  The all-reduce's result is written before the point-to-point
+    try, which may end the process (gloo's TCP transport reading a device
+    pointer); the parent then reads the exit code and the log."""
+    import torch.distributed as dist
+    out = {"rank": spec["rank"]}
+    try:
+        t = torch.ones(8, device="cuda")
+        dist.all_reduce(t)
+        torch.cuda.synchronize()
+        out["all_reduce"] = "took" if float(t[0]) == spec["world"] else \
+            f"wrong sum {float(t[0])}"
+    except Exception as e:        # the refusal is the observation
+        out["all_reduce"] = f"{type(e).__name__}: {str(e)[:200]}"
+    with open(spec["out"], "w") as fh:
+        json.dump(out, fh)
+    peer = spec["rank"] ^ 1
+    try:
+        if spec["rank"] % 2 == 0:
+            dist.send(torch.full((8,), 1.0, device="cuda"), peer)
+        else:
+            dist.recv(torch.empty(8, device="cuda"), peer)
+        out["p2p"] = "took"
+    except Exception as e:        # the refusal is the observation
+        out["p2p"] = f"{type(e).__name__}: {str(e)[:200]}"
+    return out
+
+
+def _probe_summary(recs):
+    """Phase 82's gloo probe, one line a rank: the all-reduce's result and
+    what the point-to-point try did (its result, or how the process
+    ended and gloo's last words)."""
+    out = []
+    for r in recs:
+        p2p = r.get("p2p")
+        if p2p is None:
+            last = [ln for ln in r["log"].splitlines()
+                    if "gloo" in ln or "Error" in ln][-1:]
+            p2p = f"process exited {r.get('exit')}: {' '.join(last)[:200]}"
+        out.append({"all_reduce": r.get("all_reduce"), "p2p": p2p})
+    return out
+
+
+def _dp_child(spec_path) -> int:
+    """One rank of phases 82-83 (or of NCCL's refusal): the tasks of
+    ``spec_path``'s JSON, its record into the spec's ``out`` file."""
+    faulthandler.enable(all_threads=True)
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, ROOT)
+    with open(spec_path) as fh:
+        spec = json.load(fh)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from deeplearning4j_tpu_torch.parallel import SharedTrainingMaster
+    rank = spec["rank"]
+    out = {"rank": rank}
+    if spec["role"] == "nccl_pair":
+        # the backend connect picks for cuda: nccl, two ranks, one card
+        SharedTrainingMaster.connect(spec["init"], rank, spec["world"],
+                                     device="cuda", timeout=60)
+        out["backend"] = dist.get_backend()
+        try:
+            t = torch.ones(4, device="cuda")
+            dist.all_reduce(t)
+            torch.cuda.synchronize()
+            out["refused"] = None
+        except Exception as e:    # the refusal is the expected result
+            out["refused"] = f"{type(e).__name__}: {e}"
+        with open(spec["out"], "w") as fh:
+            json.dump(out, fh)
+        sys.stdout.flush()
+        os._exit(0)     # a refused NCCL communicator is not torn down
+    else:
+        SharedTrainingMaster.connect(spec["init"], rank, spec["world"],
+                                     backend="gloo", device="cuda",
+                                     timeout=300)
+        out["backend"] = dist.get_backend()
+        if spec["role"] == "gloo_probe":
+            out.update(_gloo_cuda_probe(torch, spec))
+        for task in spec["tasks"]:
+            t0 = time.perf_counter()
+            out[task] = _DP_TASKS[task](torch, spec, rank)
+            out[task]["task_s"] = time.perf_counter() - t0
+    with open(spec["out"], "w") as fh:
+        json.dump(out, fh)
+    dist.destroy_process_group()
+    return 0
+
+
+def _dp_start(st, role, world, tasks, init, env=None):
+    """Start ``world`` fresh ranks (``chip_smoke.py --dp-child``), each
+    with its output into a log file beside its record."""
+    procs = []
+    for r in range(world):
+        spec = {"role": role, "rank": r, "world": world,
+                "tasks": list(tasks), "init": init, "dir": st["root"],
+                "lc_params": st.get("lc_params"),
+                "resnet_params": st.get("resnet_params"),
+                "out": os.path.join(st["root"], f"{role}{r}.json"),
+                "log": os.path.join(st["root"], f"{role}{r}.log")}
+        path = os.path.join(st["root"], f"{role}{r}.spec.json")
+        with open(path, "w") as fh:
+            json.dump(spec, fh)
+        log = open(spec["log"], "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--dp-child", path],
+            cwd=ROOT, stdout=log, stderr=subprocess.STDOUT,
+            env=dict(os.environ, **(env or {}))), log, spec))
+    return role, procs
+
+
+def _dp_wait(started, timeout, tolerate=False):
+    """Wait for the ranks of :func:`_dp_start`, killing what is left at
+    ``timeout``; every rank's record, or the phase fails with the logs of
+    the ranks that failed.  ``tolerate``: a rank that failed gives its exit
+    code and the end of its log instead."""
+    role, procs = started
+    deadline = time.monotonic() + timeout
+    hung = []
+    for proc, _, _ in procs:
+        try:
+            proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            hung.append(proc)
+    for proc in hung:
+        proc.kill()
+    for proc, log, _ in procs:
+        proc.wait()
+        log.close()
+    recs = []
+    for r, (proc, _, spec) in enumerate(procs):
+        with open(spec["log"]) as fh:
+            text = fh.read()
+        if proc.returncode or not os.path.exists(spec["out"]):
+            if not tolerate:
+                sys.stderr.write(f"--- {role} rank {r}:\n" + text[-6000:])
+                raise PhaseFailed(
+                    f"{role} rank {r} exited {proc.returncode}"
+                    + (f" (killed at {timeout} s)" if proc in hung else ""))
+            part = {}
+            if os.path.exists(spec["out"]):
+                with open(spec["out"]) as fh:
+                    part = json.load(fh)
+            recs.append(dict(part, rank=r, exit=proc.returncode,
+                             log=text[-1500:]))
+            continue
+        with open(spec["out"]) as fh:
+            recs.append(dict(json.load(fh), log=text[-1500:]))
+    return recs
+
+
+def _launches_of(*recs):
+    return {k: sum(r["launches"][k] for r in recs)
+            for k in FLASH + ("matmul_bn_stats",)}
+
+
+def _coll_line(coll):
+    return ", ".join(f"{n} {s['calls']}x {s['bytes'] / 1e6:.1f} MB "
+                     f"{s['ms']:.1f} ms" for n, s in coll.items())
+
+
+def phase_config5_world1(torch, rec, card):
+    """BASELINE config 5 at world 1 over NCCL, in this process: ResNet-50
+    at phase 10's widths through SharedTrainingMaster and
+    SparkDl4jMultiLayer against plain ComputationGraph.fit from the same
+    start; the NCCL collectives on CUDA tensors of its gradient's size."""
+    import torch.distributed as dist
+    from deeplearning4j_tpu_torch.datasets import ListDataSetIterator
+    from deeplearning4j_tpu_torch.models import ComputationGraph
+    from deeplearning4j_tpu_torch.parallel import (DeviceMesh,
+                                                   ParallelWrapper,
+                                                   SharedTrainingMaster,
+                                                   SparkDl4jMultiLayer,
+                                                   VoidConfiguration)
+    from deeplearning4j_tpu_torch.parallel.mesh import (all_gather_cat,
+                                                        all_reduce_,
+                                                        reduce_scatter)
+    from deeplearning4j_tpu_torch.zoo import ResNet50
+    SharedTrainingMaster.connect(f"localhost:{_free_port()}", 0, 1,
+                                 device="cuda", timeout=120)
+    try:
+        _require(dist.get_backend() == "nccl",
+                 f"connect(device='cuda') joined {dist.get_backend()}")
+        net, params0, pool = _resnet_model(torch)
+        c = RESNET
+        plain = ComputationGraph(ResNet50(
+            numClasses=c["numClasses"], inputShape=c["inputShape"],
+            dataType="BFLOAT16").graphBuilder().build()).init(params=params0)
+        p0 = plain.params().torch.clone()
+        tm = (SharedTrainingMaster.Builder(VoidConfiguration())
+              .batchSizePerWorker(c["batch"]).build())
+        spark = SparkDl4jMultiLayer(None, net, tm)
+        torch.cuda.synchronize()
+        _reset_counters()
+        spark.fit(ListDataSetIterator(pool), epochs=1)
+        loss_w = net.score()
+        counts = _counters()
+        plain.fit(ListDataSetIterator(pool), epochs=1)
+        loss_p = plain.score()
+        p_w, p_p = net.params().torch, plain.params().torch
+        update = float((p_p.float() - p0.float()).abs().max())
+        e_p = float((p_w - p_p).abs().max())
+        e_s, ok_s = 0.0, True
+        for v, s in plain.state_.items():
+            for k in ("mean", "var"):
+                e, ok = _max_err(net.state_[v][k], s[k], **TOL["bfloat16"])
+                e_s, ok_s = max(e_s, e), ok_s and ok
+        rec["launches_config5"] = counts
+        # the step's timing: the wrapper's step against plain fit, in turns
+        w = ParallelWrapper(net, mesh=DeviceMesh())
+
+        def one(fn, ds):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(ds)
+            torch.cuda.synchronize()
+            return 1e3 * (time.perf_counter() - t0)
+        tw, tp = [], []
+        for i in range(CONFIG5_TIMED):
+            ds = pool[i % 2]
+            tp.append(one(plain.fit, ds))
+            tw.append(one(w.fitDataSet, ds))
+            tw.append(one(w.fitDataSet, ds))
+            tp.append(one(plain.fit, ds))
+        # NCCL at world 1 on a CUDA bucket of the gradient's size
+        g = dist.group.WORLD
+        n = net.numParams()
+        b = torch.randn(n, device="cuda")
+        ref = b.clone()
+        ok = bool(torch.equal(all_reduce_(b, g), ref))
+        rs = reduce_scatter(b, g)
+        ok = ok and bool(torch.equal(rs, ref))
+        ok = ok and bool(torch.equal(all_gather_cat(rs, g), ref))
+        ar_ms = _time_ms(torch, lambda: all_reduce_(b, g), iters=20)
+        rs_ms = _time_ms(torch, lambda: reduce_scatter(b, g), iters=20)
+        rec["config5_world1"] = dict(
+            loss_wrapper=loss_w, loss_plain=loss_p, params_err=e_p,
+            largest_update=update, state_err=e_s,
+            wrapper_ms=statistics.median(tw), plain_ms=statistics.median(tp),
+            wrapper_ms_all=tw, plain_ms_all=tp, nccl_ok=ok,
+            nccl_all_reduce_ms=ar_ms, nccl_reduce_scatter_ms=rs_ms,
+            bucket_mb=4 * n / 1e6, card=card)
+        print(f"config5_world1: SparkDl4jMultiLayer over nccl (world 1) "
+              f"{len(pool)} steps, loss {loss_w:.6g} vs plain fit "
+              f"{loss_p:.6g}; params |d|max {e_p:.3g} of the largest update "
+              f"{update:.3g}, BN stats |d|max {e_s:.3g}; launches {counts}; "
+              f"ms/step wrapper {statistics.median(tw):.1f} (min "
+              f"{min(tw):.1f}) vs plain {statistics.median(tp):.1f} (min "
+              f"{min(tp):.1f}), median of {len(tw)} in turns, batch "
+              f"{c['batch']}; nccl all_reduce {ar_ms:.3f} ms, "
+              f"reduce_scatter_tensor {rs_ms:.3f} ms on {4 * n / 1e6:.1f} "
+              f"MB at world 1; {card}")
+        _require(not any(counts.values()),
+                 f"config 5 launched a kernel: {counts}")
+        _require(abs(loss_w - loss_p) <= CONFIG5_LOSS_RTOL * abs(loss_p),
+                 f"loss {loss_w} against plain fit's {loss_p}")
+        _require(e_p <= RESNET_STEP_PARAM_SHARE * update and ok_s,
+                 f"the wrapper's steps differ from plain fit's: params "
+                 f"{e_p} (update {update}), BN stats {e_s}")
+        _require(ok, "NCCL collectives at world 1 changed the bucket")
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_dp_shared_card(torch, rec, card):
+    """NCCL's refusal of two ranks on one card, then four gloo ranks on the
+    card: the references in this process first, then the ranks (tasks
+    ``lc``, ``lc_float``, ``resnet``, ``ring``); checks the data-parallel
+    tasks and returns the state phase 83 reads."""
+    import math
+    import tempfile
+    from deeplearning4j_tpu_torch.models import MultiLayerNetwork
+    root = tempfile.mkdtemp(prefix=".dp_", dir=ROOT)
+    st = {"root": root, "lc_params": os.path.join(root, "lc_params.pt"),
+          "resnet_params": os.path.join(root, "resnet_params.pt")}
+    rec["dp_root"] = root
+    t0 = time.perf_counter()
+    pair = _dp_start(st, "nccl_pair", 2, (),
+                     f"tcp://localhost:{_free_port()}", {"NCCL_DEBUG": "WARN"})
+    probe = _dp_start(st, "gloo_probe", 2, (),
+                      f"file://{os.path.join(root, 'probe_rendezvous')}")
+    pair = _dp_wait(pair, DP["nccl_timeout"])
+    probe = _dp_wait(probe, DP["probe_timeout"], tolerate=True)
+    refusals = [r["refused"] for r in pair]
+    rec["nccl_two_ranks_one_card"] = refusals
+    rec["gloo_cuda"] = _probe_summary(probe)
+    print(f"nccl, two ranks on one card ({time.perf_counter() - t0:.1f} s):"
+          f" {refusals}")
+    print(f"gloo with CUDA tensors as they are (an observation; the port "
+          f"stages them through pinned host memory): {rec['gloo_cuda']}")
+    _require(all(r and "Duplicate GPU" in r + log for r, log in
+                 zip(refusals, (p["log"] for p in pair))),
+             f"NCCL did not refuse two ranks on one card: {refusals}")
+    # the references, single process, on the card
+    net = MultiLayerNetwork(_long_context_conf("FLOAT")).init()
+    params0 = _cpu_tree(net.params_)
+    torch.save(params0, st["lc_params"])
+    refs = {}
+    for key, ds in (("lc", _dp_lc_pool(DP["lc_batch"], DP["seed"], 1)[0]),
+                    ("ring", _dp_lc_pool(DP["ring_batch"], DP["seed"] + 1,
+                                         1)[0])):
+        net = _lc_net(torch, "FLOAT", params0)
+        _reset_counters()
+        net.fit(ds)
+        refs[key] = {"params": net.params().torch.cpu(),
+                     "loss": net.score(), "launches": _counters()}
+    rnet = _resnet_float(None, "cuda")
+    r0 = _cpu_tree(rnet.params_)
+    torch.save(r0, st["resnet_params"])
+    p0 = rnet.params().torch.cpu()
+    rnet.fit(_dp_resnet_batch(DP["resnet_batch"]))
+    refs["resnet"] = {"params": rnet.params().torch.cpu(), "p0": p0,
+                      "state": _cpu_tree(rnet.state_),
+                      "loss": rnet.score()}
+    del net, rnet
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    st["refs"] = refs
+    t0 = time.perf_counter()
+    ranks = _dp_wait(_dp_start(st, "dp", DP["world"],
+                               ("lc", "lc_float", "resnet", "ring"),
+                               f"file://{os.path.join(root, 'rendezvous')}"),
+                     DP["child_timeout"])
+    st["ranks"], st["ranks_s"] = ranks, time.perf_counter() - t0
+    print(f"dp_shared_card: {DP['world']} ranks over gloo on one card in "
+          f"{st['ranks_s']:.1f} s; {card}")
+    out = {"card": card, "ranks_s": st["ranks_s"]}
+    # the long-context net, BFLOAT16, data 4 (main path)
+    want = 2 * DP["lc_steps"]
+    for r in ranks:
+        lc = r["lc"]
+        print(f"  rank {r['rank']} lc bf16: ms/step {lc['step_ms']}, peak "
+              f"{lc['peak_gb']:.2f} GB, launches {lc['launches']}, "
+              f"transport {lc['transport']}, {_coll_line(lc['collectives'])}")
+        _require(all(lc["launches"][k] == want for k in FLASH)
+                 and lc["launches"]["matmul_bn_stats"] == 0,
+                 f"rank {r['rank']}: expected {want} launches of B1-B3, got "
+                 f"{lc['launches']}")
+        _require(lc["transport"] == "host", f"gloo's transport "
+                 f"{lc['transport']}")
+    losses = {r["lc"]["loss"] for r in ranks}
+    _require(len(losses) == 1 and all(math.isfinite(x) for x in losses),
+             f"the ranks' global losses differ or are not finite: {losses}")
+    # the FLOAT step against the single-process step; ZeRO-1 against DP
+    ref = refs["lc"]
+    got = torch.load(os.path.join(root, "lc_float.pt"))
+    e_p = float((got - ref["params"]).abs().max())
+    e_l = abs(ranks[0]["lc_float"]["dp"]["loss"] - ref["loss"])
+    zero = [r["lc_float"]["zero_vs_dp"] for r in ranks]
+    shares = [r["lc_float"]["zero_held_share"] for r in ranks]
+    out["lc_float"] = dict(params_err=e_p, loss_err=e_l, zero_vs_dp=zero,
+                           zero_held_share=shares)
+    print(f"  lc FLOAT step at data 4 vs one process on the global batch: "
+          f"loss |d| {e_l:.3g}, params |d|max {e_p:.3g} (atol "
+          f"{TRAIN_PARAM_ATOL}); ZeRO-1 vs DP |d|max {zero}, each rank "
+          f"holding {shares} of the sharded Adam leaves")
+    _require(e_l <= TRAIN_LOSS_ATOL and e_p <= TRAIN_PARAM_ATOL,
+             f"the data-parallel step differs from one process's: "
+             f"{out['lc_float']}")
+    _require(all(z <= TRAIN_PARAM_ATOL for z in zero)
+             and all(abs(s - 1 / DP["world"]) < 1e-9 for s in shares),
+             f"ZeRO-1 against DP: {zero}, held {shares}")
+    # ResNet-50 FLOAT at data 4 against one process on the global batch
+    ref = refs["resnet"]
+    got = torch.load(os.path.join(root, "resnet.pt"))
+    update = float((ref["params"] - ref["p0"]).abs().max())
+    e_p = float((got["params"] - ref["params"]).abs().max())
+    e_s, ok_s = 0.0, True
+    for v, s in ref["state"].items():
+        for k in ("mean", "var"):
+            e, ok = _max_err(got["state"][v][k], s[k], **RESNET_STEP_TOL)
+            e_s, ok_s = max(e_s, e), ok_s and ok
+    e_l = abs(ranks[0]["resnet"]["loss"] - ref["loss"])
+    out["resnet"] = dict(params_err=e_p, largest_update=update,
+                         state_err=e_s, loss_err=e_l)
+    for r in ranks:
+        rn = r["resnet"]
+        print(f"  rank {r['rank']} ResNet-50 FLOAT: ms/step "
+              f"{rn['step_ms']}, peak {rn['peak_gb']:.2f} GB, launches "
+              f"{rn['launches']}, {_coll_line(rn['collectives'])}")
+    print(f"  ResNet-50 FLOAT step at data 4 (global batch "
+          f"{DP['resnet_batch']}) vs one process: loss |d| {e_l:.3g}, BN "
+          f"running stats |d|max {e_s:.3g} ({RESNET_STEP_TOL}), params "
+          f"|d|max {e_p:.3g} = {e_p / update:.3g} of the largest update")
+    _require(ok_s and e_l <= RESNET_STEP_TOL["rtol"] * abs(ref["loss"])
+             and e_p <= RESNET_STEP_PARAM_SHARE * update,
+             f"ResNet-50 at data 4 differs from one process: "
+             f"{out['resnet']}")
+    _require(not any(_launches_of(*(r["resnet"] for r in ranks)).values()),
+             "ResNet-50 at data 4 launched a kernel")
+    rec["dp_shared_card"] = out
+    rec["launches_parallel"] = _launches_of(
+        *(r["lc"] for r in ranks), *(r["lc_float"]["dp"] for r in ranks),
+        *(r["lc_float"]["zero"] for r in ranks),
+        *(r["resnet"] for r in ranks))
+    return st
+
+
+def phase_ring_shared_card(torch, rec, st, card):
+    """Phase 82's ranks as data 2 x seq 2: each ring block ran B1 forward
+    and B2/B3 backward (two blocks a layer, two layers); the FLOAT step
+    against the single-process flash step on the whole sequence."""
+    import math
+    ranks, ref = st["ranks"], st["refs"]["ring"]
+    per_step = 2 * 2            # blocks x attention layers, not causal
+    for r in ranks:
+        rg = r["ring"]
+        print(f"  rank {r['rank']} {rg['coords']} ring: FLOAT launches "
+              f"{rg['float']['launches']}; bf16 ms/step "
+              f"{rg['bf16']['step_ms']}, peak {rg['bf16']['peak_gb']:.2f} "
+              f"GB, launches {rg['bf16']['launches']}, transport "
+              f"{rg['transport']}, {_coll_line(rg['bf16']['collectives'])}")
+        _require(all(rg["float"]["launches"][k] == per_step for k in FLASH)
+                 and all(rg["bf16"]["launches"][k] ==
+                         per_step * DP["lc_steps"] for k in FLASH),
+                 f"rank {r['rank']}: expected {per_step} launches of B1-B3 "
+                 f"a step, got {rg['float']['launches']} and "
+                 f"{rg['bf16']['launches']}")
+        _require(math.isfinite(rg["bf16"]["loss"]),
+                 f"rank {r['rank']}: ring loss {rg['bf16']['loss']}")
+    got = torch.load(os.path.join(st["root"], "ring_float.pt"))
+    e_p = float((got - ref["params"]).abs().max())
+    e_l = abs(ranks[0]["ring"]["float"]["loss"] - ref["loss"])
+    rec["ring_shared_card"] = dict(
+        params_err=e_p, loss_err=e_l, launches_per_step=per_step,
+        single_launches=ref["launches"], card=card)
+    print(f"ring_shared_card: data 2 x seq 2, t {LONG_CONTEXT['t']} "
+          f"({LONG_CONTEXT['t'] // 2} a rank), FLOAT step vs one process's flash step on the whole "
+          f"sequence: loss |d| {e_l:.3g}, params |d|max {e_p:.3g} (atol "
+          f"{TRAIN_PARAM_ATOL}); B1/B2/B3 {per_step} each a step and rank; "
+          f"one process: {ref['launches']}; {card}")
+    _require(e_l <= TRAIN_LOSS_ATOL and e_p <= TRAIN_PARAM_ATOL,
+             f"the ring's step differs from one process's flash step: "
+             f"{rec['ring_shared_card']}")
+    # B1-B3 at the ring's block shape (this rank's 2 rows, t 1024 a block)
+    c = LONG_CONTEXT
+    block = (DP["ring_batch"] // 2, c["nHeads"], c["t"] // 2, c["t"] // 2,
+             c["headSize"])
+    rec["ring_kernel_timing"] = _flash_timing(torch, block,
+                                              (torch.bfloat16,))
+    rec["launches_parallel"] = {
+        k: rec["launches_parallel"][k] + sum(
+            r["ring"][t]["launches"][k] for r in ranks
+            for t in ("float", "bf16"))
+        for k in rec["launches_parallel"]}
+
+
 def _kernel_entry(name, replaces, launches, t):
     return {"name": name, "route": "cuda",
             "source": f"deeplearning4j_tpu_torch/csrc/{name}.cu",
@@ -9940,6 +10675,8 @@ def _kernel_entry(name, replaces, launches, t):
 def main(argv) -> int:
     if "--aot-child" in argv:
         return _aot_child(argv[argv.index("--aot-child") + 1])
+    if "--dp-child" in argv:
+        return _dp_child(argv[argv.index("--dp-child") + 1])
     record = argv[argv.index("--record") + 1] if "--record" in argv \
         else None
     # a fatal signal (a fault in native code on any thread) prints every
@@ -10193,6 +10930,21 @@ def main(argv) -> int:
                 shutil.rmtree(st["root"], ignore_errors=True)
         else:
             failed.append("aot_phases")
+        # the parallel layer: config 5 over NCCL at world 1, NCCL's refusal
+        # of two ranks on one card, then four gloo ranks sharing the card
+        # (data 4, ZeRO-1, and the ring at data 2 x seq 2)
+        torch.cuda.empty_cache()
+        run("config5_world1", phase_config5_world1, torch, rec, card)
+        torch.cuda.empty_cache()
+        st = run("dp_shared_card", phase_dp_shared_card, torch, rec, card)
+        if st is not None:
+            run("ring_shared_card", phase_ring_shared_card, torch, rec, st,
+                card)
+        else:
+            failed.append("ring_shared_card")
+        if rec.get("dp_root"):
+            import shutil
+            shutil.rmtree(rec["dp_root"], ignore_errors=True)
 
     rec["card"] = card
     rec["failed"] = failed
@@ -10220,7 +10972,9 @@ def main(argv) -> int:
     # learning, the hyperparameter search) add none (each checked zero);
     # the AOT phases' children add theirs (B1-B3: each child's prefill and
     # two steps, the supervised runs' 2 a step, and B1 in each server's
-    # warm-up over the long-context net).
+    # warm-up over the long-context net); the parallel phases' ranks add
+    # theirs (B1-B3 at data 4: 2 a step and rank; in the ring 4 a step and
+    # rank, one per K/V block and layer), config 5 none.
     # B1's times are at the serving shape (f32, causal), B2's and B3's at
     # the training shape in its dtype (bf16, not causal), B4's at ResNet-50's
     # stage-0 shape in bf16; the record holds the other shapes too.
@@ -10232,6 +10986,8 @@ def main(argv) -> int:
                 + rec["launches_fault"][k]
                 + rec["launches_observability"][k]
                 + rec["launches_aot"][k]
+                + rec["launches_config5"][k]
+                + rec["launches_parallel"][k]
                 + sum(c[k] for c in rec["launches_no_kernel_phases"].values())
                 for k in serve}
     m, k, n = B4_RESNET_SHAPES[0]

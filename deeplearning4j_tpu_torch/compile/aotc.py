@@ -29,7 +29,7 @@ Usage::
 Models are built on ``--device`` (default ``cuda``, the port's default);
 ``--device cpu`` bakes no kernel library, since nothing on the CPU
 launches one.  ``--mesh-data`` (a sharded train step) waits for the
-parallel layer and raises naming ROADMAP A10.  Prints one JSON line per
+AOT cache's mesh half and raises naming ROADMAP A10b.  Prints one JSON line per
 subcommand.
 """
 from __future__ import annotations
@@ -122,7 +122,7 @@ def cmd_bake(args) -> dict:
     if args.mesh_data:
         raise NotImplementedError(
             "aotc: --mesh-data bakes a sharded train step, which waits for "
-            "the parallel layer (ROADMAP A10)")
+            "the AOT cache's mesh half (ROADMAP A10b)")
     set_aot_cache(args.cache_dir)
     cache = aot_cache()
     if cache is None:
@@ -208,7 +208,7 @@ def main(argv=None) -> int:
     bake.add_argument("--train", action="store_true",
                       help="also drive the train step per batch")
     bake.add_argument("--mesh-data", type=int, default=0,
-                      help="a sharded train step: waits for ROADMAP A10")
+                      help="a sharded train step: waits for ROADMAP A10b")
     bake.add_argument("--lm", help="vocab,layers,heads,headSize,maxLen "
                                    "TransformerLM")
     bake.add_argument("--gen-batches", default="1,2,4",

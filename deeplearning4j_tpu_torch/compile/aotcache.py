@@ -33,7 +33,7 @@ executable (ROADMAP C42):
 
 A group is the digest of (kind, the wrapped function's identity,
 :func:`model_digest`, :func:`device_fingerprint` — a plan's digest
-instead once the parallel layer lands, ROADMAP A10 — and
+instead once the AOT cache's mesh half lands, ROADMAP A10b — and
 :func:`version_fingerprint`), as in the reference.
 
 The cache is OFF unless configured: set ``DL4J_TPU_AOT_CACHE_DIR`` (or
@@ -167,11 +167,11 @@ def model_digest(model) -> str:
 
 
 def plan_digest(plan) -> str:
-    """Digest of a ShardingPlan — the port has no plan until the parallel
-    layer lands (ROADMAP A10), so this raises naming it."""
+    """Digest of a ShardingPlan — keying the cache by a plan is the AOT
+    cache's mesh half (ROADMAP A10b), so this raises naming it."""
     raise NotImplementedError(
-        "plan_digest needs a ShardingPlan, which waits for the parallel "
-        "layer (ROADMAP A10)")
+        "plan_digest: keying the AOT cache by a ShardingPlan (its mesh "
+        "half) waits for ROADMAP A10b")
 
 
 def device_fingerprint(devices: Optional[Sequence] = None) -> List:
@@ -834,7 +834,7 @@ def wrap_jit(fn, *, kind: str, model=None, plan=None,
     process-global cache is configured; otherwise return it UNCHANGED
     (zero behaviour change with the cache off).  ``model`` / ``plan``
     contribute their digests to the group — a plan raises naming ROADMAP
-    A10, which falls back to the unwrapped callable like any key that
+    A10b, which falls back to the unwrapped callable like any key that
     cannot be made."""
     cache = aot_cache()
     if cache is None:
@@ -928,7 +928,7 @@ def preload_model(model) -> int:
     step's timed span — so restart-to-first-step pays library LOADS here,
     not compiler runs inside the step.  Returns the libraries of the
     group now loaded; 0 with the cache off.  A mesh facade waits for
-    ROADMAP A10."""
+    ROADMAP A10b."""
     if aot_cache() is None or model is None:
         return 0
     net = getattr(model, "model", model)

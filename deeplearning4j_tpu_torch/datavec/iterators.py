@@ -229,7 +229,8 @@ class AsyncDataSetIterator(DataSetIterator):
 
     def setDevice(self, device) -> None:
         """Route the prefetch H2D through ``device`` (a ``torch.device``;
-        sharded placement waits for ROADMAP A10).  The consumer reads it
+        a data-parallel rank keeps its rows in the model's step,
+        ``parallel.MeshTrainer``).  The consumer reads it
         live; set it before or between fits."""
         self._device = device
 

@@ -534,8 +534,9 @@ class PrefetchingDataSetIterator(DataSetIterator):
     double buffered; the pinned ring holds one buffer more), ``shmBytes``
     (per-slot capacity; an oversized batch is pickled through the queue
     instead).  ``device``: a ``torch.device`` (or its name) the batches
-    are staged onto; None or the CPU hands out CPU arrays.  Sharded
-    placement waits for ROADMAP A10.
+    are staged onto; None or the CPU hands out CPU arrays.  A
+    data-parallel rank keeps its rows in the model's step
+    (``parallel.MeshTrainer``).
     """
 
     def __init__(self, source, numWorkers: int = 2, queueDepth: int = 4,

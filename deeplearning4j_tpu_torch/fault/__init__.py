@@ -6,8 +6,8 @@ semantics and :mod:`deeplearning4j_tpu_torch.fault.injection` for the
 harness that exercises every path (NaN at step k, simulated preemption,
 checkpoint corruption, device OOM, a stalled loop, slow/failing data
 fetches) and for the serving tier's hooks.  The elastic, coordination and
-chaos layers and their mesh faults wait for the parallel layer (ROADMAP
-A10).
+chaos layers and their mesh faults wait for the mesh half of the
+parallel layer (ROADMAP A10b).
 """
 from deeplearning4j_tpu_torch.fault.injection import (  # noqa: F401
     ClientHangupAtToken, CorruptCheckpointAtStep, DeadlineStorm,

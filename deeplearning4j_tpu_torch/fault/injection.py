@@ -30,7 +30,7 @@ The serving hooks: a replica crash armed by name and consumed by the
 continuous batcher at its next decode step, the dead-replica set its
 health probe reads, and an injected per-replica slowdown.  The
 device-loss, partition, heartbeat, leader-crash and barrier-kill faults
-serve the elastic and coordination layers, which wait for ROADMAP A10.
+serve the elastic and coordination layers, which wait for ROADMAP A10b.
 """
 from __future__ import annotations
 

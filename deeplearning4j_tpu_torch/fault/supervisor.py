@@ -41,8 +41,8 @@ Usage::
     trainer.fit(iterator, epochs=10)    # re-run after a kill: auto-resumes
 
 Supervising a ``ParallelWrapper`` (and the mesh-trainer hooks around the
-checkpoint), and the elastic re-meshing one layer up, wait for the
-parallel layer (ROADMAP A10).
+checkpoint), and the elastic re-meshing one layer up, wait for the mesh
+half of the parallel layer (ROADMAP A10b).
 """
 from __future__ import annotations
 
@@ -176,8 +176,8 @@ class FaultTolerantTrainer:
                  cadenceRestoreSeconds: Optional[float] = 600.0):
         if hasattr(model, "model"):
             raise NotImplementedError(
-                "supervising a ParallelWrapper waits for the parallel "
-                "layer (ROADMAP A10); pass the net itself")
+                "supervising a ParallelWrapper (the mesh half of fault/) "
+                "waits for ROADMAP A10b; pass the net itself")
         self.net = model
         self.ckpt = ShardedCheckpointer(checkpointDir, keepLast=keepLast)
         self.checkpointEveryN = max(1, int(checkpointEveryN))

@@ -34,10 +34,10 @@ from deeplearning4j_tpu_torch.eval.evaluation import Evaluation
 from deeplearning4j_tpu_torch.models.graph_conf import \
     ComputationGraphConfiguration
 from deeplearning4j_tpu_torch.models.multilayer import (
-    _HALF_TYPES, _apply_updates, _cast_tree, _detached_leaves,
-    _frozen_keys, _grads_of, _iter_leaf_params, _leaves, _panic_step,
-    _reg_penalty, _set_leaf, _solver_step, _to_device, _to_tensor,
-    _tree_map, _updater_for)
+    _HALF_TYPES, _cast_tree, _check_solver_unsharded,
+    _detached_leaves, _frozen_keys, _grads_of, _iter_leaf_params, _leaves,
+    _local_rows, _panic_step, _reg_penalty, _set_leaf, _solver_step,
+    _step_updates, _to_device, _to_tensor, _tree_map, _updater_for)
 from deeplearning4j_tpu_torch.nn.conf import BackpropType
 from deeplearning4j_tpu_torch.nn.conf.layers import Layer
 from deeplearning4j_tpu_torch.ops.ndarray import NDArray
@@ -72,6 +72,7 @@ class ComputationGraph:
         self._listeners: List = []
         self._solver = None      # the line-search solver, once bound
         self._lrScale = 1.0      # FaultTolerantTrainer's divergence backoff
+        self._batchSharding = None  # set by MeshTrainer (DP over a mesh)
 
     def setLrScale(self, scale: float) -> None:
         """See ``MultiLayerNetwork.setLrScale`` — the fault supervisor's
@@ -80,6 +81,11 @@ class ComputationGraph:
 
     def getLrScale(self) -> float:
         return self._lrScale
+
+    def setBatchSharding(self, sharding) -> None:
+        """See ``MultiLayerNetwork.setBatchSharding``: every input, label
+        and mask array of a step is cut to this rank's rows."""
+        self._batchSharding = sharding
 
     # ------------------------------------------------------------------
     def init(self, params: Optional[Dict] = None) -> "ComputationGraph":
@@ -259,6 +265,10 @@ class ComputationGraph:
     def _fitBatch(self, ds) -> None:
         inputs, labels, masks, fmask = self._batch(ds)
         self.lastBatchSize = int(inputs[0].shape[0])
+        if self._batchSharding is not None:
+            inputs, labels, masks, fmask = (
+                None if t is None else _local_rows(self, *t)
+                for t in (inputs, labels, masks, fmask))
         algo = str(self.conf.globalConf.get("optimizationAlgo")
                    or "STOCHASTIC_GRADIENT_DESCENT").upper()
         # TBPTT needs per-timestep (rank-3) labels on every output (the
@@ -280,6 +290,7 @@ class ComputationGraph:
                             self.iterationCount, self.epochCount)
 
     def _runSolverStep(self, inputs, labels, masks, fmask, algo: str):
+        _check_solver_unsharded(self)
         _solver_step(self, algo, self._rngSeed ^ 0x6EED,
                      lambda p, gen, ins, labs, mks, fm: self._lossFn(
                          p, ins, labs, mks, True, gen, fm)[0],
@@ -302,10 +313,8 @@ class ComputationGraph:
             carries)
         grads = _grads_of(loss, leaves)
         with torch.no_grad():
-            self.params_, self.optState_ = _apply_updates(
-                units, self.conf.globalConf, self.params_, grads,
-                self.optState_, self.iterationCount, self.epochCount,
-                self._lrScale)
+            self.params_, self.optState_, loss = _step_updates(
+                self, units, grads, loss, inputs[0].shape[0])
         self.state_.update(new_state)
         # left on the device: score() reads it, so a step never waits on
         # the host

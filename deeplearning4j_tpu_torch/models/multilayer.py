@@ -41,7 +41,12 @@ updater's step.  The step dispatches through ``_trainStep``: with the AOT
 cache configured (``compile.aotcache``; off unless configured) that is an
 ``AotDispatch`` whose ladder lists the kernel libraries the step uses, so
 a warm boot loads them instead of compiling; with it off, the step itself.
-Not ported yet: the mesh hooks (A10).
+
+Under a ``parallel.MeshTrainer`` step (``setBatchSharding`` set, a plan
+active) the step takes this rank's rows of the batch, and the plan's
+collectives run between the gradients and the updaters
+(``ShardingPlan.update``): the mean gradient over the global batch, and
+the global loss for ``score()``.
 """
 from __future__ import annotations
 
@@ -306,19 +311,27 @@ def _apply_updates(units, globalConf, params, grads, optState, iteration,
         new_opt[key] = {}
         g = _grad_normalize(layer, grads[key])
         for path, pname, pval in _iter_leaf_params(params[key]):
-            up = _updater_for(globalConf, layer, pname)
-            lr = up.currentLr(iteration, epoch)
-            update, ostate = up.apply(_get_leaf(g, path),
-                                      optState[key][path], lr, iteration,
-                                      epoch, param=pval)
-            wd = getattr(layer, "weightDecay", None)
-            if wd and pname in layer.weightParamKeys():
-                update = WeightDecay(coeff=wd).apply(pval, update, lr)
-            if lrScale != 1.0:
-                update = update * lrScale
-            _set_leaf(new_params[key], path, pval - update)
-            new_opt[key][path] = ostate
+            new, new_opt[key][path] = _update_leaf(
+                globalConf, layer, pname, pval, _get_leaf(g, path),
+                optState[key][path], iteration, epoch, lrScale)
+            _set_leaf(new_params[key], path, new)
     return new_params, new_opt
+
+
+def _update_leaf(globalConf, layer, pname: str, pval, g, ostate, iteration,
+                 epoch, lrScale: float = 1.0):
+    """One leaf's step of :func:`_apply_updates`: ``(new value, new
+    updater state)``.  Elementwise, so it takes a slice of a leaf with
+    the same slice of its gradient and state (ZeRO-1's sharded update)."""
+    up = _updater_for(globalConf, layer, pname)
+    lr = up.currentLr(iteration, epoch)
+    update, ostate = up.apply(g, ostate, lr, iteration, epoch, param=pval)
+    wd = getattr(layer, "weightDecay", None)
+    if wd and pname in layer.weightParamKeys():
+        update = WeightDecay(coeff=wd).apply(pval, update, lr)
+    if lrScale != 1.0:
+        update = update * lrScale
+    return pval - update, ostate
 
 
 def _reg_penalty(pairs):
@@ -338,6 +351,38 @@ def _reg_penalty(pairs):
                 if l1:
                     total = total + L1Regularization(l1).score(w)
     return total
+
+
+def _local_rows(model, *arrays):
+    """This rank's rows of each batch array under a MeshTrainer step (the
+    arrays as they are otherwise)."""
+    if model._batchSharding is None:
+        return arrays
+    return tuple(model._batchSharding.rows(a) for a in arrays)
+
+
+def _step_updates(model, units, grads, loss, rows: int):
+    """``(params, optState, loss)`` after one step's updaters: under an
+    active ``ShardingPlan`` through its collectives (the global mean
+    gradient and the global loss), else the updaters as they are."""
+    from deeplearning4j_tpu_torch.parallel.mesh import active_plan
+    plan = active_plan()
+    if plan is not None:
+        return plan.update(model, units, grads, loss, int(rows))
+    return (*_apply_updates(units, model.conf.globalConf, model.params_,
+                            grads, model.optState_, model.iterationCount,
+                            model.epochCount, model._lrScale), loss)
+
+
+def _check_solver_unsharded(model) -> None:
+    """The line-search solvers probe the loss many times a step; under a
+    data plan each probe would need the global loss (ROADMAP A10b)."""
+    from deeplearning4j_tpu_torch.parallel.mesh import A10B, active_plan
+    plan = active_plan()
+    if plan is not None and plan._replica_size() > 1:
+        raise NotImplementedError(
+            "the line-search solvers (optimizationAlgo other than SGD) over "
+            f"a data-parallel mesh wait for {A10B}")
 
 
 def _panic_step(model) -> None:
@@ -374,6 +419,7 @@ class MultiLayerNetwork:
         self._rnnCarries = None  # rnnTimeStep's stored state, by layer
         self._solver = None      # the line-search solver, once bound
         self._lrScale = 1.0      # FaultTolerantTrainer's divergence backoff
+        self._batchSharding = None  # set by MeshTrainer (DP over a mesh)
 
     def setLrScale(self, scale: float) -> None:
         """Global multiplier on every updater's step size (the fault
@@ -383,6 +429,12 @@ class MultiLayerNetwork:
 
     def getLrScale(self) -> float:
         return self._lrScale
+
+    def setBatchSharding(self, sharding) -> None:
+        """Set by ``parallel.MeshTrainer`` around its steps: each step takes
+        ``sharding.rows(a)`` of every batch array (this rank's rows over
+        the data axis); None (the default) takes the whole batch."""
+        self._batchSharding = sharding
 
     def _cast_compute(self, tree):
         return _cast_tree(tree, self._computeDtype)
@@ -536,6 +588,7 @@ class MultiLayerNetwork:
         fmask = self._on_device(ds.featuresMask)
         lmask = self._on_device(ds.labelsMask)
         self.lastBatchSize = int(x.shape[0])
+        x, y, fmask, lmask = _local_rows(self, x, y, fmask, lmask)
         self._lastInput = x      # StatsListener's activations read it
         algo = str(self.conf.globalConf.get("optimizationAlgo")
                    or "STOCHASTIC_GRADIENT_DESCENT").upper()
@@ -559,6 +612,7 @@ class MultiLayerNetwork:
                             self.iterationCount, self.epochCount)
 
     def _runSolverStep(self, x, y, fmask, lmask, algo: str) -> None:
+        _check_solver_unsharded(self)
         _solver_step(self, algo, self._rngSeed ^ 0x5EED,
                      lambda p, gen, xb, yb, fm, lm: self._score_of(
                          p, xb, yb, fm, lm, True, gen)[0],
@@ -580,10 +634,8 @@ class MultiLayerNetwork:
             params, x, y, fmask, lmask, True, self._fitGen, carries)
         grads = _grads_of(loss, leaves)
         with torch.no_grad():
-            self.params_, self.optState_ = _apply_updates(
-                units, self.conf.globalConf, self.params_, grads,
-                self.optState_, self.iterationCount, self.epochCount,
-                self._lrScale)
+            self.params_, self.optState_, loss = _step_updates(
+                self, units, grads, loss, x.shape[0])
         self.state_.update(new_state)
         # left on the device: score() reads it, so a step never waits on
         # the host

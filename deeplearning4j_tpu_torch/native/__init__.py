@@ -7,8 +7,8 @@ It binds the same library the reference builds, from the repository's
 (:func:`csv_parse`, the DataVec bulk path), the counter-addressed RNG
 (:func:`philox_uniform`, :func:`philox_gaussian`), the gradient codecs
 (:func:`threshold_encode` / :func:`threshold_decode`,
-:func:`bitmap_encode` / :func:`bitmap_decode`, loaded for the parallel
-layer, ROADMAP A10; nothing in DataVec calls them) and the host arena
+:func:`bitmap_encode` / :func:`bitmap_decode`, which the parallel
+layer's gradient sharing calls; nothing in DataVec does) and the host arena
 (:class:`Workspace`).
 
 On first use the library is compiled from ``native/src/{csv,threads,

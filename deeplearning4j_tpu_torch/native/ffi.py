@@ -23,8 +23,8 @@ handlers call the same C functions); where that library cannot be built
 the ops raise, as the reference's ``philox_uniform`` does.
 ``bitmap_encode`` / ``bitmap_decode`` also run on CUDA tensors, as torch
 ops: the reference's own off-CPU lowering, bit for bit (no TPU kernel
-stands behind them).  Nothing in the port calls them yet: the parallel
-layer's gradient sharing will (ROADMAP A10).
+stands behind them).  The parallel layer's gradient sharing calls
+them (``parallel.gradientsharing.EncodedGradientsAccumulator.encodeBitmap``).
 """
 from __future__ import annotations
 

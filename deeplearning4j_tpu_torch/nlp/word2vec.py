@@ -521,8 +521,8 @@ class Word2Vec(WordVectors):
         if self.workers > 1:
             raise NotImplementedError(
                 f"workers={self.workers} (distributed SGNS over a device "
-                "mesh) is not ported yet: ROADMAP queue A10, the parallel "
-                "layer")
+                "mesh) is not ported yet: ROADMAP queue A10b, the mesh "
+                "half of the parallel layer")
         sents = self._tokenize()
         vocab = _build_vocab(sents, self.minWordFrequency)
         rng = np.random.RandomState(self.seed)
@@ -988,8 +988,8 @@ class FastText(Word2Vec):
         if self.workers > 1:
             raise NotImplementedError(
                 f"workers={self.workers} (distributed SGNS over a device "
-                "mesh) is not ported yet: ROADMAP queue A10, the parallel "
-                "layer")
+                "mesh) is not ported yet: ROADMAP queue A10b, the mesh "
+                "half of the parallel layer")
         sents = self._tokenize()
         vocab = _build_vocab(sents, self.minWordFrequency)
         nW = vocab.numWords()

@@ -144,7 +144,7 @@ class ListBuilder:
 
     def pipelineStages(self, n: int):
         raise NotImplementedError(
-            "GPipe pipeline stages are not ported yet (ROADMAP A10)")
+            "GPipe pipeline stages (a stage axis) wait for ROADMAP A10b")
 
     def build(self) -> "MultiLayerConfiguration":
         return MultiLayerConfiguration(

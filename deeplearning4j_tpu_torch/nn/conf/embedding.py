@@ -11,8 +11,9 @@ under a ``sum`` or ``mean`` combiner.
 The reference row-shards the table over a mesh's ``model`` axis (the
 ``rowShardedParamKeys`` plan hook, read by its mesh trainer) and spells
 the exchange out in ``embedding_lookup_table_parallel``, a ``shard_map``
-over the mesh.  Meshes wait for ROADMAP A10: the hook is here (it names
-``W``), and the explicit table-parallel lookup raises naming A10.  On one
+over the mesh.  A mesh's model axis waits for ROADMAP A10b: the hook is
+here (it names ``W``), and the explicit table-parallel lookup raises
+naming A10b.  On one
 card the table is dense, and the Adam update is the reference's: the
 whole table moves every step (rows with no gradient move through their
 moments), no sparse gradient.
@@ -102,10 +103,11 @@ def embedding_lookup_table_parallel(mesh, W, ids, weights=None,
                                     axis_name: str = "model",
                                     data_axis: str = "data"):
     """The reference's explicit table-parallel lookup, a ``shard_map``
-    over a device mesh: meshes wait for ROADMAP A10, so it raises."""
+    over a device mesh's model axis: it waits for ROADMAP A10b, so it
+    raises."""
     raise NotImplementedError(
         "embedding_lookup_table_parallel shards the table over a device "
-        "mesh, which is not ported yet (ROADMAP A10)")
+        "mesh's model axis, which waits for ROADMAP A10b")
 
 
 @register_layer
@@ -121,7 +123,7 @@ class ShardedEmbeddingBag(BaseLayer):
     embeddingDim) pooled field embeddings.
 
     ``rowShardedParamKeys`` names the table for a mesh plan (ROADMAP
-    A10); on one card the table is dense.  Ids that arrive in a half type
+    A10b); on one card the table is dense.  Ids that arrive in a half type
     raise (ROADMAP C26: the reference looks up the rounded ids).
     """
     numEmbeddings: int = 0

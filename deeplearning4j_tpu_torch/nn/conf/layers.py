@@ -397,6 +397,29 @@ class SubsamplingLayer(BaseLayer):
         return y, state
 
 
+def _data_group():
+    """The data axis's process group of the active ``MeshTrainer`` plan,
+    or None (no plan, or one rank on the data axis)."""
+    from deeplearning4j_tpu_torch.parallel.mesh import active_plan
+    plan = active_plan()
+    return None if plan is None else plan.mesh.group("data")
+
+
+def _global_moments(xf, axes, group):
+    """Mean and biased variance over the GLOBAL batch: the per-channel
+    sum, sum of squares and count of this rank's rows, summed over the
+    data group by a differentiable all-reduce (the backward sums too), as
+    the reference's one-program ``jnp.mean`` over a batch sharded on
+    ``data`` is a mean over every rank's rows."""
+    from deeplearning4j_tpu_torch.parallel.mesh import AllReduceSum
+    c = xf.shape[1]
+    count = xf.new_tensor([xf.numel() / c])
+    tot = AllReduceSum.apply(
+        torch.cat([xf.sum(dim=axes), (xf * xf).sum(dim=axes), count]), group)
+    mean = tot[:c] / tot[-1]
+    return mean, torch.clamp(tot[c:2 * c] / tot[-1] - mean * mean, min=0.0)
+
+
 @dataclasses.dataclass
 class BatchNormalization(BaseLayer):
     """Reference: ``conf/layers/BatchNormalization.java`` — per-feature (FF)
@@ -407,7 +430,9 @@ class BatchNormalization(BaseLayer):
     the batch mean and variance are rounded to x's dtype before they
     normalise, while the running statistics accumulate in the float32
     state.  ``torch.nn.BatchNorm2d``'s update (reverse momentum, unbiased
-    variance) is not this one and is not used."""
+    variance) is not this one and is not used.  In a ``MeshTrainer`` step
+    over a data axis the batch statistics are the global batch's
+    (:func:`_global_moments`), as in the reference's one-program step."""
     nIn: int = 0
     nOut: int = 0
     decay: float = 0.9
@@ -452,9 +477,13 @@ class BatchNormalization(BaseLayer):
         sdt = state["mean"].dtype
         if train:
             xf = x.float()
-            mean = xf.mean(dim=axes)
-            var = torch.clamp((xf * xf).mean(dim=axes) - mean * mean,
-                              min=0.0)
+            group = _data_group()
+            if group is None:
+                mean = xf.mean(dim=axes)
+                var = torch.clamp((xf * xf).mean(dim=axes) - mean * mean,
+                                  min=0.0)
+            else:
+                mean, var = _global_moments(xf, axes, group)
             mean, var = mean.to(x.dtype), var.to(x.dtype)
             # the state is data, not part of the graph
             new_state = {

@@ -15,9 +15,14 @@ Three implementations of softmax(QKᵀ/√d)·V, one semantics:
   and ``csrc/flash_attn_bwd_dkv.cu`` (the ports of ``_flash_bwd_dq_kernel``
   and ``_flash_bwd_dkv_kernel``), or their plain versions on the CPU.
 
+Ring attention (:func:`ring_attention`, :func:`context_parallel_attention`)
+splits the time axis over the mesh's ``seq`` ranks: unmasked, each K/V
+block a rank holds runs B1 forward and B2/B3 backward against the global
+softmax; masked, the reference's plain block update.  K/V travel one hop
+a block (``parallel.mesh.ring_exchange``).
+
 Layout is (batch, heads, time, head_dim) throughout.  Masks are (batch,
-t_k) with 1 = valid key.  Ring attention over a sequence-parallel mesh
-waits for the parallel layer (ROADMAP queue A10).
+t_k) with 1 = valid key.
 """
 from __future__ import annotations
 
@@ -30,6 +35,7 @@ import torch
 from deeplearning4j_tpu_torch import kernels
 
 __all__ = ["blockwise_attention", "flash_attention", "flash_forward",
+           "ring_attention", "context_parallel_attention",
            "flash_attention_reference", "flash_bwd_dq", "flash_bwd_dkv",
            "flash_bwd_dq_reference", "flash_bwd_dkv_reference",
            "FlashAttention", "dot_product_attention"]
@@ -459,6 +465,224 @@ class FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None
 
 
+# ---------------------------------------------------------------------------
+# ring attention (sequence/context parallel)
+# ---------------------------------------------------------------------------
+
+def _ring_plan(mesh_or_group, axis_name="seq"):
+    """``(group, size, index)`` of the ring: a DeviceMesh's ``axis_name``
+    sub-group, or a process group (None: a ring of one)."""
+    import torch.distributed as dist
+    if hasattr(mesh_or_group, "axisSize"):
+        return (mesh_or_group.group(axis_name),
+                mesh_or_group.axisSize(axis_name),
+                mesh_or_group.coords[axis_name])
+    if mesh_or_group is None:
+        return None, 1, 0
+    return (mesh_or_group, dist.get_world_size(mesh_or_group),
+            dist.get_rank(mesh_or_group))
+
+
+def _hop(group, *ts):
+    from deeplearning4j_tpu_torch.parallel.mesh import ring_exchange
+    return ring_exchange(list(ts), group)
+
+
+def _block_bias(mm, causal, q0, k0, tq, tk, device):
+    """The additive bias of one masked ring block: the key mask of the
+    held block, plus the causal mask at the blocks' global positions."""
+    bias = None if mm is None else _mask_bias(mm)
+    if causal:
+        q_pos = q0 + torch.arange(tq, device=device)[:, None]
+        k_pos = k0 + torch.arange(tk, device=device)[None, :]
+        cb = torch.where(k_pos <= q_pos, 0.0, _NEG)
+        bias = cb if bias is None else bias + cb
+    return bias
+
+
+def _ring_forward(q, k, v, mask, causal, group, n, me):
+    """The ring's forward over local chunks q/k/v (b, h, t, d) (mask: the
+    local keys' (b, t) or None).  Unmasked, each held K/V block runs the
+    flash forward (B1 on CUDA, its plain version on the CPU): the diagonal
+    block with B1's top-left causal mask, a block wholly in the future
+    skipped, any other block unmasked; each block's (O, lse) merges into
+    the running output by log-sum-exp.  Masked, every block takes the
+    reference's plain online-softmax update.  Returns ``(out, saved)``:
+    out in q's dtype, and what the backward needs (the global lse, or
+    the running max and sum of the masked path)."""
+    b, h, t, d = q.shape
+    kk, vv, mm = k, v, mask
+    if mask is None:
+        o = torch.zeros((b, h, t, d), dtype=torch.float32, device=q.device)
+        lse = torch.full((b, h, t, 1), float("-inf"), dtype=torch.float32,
+                         device=q.device)
+    else:
+        o, l, m = _init_state(q)
+    for i in range(n):
+        src = (me - i) % n
+        if mask is None:
+            if not (causal and src > me):
+                ob, lb = flash_forward(q, kk, vv, causal and src == me)
+                lb = lb.reshape(b, h, t, 1)
+                new = torch.logaddexp(lse, lb)
+                o = o * torch.exp(lse - new) + ob.float() * torch.exp(lb - new)
+                lse = new
+        else:
+            bias = _block_bias(mm, causal, me * t, src * t, t, t, q.device)
+            o, l, m = _block_update(q, kk, vv, o, l, m, bias)
+        if i != n - 1:
+            kk, vv, *rest = _hop(group, kk, vv,
+                                 *(() if mm is None else (mm,)))
+            mm = rest[0] if rest else None
+    if mask is None:
+        return o.to(q.dtype), (lse.reshape(b * h, t),)
+    return _finish(o, l).to(q.dtype), (m, l)
+
+
+def _ring_backward(q, k, v, mask, out, saved, g, causal, group, n, me):
+    """The ring's backward: each block's dq, dk, dv from p recomputed
+    against the GLOBAL softmax (the forward's lse, or its running max and
+    sum) and delta = rowsum(dO·O), so each is exact; dq accumulates here,
+    dk and dv travel with their K/V block around the ring and take one
+    more hop home.  Unmasked blocks run B2 and B3 (their plain versions on
+    the CPU), masked ones plain products."""
+    b, h, t, d = q.shape
+    delta = (g.float() * out.float()).sum(-1)
+    do = g.to(q.dtype)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    dq = torch.zeros((b, h, t, d), **f32)
+    dk = torch.zeros(k.shape, **f32)
+    dv = torch.zeros(v.shape, **f32)
+    kk, vv, mm = k, v, mask
+    for i in range(n):
+        src = (me - i) % n
+        if mask is None:
+            if not (causal and src > me):
+                c = causal and src == me
+                lse, dl = saved[0], delta.reshape(b * h, t)
+                dq += flash_bwd_dq(q, kk, vv, do, lse, dl, c).float()
+                dkb, dvb = flash_bwd_dkv(q, kk, vv, do, lse, dl, c)
+                dk += dkb.float()
+                dv += dvb.float()
+        else:
+            m, l = saved
+            bias = _block_bias(mm, causal, me * t, src * t, t, t, q.device)
+            s = torch.einsum("...qd,...kd->...qk", q.float(),
+                             kk.float()) * _scale(q)
+            if bias is not None:
+                s = s + bias
+            p = torch.exp(s - m) / l.clamp_min(1e-30)
+            dp = torch.einsum("...qd,...kd->...qk", do.float(), vv.float())
+            ds = p * (dp - delta[..., None]) * _scale(q)
+            dq += torch.einsum("...qk,...kd->...qd", ds, kk.float())
+            dk += torch.einsum("...qk,...qd->...kd", ds, q.float())
+            dv += torch.einsum("...qk,...qd->...kd", p, do.float())
+        if i != n - 1:
+            kk, vv, dk, dv, *rest = _hop(group, kk, vv, dk, dv,
+                                         *(() if mm is None else (mm,)))
+            mm = rest[0] if rest else None
+    if n > 1:
+        dk, dv = _hop(group, dk, dv)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check_ring(q, k, v, causal):
+    if q.shape[2] != k.shape[2] and causal:
+        raise ValueError("causal ring attention takes q and k of one local "
+                         f"length; got {q.shape[2]} and {k.shape[2]}")
+
+
+class _Ring(torch.autograd.Function):
+    """Ring attention over local chunks, forward and backward
+    (:func:`_ring_forward`, :func:`_ring_backward`)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, causal, group, n, me):
+        _check_ring(q, k, v, causal)
+        out, saved = _ring_forward(q, k, v, mask, causal, group, n, me)
+        ctx.save_for_backward(q, k, v, out, *saved)
+        ctx.args = (mask, causal, group, n, me)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, *saved = ctx.saved_tensors
+        mask, causal, group, n, me = ctx.args
+        return (*_ring_backward(q, k, v, mask, out, saved, g, causal, group,
+                                n, me), None, None, None, None, None)
+
+
+def ring_attention(q, k, v, axis_name="seq", axis_size: int = None,
+                   mask=None, causal: bool = False, group=None):
+    """Exact attention with Q/K/V sharded on time over a ring of ranks.
+
+    q/k/v: this rank's (b, h, t_local, d) chunks; mask: (b, t_local) for
+    the LOCAL key block.  ``group`` is the ring's process group (the
+    mesh's seq sub-group); ``axis_name`` and ``axis_size`` are the
+    reference's names and are read from the group here.  Each of the
+    ring's steps updates the local output with the held K/V block, then
+    hands K/V one hop on (:func:`~deeplearning4j_tpu_torch.parallel.mesh.
+    ring_exchange`); differentiable (:class:`_Ring`)."""
+    g, n, me = _ring_plan(group)
+    if axis_size is not None and axis_size != n:
+        raise ValueError(f"axis_size {axis_size} != the group's {n} ranks")
+    return _Ring.apply(q, k, v, mask, causal, g, n, me)
+
+
+class _ContextParallel(torch.autograd.Function):
+    """:func:`context_parallel_attention` as one function: this rank's
+    time chunk of the whole-sequence q/k/v, the ring, and the outputs
+    all-gathered over the seq group; backward the same in reverse (the
+    output gradient's chunk in, the chunks' dq/dk/dv all-gathered out), so
+    every seq rank holds whole-sequence activations and gradients."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, causal, group, n, me):
+        from deeplearning4j_tpu_torch.parallel.mesh import all_gather_cat
+        T = q.shape[2]
+        if T % n or k.shape[2] % n:
+            raise ValueError(f"context-parallel attention over {n} seq "
+                             f"ranks needs t divisible by {n}; got q {T}, "
+                             f"k {k.shape[2]}")
+        t, tk = T // n, k.shape[2] // n
+        ql, kl, vl = (x[:, :, me * w:(me + 1) * w].contiguous()
+                      for x, w in ((q, t), (k, tk), (v, tk)))
+        ml = None if mask is None else mask[:, me * tk:(me + 1) * tk]
+        _check_ring(ql, kl, vl, causal)
+        out, saved = _ring_forward(ql, kl, vl, ml, causal, group, n, me)
+        ctx.save_for_backward(ql, kl, vl, out, *saved)
+        ctx.args = (ml, causal, group, n, me)
+        return all_gather_cat(out, group, dim=2)
+
+    @staticmethod
+    def backward(ctx, g):
+        from deeplearning4j_tpu_torch.parallel.mesh import all_gather_cat
+        ql, kl, vl, out, *saved = ctx.saved_tensors
+        mask, causal, group, n, me = ctx.args
+        t = ql.shape[2]
+        gl = g[:, :, me * t:(me + 1) * t].contiguous()
+        grads = _ring_backward(ql, kl, vl, mask, out, saved, gl, causal,
+                               group, n, me)
+        return (*(all_gather_cat(x, group, dim=2) for x in grads),
+                None, None, None, None, None)
+
+
+def context_parallel_attention(mesh, q, k, v, mask=None, causal: bool = False,
+                               axis_name: str = "seq"):
+    """Ring attention over the ``seq`` axis of a ``parallel.DeviceMesh``.
+
+    q/k/v are this rank's rows of the batch over the WHOLE sequence (b, h,
+    t, d), t divisible by the seq size: in a ``MeshTrainer`` step the rows
+    are already this data rank's (the reference takes the global batch and
+    shards it over ``data`` itself).  Each seq rank takes its chunk of the
+    time axis, runs the ring, and the seq group all-gathers the outputs:
+    (b, h, t, d) in q's dtype on every seq rank.  mask: (b, t_k) 1=valid
+    over the whole sequence.  Differentiable (:class:`_ContextParallel`).
+    """
+    group, n, me = _ring_plan(mesh, axis_name)
+    return _ContextParallel.apply(q, k, v, mask, causal, group, n, me)
+
+
 def _auto_impl(q_shape, k_shape, v_shape, dtypes, has_mask, is_cuda):
     """The ``impl="auto"`` rule, a pure function of shapes, dtypes, mask
     and device kind: "flash" iff the tensors are on CUDA, there are at
@@ -477,21 +701,34 @@ def dot_product_attention(qh, kh, vh, mask=None, causal: bool = False,
     """Dispatch point used by the attention layers.
 
     impl: "dense" (materialised softmax — reference semantics),
-    "blockwise", "flash", "ring" (not ported yet), or "auto"
-    (:func:`_auto_impl`: flash for CUDA tensors of at least 1024 queries,
-    no key mask and a shape and dtype the flash kernels take; dense
-    otherwise).  The flash kernel takes no key mask, so ``impl="flash"``
+    "blockwise", "flash", "ring" (sequence-parallel over the active
+    mesh's seq axis: :func:`context_parallel_attention`), or "auto" (ring
+    when a ``MeshTrainer`` step runs over a mesh with a seq axis that
+    divides t; else :func:`_auto_impl`: flash for CUDA tensors of at least
+    1024 queries, no key mask and a shape and dtype the flash kernels
+    take; dense otherwise).  The flash kernel takes no key mask, so ``impl="flash"``
     with a mask runs blockwise, which honours it exactly; on CUDA, an
     explicit ``impl="flash"`` on a shape the kernels refuse raises.
     """
     if impl == "auto":
-        impl = _auto_impl(qh.shape, kh.shape, vh.shape,
-                          (qh.dtype, kh.dtype, vh.dtype), mask is not None,
-                          qh.is_cuda)
+        from deeplearning4j_tpu_torch.parallel.mesh import active_mesh
+        am = active_mesh()
+        if am is not None and am.seqSize > 1 \
+                and qh.shape[2] % am.seqSize == 0 \
+                and kh.shape[2] % am.seqSize == 0:
+            impl = "ring"
+        else:
+            impl = _auto_impl(qh.shape, kh.shape, vh.shape,
+                              (qh.dtype, kh.dtype, vh.dtype),
+                              mask is not None, qh.is_cuda)
     if impl == "ring":
-        raise NotImplementedError(
-            "impl='ring' (sequence-parallel ring attention over a mesh) is "
-            "not ported yet: ROADMAP queue A10, the parallel layer")
+        from deeplearning4j_tpu_torch.parallel.mesh import active_mesh
+        am = active_mesh()
+        if am is None:
+            raise ValueError("impl='ring' needs an active mesh "
+                             "(ParallelWrapper.fit with a seq axis)")
+        return context_parallel_attention(am, qh, kh, vh, mask=mask,
+                                          causal=causal)
     if impl == "flash":
         if mask is not None:
             return blockwise_attention(qh, kh, vh, mask=mask, causal=causal)

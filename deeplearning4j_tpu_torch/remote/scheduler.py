@@ -38,8 +38,8 @@ LMs' dispatches (``compile.aotcache``); ``warm()`` still runs every step
 function and prompt bucket once.  ``device=`` moves the models to that
 ``torch.device`` (the one-device case of the reference's
 ``meshtrainer.place_replica``).  The tensor-parallel replica path
-(``plan=`` / :meth:`ContinuousBatcher.applyPlan`) waits for ROADMAP A10
-and raises naming it.
+(``plan=`` / :meth:`ContinuousBatcher.applyPlan`) waits for the model
+axis, ROADMAP A10b, and raises naming it.
 """
 from __future__ import annotations
 
@@ -269,8 +269,8 @@ class ContinuousBatcher:
                  retireLogSize: int = 64):
         if plan is not None:
             raise NotImplementedError(
-                "the tensor-parallel replica path (plan=) needs "
-                "parallel.meshtrainer, which waits for ROADMAP A10")
+                "the tensor-parallel replica path (plan=) needs a model "
+                "axis, which waits for ROADMAP A10b")
         self.lm = lm
         self.draft = draft
         self.draftK = int(draftK) if draft is not None else 0
@@ -365,10 +365,10 @@ class ContinuousBatcher:
             self.draftPool = None
 
     def applyPlan(self, plan) -> None:
-        """The tensor-parallel replica path: waits for ROADMAP A10."""
+        """The tensor-parallel replica path: waits for ROADMAP A10b."""
         raise NotImplementedError(
-            "applyPlan needs parallel.meshtrainer, which waits for "
-            "ROADMAP A10")
+            "applyPlan needs a model axis, which waits for "
+            "ROADMAP A10b")
 
     # -- step functions -------------------------------------------------
     def _invalidateFns(self) -> None:
@@ -1268,7 +1268,7 @@ class ReplicaSet:
     :class:`ContinuousBatcher` or ``BucketedExecutor`` whose weights the
     factory has already placed — ``device=`` / :func:`place_replica` for
     one-device copies; the reference's TP-sharded replicas wait for
-    ROADMAP A10).  Requests route to the least-loaded live replica.
+    ROADMAP A10b).  Requests route to the least-loaded live replica.
     ``scaleUp``/``scaleDown`` move the set by one replica;
     :meth:`armAutoscale` wires them to the ``serving_queue_depth``
     alert's firing/resolved edges through

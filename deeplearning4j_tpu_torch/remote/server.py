@@ -7,8 +7,8 @@ SameDiff model on a port; POST JSON features → JSON predictions) and the
 are the shared HTTP writers of the serving tier's fronts.
 
 ``parallelInference=True`` serves through ``parallel/inference.py``'s
-``ParallelInference``, which waits for ROADMAP A10: the port raises naming
-it.  :class:`SameDiffJsonModelServer` feeds a SameDiff graph's placeholder
+``ParallelInference`` (concurrent requests coalesce into batched calls of
+the model, ``batchLimit`` rows at most).  :class:`SameDiffJsonModelServer` feeds a SameDiff graph's placeholder
 (the reference's is an alias of ``JsonModelServer``, which calls
 ``sd.output(features)``, which fails on a SameDiff graph, so it answers 400
 to every request; ROADMAP C13).
@@ -149,31 +149,42 @@ class JsonModelServer:
     """POST /v1/serving -> {"output": [...]} (reference endpoint shape);
     a multi-output ComputationGraph answers {"outputs": {name: [...]}}.
     Status split: 400 = the caller's payload, 500 = ours, 504 = a blown
-    ``requestTimeout``.  ``parallelInference=True`` (batching through
-    ``ParallelInference``) raises naming ROADMAP A10; ``batchLimit`` is
-    its knob."""
+    ``requestTimeout``.  ``parallelInference=True`` batches concurrent
+    requests through ``ParallelInference`` (single-output models only);
+    ``batchLimit`` is its knob."""
 
     def __init__(self, model, port: int = 0, outputNames=None,
                  parallelInference: bool = False, batchLimit: int = 32,
                  requestTimeout: Optional[float] = None):
-        if parallelInference:
-            raise NotImplementedError(
-                "parallelInference serving needs parallel/inference.py's "
-                "ParallelInference, which waits for ROADMAP A10")
         self.model = model
         self.port = port
         # restrict ComputationGraph responses to these named outputs
         self.outputNames = list(outputNames) if outputNames else None
         self._httpd: Optional[ThreadingHTTPServer] = None
         self._thread: Optional[threading.Thread] = None
+        self._parallelInference = bool(parallelInference)
+        self._batchLimit = int(batchLimit)
+        self._pi = None
         # per-request wall-clock budget (seconds); a blown budget answers
         # 504 instead of hanging the client's connection.  The stuck model
         # call keeps running on its pool thread — HTTP can't cancel device
         # work, it can only stop waiting for it.
         self.requestTimeout = requestTimeout
         self._pool: Optional[concurrent.futures.ThreadPoolExecutor] = None
+        if parallelInference:
+            # validate eagerly (construction-time error), build lazily in
+            # start() so a failed construction leaves no worker thread
+            conf = getattr(model, "conf", None)
+            n_outs = len(getattr(conf, "outputs", None) or [1])
+            if n_outs > 1:
+                raise ValueError(
+                    "parallelInference serving supports single-output "
+                    "models (batch splitting of multi-output graphs is "
+                    "ambiguous)")
 
     def _run(self, x: np.ndarray) -> dict:
+        if self._pi is not None:
+            return {"output": _host(self._pi.output(x)).tolist()}
         out = self.model.output(x)
         if isinstance(out, list):
             names = list(getattr(self.model.conf, "outputs", None) or
@@ -209,6 +220,12 @@ class JsonModelServer:
             # rebuilt per start so stop()/start() cycles serve again
             self._pool = concurrent.futures.ThreadPoolExecutor(
                 max_workers=8, thread_name_prefix="json-model-server")
+        if self._parallelInference and self._pi is None:
+            # (re)built per start so stop()/start() cycles serve again
+            from deeplearning4j_tpu_torch.parallel.inference import \
+                ParallelInference
+            self._pi = ParallelInference.Builder(self.model) \
+                .batchLimit(self._batchLimit).build()
         # fail fast on static misconfiguration — a bad outputNames list is
         # not a per-request 500, it's a server-construction error
         if self.outputNames is not None:
@@ -294,6 +311,9 @@ class JsonModelServer:
         if self._pool is not None:
             self._pool.shutdown(wait=False)
             self._pool = None
+        if self._pi is not None:
+            self._pi.shutdown()
+            self._pi = None      # rebuilt on the next start()
 
 
 class SameDiffJsonModelServer(JsonModelServer):

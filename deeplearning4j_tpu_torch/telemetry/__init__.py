@@ -29,8 +29,10 @@ code), so each module is a copy or a cut of the reference's:
 - :mod:`.http` — the shared observability GET routing.
 
 The AOT-cache instruments (``AotCacheMetrics``, ``aot_metrics``) are
-here for ``compile.aotcache``; the mesh, elastic and coordination
-instruments wait for ROADMAP A10.  Metric names are the reference's letter for letter:
+here for ``compile.aotcache``, the mesh instruments (``MeshMetrics``,
+``mesh_metrics``, ``replica_step_gauge``, ``ReplicaTimingListener``) for
+the parallel layer; the elastic and coordination instruments wait for
+ROADMAP A10b.  Metric names are the reference's letter for letter:
 ``dl4j_tpu_<subsystem>_<name>``, counters ending ``_total``.
 """
 from deeplearning4j_tpu_torch.telemetry.context import (  # noqa: F401
@@ -49,11 +51,12 @@ from deeplearning4j_tpu_torch.telemetry.health import (  # noqa: F401
     ReplicaStragglerRule, ThresholdRule, TrainingStallRule, default_rules,
     health_summary, recsys_hash_collision_rule)
 from deeplearning4j_tpu_torch.telemetry.instrument import (  # noqa: F401
-    STEP_PHASES, AotCacheMetrics, EtlMetrics, RecsysMetrics, ServingMetrics,
-    StepPhaseMetrics, aot_metrics, clear_exemplars, etl_fetch, etl_metrics,
-    exemplar_for, in_microbatch, latency_exemplars, microbatch_scope,
-    note_etl_wait, observe_exemplar, observe_step_phase, record_crash,
-    record_logical_step, recsys_metrics, serving_metrics,
+    STEP_PHASES, AotCacheMetrics, EtlMetrics, MeshMetrics, RecsysMetrics,
+    ReplicaTimingListener, ServingMetrics, StepPhaseMetrics, aot_metrics,
+    clear_exemplars, etl_fetch, etl_metrics, exemplar_for, in_microbatch,
+    latency_exemplars, mesh_metrics, microbatch_scope, note_etl_wait,
+    observe_exemplar, observe_step_phase, record_crash, record_logical_step,
+    recsys_metrics, replica_step_gauge, serving_metrics,
     step_phase_metrics, supervised_scope, train_step_span)
 from deeplearning4j_tpu_torch.telemetry.otlp import (  # noqa: F401
     OtlpExporter, ensure_otlp_exporter, otlp_exporter, set_otlp_exporter)

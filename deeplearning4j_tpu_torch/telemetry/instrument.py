@@ -4,8 +4,8 @@
 buckets letter for letter the reference's, so dashboards and alert rules
 work against either package) and the histogram exemplars
 (:func:`observe_exemplar`, :func:`exemplar_for`,
-:func:`latency_exemplars`).  The mesh, elastic and coordination
-instruments wait for ROADMAP A10; the ETL namespace
+:func:`latency_exemplars`).  The elastic and coordination
+instruments wait for ROADMAP A10b; the ETL namespace
 (:class:`EtlMetrics`, :func:`etl_metrics`, :func:`note_etl_wait`,
 :func:`etl_fetch`) is here, names and help text the reference's, for
 DataVec's pipelines, and so are the AOT-cache namespace
@@ -14,7 +14,10 @@ reports through and the training instruments the models and the fault
 supervisor report through: the logical-step reporting
 (:func:`train_step_span`, :func:`record_logical_step`), the supervised
 and micro-batch scopes, :func:`record_crash` and the ``dl4j_tpu_step_*``
-step-phase histograms (:func:`observe_step_phase`).
+step-phase histograms (:func:`observe_step_phase`); the mesh namespace
+(:class:`MeshMetrics`) the parallel layer's ``MeshTrainer`` reports
+through, and the per-replica step gauge with its
+:class:`ReplicaTimingListener`.
 
 Eager PyTorch compiles no executables: the only compiled artifacts are the
 kernel and native libraries, which the AOT cache stores when it is
@@ -31,7 +34,7 @@ import bisect
 import contextlib
 import threading
 import time
-from typing import Optional
+from typing import Optional, Sequence
 
 from deeplearning4j_tpu_torch.telemetry.flight import flight_recorder
 from deeplearning4j_tpu_torch.telemetry.registry import (DEFAULT_BUCKETS,
@@ -47,6 +50,8 @@ __all__ = ["EtlMetrics", "etl_metrics", "note_etl_wait", "RecsysMetrics",
            "SERVING_WARMUP_BUCKETS", "observe_exemplar", "exemplar_for",
            "latency_exemplars", "clear_exemplars", "train_step_span",
            "record_crash", "etl_fetch", "supervised_scope",
+           "MeshMetrics", "mesh_metrics", "replica_step_gauge",
+           "ReplicaTimingListener",
            "microbatch_scope", "in_microbatch", "record_logical_step",
            "STEP_PHASES", "StepPhaseMetrics", "step_phase_metrics",
            "observe_step_phase", "AotCacheMetrics", "aot_metrics",
@@ -873,3 +878,150 @@ def aot_metrics() -> AotCacheMetrics:
     """Accessor for the shared AOT-cache metric namespace (see
     :class:`AotCacheMetrics`)."""
     return _AOT_METRICS
+
+
+class MeshMetrics:
+    """The ``dl4j_tpu_mesh_*`` namespace, registered from ONE site.
+
+    ``parallel.meshtrainer.MeshTrainer`` — the stepping path every
+    parallel facade (ParallelWrapper, SharedTrainingMaster, ZeRO)
+    executes through — reports here: step time, per-axis collective
+    traffic estimated statically from the ShardingPlan, and compile
+    misses (with the AOT cache on; nothing is compiled per signature
+    otherwise).
+    Accessors re-resolve through :func:`get_registry` on every call
+    (tests swap the registry).
+    """
+
+    def steps(self):
+        return get_registry().counter(
+            "dl4j_tpu_mesh_steps_total",
+            "Train steps dispatched through the MeshTrainer unified "
+            "sharded step (all parallel facades step here)")
+
+    def step_seconds(self):
+        return get_registry().histogram(
+            "dl4j_tpu_mesh_step_seconds",
+            "Host wall time per MeshTrainer step (lockstep across the "
+            "mesh: one executable, GSPMD collectives inside)",
+            buckets=DEFAULT_BUCKETS)
+
+    def jit_cache_misses(self):
+        return get_registry().counter(
+            "dl4j_tpu_mesh_jit_cache_misses_total",
+            "Sharded-step executable cache misses (steady state must "
+            "hold this flat after the first step)")
+
+    def collective_bytes(self):
+        return get_registry().counter(
+            "dl4j_tpu_mesh_collective_bytes_total",
+            "Estimated bytes moved per mesh axis and collective "
+            "(all_reduce / reduce_scatter / all_gather), priced "
+            "statically from the ShardingPlan",
+            labelnames=("axis", "collective"))
+
+    def axis_size(self):
+        return get_registry().gauge(
+            "dl4j_tpu_mesh_axis_size",
+            "Device count per named mesh axis of the active "
+            "ShardingPlan", labelnames=("axis",))
+
+
+_MESH_METRICS = MeshMetrics()
+
+
+def mesh_metrics() -> MeshMetrics:
+    """Accessor for the shared mesh metric namespace (see
+    :class:`MeshMetrics`)."""
+    return _MESH_METRICS
+
+
+def replica_step_gauge():
+    """The per-replica lockstep step-time gauge — registered HERE (one
+    module) and shared by :class:`ReplicaTimingListener`, the straggler
+    watchdog rule, and the fault-injection straggler stand-in."""
+    return get_registry().gauge(
+        "dl4j_tpu_parallel_replica_step_seconds",
+        "Lockstep per-replica step wall time",
+        labelnames=("replica",))
+
+
+class ReplicaTimingListener:
+    """Per-replica step-time gauges + timing-spread gauge for data-parallel
+    fits (attached internally by ``ParallelWrapper``).
+
+    The ranks step in lockstep (the gradient all-reduce joins them), so
+    each replica's step time IS the lockstep wall time; the straggler /
+    contention signal ``bench.py`` flags (``timing_spread``) is the
+    max/min ratio over a rolling window of those lockstep times — a
+    contended window reads as spread, not as a uniform regression."""
+
+    def __init__(self, devices: Sequence, window: int = 20):
+        # the mesh's ranks (ROADMAP C44: deviceIds are ranks)
+        self._device_ids = [str(getattr(d, "id", d)) for d in devices]
+        self._window = max(2, int(window))
+        self._times = []
+        self._last = None
+        self._etl_mark = None
+
+    def _etl_total(self) -> float:
+        c = get_registry().get("dl4j_tpu_etl_stall_seconds_total")
+        return c.value() if c is not None else 0.0
+
+    # TrainingListener duck-typed surface (only the hooks it needs)
+    def onEpochStart(self, model):
+        # epoch boundaries (iterator reset, async-producer drain/join) are
+        # not step time — restart the inter-iteration clock so the gap
+        # can't masquerade as a straggler in the spread gauge
+        self._last = None
+
+    def onEpochEnd(self, model):
+        self._last = None
+
+    def onForwardPass(self, model, activations=None):
+        pass
+
+    def onBackwardPass(self, model):
+        pass
+
+    def onGradientCalculation(self, model):
+        pass
+
+    def iterationDone(self, model, iteration, epoch):
+        now = time.perf_counter()
+        etl_now = self._etl_total()
+        if self._last is None:
+            self._last, self._etl_mark = now, etl_now
+            return
+        # the inter-iteration interval contains one batch fetch — subtract
+        # the ETL counter's delta so a slow fetch (cold cache, starved
+        # prefetcher) doesn't read as device contention in the spread;
+        # this keeps one semantics with the fitDataSet path, which times
+        # the step call alone
+        dt = max(now - self._last - (etl_now - (self._etl_mark or 0.0)),
+                 0.0)
+        self._last, self._etl_mark = now, etl_now
+        if dt > 0:
+            self.record(dt)
+
+    def record(self, dt: float) -> None:
+        """Feed one lockstep step time directly (the per-batch
+        ``fitDataSet`` path times the step call itself so supervisor
+        overhead between batches doesn't pollute the gauge)."""
+        if getattr(_scope, "microbatch", False):
+            return      # OOM half-batches are not representative steps
+        reg = get_registry()
+        g = replica_step_gauge()
+        for rid in self._device_ids:
+            g.set(dt, replica=rid)
+        self._times.append(dt)
+        if len(self._times) > self._window:
+            self._times.pop(0)
+        if len(self._times) >= 2:
+            lo = min(self._times)
+            if lo > 0:
+                reg.gauge(
+                    "dl4j_tpu_parallel_step_time_spread",
+                    "max/min step time over a rolling window (bench.py's "
+                    "contention flag fires above 2.0)").set(
+                        max(self._times) / lo)

@@ -1,6 +1,6 @@
 """Utilities (the port of ``deeplearning4j_tpu/utils``): ``ModelSerializer``,
 ``sharded_checkpoint.ShardedCheckpointer`` (its one-process half; the
-restore onto another mesh waits for the parallel layer, ROADMAP A10) and
+restore onto another mesh waits for ROADMAP A10b) and
 ``resources`` (``DL4JResources``, ``Resources`` and a ``Downloader`` that
 reads a local mirror, never the network).  ``utils/trees.py`` has no port:
 it copies pytrees that XLA donation would delete, and torch donates no

@@ -26,7 +26,7 @@ The tree holds the params, the updater state, the layer state
 (``_fitGen``, the port's counterpart of the reference's ``_fitKey``), so
 a resumed dropout net draws the same bits.  Restoring onto another mesh
 (the reference's ``shardings``) and the write fence (:meth:`setFence`,
-installed by the coordination layer) wait for ROADMAP A10.
+installed by the coordination layer) wait for ROADMAP A10b.
 """
 from __future__ import annotations
 
@@ -183,7 +183,7 @@ class ShardedCheckpointer:
         write AND again before the manifest publish, and sealed manifests
         carry the writer's generation in their metadata.  The fence
         itself (the coordination layer's ``GenerationFence``) waits for
-        ROADMAP A10."""
+        ROADMAP A10b."""
         self._fence = fence
 
     # ------------------------------------------------------------------
@@ -360,11 +360,11 @@ class ShardedCheckpointer:
         """Restore IN PLACE (params/opt/state/counters, the training
         generator and the rnn carries) onto the net's device; returns net.
         ``shardings`` (a restore onto another mesh's placement) waits for
-        ROADMAP A10."""
+        ROADMAP A10b."""
         if shardings:
             raise NotImplementedError(
                 "restoring a checkpoint onto another mesh waits for the "
-                "parallel layer (ROADMAP A10)")
+                "mesh half of the parallel layer (ROADMAP A10b)")
         step = self.latestStep() if step is None else int(step)
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.directory}")

@@ -285,11 +285,12 @@ def test_serving_tier_names_import_from_both_packages(module, name):
         assert port == ref or type(port).__name__ == type(ref).__name__
 
 
-# The reference's fault and telemetry names that wait for the parallel
-# layer (ROADMAP A10): the device-loss, partition, heartbeat, leader-crash
-# and barrier-kill faults, the elastic, coordination and chaos layers, and
-# the mesh, elastic and coordination instruments (the AOT-cache ones came
-# with ROADMAP A12h).
+# The reference's fault and telemetry names that wait for the mesh half
+# of the parallel layer (ROADMAP A10b): the device-loss, partition,
+# heartbeat, leader-crash and barrier-kill faults, the elastic,
+# coordination and chaos layers, and the elastic and coordination
+# instruments (the AOT-cache ones came with ROADMAP A12h, the mesh ones
+# with A10a).
 A10_FAULT_NAMES = {
     "DelayedHeartbeat", "DeviceLossAtStep", "InjectedDeviceLoss",
     "KillAtBarrier", "LeaderCrashMidBarrier", "PartitionedHost",
@@ -305,9 +306,7 @@ A10_FAULT_NAMES = {
     "ReadmissionPolicy", "StaleGenerationError", "ChaosSoak",
     "ServingChaosSoak", "build_schedule", "build_serving_schedule"}
 A10_TELEMETRY_NAMES = {
-    "CoordMetrics", "ElasticMetrics", "MeshMetrics",
-    "ReplicaTimingListener", "coord_metrics",
-    "elastic_metrics", "mesh_metrics", "replica_step_gauge"}
+    "CoordMetrics", "ElasticMetrics", "coord_metrics", "elastic_metrics"}
 FAULT_TELEMETRY_MODULES = [
     "fault", "fault.injection", "fault.supervisor", "telemetry",
     "telemetry.runlog", "telemetry.federation", "telemetry.export",
@@ -690,6 +689,50 @@ def test_recsys_slice_public_names_import_from_both_packages(module, name):
         assert sorted(n for n in vars(type(port())) if not n.startswith(
             "_")) == sorted(n for n in vars(type(ref()))
                             if not n.startswith("_"))
+
+
+# The parallel layer's data and sequence axes (ROADMAP A10a): every public
+# name of the reference's modules resolves in the port; those of the
+# model and stage axes and of re-meshing import and raise naming A10b.
+PARALLEL_MODULES = ("parallel", "parallel.mesh", "parallel.meshtrainer",
+                    "parallel.zero", "parallel.wrapper",
+                    "parallel.sharedtraining", "parallel.gradientsharing",
+                    "parallel.inference", "parallel.ring")
+A10B_PARALLEL_NAMES = {
+    "PipelinedTrainer", "PipelineStack", "pipeline_apply",
+    "MoEFeedForwardLayer", "MoELayer", "init_moe", "moe_apply",
+    "moe_apply_expert_parallel", "reshard_tree", "apply_inference_plan",
+    "place_replica"}
+
+
+def _ref_public_names(module):
+    import importlib
+    import types
+    ref = importlib.import_module(f"deeplearning4j_tpu.{module}")
+    names = set(getattr(ref, "__all__", None) or [
+        n for n in dir(ref) if not n.startswith("_")
+        and not isinstance(getattr(ref, n), types.ModuleType)
+        # the package's own names, not what it imported (typing's, numpy's)
+        and getattr(getattr(ref, n), "__module__",
+                    "deeplearning4j_tpu").startswith("deeplearning4j_tpu")])
+    return ref, sorted(names | {n for n in ("activate_mesh", "active_mesh",
+                                            "shard_params")
+                                if hasattr(ref, n)})
+
+
+@pytest.mark.parametrize("module", PARALLEL_MODULES)
+def test_parallel_public_names_import_from_both_packages(module):
+    import importlib
+    ref, names = _ref_public_names(module)
+    port = importlib.import_module(f"deeplearning4j_tpu_torch.{module}")
+    missing = [n for n in names if not hasattr(port, n)]
+    assert not missing, missing
+    for n in names:
+        if callable(getattr(ref, n)):
+            assert callable(getattr(port, n)), n
+        if n in A10B_PARALLEL_NAMES:
+            with pytest.raises(NotImplementedError, match="ROADMAP A10b"):
+                getattr(port, n)()
 
 
 _NO_PIL_NO_ARROW = """

@@ -35,10 +35,10 @@ def _one_torch_thread():
     yield
     torch.set_num_threads(prev)
 
-# the reference's tests, bar the one that serves through
-# ParallelInference: JsonModelServer(parallelInference=True) waits for the
-# parallel layer (ROADMAP A10)
-_A10 = ("test_json_server_through_parallel_inference",)
+# the reference's tests, all of them: the one that serves through
+# ParallelInference, JsonModelServer(parallelInference=True), came with the
+# parallel layer's data axis (ROADMAP A10a), so none is left out
+_A10 = ()
 _MOD, _CASES = _reference_tests("test_observability.py", exclude=_A10)
 
 
@@ -62,8 +62,9 @@ def test_reference_observability_suite(case, tmp_path, monkeypatch,
 
 def test_a10_case_is_the_only_one_left_out():
     names = {n for n, _ in _CASES}
-    assert set(_A10).isdisjoint(names)
-    assert len(names) == 12
+    assert not _A10
+    assert "test_json_server_through_parallel_inference" in names
+    assert len(names) == 13
 
 
 # ---------------------------------------------------------------------------

@@ -258,8 +258,11 @@ def test_offender_only_400s(mlps, lms):
 
 def test_waits_raise_naming_their_roadmap_items(mlps, monkeypatch):
     _, net = mlps
-    with pytest.raises(NotImplementedError, match="A10"):
-        trem.JsonModelServer(net, parallelInference=True)
+    # parallelInference no longer waits (ROADMAP A10a): the server builds
+    # its ParallelInference when it starts (tests/test_torch_parallel.py
+    # serves through it); a multi-output graph still refuses it
+    srv = trem.JsonModelServer(net, parallelInference=True)
+    assert srv._parallelInference and srv._pi is None
     assert trem.ForwardServing(net).compileCacheSize() is None
     # the OTLP half no longer waits: start() brings the exporter up from
     # DL4J_TPU_OTLP_ENDPOINT as the reference's does (its interval from
